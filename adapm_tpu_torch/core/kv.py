@@ -192,7 +192,7 @@ class Server:
         self.tier = self.prefetch = self.glob = self.net = None
         self.stream = self.wtrace = self.decisions = self.policy = None
         self.ckpt = self.costs = self.flight = self.fault = None
-        self.sampling = None
+        self.sampling = None  # set by enable_sampling_support
 
         self._c_topo_bumps = self.obs.counter("kv.topology_bumps")
         self.obs.gauge("kv.topology_version",
@@ -326,10 +326,20 @@ class Server:
         out[out == np.iinfo(np.int64).max] = 0
         return out
 
-    def enable_sampling_support(self, *args, **kwargs) -> None:
-        raise NotImplementedError("sampling schemes (core/sampling.py) "
-                                  "are not ported yet (ROADMAP queue A, "
-                                  "item 3)")
+    def enable_sampling_support(self, sample_key_fn, min_key: int = 0,
+                                max_key: Optional[int] = None,
+                                allowed_keys=None) -> None:
+        """Install a sampling scheme (reference
+        ColoKVServer::enable_sampling_support, coloc_kv_server.h;
+        `sample_key_fn(n, rng) -> np.ndarray[int64]` draws app-distribution
+        keys, like the reference's `Key sample_key()` callback).
+        `allowed_keys` bounds the Local scheme's snap population when the
+        sampled keys are not a contiguous range."""
+        from .sampling import make_sampling
+        self.sampling = make_sampling(self, sample_key_fn, min_key,
+                                      max_key if max_key is not None
+                                      else self.num_keys,
+                                      allowed_keys=allowed_keys)
 
     # -- routing helpers (host) ---------------------------------------------
 
@@ -1016,6 +1026,29 @@ class Worker:
     @property
     def current_clock(self) -> int:
         return self._clock
+
+    # -- API: sampling --------------------------------------------------------
+
+    def prepare_sample(self, n: int, start: Optional[int] = None,
+                       end: Optional[int] = None) -> int:
+        """Reference PrepareSample (coloc_kv_worker.h:418): announce that this
+        worker will sample `n` keys around clock [start, end]."""
+        start = self._clock if start is None else start
+        end = start if end is None else end
+        return self.server.sampling.prepare(self, n, int(start), int(end))
+
+    def pull_sample(self, handle: int, n: Optional[int] = None):
+        """Draw n keys (default: all prepared) from sampling handle; returns
+        (keys, values[B, L])."""
+        return self.server.sampling.pull(self, handle, n)
+
+    def pull_sample_keys(self, handle: int, n: Optional[int] = None):
+        """Draw n keys without fetching values (for fused steps that gather
+        values themselves); locality behavior matches pull_sample."""
+        return self.server.sampling.pull_keys(self, handle, n)
+
+    def finish_sample(self, handle: int) -> None:
+        self.server.sampling.finish(self, handle)
 
     # -- API: lifecycle -------------------------------------------------------
 

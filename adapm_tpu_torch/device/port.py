@@ -15,6 +15,16 @@ and return the pool tensors. Semantics every implementation preserves:
     the JAX package's `JaxDevicePort` and `NumpyRefPort`;
   - **padding**: index entries carrying `OOB` are no-ops — dropped by
     scatters, zero-filled by gathers;
+  - **negative coordinates**: the port follows `refport._valid` of the
+    JAX package: any coordinate outside [0, n) — negative ones included
+    — reads 0 and is dropped. The JAX package's `jaxport` differs here:
+    XLA wraps an index in [-n, 0) before its fill/drop check, so a
+    negative coordinate reads or writes row n + i there. No caller of
+    either package passes one: the host validates keys, and routing
+    turns an absent row (NO_SLOT, -1, in the Addressbook) into OOB
+    before any program sees it. So the two agree on every path the
+    parameter manager runs; the kernel tests hold negative cases to
+    `NumpyRefPort`;
   - **in-place pools**: methods documented as updating pools return the
     (same) pool tensors after updating them in place; callers rebind
     from the return value, as they do under JAX's donation;

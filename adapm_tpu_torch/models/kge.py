@@ -8,11 +8,21 @@ as [re | im] (2*dim floats); ComplEx relations are the same; RESCAL
 relations are a real dim x dim matrix (dim^2 floats). The stored value
 row additionally carries the AdaGrad accumulator ([emb | acc],
 ops/fused.py). The gradient is plain autograd over the gathered rows.
-The all-entity eval programs are not ported (ROADMAP queue B, B9).
+
+The eval programs rank every entity for both sides of a triple:
+`make_eval_scores` against a dense entity matrix, and
+`make_pool_eval_counts`, which counts the candidates scoring above the
+true triple straight from the main pool through the hand-written kernel
+K4 (ops/kernels.py pool_eval_counts). The multi-process
+`make_pool_eval_counts_mp` is not ported (ROADMAP queue A, item 11).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..ops.kernels import (pool_eval_counts, pool_eval_counts_plain,
+                           routed_gather)
 
 
 def complex_score(s: torch.Tensor, r: torch.Tensor,
@@ -76,3 +86,146 @@ def make_kge_loss(model: str = "complex", self_adv_temp: float = 0.0,
         return loss
 
     return loss_fn
+
+
+def _complex_queries(s, r, o):
+    """Coefficients of the all-entity ComplEx scores: object prediction
+    Re(<s, r, conj(e)>) = a.e_re + b.e_im, subject prediction
+    Re(<e, r, conj(o)>) = c.e_re + dcoef.e_im."""
+    d = s.shape[-1] // 2
+    sr, si = s[..., :d], s[..., d:]
+    rr, ri = r[..., :d], r[..., d:]
+    orr, oi = o[..., :d], o[..., d:]
+    a = sr * rr - si * ri
+    b = sr * ri + si * rr
+    c = rr * orr + ri * oi
+    dcoef = rr * oi - ri * orr
+    return a, b, c, dcoef
+
+
+def _rescal_queries(s, r, o):
+    """RESCAL's all-entity query rows: s^T R (object side), R o (subject
+    side)."""
+    d = s.shape[-1]
+    R = r.reshape(r.shape[:-1] + (d, d))
+    return torch.einsum("bi,bij->bj", s, R), torch.einsum("bij,bj->bi", R, o)
+
+
+def complex_eval_scores(ent: torch.Tensor, rel, s: torch.Tensor,
+                        r: torch.Tensor, o: torch.Tensor):
+    """All-entity scores for filtered-MRR eval (kge.cc Evaluator
+    :544-775): given the entity matrix [E, 2d] and a triple batch, return
+    (scores_o [B, E] for object prediction, scores_s [B, E] for subject),
+    one pair of matmuls per side."""
+    d = ent.shape[-1] // 2
+    er, ei = ent[..., :d], ent[..., d:]
+    a, b, c, dcoef = _complex_queries(s, r, o)
+    return a @ er.T + b @ ei.T, c @ er.T + dcoef @ ei.T
+
+
+def rescal_eval_scores(ent: torch.Tensor, rel, s: torch.Tensor,
+                       r: torch.Tensor, o: torch.Tensor):
+    """All-entity RESCAL scores s^T R e (object side) and e^T R o (subject
+    side) as two matmuls against the entity matrix [E, d]."""
+    sR, Ro = _rescal_queries(s, r, o)
+    return sR @ ent.T, Ro @ ent.T
+
+
+def make_eval_scores(model: str):
+    return {"complex": complex_eval_scores,
+            "rescal": rescal_eval_scores}[model]
+
+
+def score_numpy(model: str, s, r, o):
+    """Host-side scoring of a handful of (s, r, o) rows in float64 — used
+    for the filtered-rank correction, whose per-batch filter sets are
+    tiny."""
+    s, r, o = (np.asarray(x, dtype=np.float64) for x in (s, r, o))
+    if model == "complex":
+        d = s.shape[-1] // 2
+        sr, si = s[..., :d], s[..., d:]
+        rr, ri = r[..., :d], r[..., d:]
+        orr, oi = o[..., :d], o[..., d:]
+        return (sr * rr * orr + si * rr * oi
+                + sr * ri * oi - si * ri * orr).sum(-1)
+    d = s.shape[-1]
+    R = r.reshape(r.shape[:-1] + (d, d))
+    return np.einsum("...i,...ij,...j->...", s, R, o)
+
+
+def make_true_score(model: str):
+    """True-triple scores from query ROWS: fn(se, re_, oe) -> [B]."""
+    score = {"complex": complex_score, "rescal": rescal_score}[model]
+
+    def fn(se, re_, oe):
+        return score(se, re_, oe)
+
+    return fn
+
+
+def _pool_rows(pool, owner, slot, keys, dim):
+    """The first `dim` columns of the main-pool rows of `keys` (K1)."""
+    k = keys.long()
+    rows = routed_gather(pool, None, None, owner.index_select(0, k),
+                         slot.index_select(0, k))
+    return rows[:, :dim]
+
+
+def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
+                          chunk: int, shared_pool: bool = False):
+    """Full-entity eval without materializing the entity matrix: candidate
+    rows are read straight from the main POOL (the JAX package's
+    make_pool_eval_counts, a lax.scan over [B, chunk] tiles there; here
+    the hand-written kernel K4 over the whole padded key table).
+
+    Returns fn(ent_main, rel_main, tables, ent_keys [nch, chunk] int32
+    (padded with a real key), nE, skeys [B], rkeys [B], okeys [B]) ->
+    (greater_o [B], greater_s [B], true_sc [B]): for each side, the
+    number of real candidates scoring strictly above the true triple,
+    the true entity excluded by key (the candidate dot rounds differently
+    from the direct true score, so it could otherwise count itself by an
+    ulp). Filtered-rank correction happens on the host over the (tiny)
+    per-triple filter sets (apps/knowledge_graph_embeddings.py).
+
+    shared_pool=True drops the rel_main parameter and reads relation rows
+    from ent_main (entities and relations in one length class).
+
+    `ties=True` (for checks) computes the counts with K4's plain version
+    instead and also returns the per-side near-tie counts
+    (ops/kernels.py pool_eval_counts_plain)."""
+    score = {"complex": complex_score, "rescal": rescal_score}[model]
+    parts = 2 if model == "complex" else 1
+
+    def counts(ent_main, rel_main, tables, ent_keys, nE, skeys, rkeys,
+               okeys, ties=False):
+        if ent_keys.shape[1] != chunk:
+            raise ValueError(f"key tiles are {ent_keys.shape[1]} wide, the "
+                             f"program was built for chunk {chunk}")
+        owner, slot, _ = tables
+        se = _pool_rows(ent_main, owner, slot, skeys, ent_dim)
+        oe = _pool_rows(ent_main, owner, slot, okeys, ent_dim)
+        rpool = ent_main if shared_pool else rel_main
+        re_ = _pool_rows(rpool, owner, slot, rkeys, rel_dim)
+        true_sc = score(se, re_, oe)  # same triple -> same score each side
+        if model == "complex":
+            a, b, c, dcoef = _complex_queries(se, re_, oe)
+            q_o, q_s = torch.cat([a, b], -1), torch.cat([c, dcoef], -1)
+        else:
+            q_o, q_s = _rescal_queries(se, re_, oe)
+        args = (ent_main, owner, slot, ent_keys, int(nE), q_o.contiguous(),
+                q_s.contiguous(), true_sc.contiguous(),
+                okeys.to(torch.int32), skeys.to(torch.int32))
+        if ties:
+            g_o, g_s, t_o, t_s = pool_eval_counts_plain(
+                *args, parts=parts, ties=True)
+            return g_o, g_s, true_sc, t_o, t_s
+        g_o, g_s = pool_eval_counts(*args, parts=parts)
+        return g_o, g_s, true_sc
+
+    if shared_pool:
+        def counts_shared(ent_main, tables, ent_keys, nE, skeys, rkeys,
+                          okeys, ties=False):
+            return counts(ent_main, None, tables, ent_keys, nE, skeys,
+                          rkeys, okeys, ties=ties)
+        return counts_shared
+    return counts

@@ -1,4 +1,4 @@
-"""The device-routed fused training step: the port's hot path.
+"""The fused training steps: the port's hot path.
 
 Every reference app's inner loop is the same triad: Pull a handful of rows,
 run a small dense compute + AdaGrad, Push additive updates (mf/update.h:32-70,
@@ -14,18 +14,22 @@ flow back through sync rounds): the step is a batched Push in PM terms.
 Value rows are [emb (D) | adagrad acc (D)]
 (matrix_factorization.cc:695-697).
 
-Routing happens on the device from mirrors of the Addressbook tables
-(owner, slot, this shard's cache slot), re-uploaded when the planner
-changes placement (topology_version); per step the host ships only raw
-keys. Negatives for `neg_role` are drawn on the device, uniformly from
-the locally-resident keys (the Local sampling scheme), from a
-`torch.Generator` seeded with the runner's `seed`.
+Two routing modes, as in the JAX package's `ops/fused.py`:
+  host routes (build_routes, FusedStepRunner): the host resolves every
+      key through the Addressbook and ships five index tensors per role.
+  device routes (DeviceRouter, DeviceRoutedRunner): mirrors of the
+      Addressbook tables (owner, slot, this shard's cache slot) live on
+      the device, re-uploaded when the planner changes placement
+      (topology_version); per step the host ships only raw keys.
+      Negatives for `neg_role` are drawn on the device from a
+      `torch.Generator` seeded with the runner's `seed`: uniformly from
+      the locally-resident keys (the Local sampling scheme), or from an
+      alias table (`neg_alias`) snapped to the nearest locally-resident
+      key.
 
-This is the JAX package's `ops/fused.py` DeviceRoutedRunner and
-make_device_routed_step, in both variants (with replicas, and the
-replica-free main-only variant). The K-step `run_scan`, the host-routed
-FusedStepRunner and alias-table negatives are not ported yet (ROADMAP
-queue A, item 4; item 6).
+The device-routed runner has both variants (with replicas, and the
+replica-free main-only variant). The K-step `run_scan` is not ported yet
+(ROADMAP queue A, item 4).
 """
 from __future__ import annotations
 
@@ -59,6 +63,125 @@ def _mark_fused_writes(server, shard: int, role_class, role_keys,
         k = np.asarray(keys, dtype=np.int64).ravel()
         server.stores[role_class[r]].mark_routed_writes(
             shard, ab.cache_slot[shard, k], ab.owner[k], ab.slot[k])
+
+
+class Routes:
+    """Device index tensors routing one role's key batch to pool rows.
+
+    gather:  main[g_sh, g_sl] for owner-served keys, (cache+delta)[c_sh, c_sl]
+             for replica-served keys (use_c mask).
+    scatter: the owner path drops replica positions (g_sl is OOB there),
+             the delta path drops owner positions (c_sl is OOB there),
+             mirroring Server._push.
+    """
+
+    __slots__ = ("g_sh", "g_sl", "c_sh", "c_sl", "use_c", "n_remote")
+
+    def __init__(self, g_sh, g_sl, c_sh, c_sl, use_c, n_remote: int):
+        self.g_sh, self.g_sl = g_sh, g_sl
+        self.c_sh, self.c_sl = c_sh, c_sl
+        self.use_c = use_c
+        self.n_remote = n_remote
+
+    def as_tuple(self):
+        return (self.g_sh, self.g_sl, self.c_sh, self.c_sl, self.use_c)
+
+
+def build_routes(server, keys: np.ndarray, shard: int,
+                 expect_class: int = None) -> Routes:
+    """Resolve keys (any shape) to pool coordinates for a worker on `shard`,
+    via the one shared routing policy (Server._route: prefer a local replica,
+    else the owner row). All keys must share a length class; pass
+    `expect_class` to fail fast on a wrong role->class mapping (slots are
+    per-class row indices, so a mismatch would corrupt another pool's rows).
+    """
+    keys = np.asarray(keys, dtype=np.int64)
+    if expect_class is not None:
+        kc = server.ab.key_class[keys]
+        if not (kc == expect_class).all():
+            raise ValueError(f"keys span length classes {np.unique(kc)} but "
+                             f"role is mapped to class {expect_class}")
+    server.ensure_local(keys, shard)
+    o_sh, o_sl, c_sh, c_sl, use_c, n_remote, _ = server._route(keys, shard)
+    g_sl = np.where(use_c, OOB, o_sl).astype(np.int32)
+    put = server.ctx.put_replicated
+    return Routes(put(o_sh), put(g_sl), put(c_sh), put(c_sl), put(use_c),
+                  n_remote)
+
+
+def _read_rows(main, cache, delta, route) -> torch.Tensor:
+    """The routed fill-gather of one role (K1, cache+delta form): rows
+    shaped like the role's keys plus the row length."""
+    g_sh, g_sl, c_sh, c_sl, use_c = route
+    flat = routed_gather(main, cache, delta, g_sh.reshape(-1),
+                         g_sl.reshape(-1), c_sh.reshape(-1),
+                         c_sl.reshape(-1), use_c.reshape(-1))
+    return flat.reshape(tuple(g_sh.shape) + (flat.shape[-1],))
+
+
+def _scatter_update(main, delta, route, upd) -> None:
+    """In place: the owner path adds into main (g_sl is OOB at replica
+    positions), then the replica path into delta (c_sl is OOB at owner
+    positions); K3 folds duplicates in batch order."""
+    g_sh, g_sl, c_sh, c_sl, _ = route
+    ordered_scatter_add(main, g_sh.reshape(-1), g_sl.reshape(-1), upd)
+    ordered_scatter_add(delta, c_sh.reshape(-1), c_sl.reshape(-1), upd)
+
+
+def _loss_and_updates(loss_fn, rows, role_dim, roles, trainable, aux, lr,
+                      eps):
+    """Loss over the gathered rows and each trainable role's AdaGrad delta
+    rows [n, 2D] (K2). Each role's embedding half is its own autograd leaf,
+    so a duplicated key gets one gradient per occurrence."""
+    embs = {r: rows[r][..., : role_dim[r]] for r in roles}
+    leaves = {r: embs[r].detach().requires_grad_() for r in trainable}
+    with torch.enable_grad():
+        merged = dict(embs)
+        merged.update(leaves)
+        loss = loss_fn(merged, aux)
+        grads = torch.autograd.grad(loss, [leaves[r] for r in trainable])
+    upds = {}
+    for r, g in zip(trainable, grads):
+        D = role_dim[r]
+        flat_rows = rows[r].reshape(-1, rows[r].shape[-1])
+        upds[r] = adagrad_update(g.reshape(-1, D).contiguous(),
+                                 flat_rows[:, D:], lr, eps)
+    return loss.detach(), upds
+
+
+def make_fused_adagrad_step(loss_fn: Callable[..., torch.Tensor],
+                            role_class: Dict[str, int],
+                            role_dim: Dict[str, int],
+                            frozen_roles: Sequence[str] = ()):
+    """The host-routed fused step:
+
+        step(pools, routes, aux, lr, eps) -> loss
+
+      pools   tuple per class of (main, cache, delta), UPDATED IN PLACE
+      routes  dict role -> Routes.as_tuple()
+      aux     handed to loss_fn (labels, weights)
+
+    loss_fn(embs: dict role -> [..., D_role] tensor, aux) is the scalar
+    mean loss; role rows are [emb | acc] of length 2*D; frozen roles are
+    gathered for the forward pass and never updated. Every role is
+    gathered before the first scatter; roles scatter in sorted() order,
+    main then delta."""
+    roles = sorted(role_class)
+    trainable = [r for r in roles if r not in frozen_roles]
+
+    def step(pools, routes, aux, lr, eps):
+        rows = {}
+        for r in roles:
+            main, cache, delta = pools[role_class[r]]
+            rows[r] = _read_rows(main, cache, delta, routes[r])
+        loss, upds = _loss_and_updates(loss_fn, rows, role_dim, roles,
+                                       trainable, aux, lr, eps)
+        for r in trainable:
+            main, _, delta = pools[role_class[r]]
+            _scatter_update(main, delta, routes[r], upds[r])
+        return loss
+
+    return step
 
 
 class DeviceRouter:
@@ -104,6 +227,32 @@ def _route_on_device(tables, keys: torch.Tensor, shard: int):
     return o_sh, g_sl, c_sh, c_sl, use_c
 
 
+def _draw_negatives(neg_shape, local_index, alias, generator):
+    """The device draw of a negative role's keys. Uniform: positions into
+    the local index (the Local sampling scheme). Alias (`alias` = prob,
+    alias, key table): a Vose draw over the app's population, then each
+    candidate SNAPS to the nearest locally-resident key by searchsorted
+    (the device twin of LocalSampling._snap); the padded index is sorted
+    with a dtype-max tail, so the probe lands in [0, count] and wraps
+    (sampling.h:494)."""
+    if alias is not None:
+        prob, alias_t, key_table = alias
+        u = torch.randint(0, prob.shape[0], neg_shape, generator=generator,
+                          device=prob.device)
+        v = torch.rand(neg_shape, generator=generator, device=prob.device)
+        cand = key_table[torch.where(v < prob[u], u, alias_t[u].long())]
+        if local_index is not None:
+            idx, count = local_index
+            pos = torch.searchsorted(idx, cand)
+            pos = torch.where(pos >= count, torch.zeros_like(pos), pos)
+            cand = idx[pos]
+        return cand
+    idx, count = local_index
+    pos = torch.randint(0, count, neg_shape, generator=generator,
+                        device=idx.device)
+    return idx.index_select(0, pos.reshape(-1)).reshape(neg_shape)
+
+
 def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
                             role_class: Dict[str, int],
                             role_dim: Dict[str, int],
@@ -111,11 +260,12 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
                             frozen_roles: Sequence[str] = (),
                             neg_role: str = None,
                             neg_shape: Tuple[int, ...] = None,
-                            no_replicas: bool = False):
+                            no_replicas: bool = False,
+                            neg_alias: bool = False):
     """The fused step that resolves routing from device table mirrors:
 
-        step(pools, locstat, tables, keys, local_index, generator, aux,
-             lr, eps) -> loss
+        step(pools, locstat, tables, keys, local_index, alias, generator,
+             aux, lr, eps) -> loss
 
       pools       tuple per class of (main, cache, delta), UPDATED IN PLACE
       locstat     int64 [4] device accumulator (params seen / params local /
@@ -124,6 +274,8 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
       keys        dict role -> device int tensor of raw PM keys
       local_index (padded index tensor, valid count) of locally-resident
                   keys for the device draw of `neg_role`, or None
+      alias       (prob, alias, key table) device tensors when
+                  `neg_alias` (models/sgns.py build_alias_table), else None
       generator   torch.Generator on the pools' device
 
     Every role's rows are gathered before the first scatter, each role's
@@ -136,15 +288,13 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
     roles = sorted(role_class)
     trainable = [r for r in roles if r not in frozen_roles]
 
-    def step(pools, locstat, tables, keys, local_index, generator, aux,
-             lr, eps):
+    def step(pools, locstat, tables, keys, local_index, alias, generator,
+             aux, lr, eps):
         keys = dict(keys)
-        if neg_role is not None and local_index is not None:
-            idx, count = local_index
-            pos = torch.randint(0, count, neg_shape, generator=generator,
-                                device=idx.device)
-            keys[neg_role] = idx.index_select(0, pos.reshape(-1)) \
-                .reshape(neg_shape)
+        if neg_role is not None and (neg_alias or local_index is not None):
+            keys[neg_role] = _draw_negatives(
+                neg_shape, local_index, alias if neg_alias else None,
+                generator)
         rows, routes = {}, {}
         n_total = 0
         n_local = torch.zeros((), dtype=torch.int64,
@@ -171,27 +321,16 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
             torch.tensor(n_total, device=locstat.device), n_local,
             torch.ones((), dtype=torch.int64, device=locstat.device),
             (n_local == n_total).to(torch.int64)])
-        embs = {r: rows[r][..., : role_dim[r]] for r in roles}
-        leaves = {r: embs[r].detach().requires_grad_() for r in trainable}
-        with torch.enable_grad():
-            merged = dict(embs)
-            merged.update(leaves)
-            loss = loss_fn(merged, aux)
-            grads = torch.autograd.grad(loss, [leaves[r] for r in trainable])
-        for r, g in zip(trainable, grads):
-            D = role_dim[r]
-            flat_rows = rows[r].reshape(-1, rows[r].shape[-1])
-            upd = adagrad_update(g.reshape(-1, D).contiguous(),
-                                 flat_rows[:, D:], lr, eps)
-            main, cache, delta = pools[role_class[r]]
+        loss, upds = _loss_and_updates(loss_fn, rows, role_dim, roles,
+                                       trainable, aux, lr, eps)
+        for r in trainable:
+            main, _, delta = pools[role_class[r]]
             if no_replicas:
                 o_sh, o_sl = routes[r]
-                ordered_scatter_add(main, o_sh, o_sl, upd)
+                ordered_scatter_add(main, o_sh, o_sl, upds[r])
             else:
-                o_sh, g_sl, c_sh, c_sl, _ = routes[r]
-                ordered_scatter_add(main, o_sh, g_sl, upd)
-                ordered_scatter_add(delta, c_sh, c_sl, upd)
-        return loss.detach()
+                _scatter_update(main, delta, routes[r], upds[r])
+        return loss
 
     return step
 
@@ -207,7 +346,11 @@ class DeviceRoutedRunner:
                  role_dim: Dict[str, int], shard: int = 0,
                  frozen_roles: Sequence[str] = (), neg_role: str = None,
                  neg_shape: Tuple[int, ...] = None,
-                 neg_population=None, seed: int = 0):
+                 neg_population=None, neg_alias=None, seed: int = 0):
+        """`neg_alias=(prob, alias)` (models/sgns.py build_alias_table)
+        switches the device draw to the app's non-uniform distribution over
+        `neg_population` (position i of the population is drawn with
+        probability ~ weight i), snapped to locally-resident keys."""
         self.server = server
         self.shard = shard
         self.role_class = role_class
@@ -219,6 +362,19 @@ class DeviceRoutedRunner:
         dev = server.ctx.device
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(int(seed))
+        self._alias = None
+        if neg_alias is not None:
+            if neg_role is None or neg_population is None:
+                raise ValueError("neg_alias needs neg_role and "
+                                 "neg_population")
+            prob, alias = neg_alias
+            key_table = np.asarray(neg_population,
+                                   dtype=_key_dtype(server.num_keys))
+            if len(prob) != len(key_table):
+                raise ValueError("alias table must cover the population")
+            put = server.ctx.put_replicated
+            self._alias = (put(np.asarray(prob, np.float32)),
+                           put(np.asarray(alias, np.int32)), put(key_table))
         # population the device sampler may draw from (Local scheme: the
         # locally-resident slice of the allowed keys); None -> all keys
         self._neg_population = None if neg_population is None else \
@@ -236,7 +392,7 @@ class DeviceRoutedRunner:
         mk = dict(loss_fn=loss_fn, role_class=role_class,
                   role_dim=role_dim, shard=shard,
                   frozen_roles=frozen_roles, neg_role=neg_role,
-                  neg_shape=neg_shape)
+                  neg_shape=neg_shape, neg_alias=self._alias is not None)
         self.step_fn = make_device_routed_step(no_replicas=False, **mk)
         self._step_fn_norep = make_device_routed_step(no_replicas=True,
                                                       **mk)
@@ -342,6 +498,50 @@ class DeviceRoutedRunner:
                 else self._step_fn_norep
             with srv.exec.track("main"), _GATE:
                 loss = fn(pools, self._locstat, tables, keys, local_index,
-                          self._gen, aux, float(lr), float(eps))
+                          self._alias, self._gen, aux, float(lr),
+                          float(eps))
             self.steps += 1
+        return loss
+
+
+class FusedStepRunner:
+    """Binds the host-routed fused step to a Server: the step updates the
+    ShardedStores' pools in place, so the PM view (Pull/Push/sync rounds)
+    and the fused hot loop always see the same tensors."""
+
+    def __init__(self, server, loss_fn, role_class: Dict[str, int],
+                 role_dim: Dict[str, int], frozen_roles: Sequence[str] = ()):
+        self.server = server
+        self.role_class = role_class
+        self.frozen_roles = frozenset(frozen_roles)
+        self.step_fn = make_fused_adagrad_step(
+            loss_fn, role_class, role_dim, frozen_roles)
+        self.n_remote = 0
+        self.steps = 0
+
+    def routes_for(self, role_keys: Dict[str, np.ndarray],
+                   shard: int) -> Dict[str, tuple]:
+        out = {}
+        for r, keys in role_keys.items():
+            rt = build_routes(self.server, keys, shard,
+                              expect_class=self.role_class[r])
+            self.n_remote += rt.n_remote
+            out[r] = rt.as_tuple()
+        return out
+
+    def __call__(self, role_keys: Dict[str, np.ndarray], aux, lr: float,
+                 eps: float = 1e-10, shard: int = 0) -> torch.Tensor:
+        """One training step; returns the loss (a device scalar)."""
+        srv = self.server
+        with srv._lock:
+            routes = self.routes_for(role_keys, shard)
+            # the step is a batched Push: the stores' dirty-delta
+            # tracking must see its scatter
+            _mark_fused_writes(srv, shard, self.role_class, role_keys,
+                               skip_roles=self.frozen_roles)
+            pools = tuple((s.main, s.cache, s.delta) for s in srv.stores)
+            with srv.exec.track("main"), _GATE:
+                loss = self.step_fn(pools, routes, aux, float(lr),
+                                    float(eps))
+        self.steps += 1
         return loss

@@ -5,6 +5,8 @@ PyTorch version.
     K2 adagrad_update /     csrc/adagrad.cu         (TPU: pallas_kernels.adagrad_apply)
        adagrad_apply
     K3 ordered_scatter_add  csrc/ordered_scatter.cu (XLA: jaxport._scatter_add)
+    K4 pool_eval_counts     csrc/pool_eval_counts.cu (XLA: models/kge.py
+                                                     make_pool_eval_counts)
 
 Every wrapper takes CUDA tensors to its kernel and CPU tensors to its
 plain version; there is no fallback between the two. A wrapper checks
@@ -31,12 +33,13 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _SOURCES = {"routed_gather": "routed_gather.cu",
             "adagrad": "adagrad.cu",
-            "ordered_scatter": "ordered_scatter.cu"}
+            "ordered_scatter": "ordered_scatter.cu",
+            "pool_eval_counts": "pool_eval_counts.cu"}
 
 # launches per kernel since the last reset_launches() (chip_smoke.py
 # reads them to show the main path went through the kernels)
 LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
-                            "ordered_scatter_add": 0}
+                            "ordered_scatter_add": 0, "pool_eval_counts": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -111,9 +114,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_adagrad_update.argtypes = [P, P, LL, P, LL, I, F, F, I, P]
         lib.adapm_adagrad_apply.restype = I
         lib.adapm_adagrad_apply.argtypes = [P] * 5 + [LL, F, F, P]
-    else:
+    elif name == "ordered_scatter":
         lib.adapm_ordered_scatter_add.restype = I
         lib.adapm_ordered_scatter_add.argtypes = [P] * 4 + [LL, LL, I, I, P]
+    else:
+        lib.adapm_pool_eval_counts.restype = I
+        lib.adapm_pool_eval_counts.argtypes = [P, I, I, I, I, P, P, LL, P, LL,
+                                               P, P, P, P, P, I, I, P, P, P]
     return lib
 
 
@@ -363,3 +370,109 @@ def ordered_scatter_add(pool: torch.Tensor, sh: torch.Tensor,
         _stream())
     LAUNCHES["ordered_scatter_add"] += 1
     _check(rc, "ordered_scatter_add")
+
+
+# ---------------------------------------------------------------------------
+# K4 pool_eval_counts
+# ---------------------------------------------------------------------------
+
+
+def pool_eval_counts_plain(pool, owner, slot, keys, nvalid: int, q_o, q_s,
+                           true_sc, okey, skey, parts: int = 1,
+                           ties: bool = False):
+    """The plain version of K4, in the JAX program's own formula: per
+    chunk (a row of `keys`), gather the candidate rows, score both sides
+    as `parts` matmuls over consecutive column blocks of K (ComplEx:
+    `a@er.T + b@ei.T`, parts=2; RESCAL: `sR@ent.T`, parts=1), mask the
+    padding and the true key, count.
+
+    With `ties=True` it also returns, per query and side, the number of
+    eligible candidates that are near-ties: |sc - true_sc| <= 2*g*S with
+    S = sum_k |q_k * row_k| and g = K*u / (1 - K*u), u = 2^-24. Any f32
+    evaluation of a K-term dot product, in any order, with or without
+    FMA, lies within g*S of the exact value, so two evaluations (this
+    one and the kernel's, or XLA's) differ by at most 2*g*S, and only a
+    near-tie can be counted by one and not the other: a count may
+    differ from this one by at most its near-tie count."""
+    nch, C = keys.shape
+    B, K = q_o.shape
+    h = K // parts
+    dev = q_o.device
+    g_o = torch.zeros(B, dtype=torch.int32, device=dev)
+    g_s = torch.zeros_like(g_o)
+    t_o = torch.zeros_like(g_o)
+    t_s = torch.zeros_like(g_o)
+    u = 2.0 ** -24
+    gamma = K * u / (1 - K * u)
+    for ci in range(nch):
+        k = keys[ci]
+        kl = k.long()
+        rows = _fill_gather_plain(pool, owner.index_select(0, kl),
+                                  slot.index_select(0, kl))[:, :K]
+        so = sum(q_o[:, p * h:(p + 1) * h] @ rows[:, p * h:(p + 1) * h].T
+                 for p in range(parts))
+        ss = sum(q_s[:, p * h:(p + 1) * h] @ rows[:, p * h:(p + 1) * h].T
+                 for p in range(parts))
+        mask = (ci * C + torch.arange(C, device=dev)) < nvalid
+        m_o = mask[None, :] & (k[None, :] != okey[:, None])
+        m_s = mask[None, :] & (k[None, :] != skey[:, None])
+        t = true_sc[:, None]
+        g_o += ((so > t) & m_o).sum(1, dtype=torch.int32)
+        g_s += ((ss > t) & m_s).sum(1, dtype=torch.int32)
+        if ties:
+            ra = rows.abs().T
+            near_o = (so - t).abs() <= 2 * gamma * (q_o.abs() @ ra)
+            near_s = (ss - t).abs() <= 2 * gamma * (q_s.abs() @ ra)
+            t_o += (near_o & m_o).sum(1, dtype=torch.int32)
+            t_s += (near_s & m_s).sum(1, dtype=torch.int32)
+    return (g_o, g_s, t_o, t_s) if ties else (g_o, g_s)
+
+
+def pool_eval_counts(pool: torch.Tensor, owner: torch.Tensor,
+                     slot: torch.Tensor, keys: torch.Tensor, nvalid: int,
+                     q_o: torch.Tensor, q_s: torch.Tensor,
+                     true_sc: torch.Tensor, okey: torch.Tensor,
+                     skey: torch.Tensor, parts: int = 1):
+    """Per query b, the number of real candidates (the first `nvalid`
+    entries of the padded [nch, C] int32 key table `keys`) whose row
+    pool[owner[key], slot[key], :K] scores strictly above true_sc[b],
+    the true key (okey[b] for the object side, skey[b] for the subject
+    side) excluded by key. q_o/q_s are the [B, K] f32 query coefficients;
+    `parts` only shapes the plain version's matmuls. Returns (g_o, g_s),
+    new int32 [B] tensors."""
+    if not _on_cuda(pool, owner, slot, keys, q_o, q_s, true_sc, okey, skey):
+        return pool_eval_counts_plain(pool, owner, slot, keys, nvalid, q_o,
+                                      q_s, true_sc, okey, skey, parts)
+    S, R, L = pool.shape
+    B, K = q_o.shape
+    _require(pool.dtype == torch.float32 and pool.is_contiguous(),
+             "pool_eval_counts: pool must be contiguous f32 [S, slots, L]")
+    _require(0 < K <= L, "pool_eval_counts: K must lie in (0, L]")
+    for t in (q_o, q_s):
+        _require(t.dtype == torch.float32 and t.is_contiguous()
+                 and tuple(t.shape) == (B, K),
+                 "pool_eval_counts: q_o/q_s must be contiguous f32 [B, K]")
+    _require(true_sc.dtype == torch.float32 and true_sc.is_contiguous()
+             and true_sc.numel() == B,
+             "pool_eval_counts: true_sc must be contiguous f32 [B]")
+    for t in (owner, slot, keys, okey, skey):
+        _require(t.dtype == torch.int32 and t.is_contiguous(),
+                 "pool_eval_counts: tables and keys must be contiguous "
+                 "int32")
+    _require(owner.numel() == slot.numel() and okey.numel() == B
+             and skey.numel() == B and keys.dim() == 2,
+             "pool_eval_counts: shape mismatch")
+    _require(0 <= nvalid <= keys.numel(),
+             "pool_eval_counts: nvalid exceeds the key table")
+    g_o = torch.zeros(B, dtype=torch.int32, device=pool.device)
+    g_s = torch.zeros_like(g_o)
+    if nvalid == 0 or B == 0:
+        return g_o, g_s
+    vec = int(L % 4 == 0 and K % 4 == 0 and _aligned16(pool, q_o, q_s))
+    rc = _lib("pool_eval_counts").adapm_pool_eval_counts(
+        _ptr(pool), S, R, L, K, _ptr(owner), _ptr(slot), owner.numel(),
+        _ptr(keys), int(nvalid), _ptr(q_o), _ptr(q_s), _ptr(true_sc),
+        _ptr(okey), _ptr(skey), B, vec, _ptr(g_o), _ptr(g_s), _stream())
+    LAUNCHES["pool_eval_counts"] += 1
+    _check(rc, "pool_eval_counts")
+    return g_o, g_s

@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version at the main path's
 shapes, drives the device-routed ComplEx KGE training step through the
-parameter manager at full width, and checks a small replica run against
-the CPU.
+parameter manager at full width, checks a small replica run against the
+CPU, and runs the KGE application end to end on both routing paths.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -12,8 +12,13 @@ Phases (any failure raises and exits non-zero):
      (K1 routed_gather: 143,360 rows of 512 f32, both forms, bitwise;
      K3 ordered_scatter_add: the same rows with zipf duplicates, bitwise
      and deterministic over two runs; K2 adagrad_update: [143,360, 256]
-     within tolerance), with CUDA-event times of kernel, plain version
-     and one library call, and the least time the card could take.
+     within tolerance; K4 pool_eval_counts: 64 queries against a
+     200,000-entity pool in 65,536-key chunks: exact on integer-valued
+     data, and ComplEx K=256 and RESCAL K=128 on random data under the
+     near-tie rule), with CUDA-event times (the
+     median and the min-max spread of 20 launches) of kernel, plain
+     version and one library call, and the least time the card could
+     take.
   3. the main path: setup(201,000 keys, 512) on cuda, slab fill, a
      DeviceRoutedRunner for ComplEx with on-device negatives (B=4096,
      N=32), warmup, then 32 steps of intent -> step -> sync round ->
@@ -23,6 +28,22 @@ Phases (any failure raises and exits non-zero):
      sync merge), the same fused steps on cuda and on cpu within
      tolerance, then an add-only push/pull/set/sync sequence on both,
      bitwise.
+  5. the KGE app (apps/knowledge_graph_embeddings.py, main's parse and
+     run) at full width: ComplEx d=128, 200,000 entities, 409,600
+     lowrank triples generated on the card, B=4096, N=32, 2 epochs of
+     100 device-routed steps, pool-count eval (K4) after each; launch
+     counts of K1-K4 over the run.
+  6. the host-routed app path (--no-device_routes, PullSample
+     negatives) at the same width for 10 steps; then test_kge_app's
+     small configuration on cuda and on cpu (epoch losses within rtol
+     1e-4, MRR within 0.02, and the eval counts of one checkpoint under
+     the near-tie rule).
+The near-tie rule: the kernel sums each dot in another order than the
+plain version's matmuls, so a count may differ by at most the number of
+candidates whose score lies within the f32 dot-product error bound of
+the true score (ops/kernels.py pool_eval_counts_plain). K4 is also held
+to its plain version exactly on integer-valued data, where every order
+of summation gives the same f32 sums.
 The last two lines are the per-kernel JSON record and the device JSON
 line; `--json PATH` also writes the full record (main-path numbers and
 the profile included) to PATH. Needs one CUDA card; exits non-zero
@@ -39,6 +60,8 @@ import torch
 
 # main-path shape (the repo's flagship KGE configuration)
 E, R, D_MODEL, B, N = 200_000, 1_000, 128, 4096, 32
+EVAL_B, EVAL_CHUNK = 64, 65_536          # the app's eval batch and chunk
+STEP_KERNELS = ("routed_gather", "adagrad_update", "ordered_scatter_add")
 L = 4 * D_MODEL                       # [emb 2d | adagrad 2d]
 ROWS = 3 * B + B * N                  # gathered rows per step: 143,360
 STEPS, WARMUP = 32, 3
@@ -56,18 +79,20 @@ def skewed_keys(rng, n, size):
     return (n * rng.random(size) ** 3).astype(np.int64).clip(0, n - 1)
 
 
-def cuda_ms(fn, reps=10, warmup=2):
-    """Mean milliseconds of fn() over `reps` launches (CUDA events)."""
+def cuda_ms(fn, reps=20, warmup=3):
+    """Milliseconds of fn() per launch over `reps` launches, each between
+    its own pair of CUDA events: (median, min, max)."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in evs:
+        a.record()
         fn()
-    end.record()
+        b.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    t = np.array([a.elapsed_time(b) for a, b in evs])
+    return float(np.median(t)), float(t.min()), float(t.max())
 
 
 def bound(nbytes, flops):
@@ -155,7 +180,7 @@ def phase_kernels(K, dev, rng):
     k1_bytes = n_main * L * 4 + ROWS * 4 * 2 + ROWS * L * 4
     flat = o_sl.long()
     mflat = main.view(-1, L)
-    rec["routed_gather"] = dict(
+    rec["routed_gather"] = timed(
         max_abs_err=float((got - ref).abs().max()),
         ms=cuda_ms(lambda: K.routed_gather(main, None, None, o_sh, o_sl)),
         plain_ms=cuda_ms(
@@ -181,11 +206,11 @@ def phase_kernels(K, dev, rng):
     del outs, ref_pool
     scratch = main.clone()
     k3_bytes = ROWS * L * 4 + 2 * n_main * L * 4 + ROWS * 4 * 2
-    rec["ordered_scatter_add"] = dict(
+    rec["ordered_scatter_add"] = timed(
         max_abs_err=err3,
         ms=cuda_ms(lambda: K.ordered_scatter_add(scratch, o_sh, o_sl, vals)),
         plain_ms=cuda_ms(lambda: K.ordered_scatter_add_plain(
-            scratch, o_sh, o_sl, vals), reps=2, warmup=1),
+            scratch, o_sh, o_sl, vals), warmup=1),
         library_ms=cuda_ms(lambda: scratch.view(-1, L).index_add_(
             0, flat, vals)),
         bound=bound(k3_bytes, ROWS * L))
@@ -216,13 +241,127 @@ def phase_kernels(K, dev, rng):
         lib_ms = cuda_ms(lambda: fused([p], [g], [s_], step, lr=0.1,
                                        lr_decay=0.0, weight_decay=0.0,
                                        eps=1e-10, maximize=False))
-    rec["adagrad_update"] = dict(
+    rec["adagrad_update"] = timed(
         max_abs_err=float((got2 - ref2).abs().max()),
         ms=cuda_ms(lambda: K.adagrad_update(g, acc, 0.1, 1e-10)),
         plain_ms=cuda_ms(lambda: K.adagrad_update_plain(g, acc, 0.1, 1e-10)),
         library_ms=lib_ms, bound=bound(k2_bytes, ROWS * Dh * 7))
     del main, vals, g, rows
     torch.cuda.empty_cache()
+    rec["pool_eval_counts"] = phase_k4(K, dev, rng)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def timed(ms, plain_ms, library_ms, **kw):
+    """A kernel record from (median, min, max) timings."""
+    out = dict(kw, ms=ms[0], ms_spread=ms[1:], plain_ms=plain_ms[0],
+               plain_ms_spread=plain_ms[1:])
+    out["library_ms"] = None if library_ms is None else library_ms[0]
+    out["library_ms_spread"] = None if library_ms is None \
+        else library_ms[1:]
+    return out
+
+
+def phase_k4(K, dev, rng):
+    """K4 against its plain version at eval width: 64 queries, a
+    200,000-entity ComplEx pool (rows of 512 f32, K=256 read through the
+    row stride) in 4 chunks of 65,536 keys with a padded tail; the RESCAL
+    form (K=128) on the same pool."""
+    from adapm_tpu_torch.models.kge import (_complex_queries,
+                                            _rescal_queries, complex_score,
+                                            rescal_score)
+    nk = E + R
+    slots = -8 * (-int(np.ceil(nk * 1.25)) // 8)
+    pool = torch.randn((1, slots, L), device=dev) * 0.1
+    owner = torch.zeros(nk, dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(rng.permutation(slots)[:nk].astype(np.int32),
+                           device=dev)
+    nch = -(-E // EVAL_CHUNK)
+    pad = np.zeros(nch * EVAL_CHUNK, np.int32)
+    pad[:E] = rng.permutation(E)
+    pad[E:] = pad[0]
+    keys = torch.as_tensor(pad.reshape(nch, EVAL_CHUNK), device=dev)
+    s_k = torch.as_tensor(rng.integers(0, E, EVAL_B).astype(np.int32),
+                          device=dev)
+    o_k = torch.as_tensor(rng.integers(0, E, EVAL_B).astype(np.int32),
+                          device=dev)
+    r_k = torch.as_tensor(rng.integers(E, nk, EVAL_B).astype(np.int32),
+                          device=dev)
+
+    def rows(k, dim):
+        return pool[0, slot[k.long()], :dim]
+
+    # exact: small integers make every partial sum exact in f32, so the
+    # kernel's counts must equal the plain version's in any order; true
+    # scores taken from real candidates make exact ties (not counted)
+    ipool = torch.randint(-4, 5, pool.shape, device=dev).float()
+    Ki = 2 * D_MODEL
+    qi_o = torch.randint(-3, 4, (EVAL_B, Ki), device=dev).float()
+    qi_s = torch.randint(-3, 4, (EVAL_B, Ki), device=dev).float()
+    cand_i = ipool[0, slot[o_k.long()], :Ki]
+    true_i = (qi_o * cand_i).sum(1).contiguous()
+    iargs = (ipool, owner, slot, keys, E, qi_o, qi_s, true_i, o_k, s_k)
+    ge = K.pool_eval_counts(*iargs, parts=2)
+    pe = K.pool_eval_counts_plain(*iargs, parts=2)
+    check(all(torch.equal(a, b) for a, b in zip(ge, pe)),
+          "K4 counts differ from the plain version on integer data")
+    exact_counted = int(ge[0].sum() + ge[1].sum())
+    del ipool, cand_i
+
+    out = {}
+    for model in ("complex", "rescal"):
+        d = D_MODEL
+        if model == "complex":
+            se, re_, oe = rows(s_k, 2 * d), rows(r_k, 2 * d), rows(o_k, 2 * d)
+            a, b, c, dd = _complex_queries(se, re_, oe)
+            q_o, q_s = torch.cat([a, b], -1), torch.cat([c, dd], -1)
+            true = complex_score(se, re_, oe)
+            parts = 2
+        else:
+            se, oe = rows(s_k, d), rows(o_k, d)
+            re_ = torch.randn((EVAL_B, d * d), device=dev) * 0.1
+            q_o, q_s = _rescal_queries(se, re_, oe)
+            true = rescal_score(se, re_, oe)
+            parts = 1
+        q_o, q_s, true = q_o.contiguous(), q_s.contiguous(), \
+            true.contiguous()
+        args = (pool, owner, slot, keys, E, q_o, q_s, true, o_k, s_k)
+        g_o, g_s = K.pool_eval_counts(*args, parts=parts)
+        p_o, p_s, t_o, t_s = K.pool_eval_counts_plain(*args, parts=parts,
+                                                      ties=True)
+        torch.cuda.synchronize()
+        diff = torch.cat([(g_o - p_o).abs(), (g_s - p_s).abs()])
+        ties = torch.cat([t_o, t_s])
+        check(bool((diff <= ties).all()),
+              f"K4 ({model}) counts differ from the plain version beyond "
+              f"the near-tie rule: diff {diff.tolist()} ties "
+              f"{ties.tolist()}")
+        check(bool((g_o > 0).any() and (g_o < E - 1).any()),
+              f"K4 ({model}) counts are degenerate")
+        Kd = q_o.shape[1]
+        flat = slot[torch.as_tensor(pad[:E], device=dev).long()]
+        cand = pool[0, flat, :Kd].contiguous()   # the dense yardstick
+
+        def library():
+            t = true[:, None]
+            return ((q_o @ cand.T) > t).sum(1), ((q_s @ cand.T) > t).sum(1)
+
+        out[model] = timed(
+            max_abs_err=float(diff.max()), ties=int(ties.sum()),
+            counted=int(g_o.sum() + g_s.sum()), K=Kd,
+            ms=cuda_ms(lambda: K.pool_eval_counts(*args, parts=parts)),
+            plain_ms=cuda_ms(lambda: K.pool_eval_counts_plain(
+                *args, parts=parts)),
+            library_ms=cuda_ms(library),
+            # each real candidate row's K floats read once; 2 sides x B x
+            # E x K multiply-adds, 2 operations each
+            bound=bound(E * Kd * 4 + E * 4 + 2 * EVAL_B * Kd * 4,
+                        2 * 2 * EVAL_B * E * Kd))
+        del cand
+    rec = dict(out["complex"])
+    rec["rescal"] = out["rescal"]
+    rec["exact_counted"] = exact_counted
     return rec
 
 
@@ -355,7 +494,7 @@ def phase_replicas(at, K, dev):
     pools_g, reads_g, rep_g = replica_run(at, dev, 7)
     used = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
     check(rep_g, "the replica phase held no replicas on the runner's shard")
-    check(all(v > 0 for v in used.values()),
+    check(all(used[k] > 0 for k in STEP_KERNELS),
           f"replica phase skipped a kernel: {used}")
     pools_c, reads_c, _ = replica_run(at, "cpu", 7)
     for a, b_ in zip(pools_g, pools_c):
@@ -366,6 +505,151 @@ def phase_replicas(at, K, dev):
         check(np.array_equal(a.view(np.uint32), b_.view(np.uint32)),
               f"add-only read {i} differs between cuda and cpu")
     return used
+
+
+APP_ARGS = ["--model", "complex", "--dim", str(D_MODEL), "--neg_ratio",
+            str(N), "--batch_size", str(B), "--synthetic_mode", "lowrank",
+            "--synthetic_entities", str(E), "--synthetic_relations", str(R),
+            "--eval_chunk", str(EVAL_CHUNK), "--sys.sync.max_per_sec", "0",
+            "--sys.prefetch", "0"]
+# test_apps.py test_kge_app's configuration, on 8 virtual shards
+SMALL_ARGS = ["--model", "complex", "--dim", "8", "--neg_ratio", "2",
+              "--synthetic_entities", "60", "--synthetic_relations", "4",
+              "--synthetic_triples", "400", "--epochs", "6",
+              "--batch_size", "32", "--lr", "0.2", "--eval_every", "6",
+              "--eval_triples", "60", "--no-device_routes",
+              "--num_shards", "8", "--sys.sync.max_per_sec", "0",
+              "--sys.prefetch", "0"]
+
+
+def run_app(kge, K, argv, dev=None):
+    """The app as `main(argv)` runs it (parse, then run_app), with the
+    launch counts set to 0 just before and read just after."""
+    args = kge.build_parser().parse_args(argv)
+    K.reset_launches()
+    res = kge.run_app(args, device=dev)
+    return res, dict(K.LAUNCHES)
+
+
+def check_app(res, launches, what, kernels):
+    losses = res["epoch_losses"]
+    check(np.isfinite(losses).all(), f"{what}: non-finite loss {losses}")
+    check(0 < res["mrr"] <= 1, f"{what}: MRR {res['mrr']} outside (0, 1]")
+    missing = [k for k in kernels if launches[k] == 0]
+    check(not missing, f"{what}: kernels never launched: {missing}")
+
+
+class HostClock:
+    """Host seconds spent inside chosen functions (wrapped for the
+    duration of a `with` block): where an app run's wall clock goes."""
+
+    def __init__(self, targets):
+        self.targets = targets  # [(owner, attribute name, label)]
+        self.seconds = {label: 0.0 for _, _, label in targets}
+
+    def __enter__(self):
+        self.saved = []
+        for owner, name, label in self.targets:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+
+            def wrapped(*a, _fn=fn, _label=label, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_label] += time.perf_counter() - t0
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def phase_app(K):
+    """Phase 5: the app at full width, device routes, 2 epochs."""
+    from adapm_tpu_torch.apps import knowledge_graph_embeddings as kge
+    from adapm_tpu_torch.core.sync import SyncManager
+    from adapm_tpu_torch.io import kge as kgeio
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    argv = APP_ARGS + ["--synthetic_triples", str(100 * B), "--epochs", "2",
+                       "--eval_every", "1", "--eval_triples", "100"]
+    torch.cuda.reset_peak_memory_stats()
+    clock = HostClock([
+        (kgeio, "_generate_lowrank_device", "generate (total)"),
+        (kgeio.TripleDataset, "filters", "TripleDataset.filters"),
+        (kge.KgeRun, "init_model", "init_model"),
+        (DeviceRoutedRunner, "__call__", "fused step call"),
+        (SyncManager, "run_round", "sync round"),
+        (kge, "_pool_counts", "eval device counts"),
+        (kge, "_filter_correct", "eval filter correction")])
+    with clock:
+        res, launches = run_app(kge, K, argv)
+    res["host_seconds"] = clock.seconds
+    check_app(res, launches, "phase 5", list(K.LAUNCHES))
+    losses = res["epoch_losses"]
+    check(losses[1] < losses[0], f"phase 5: loss did not fall: {losses}")
+    check(res["replicas_created"] == 0,
+          f"phase 5: {res['replicas_created']} replicas at S=1")
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res, launches
+
+
+def phase_host_routes(K):
+    """Phase 6: the host-routed path at full width (10 steps of 131,072
+    PullSample negatives), then the small configuration on cuda and cpu."""
+    from adapm_tpu_torch.apps import knowledge_graph_embeddings as kge
+    argv = APP_ARGS + ["--synthetic_triples", str(10 * B), "--epochs", "1",
+                       "--eval_every", "1", "--eval_triples", "100",
+                       "--no-device_routes"]
+    full, launches = run_app(kge, K, argv)
+    check_app(full, launches, "phase 6 (full width)", list(K.LAUNCHES))
+
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_ckpt")
+    small = SMALL_ARGS + ["--checkpoint_every", "6", "--checkpoint_dir",
+                          ck_dir]
+    res_g, _ = run_app(kge, K, small)
+    res_c, _ = run_app(kge, K, small, dev="cpu")
+    lg, lc = np.array(res_g["epoch_losses"]), np.array(res_c["epoch_losses"])
+    check(np.allclose(lg, lc, rtol=1e-4, atol=0),
+          f"phase 6: cuda and cpu epoch losses differ beyond rtol 1e-4: "
+          f"{lg} vs {lc}")
+    check(abs(res_g["mrr"] - res_c["mrr"]) <= 0.02,
+          f"phase 6: MRR cuda {res_g['mrr']} vs cpu {res_c['mrr']}")
+    # one checkpoint (the cuda run's) evaluated on both devices
+    from adapm_tpu_torch.io import kge as kgeio
+    args = kge.build_parser().parse_args(
+        small + ["--init_from", os.path.join(ck_dir, "kge_epoch5.npz")])
+    ds = kgeio.generate_synthetic(60, 4, 400, seed=args.seed)
+    t = ds.valid[:60]
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        run = kge.KgeRun(args, ds, device=dev)
+        run.init_model()
+        counts[dev] = kge._pool_counts(run, t[:, 0], t[:, 1], t[:, 2],
+                                       ties=dev == "cpu")
+        run.srv.shutdown()
+    g_o, g_s = counts["cuda"][:2]
+    c_o, c_s, _, t_o, t_s = counts["cpu"]
+    check((np.abs(g_o - c_o) <= t_o).all() and (np.abs(g_s - c_s) <= t_s)
+          .all(), "phase 6: eval counts of one checkpoint differ between "
+          "cuda and cpu beyond the near-tie rule")
+    return dict(full=full, full_launches=launches,
+                small_losses_cuda=lg.tolist(), small_losses_cpu=lc.tolist(),
+                small_mrr_cuda=res_g["mrr"], small_mrr_cpu=res_c["mrr"],
+                count_diff=int(np.abs(g_o - c_o).sum()
+                               + np.abs(g_s - c_s).sum()),
+                ties=int(t_o.sum() + t_s.sum()))
+
+
+def fmt_t(r, key):
+    v = r[key]
+    if v is None:
+        return "none"
+    lo, hi = r[key + "_spread"]
+    return f"{v:.4f} [{lo:.4f}, {hi:.4f}]"
 
 
 def main(argv):
@@ -388,17 +672,30 @@ def main(argv):
     rng = np.random.default_rng(0)
     rec = phase_kernels(K, dev, rng)
     for name, r in rec.items():
-        print(f"phase 2: {name}: {r['ms']:.4f} ms (bound {r['bound'][0]:.4f} "
-              f"ms, {r['bound'][1]}), plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']} ms, max_abs_err {r['max_abs_err']}",
+        print(f"phase 2: {name}: {fmt_t(r, 'ms')} ms (bound "
+              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}), plain "
+              f"{fmt_t(r, 'plain_ms')} ms, library {fmt_t(r, 'library_ms')}"
+              f" ms, max_abs_err {r['max_abs_err']}", flush=True)
+    k1 = rec["routed_gather"]
+    print(f"phase 2: K1 vs index_select, median [min, max] of 20: "
+          f"{fmt_t(k1, 'ms')} vs {fmt_t(k1, 'library_ms')} ms", flush=True)
+    k4 = rec["pool_eval_counts"]
+    for model, r in (("complex", k4), ("rescal", k4["rescal"])):
+        print(f"phase 2: K4 {model} K={r['K']}: {fmt_t(r, 'ms')} ms (bound "
+              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}), plain "
+              f"{fmt_t(r, 'plain_ms')} ms, matmul+compare+sum "
+              f"{fmt_t(r, 'library_ms')} ms, count diff {r['max_abs_err']}"
+              f" within {r['ties']} near-ties, {r['counted']} counted",
               flush=True)
+    print(f"phase 2: K4 exact on integer data: {k4['exact_counted']} "
+          f"counted, equal to the plain version", flush=True)
     K.reset_launches()
     mp = phase_main_path(at, K, dev, rng)
-    launches = dict(K.LAUNCHES)
+    step_launches = dict(K.LAUNCHES)
     print(f"phase 3: fill {mp['fill_s']:.1f} s, {mp['ms_per_step']:.3f} "
           f"ms/step, {mp['triples_per_s']:.0f} triples/s, loss "
           f"{mp['first_loss']:.5f} -> {mp['last_loss']:.5f}, launches "
-          f"{launches} (per step {mp['per_step']}), peak "
+          f"{step_launches} (per step {mp['per_step']}), peak "
           f"{mp['peak_mem_gib']:.2f} GiB", flush=True)
     prof = mp["profile"]
     if prof is None:
@@ -410,10 +707,33 @@ def main(argv):
               f"({prof['busy_share']:.3f}); top: " + "; ".join(
                   f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"][:8]),
               flush=True)
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+    check(all(step_launches[k] > 0 for k in STEP_KERNELS),
+          f"a kernel of the main path never launched: {step_launches}")
     used = phase_replicas(at, K, dev)
     print(f"phase 4: replica phase launches {used}; cuda and cpu agree",
+          flush=True)
+    app, app_launches = phase_app(K)
+    tps = [100 * B / t for t in app["epoch_s"]]
+    print(f"phase 5: app: generation {app['gen_s']:.2f} s, epochs "
+          f"{[round(t, 3) for t in app['epoch_s']]} s "
+          f"({[round(x) for x in tps]} triples/s), evals "
+          f"{[round(t, 3) for t in app['eval_s']]} s, losses "
+          f"{app['epoch_losses']}, MRR {app['mrr']:.4g} (o "
+          f"{app['mrr_o']:.4g}, s {app['mrr_s']:.4g}), test MRR "
+          f"{app['test_mrr']:.4g}, ceiling {app['truth_mrr']:.4f}, launches "
+          f"{app_launches}, peak {app['peak_mem_gib']:.2f} GiB", flush=True)
+    print("phase 5: host seconds inside: " + "; ".join(
+        f"{k} {v:.3f}" for k, v in app["host_seconds"].items()), flush=True)
+    hr = phase_host_routes(K)
+    f = hr["full"]
+    print(f"phase 6: host routes: generation {f['gen_s']:.2f} s, epoch "
+          f"{f['epoch_s'][0]:.3f} s ({10 * B / f['epoch_s'][0]:.0f} "
+          f"triples/s), eval {[round(t, 3) for t in f['eval_s']]} s, loss "
+          f"{f['epoch_losses']}, MRR {f['mrr']:.4g}, launches "
+          f"{hr['full_launches']}; small config losses cuda "
+          f"{hr['small_losses_cuda']} vs cpu {hr['small_losses_cpu']}, MRR "
+          f"{hr['small_mrr_cuda']:.4f} vs {hr['small_mrr_cpu']:.4f}, count "
+          f"diff {hr['count_diff']} within {hr['ties']} near-ties",
           flush=True)
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
@@ -421,9 +741,15 @@ def main(argv):
                                   "adapm_tpu/ops/pallas_kernels.py:76"),
                "ordered_scatter_add": ("adapm_tpu_torch/csrc/"
                                        "ordered_scatter.cu",
-                                       "adapm_tpu/device/jaxport.py:95")}
+                                       "adapm_tpu/device/jaxport.py:95"),
+               "pool_eval_counts": ("adapm_tpu_torch/csrc/"
+                                    "pool_eval_counts.cu",
+                                    "adapm_tpu/models/kge.py:238")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
-                    replaces=sources[n][1], launches=launches[n],
+                    replaces=sources[n][1], launches=app_launches[n],
+                    launches_by_path=dict(
+                        step=step_launches[n], app=app_launches[n],
+                        host_routes=hr["full_launches"][n]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"])
@@ -431,10 +757,11 @@ def main(argv):
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
-        with open(json_path, "w") as f:
-            json.dump({"card": smi, "kernels": kernels, "main_path": mp,
-                       "replica_launches": used, "build_s": build_s}, f,
-                      indent=1)
+        with open(json_path, "w") as fh:
+            json.dump({"card": smi, "kernels": kernels, "timings": rec,
+                       "main_path": mp, "replica_launches": used,
+                       "app": app, "host_routes": hr, "build_s": build_s},
+                      fh, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,10 +24,12 @@ import adapm_tpu
 import adapm_tpu_torch
 from adapm_tpu.models import make_kge_loss as jax_loss
 from adapm_tpu.ops import DeviceRoutedRunner as JaxRunner
+from adapm_tpu.ops import FusedStepRunner as JaxHostRunner
 from adapm_tpu.parallel.mesh import make_mesh
 from adapm_tpu_torch.device.context import make_context
 from adapm_tpu_torch.models import make_kge_loss as torch_loss
 from adapm_tpu_torch.ops.fused import DeviceRoutedRunner as TorchRunner
+from adapm_tpu_torch.ops.fused import FusedStepRunner as TorchHostRunner
 from adapm_tpu_torch.weights import from_jax_arrays
 
 E, R, d, B, N, S = 96, 8, 4, 12, 3, 8
@@ -118,6 +120,83 @@ def test_fused_step_matches_jax_one_then_twenty_steps(variant):
     j.quiesce()
     t.quiesce()
     _check_pools(j, t, "after quiesce")
+
+
+@pytest.mark.parametrize("variant", ["owners", "replicas"])
+def test_host_routed_step_matches_jax(variant):
+    """FusedStepRunner (host routes, K1 cache+delta form, K3 main then
+    delta per role) against the JAX runner: both workers step on their
+    own shard with the same keys and negatives."""
+    tech = "replication_only" if variant == "replicas" else "all"
+    j, t, wj, wt = _servers(tech)
+    rc = {k: 0 for k in ROLES}
+    rd = {k: 2 * d for k in ROLES}
+    rj = JaxHostRunner(j, jax_loss("complex"), role_class=rc, role_dim=rd)
+    rt = TorchHostRunner(t, torch_loss("complex"), role_class=rc,
+                         role_dim=rd)
+    if variant == "replicas":
+        _replicate_on_shard0(j, t, wj, wt, np.arange(0, E + R, 3))
+    rng = np.random.default_rng(4)
+    losses_j, losses_t = [], []
+    for step in range(12):
+        b = _batch(rng)
+        shard = step % 2
+        losses_j.append(float(rj(b, None, 0.1, shard=shard)))
+        losses_t.append(float(rt(b, None, 0.1, shard=shard)))
+        if step == 0:
+            _check_pools(j, t, "after one step")
+        if step % 4 == 3:
+            j.sync.run_round(all_channels=True)
+            t.sync.run_round(all_channels=True)
+    _check_pools(j, t, "after 12 steps")
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-5)
+    assert rt.n_remote == rj.n_remote and rt.steps == rj.steps == 12
+    j.quiesce()
+    t.quiesce()
+    _check_pools(j, t, "after quiesce")
+
+
+def test_alias_drawn_negatives_snap_to_local_keys():
+    """neg_alias: a Vose draw over the population, each candidate snapped
+    to the next locally-resident key (searchsorted, wrapping)."""
+    from adapm_tpu_torch.models.sgns import build_alias_table
+    t = adapm_tpu_torch.Server(E + R, 4 * d, ctx=make_context(S, "cpu"),
+                               opts=adapm_tpu_torch.SystemOptions(
+                                   sync_max_per_sec=0))
+    w = t.make_worker(0)
+    w.wait(w.set(np.arange(E + R), np.full((E + R, 4 * d), 0.1,
+                                           np.float32)))
+    weights = np.arange(1, E + 1, dtype=np.float64)
+    prob, alias = build_alias_table(weights, power=1.0)
+    rc = {k: 0 for k in ROLES}
+    runner = TorchRunner(t, torch_loss("complex"), role_class=rc,
+                         role_dim={k: 2 * d for k in ROLES}, shard=0,
+                         neg_role="neg", neg_shape=(B, N),
+                         neg_population=np.arange(E),
+                         neg_alias=(prob, alias), seed=9)
+    b = {k: v for k, v in _batch(np.random.default_rng(2)).items()
+         if k != "neg"}
+    runner(b, None, 0.1)
+    idx, count = runner._local_neg_index()
+    local = np.nonzero(t.ab.owner[:E] == 0)[0]
+    # replay the draw from the runner's seed
+    g = torch.Generator().manual_seed(9)
+    u = torch.randint(0, E, (B, N), generator=g).numpy()
+    v = torch.rand((B, N), generator=g).numpy()
+    cand = np.where(v < prob[u], u, alias[u])
+    pos = np.searchsorted(local, cand)
+    snapped = local[np.where(pos >= count, 0, pos)]
+    assert np.isin(snapped, local).all()
+    # the draw follows the weights: the heavier half dominates
+    many = torch.Generator().manual_seed(1)
+    from adapm_tpu_torch.ops.fused import _draw_negatives
+    tables = tuple(torch.as_tensor(x) for x in
+                   (prob, alias, np.arange(E, dtype=np.int32)))
+    draws = _draw_negatives((20000,), None, tables, many).numpy()
+    assert (draws >= E // 2).mean() > 0.7
+    snapped_t = _draw_negatives((B, N), (idx, count), tables,
+                                torch.Generator().manual_seed(9)).numpy()
+    np.testing.assert_array_equal(snapped_t, snapped)
 
 
 def test_device_drawn_negatives_lie_in_local_index():

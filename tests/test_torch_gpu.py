@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions (adapm_tpu_torch/ops/kernels.py) — bitwise for K1 and K3, within
-rtol 1e-5 for K2 (CUDA's rsqrt vs the CPU's 1/sqrt) — plus a small fused
-step on cuda against the same step on cpu.
+rtol 1e-5 for K2 (CUDA's rsqrt vs the CPU's 1/sqrt), K4's counts equal on
+integer-valued data (every summation order gives the same f32 sums) and
+within the near-tie rule on random data — plus a small fused step on
+cuda against the same step on cpu.
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -90,6 +92,57 @@ def test_adagrad_both_forms(cuda):
     torch.testing.assert_close(ge.cpu(), re, rtol=1e-4, atol=1e-6)
 
 
+def _k4_case(rng, dev, B, K, L, E=700, C=256, integer=False):
+    S, R = 2, 400
+    nk = E + 10
+    flat = rng.permutation(S * R)[:nk]
+    owner = torch.from_numpy((flat // R).astype(np.int32))
+    slot = torch.from_numpy((flat % R).astype(np.int32))
+    if integer:
+        pool = torch.from_numpy(rng.integers(-4, 5, (S, R, L))).float()
+        q_o, q_s = (torch.from_numpy(rng.integers(-3, 4, (B, K))).float()
+                    for _ in range(2))
+    else:
+        pool = torch.randn(S, R, L)
+        q_o, q_s = torch.randn(B, K), torch.randn(B, K)
+    nch = -(-E // C)
+    pad = np.zeros(nch * C, np.int32)
+    pad[:E] = rng.permutation(E)
+    keys = torch.from_numpy(pad.reshape(nch, C))
+    okey = torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
+    skey = torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
+    # true scores of real candidates: exact ties on integer data
+    rows = pool[owner[okey.long()].long(), slot[okey.long()].long(), :K]
+    true = (q_o * rows).sum(1)
+    args = [pool, owner, slot, keys, E, q_o, q_s, true, okey, skey]
+    return args, [a.to(dev) if torch.is_tensor(a) else a for a in args]
+
+
+@pytest.mark.parametrize("B,Kd,L", [(64, 256, 512), (150, 16, 32),
+                                    (37, 7, 9), (5, 130, 130)])
+def test_pool_eval_counts_exact_on_integers(cuda, B, Kd, L):
+    """Vector and scalar staging, several query blocks, K not a
+    multiple of the 32-column chunk, a padded candidate tail."""
+    rng = np.random.default_rng(Kd)
+    ref_args, dev_args = _k4_case(rng, cuda, B, Kd, L, integer=True)
+    ref = K.pool_eval_counts(*ref_args)
+    got = K.pool_eval_counts(*dev_args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    assert int(ref[0].sum()) > 0
+
+
+def test_pool_eval_counts_near_ties(cuda):
+    rng = np.random.default_rng(1)
+    ref_args, dev_args = _k4_case(rng, cuda, 64, 256, 512)
+    g_o, g_s = K.pool_eval_counts(*dev_args, parts=2)
+    p_o, p_s, t_o, t_s = K.pool_eval_counts_plain(*ref_args, parts=2,
+                                                  ties=True)
+    assert ((g_o.cpu() - p_o).abs() <= t_o).all()
+    assert ((g_s.cpu() - p_s).abs() <= t_s).all()
+
+
 def test_wrappers_raise_on_bad_cuda_input(cuda):
     pool = torch.zeros(2, 4, 8, device=cuda)
     idx = torch.zeros(3, dtype=torch.int64, device=cuda)
@@ -98,6 +151,11 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
     with pytest.raises(ValueError):
         K.ordered_scatter_add(pool.double(), idx.int(), idx.int(),
                               torch.zeros(3, 8, device=cuda))
+    q = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(ValueError):                       # int64 keys
+        K.pool_eval_counts(pool, idx.int(), idx.int(), idx.view(1, 3), 3,
+                           q, q, q[:, 0].contiguous(), idx.int()[:2],
+                           idx.int()[:2])
 
 
 def test_small_fused_steps_cuda_match_cpu(cuda):
