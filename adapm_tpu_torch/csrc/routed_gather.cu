@@ -16,91 +16,193 @@
 // With cache == nullptr the kernel is the main-only form (the
 // no-replica step variant and every plain fill-gather of a pool).
 //
+// A call takes an ordered list of coordinate segments (the roles of one
+// pool class) and writes one [sum n, L] output, segment after segment:
+// one launch per pool class per training step.
+//
 // Bound on an H100: bytes. Each output row reads one (or two) pool rows
-// and writes one row; there is no arithmetic to speak of. Design: one
-// warp per output row, 16-byte vector loads along the row when the row
-// length allows them, so a warp moves 512 contiguous bytes per step.
+// and writes one row; there is no arithmetic to speak of. Design: each
+// warp moves kRows = 2 rows. Its first lanes read the rows' coordinates
+// and resolve their sources; the warp then issues the 16-byte loads of
+// both rows (4 float4 per lane for a 512-float row) before the first
+// store, so two rows are in flight per warp, and stores with the
+// streaming hint (the output is read once, by the next operation).
+// Blocks of 8 warps are scheduled by the hardware: at the fused step's
+// 143,360 rows of 512 f32 (chip_smoke.py phase 2, NVIDIA H100 80GB
+// HBM3, 700 W) a persistent grid sized to the card, each warp walking
+// 32-row windows with 4 rows in flight, took 0.2118 ms against
+// index_select's 0.2018 in the same run: a warp that owns many rows
+// leaves the card's tail ragged. The whole batch is read from device
+// memory either way (its duplicate rows rarely stay in L2), so the
+// kernel runs at the rate of that traffic, level with index_select
+// (PERF.md). Rows whose length is not a multiple of 4 (or unaligned
+// pools) take the same kernel with 4-byte elements; longer rows loop
+// over column blocks of 128 elements.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;  // rows per 256-thread block
+constexpr int kMaxSeg = 8;   // segments per call (the wrapper packs more)
+constexpr int kWarps = 8;    // warps per block
+constexpr int kRows = 2;     // rows per warp, in flight together
+constexpr int kNV = 4;       // elements per lane per column block
 
-__device__ __forceinline__ const float* row_or_null(
-    const float* pool, int sh, int sl, int shards, int slots, int L) {
-  if (pool == nullptr || sh < 0 || sh >= shards || sl < 0 || sl >= slots)
-    return nullptr;
-  return pool + ((long long)sh * slots + sl) * (long long)L;
+struct Segments {
+  const int* o_sh[kMaxSeg];
+  const int* o_sl[kMaxSeg];
+  const int* c_sh[kMaxSeg];
+  const int* c_sl[kMaxSeg];
+  const unsigned char* use_c[kMaxSeg];
+  long long end[kMaxSeg];    // cumulative ends
+  int count;
+};
+
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
 }
 
-template <bool kVec>
-__global__ void routed_gather_kernel(
-    const float* __restrict__ main_pool, const float* __restrict__ cache,
-    const float* __restrict__ delta, const int* __restrict__ o_sh,
-    const int* __restrict__ o_sl, const int* __restrict__ c_sh,
-    const int* __restrict__ c_sl, const unsigned char* __restrict__ use_c,
-    float* __restrict__ out, long long n, int shards, int slots,
-    int c_shards, int c_slots, int L) {
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n) return;
+__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// kFull: the cache+delta form.
+template <typename T, bool kFull>
+__global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
+    const T* __restrict__ main_pool, const T* __restrict__ cache,
+    const T* __restrict__ delta, Segments segs, T* __restrict__ out,
+    long long n, int shards, int slots, int c_shards, int c_slots, int W) {
   const int lane = threadIdx.x & 31;
-  const float* a;
-  const float* b = nullptr;
-  if (use_c != nullptr && use_c[row]) {
-    a = row_or_null(cache, c_sh[row], c_sl[row], c_shards, c_slots, L);
-    if (a != nullptr) b = delta + (a - cache);
-  } else {
-    a = row_or_null(main_pool, o_sh[row], o_sl[row], shards, slots, L);
+  const long long r0 =
+      (((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * kRows;
+  // lane g < kRows resolves row r0 + g: its source row offset (-1: a
+  // zero row) and pool
+  long long src = -2;                         // -2: past the batch
+  bool from_c = false;
+  const long long r = r0 + lane;
+  if (lane < kRows && r < n) {
+    int s = 0;
+    long long start = 0;
+    while (s + 1 < segs.count && r >= segs.end[s]) start = segs.end[s++];
+    const long long k = r - start;
+    src = -1;
+    if (kFull && segs.use_c[s][k]) {
+      from_c = true;
+      const int sh = segs.c_sh[s][k], sl = segs.c_sl[s][k];
+      if (sh >= 0 && sh < c_shards && sl >= 0 && sl < c_slots)
+        src = ((long long)sh * c_slots + sl) * W;
+    } else {
+      const int sh = segs.o_sh[s][k], sl = segs.o_sl[s][k];
+      if (sh >= 0 && sh < shards && sl >= 0 && sl < slots)
+        src = ((long long)sh * slots + sl) * W;
+    }
   }
-  float* o = out + row * (long long)L;
-  if (kVec) {
-    const int L4 = L >> 2;
-    const float4* a4 = reinterpret_cast<const float4*>(a);
-    const float4* b4 = reinterpret_cast<const float4*>(b);
-    float4* o4 = reinterpret_cast<float4*>(o);
-    for (int c = lane; c < L4; c += 32) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (a != nullptr) {
-        v = __ldg(a4 + c);
-        if (b != nullptr) {
-          const float4 w = __ldg(b4 + c);
-          v.x = __fadd_rn(v.x, w.x);
-          v.y = __fadd_rn(v.y, w.y);
-          v.z = __fadd_rn(v.z, w.z);
-          v.w = __fadd_rn(v.w, w.w);
+  long long gsrc[kRows];
+  bool gc[kRows];
+#pragma unroll
+  for (int g = 0; g < kRows; ++g) {
+    gsrc[g] = __shfl_sync(~0u, src, g);
+    gc[g] = __shfl_sync(~0u, (int)from_c, g) != 0;
+  }
+  for (int cb = 0; cb < W; cb += 32 * kNV) {
+    T va[kRows][kNV];
+    T vb[kFull ? kRows : 1][kNV];
+    // every load of the warp's rows first ...
+#pragma unroll
+    for (int g = 0; g < kRows; ++g) {
+#pragma unroll
+      for (int k = 0; k < kNV; ++k) {
+        const int c = cb + k * 32 + lane;
+        va[g][k] = zero<T>();
+        if (kFull) vb[kFull ? g : 0][k] = zero<T>();
+        if (gsrc[g] >= 0 && c < W) {
+          if (kFull && gc[g]) {
+            va[g][k] = __ldg(cache + gsrc[g] + c);
+            vb[kFull ? g : 0][k] = __ldg(delta + gsrc[g] + c);
+          } else {
+            va[g][k] = __ldg(main_pool + gsrc[g] + c);
+          }
         }
       }
-      o4[c] = v;
     }
-  } else {
-    for (int c = lane; c < L; c += 32) {
-      float v = 0.f;
-      if (a != nullptr) {
-        v = __ldg(a + c);
-        if (b != nullptr) v = __fadd_rn(v, __ldg(b + c));
+    // ... then the stores
+#pragma unroll
+    for (int g = 0; g < kRows; ++g) {
+      if (gsrc[g] == -2) continue;
+      T* o = out + (r0 + g) * (long long)W;
+#pragma unroll
+      for (int k = 0; k < kNV; ++k) {
+        const int c = cb + k * 32 + lane;
+        if (c >= W) continue;
+        T v = va[g][k];
+        if (kFull && gc[g] && gsrc[g] >= 0)
+          v = add_rn(v, vb[kFull ? g : 0][k]);
+        __stcs(o + c, v);
       }
-      o[c] = v;
     }
   }
+}
+
+template <typename T>
+int launch(const T* main_pool, const T* cache, const T* delta,
+           const Segments& segs, T* out, long long n, int shards, int slots,
+           int c_shards, int c_slots, int W, cudaStream_t stream) {
+  const long long rows_per_block = (long long)kWarps * kRows;
+  const unsigned blocks = (unsigned)((n + rows_per_block - 1) /
+                                     rows_per_block);
+  if (cache != nullptr)
+    routed_gather_kernel<T, true><<<blocks, kWarps * 32, 0, stream>>>(
+        main_pool, cache, delta, segs, out, n, shards, slots, c_shards,
+        c_slots, W);
+  else
+    routed_gather_kernel<T, false><<<blocks, kWarps * 32, 0, stream>>>(
+        main_pool, cache, delta, segs, out, n, shards, slots, c_shards,
+        c_slots, W);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Segment s has sizes[s] rows and coordinate arrays o_sh[s], o_sl[s]
+// (and c_sh[s], c_sl[s], use_c[s] when cache != nullptr); out is
+// [sum sizes, L]. vec: L % 4 == 0 and every pool and out 16-byte aligned.
 extern "C" int adapm_routed_gather(
     const float* main_pool, const float* cache, const float* delta,
-    const int* o_sh, const int* o_sl, const int* c_sh, const int* c_sl,
-    const unsigned char* use_c, float* out, long long n, int shards,
-    int slots, int c_shards, int c_slots, int L, int vec,
-    cudaStream_t stream) {
+    const int* const* o_sh, const int* const* o_sl, const int* const* c_sh,
+    const int* const* c_sl, const unsigned char* const* use_c,
+    const long long* sizes, int nseg, float* out, int shards, int slots,
+    int c_shards, int c_slots, int L, int vec, cudaStream_t stream) {
+  if (nseg < 1 || nseg > kMaxSeg) return (int)cudaErrorInvalidValue;
+  Segments segs{};
+  long long n = 0;
+  for (int s = 0; s < nseg; ++s) {
+    segs.o_sh[s] = o_sh[s];
+    segs.o_sl[s] = o_sl[s];
+    if (cache != nullptr) {
+      segs.c_sh[s] = c_sh[s];
+      segs.c_sl[s] = c_sl[s];
+      segs.use_c[s] = use_c[s];
+    }
+    n += sizes[s];
+    segs.end[s] = n;
+  }
+  segs.count = nseg;
   if (n <= 0) return 0;
-  const long long blocks = (n + kWarps - 1) / kWarps;
   if (vec)
-    routed_gather_kernel<true><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
-        main_pool, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c, out, n,
-        shards, slots, c_shards, c_slots, L);
-  else
-    routed_gather_kernel<false><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
-        main_pool, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c, out, n,
-        shards, slots, c_shards, c_slots, L);
-  return (int)cudaGetLastError();
+    return launch<float4>(reinterpret_cast<const float4*>(main_pool),
+                          reinterpret_cast<const float4*>(cache),
+                          reinterpret_cast<const float4*>(delta), segs,
+                          reinterpret_cast<float4*>(out), n, shards, slots,
+                          c_shards, c_slots, L / 4, stream);
+  return launch<float>(main_pool, cache, delta, segs, out, n, shards, slots,
+                       c_shards, c_slots, L, stream);
 }

@@ -8,6 +8,13 @@ PyTorch version.
     K4 pool_eval_counts     csrc/pool_eval_counts.cu (XLA: models/kge.py
                                                      make_pool_eval_counts)
 
+K1 and K3 also take an ordered list of coordinate segments, one per
+role of a pool class (`routed_gather_segments`,
+`ordered_scatter_add_segments`): one launch folds them as one batch in
+list order, so the fused step launches each once per class per step.
+K3 splits into its ordering pass (`ordered_scatter_order`: flat targets
+and a stable sort) and its fold (`ordered_scatter_fold`).
+
 Every wrapper takes CUDA tensors to its kernel and CPU tensors to its
 plain version; there is no fallback between the two. A wrapper checks
 device, dtype, shape and contiguity, launches on the current stream,
@@ -40,6 +47,10 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
 # reads them to show the main path went through the kernels)
 LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
                             "ordered_scatter_add": 0, "pool_eval_counts": 0}
+
+# segments one K1/K3 launch takes (kMaxSeg in the sources); the wrappers
+# join any beyond it into the last
+MAX_SEGMENTS = 8
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -108,15 +119,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_float
     if name == "routed_gather":
         lib.adapm_routed_gather.restype = I
-        lib.adapm_routed_gather.argtypes = [P] * 9 + [LL] + [I] * 6 + [P]
+        lib.adapm_routed_gather.argtypes = [P] * 9 + [I, P] + [I] * 6 + [P]
     elif name == "adagrad":
         lib.adapm_adagrad_update.restype = I
         lib.adapm_adagrad_update.argtypes = [P, P, LL, P, LL, I, F, F, I, P]
         lib.adapm_adagrad_apply.restype = I
         lib.adapm_adagrad_apply.argtypes = [P] * 5 + [LL, F, F, P]
     elif name == "ordered_scatter":
-        lib.adapm_ordered_scatter_add.restype = I
-        lib.adapm_ordered_scatter_add.argtypes = [P] * 4 + [LL, LL, I, I, P]
+        lib.adapm_flat_targets.restype = I
+        lib.adapm_flat_targets.argtypes = [P, P, P, I, P, I, I, P]
+        lib.adapm_ordered_fold.restype = I
+        lib.adapm_ordered_fold.argtypes = [P] * 4 + [LL, I, I, I, P]
     else:
         lib.adapm_pool_eval_counts.restype = I
         lib.adapm_pool_eval_counts.argtypes = [P, I, I, I, I, P, P, LL, P, LL,
@@ -192,43 +205,92 @@ def routed_gather_plain(main, cache, delta, o_sh, o_sl, c_sh=None,
     return torch.where(use_c[:, None], c, m)
 
 
+def _cat_segments(segments):
+    """The segments' coordinate tuples joined into one (batch order:
+    segment order, then position)."""
+    if len(segments) == 1:
+        return tuple(segments[0])
+    return tuple(torch.cat([p.reshape(-1) for p in parts])
+                 for parts in zip(*segments))
+
+
+def _pack_segments(segments):
+    """At most MAX_SEGMENTS segments (the kernels' table size): the tail
+    beyond it is joined into the last one."""
+    segments = [tuple(s) for s in segments]
+    if len(segments) <= MAX_SEGMENTS:
+        return segments
+    return segments[:MAX_SEGMENTS - 1] + [
+        _cat_segments(segments[MAX_SEGMENTS - 1:])]
+
+
+def _ptr_table(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
 def routed_gather(main, cache, delta, o_sh, o_sl, c_sh=None, c_sl=None,
                   use_c=None) -> torch.Tensor:
     """out[i] = use_c[i] ? fill(cache+delta)[c_sh, c_sl] : fill(main)[o_sh,
     o_sl] over [S, slots, L] f32 pools and [n] int32 coordinates;
     `cache is None` is the main-only form. Returns a new [n, L]."""
+    seg = (o_sh, o_sl) + ((c_sh, c_sl, use_c) if cache is not None else ())
+    return routed_gather_segments(main, cache, delta, [seg])
+
+
+def routed_gather_segments_plain(main, cache, delta,
+                                 segments) -> torch.Tensor:
+    """The plain version of the multi-segment K1: the plain gather of the
+    joined coordinates."""
+    return routed_gather_plain(main, cache, delta,
+                               *_cat_segments(segments))
+
+
+def routed_gather_segments(main, cache, delta, segments) -> torch.Tensor:
+    """K1 over an ordered list of coordinate segments (the roles of one
+    pool class) in one launch: each segment is (o_sh, o_sl) in the
+    main-only form (`cache is None`), else (o_sh, o_sl, c_sh, c_sl,
+    use_c), each of them [n_s]. Returns a new [sum n_s, L]; segment s's
+    rows are the row slice after the earlier segments'."""
     full = cache is not None
-    idx = (o_sh, o_sl) + ((c_sh, c_sl, use_c) if full else ())
-    if not _on_cuda(main, cache, delta, *idx):
-        return routed_gather_plain(main, cache, delta, o_sh, o_sl, c_sh,
-                                   c_sl, use_c)
+    width = 5 if full else 2
+    _require(len(segments) > 0 and all(len(s) == width for s in segments),
+             f"routed_gather: segments must be {width}-tuples of "
+             "coordinates")
+    if not _on_cuda(main, cache, delta, *[t for s in segments for t in s]):
+        return routed_gather_segments_plain(main, cache, delta, segments)
     S, R, L = main.shape
-    n = o_sh.numel()
     for t in (main,) + ((cache, delta) if full else ()):
         _require(t.dtype == torch.float32 and t.dim() == 3
                  and t.is_contiguous() and t.shape[-1] == L,
                  "routed_gather: pools must be contiguous f32 [S, slots, L]")
-    for t in idx[:4] if full else idx:
-        _require(t.dtype == torch.int32 and t.dim() == 1
-                 and t.numel() == n and t.is_contiguous(),
-                 "routed_gather: coordinates must be contiguous int32 [n]")
+    for seg in segments:
+        n_s = seg[0].numel()
+        for t in seg[:4]:
+            _require(t.dtype == torch.int32 and t.dim() == 1
+                     and t.numel() == n_s and t.is_contiguous(),
+                     "routed_gather: coordinates must be contiguous int32 "
+                     "[n]")
+        if full:
+            _require(seg[4].dtype == torch.bool and seg[4].numel() == n_s
+                     and seg[4].is_contiguous(),
+                     "routed_gather: use_c must be contiguous bool [n]")
     cS = cR = 0
     if full:
-        _require(use_c.dtype == torch.bool and use_c.numel() == n
-                 and use_c.is_contiguous(),
-                 "routed_gather: use_c must be contiguous bool [n]")
         _require(cache.shape == delta.shape,
                  "routed_gather: cache and delta shapes differ")
         cS, cR = cache.shape[0], cache.shape[1]
+    n = sum(s[0].numel() for s in segments)
     out = torch.empty((n, L), dtype=torch.float32, device=main.device)
     if n == 0:
         return out
+    segs = _pack_segments(segments)
+    cols = list(zip(*segs))
+    tables = [_ptr_table(c) for c in cols] + [None] * (5 - len(cols))
+    sizes = (ctypes.c_longlong * len(segs))(*[s[0].numel() for s in segs])
     vec = int(L % 4 == 0 and _aligned16(main, cache, delta, out))
     rc = _lib("routed_gather").adapm_routed_gather(
-        _ptr(main), _ptr(cache), _ptr(delta), _ptr(o_sh), _ptr(o_sl),
-        _ptr(c_sh) if full else None, _ptr(c_sl) if full else None,
-        _ptr(use_c) if full else None, _ptr(out), n, S, R, cS, cR, L, vec,
-        _stream())
+        _ptr(main), _ptr(cache), _ptr(delta), *tables, sizes, len(segs),
+        _ptr(out), S, R, cS, cR, L, vec, _stream())
     LAUNCHES["routed_gather"] += 1
     _check(rc, "routed_gather")
     return out
@@ -248,13 +310,22 @@ def adagrad_update_plain(g: torch.Tensor, acc: torch.Tensor, lr: float,
 
 
 def adagrad_update(g: torch.Tensor, acc: torch.Tensor, lr: float,
-                   eps: float) -> torch.Tensor:
+                   eps: float, out: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Delta row of the fused step: [-lr*g*rsqrt(acc + g^2 + eps) | g^2]
     for g [n, D] and acc [n, D] (acc may be the accumulator half of the
     gathered [n, 2D] rows: only its last dim must be contiguous).
-    Returns a new [n, 2D]."""
-    if not _on_cuda(g, acc):
-        return adagrad_update_plain(g, acc, lr, eps)
+    Writes into `out` (a contiguous f32 [n, 2D], e.g. a row slice of the
+    step's update buffer) when given, else into a new [n, 2D]; returns
+    it."""
+    if out is not None:
+        _require(out.dtype == torch.float32 and out.is_contiguous()
+                 and g.dim() == 2
+                 and tuple(out.shape) == (g.shape[0], 2 * g.shape[1]),
+                 "adagrad_update: out must be contiguous f32 [n, 2D]")
+    if not _on_cuda(g, acc, out):
+        upd = adagrad_update_plain(g, acc, lr, eps)
+        return upd if out is None else out.copy_(upd)
     _require(g.dtype == torch.float32 and acc.dtype == torch.float32,
              "adagrad_update: f32 only")
     _require(g.dim() == 2 and acc.shape == g.shape,
@@ -262,7 +333,8 @@ def adagrad_update(g: torch.Tensor, acc: torch.Tensor, lr: float,
     _require(g.is_contiguous() and acc.stride(1) == 1,
              "adagrad_update: g must be contiguous and acc row-major")
     n, D = g.shape
-    upd = torch.empty((n, 2 * D), dtype=torch.float32, device=g.device)
+    upd = out if out is not None else torch.empty(
+        (n, 2 * D), dtype=torch.float32, device=g.device)
     if n == 0:
         return upd
     vec = int(D % 4 == 0 and acc.stride(0) % 4 == 0
@@ -308,28 +380,62 @@ def adagrad_apply(g: torch.Tensor, emb: torch.Tensor, acc: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _flat_targets(pool: torch.Tensor, sh: torch.Tensor,
-                  sl: torch.Tensor) -> torch.Tensor:
-    """Flat row index per entry; out-of-range entries get S*R (one past
-    the last row), which the scatter drops."""
+def _flat_targets_plain(pool: torch.Tensor, sh: torch.Tensor,
+                        sl: torch.Tensor) -> torch.Tensor:
+    """Flat row index per entry (int64); out-of-range entries get S*R
+    (one past the last row), which the scatter drops."""
     S, R, _ = pool.shape
     sh, sl = sh.long(), sl.long()
     ok = (sh >= 0) & (sh < S) & (sl >= 0) & (sl < R)
     return torch.where(ok, sh * R + sl, torch.full_like(sh, S * R))
 
 
-def ordered_scatter_add_plain(pool, sh, sl, vals) -> None:
-    """The plain version of K3: the same sorted runs, folded one
+def ordered_scatter_order(pool: torch.Tensor, segments):
+    """K3's ordering pass over the joined (sh, sl) segments: the flat
+    targets (int32 on the card), stably sorted, and the int64 permutation
+    that sorts them. Ordering, not arithmetic: each target's occurrences
+    become one run that keeps batch order; out-of-range entries (target
+    S*R) sort last. The flat targets come from the `flat_targets` kernel
+    on the card; the sort is torch.sort."""
+    _require(len(segments) > 0 and all(len(s) == 2 for s in segments),
+             "ordered_scatter_add: segments must be (sh, sl) pairs")
+    if not _on_cuda(pool, *[t for s in segments for t in s]):
+        flat = _flat_targets_plain(pool, *_cat_segments(segments))
+        return torch.sort(flat, stable=True)
+    S, R, _ = pool.shape
+    _require(S * R < 2**31 - 1,
+             "ordered_scatter_add: the pool has too many rows for int32 "
+             "targets")
+    for sh, sl in segments:
+        _require(sh.dtype == torch.int32 and sl.dtype == torch.int32
+                 and sl.numel() == sh.numel()
+                 and sh.is_contiguous() and sl.is_contiguous(),
+                 "ordered_scatter_add: coordinates must be contiguous "
+                 "int32 [n]")
+    segs = _pack_segments(segments)
+    n = sum(s[0].numel() for s in segs)
+    flat = torch.empty(n, dtype=torch.int32, device=pool.device)
+    if n:
+        sh, sl = zip(*segs)
+        sizes = (ctypes.c_longlong * len(segs))(*[t.numel() for t in sh])
+        rc = _lib("ordered_scatter").adapm_flat_targets(
+            _ptr_table(sh), _ptr_table(sl), sizes, len(segs), _ptr(flat),
+            S, R, _stream())
+        _check(rc, "ordered_scatter_add (flat targets)")
+    return torch.sort(flat, stable=True)
+
+
+def ordered_scatter_fold_plain(pool, sf, perm, vals) -> None:
+    """The plain version of K3's fold: the sorted runs folded one
     occurrence rank at a time (the k-th occurrences of all targets are
     distinct rows, so each rank is one duplicate-free indexed add)."""
     S, R, L = pool.shape
-    flat = _flat_targets(pool, sh, sl)
-    n = flat.numel()
+    n = sf.numel()
     if n == 0:
         return
-    sf, perm = torch.sort(flat, stable=True)
-    pos = torch.arange(n, device=flat.device)
-    head = torch.ones(n, dtype=torch.bool, device=flat.device)
+    sf = sf.long()
+    pos = torch.arange(n, device=sf.device)
+    head = torch.ones(n, dtype=torch.bool, device=sf.device)
     head[1:] = sf[1:] != sf[:-1]
     run_start = torch.cummax(torch.where(head, pos, torch.zeros_like(pos)),
                              dim=0).values
@@ -342,34 +448,73 @@ def ordered_scatter_add_plain(pool, sh, sl, vals) -> None:
         rows[t] = rows[t] + vals[perm[sel]]
 
 
-def ordered_scatter_add(pool: torch.Tensor, sh: torch.Tensor,
-                        sl: torch.Tensor, vals: torch.Tensor) -> None:
-    """In place: pool[sh[i], sl[i]] += vals[i] for every in-range entry,
-    duplicates folded in batch order (np.add.at). pool [S, R, L] f32,
-    sh/sl [n] int32, vals [n, L] f32."""
-    if not _on_cuda(pool, sh, sl, vals):
-        return ordered_scatter_add_plain(pool, sh, sl, vals)
+def ordered_scatter_fold(pool: torch.Tensor, sf: torch.Tensor,
+                         perm: torch.Tensor, vals: torch.Tensor) -> None:
+    """K3's fold, in place, given its ordering pass (ordered_scatter_order):
+    every run of equal in-range targets adds its value rows into the
+    stored row in run order."""
+    if not _on_cuda(pool, sf, perm, vals):
+        return ordered_scatter_fold_plain(pool, sf, perm, vals)
     S, R, L = pool.shape
-    n = sh.numel()
+    n = sf.numel()
     _require(pool.dtype == torch.float32 and pool.is_contiguous(),
              "ordered_scatter_add: pool must be contiguous f32")
-    _require(sh.dtype == torch.int32 and sl.dtype == torch.int32
-             and sh.numel() == n and sl.numel() == n,
-             "ordered_scatter_add: coordinates must be int32 [n]")
+    _require(sf.dtype == torch.int32 and perm.dtype == torch.int64
+             and perm.numel() == n and sf.is_contiguous()
+             and perm.is_contiguous(),
+             "ordered_scatter_add: sorted targets must be int32 [n] and "
+             "the permutation int64 [n]")
     _require(vals.dtype == torch.float32 and vals.is_contiguous()
              and tuple(vals.shape) == (n, L),
              "ordered_scatter_add: vals must be contiguous f32 [n, L]")
     if n == 0:
         return
-    # ordering, not arithmetic: a stable sort groups each target's
-    # occurrences into one run that keeps batch order
-    sf, perm = torch.sort(_flat_targets(pool, sh, sl), stable=True)
     vec = int(L % 4 == 0 and _aligned16(pool, vals))
-    rc = _lib("ordered_scatter").adapm_ordered_scatter_add(
+    rc = _lib("ordered_scatter").adapm_ordered_fold(
         _ptr(pool), _ptr(sf), _ptr(perm), _ptr(vals), n, S * R, L, vec,
         _stream())
     LAUNCHES["ordered_scatter_add"] += 1
     _check(rc, "ordered_scatter_add")
+
+
+def ordered_scatter_add_plain(pool, sh, sl, vals) -> None:
+    """The plain version of K3 (any device)."""
+    sf, perm = torch.sort(_flat_targets_plain(pool, sh, sl), stable=True)
+    ordered_scatter_fold_plain(pool, sf, perm, vals)
+
+
+def ordered_scatter_add_segments_plain(pool, segments, vals) -> None:
+    """The plain version of the multi-segment K3: the plain scatter of the
+    joined coordinates."""
+    ordered_scatter_add_plain(pool, *_cat_segments(segments), vals)
+
+
+def ordered_scatter_add(pool: torch.Tensor, sh: torch.Tensor,
+                        sl: torch.Tensor, vals: torch.Tensor) -> None:
+    """In place: pool[sh[i], sl[i]] += vals[i] for every in-range entry,
+    duplicates folded in batch order (np.add.at). pool [S, R, L] f32,
+    sh/sl [n] int32, vals [n, L] f32."""
+    ordered_scatter_add_segments(pool, [(sh, sl)], vals)
+
+
+def ordered_scatter_add_segments(pool: torch.Tensor, segments,
+                                 vals: torch.Tensor) -> None:
+    """K3 over an ordered list of (sh, sl) coordinate segments (the
+    trainable roles of one pool class) and one [sum n_s, L] value buffer,
+    as one batch: bit for bit one ordered_scatter_add per segment, in
+    list order. One ordering pass and one fold launch."""
+    if not _on_cuda(pool, vals, *[t for s in segments for t in s]):
+        return ordered_scatter_add_segments_plain(pool, segments, vals)
+    _require(pool.dtype == torch.float32 and pool.is_contiguous(),
+             "ordered_scatter_add: pool must be contiguous f32")
+    n = sum(s[0].numel() for s in segments)
+    _require(vals.dtype == torch.float32 and vals.is_contiguous()
+             and tuple(vals.shape) == (n, pool.shape[-1]),
+             "ordered_scatter_add: vals must be contiguous f32 [n, L]")
+    if n == 0:
+        return
+    sf, perm = ordered_scatter_order(pool, segments)
+    ordered_scatter_fold(pool, sf, perm, vals)
 
 
 # ---------------------------------------------------------------------------

@@ -5,13 +5,21 @@ parameter manager at full width, checks a small replica run against the
 CPU, and runs the KGE application end to end on both routing paths.
 
     python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py --main-path-only   (phases 1 and 3, unchecked:
+        copied into an earlier tree of the port, it times that tree's
+        step the same way)
 
 Phases (any failure raises and exits non-zero):
   1. card name + power limit; build the kernels (nvcc, sm_90a).
   2. each kernel vs its plain version at the main path's shapes
      (K1 routed_gather: 143,360 rows of 512 f32, both forms, bitwise;
      K3 ordered_scatter_add: the same rows with zipf duplicates, bitwise
-     and deterministic over two runs; K2 adagrad_update: [143,360, 256]
+     and deterministic over two runs, timed as the whole wrapper, as its
+     fold alone (ordering done before the first event) and as its
+     ordering pass and torch.sort alone, and again on uniform keys of
+     the same n (the gap is the hot runs' tail); the multi-segment forms
+     of K1 and K3 bitwise at the step's four-role split
+     4,096 x 3 + 131,072; K2 adagrad_update: [143,360, 256]
      within tolerance; K4 pool_eval_counts: 64 queries against a
      200,000-entity pool in 65,536-key chunks: exact on integer-valued
      data, and ComplEx K=256 and RESCAL K=128 on random data under the
@@ -22,10 +30,13 @@ Phases (any failure raises and exits non-zero):
   3. the main path: setup(201,000 keys, 512) on cuda, slab fill, a
      DeviceRoutedRunner for ComplEx with on-device negatives (B=4096,
      N=32), warmup, then 32 steps of intent -> step -> sync round ->
-     advance_clock; launch counts of every kernel over the main path.
+     advance_clock; launch counts of every kernel over the main path,
+     checked per step (one K1, four K2, one K3: one launch per pool
+     class), and the profiler's device operations per step.
   4. replica phase: 2 virtual shards, two workers with competing
      intents (the replica step variant, K1's cache+delta form, K3 in the
-     sync merge), the same fused steps on cuda and on cpu within
+     sync merge; one K1 and two K3 per step, main then delta), the same
+     fused steps on cuda and on cpu within
      tolerance, then an add-only push/pull/set/sync sequence on both,
      bitwise.
   5. the KGE app (apps/knowledge_graph_embeddings.py, main's parse and
@@ -64,6 +75,13 @@ EVAL_B, EVAL_CHUNK = 64, 65_536          # the app's eval batch and chunk
 STEP_KERNELS = ("routed_gather", "adagrad_update", "ordered_scatter_add")
 L = 4 * D_MODEL                       # [emb 2d | adagrad 2d]
 ROWS = 3 * B + B * N                  # gathered rows per step: 143,360
+ROLE_SPLIT = [B, B, B, B * N]         # the step's four roles, one class
+# launches per main-path step (S=1, no replicas) and per replica step:
+# one K1 and one K3 per pool per class, K2 per trainable role
+STEP_LAUNCHES = {"routed_gather": 1, "adagrad_update": 4,
+                 "ordered_scatter_add": 1}
+REPLICA_STEP_LAUNCHES = {"routed_gather": 1, "adagrad_update": 4,
+                         "ordered_scatter_add": 2}
 STEPS, WARMUP = 32, 3
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM
 F32_FLOPS = 67e12                     # H100 SXM, outside the tensor cores
@@ -115,17 +133,20 @@ def device_breakdown(step, n):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    launches = 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         by_name[ev.key] = by_name.get(ev.key, 0.0) + \
             ev.self_device_time_total / 1e3
+        launches += ev.count
     busy_ms = sum(by_name.values())
     if busy_ms <= 0:
         return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return dict(wall_ms_per_step=wall_ms / n, device_ms_per_step=busy_ms / n,
                 busy_share=busy_ms / wall_ms,
+                device_ops_per_step=launches / n,
                 top_ms_per_step=[(_kernel_label(k), v / n) for k, v in top])
 
 
@@ -176,6 +197,16 @@ def phase_kernels(K, dev, rng):
     ref_f = K.routed_gather_plain(*full)
     check(torch.equal(got_f.view(torch.int32), ref_f.view(torch.int32)),
           "K1 cache+delta form differs from its plain version")
+    # multi-segment forms at the step's four-role split, one launch each
+    for pools, cols in (((main, None, None), (o_sh, o_sl)),
+                        ((main, cache, delta), full[3:])):
+        segs = list(zip(*[c.split(ROLE_SPLIT) for c in cols]))
+        segs = [tuple(t.contiguous() for t in s) for s in segs]
+        got_s = K.routed_gather_segments(*pools, segs)
+        ref_s = K.routed_gather_segments_plain(*pools, segs)
+        check(torch.equal(got_s.view(torch.int32), ref_s.view(torch.int32)),
+              f"K1 multi-segment form ({len(cols)} coordinate arrays) "
+              "differs from its plain version")
     n_main = int(torch.unique(o_sl.long()).numel())
     k1_bytes = n_main * L * 4 + ROWS * 4 * 2 + ROWS * L * 4
     flat = o_sl.long()
@@ -203,9 +234,28 @@ def phase_kernels(K, dev, rng):
     check(torch.equal(outs[0].view(torch.int32), ref_pool.view(torch.int32)),
           "K3 differs from its plain version (np.add.at order)")
     err3 = float((outs[0] - ref_pool).abs().max())
-    del outs, ref_pool
+    # the multi-segment form at the step's four-role split, one launch
+    segs = [(a.contiguous(), b.contiguous()) for a, b in
+            zip(o_sh.split(ROLE_SPLIT), o_sl.split(ROLE_SPLIT))]
+    pool = main.clone()
+    K.ordered_scatter_add_segments(pool, segs, vals)
+    check(torch.equal(pool.view(torch.int32), ref_pool.view(torch.int32)),
+          "K3 multi-segment form differs from its plain version")
+    del outs, ref_pool, pool
     scratch = main.clone()
     k3_bytes = ROWS * L * 4 + 2 * n_main * L * 4 + ROWS * 4 * 2
+    # the fold alone reads the sorted int32 targets and the int64
+    # permutation instead of the coordinates
+    fold_bytes = ROWS * L * 4 + 2 * n_main * L * 4 + ROWS * (4 + 8)
+    sf, perm = K.ordered_scatter_order(scratch, [(o_sh, o_sl)])
+    flat32 = sf.clone()[torch.argsort(perm)]      # unsorted int32 targets
+    longest = int(torch.unique_consecutive(sf, return_counts=True)[1].max())
+    # uniform keys of the same n: the gap to the zipf time is the tail
+    u_sl = torch.randint(0, E + R, (ROWS,), device=dev, dtype=torch.int32)
+    u_sf, _ = K.ordered_scatter_order(scratch, [(o_sh, u_sl)])
+    u_longest = int(torch.unique_consecutive(u_sf,
+                                             return_counts=True)[1].max())
+    u_main = int(torch.unique(u_sl).numel())
     rec["ordered_scatter_add"] = timed(
         max_abs_err=err3,
         ms=cuda_ms(lambda: K.ordered_scatter_add(scratch, o_sh, o_sl, vals)),
@@ -213,8 +263,19 @@ def phase_kernels(K, dev, rng):
             scratch, o_sh, o_sl, vals), warmup=1),
         library_ms=cuda_ms(lambda: scratch.view(-1, L).index_add_(
             0, flat, vals)),
-        bound=bound(k3_bytes, ROWS * L))
-    del scratch
+        bound=bound(k3_bytes, ROWS * L),
+        fold_ms=cuda_ms(lambda: K.ordered_scatter_fold(scratch, sf, perm,
+                                                       vals)),
+        fold_bound=bound(fold_bytes, ROWS * L),
+        order_ms=cuda_ms(lambda: K.ordered_scatter_order(
+            scratch, [(o_sh, o_sl)])),
+        sort_ms=cuda_ms(lambda: torch.sort(flat32, stable=True)),
+        uniform_ms=cuda_ms(lambda: K.ordered_scatter_add(
+            scratch, o_sh, u_sl, vals)),
+        uniform_bound=bound(ROWS * L * 4 + 2 * u_main * L * 4 + ROWS * 8,
+                            ROWS * L),
+        longest_run=longest, uniform_longest_run=u_longest)
+    del scratch, sf, perm, flat32, u_sf
 
     # -- K2 adagrad_update on the gathered rows' accumulator half
     Dh = L // 2
@@ -454,11 +515,16 @@ def replica_run(at, dev, rng_seed):
     runner = DeviceRoutedRunner(
         srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
         role_dim=dict.fromkeys(roles, 2 * d), shard=0)
+    from adapm_tpu_torch.ops import kernels as K
+    step_launches = []
     for step in range(6):
         batch = {"s": rng.integers(0, e, b), "r": rng.integers(e, e + r, b),
                  "o": rng.integers(0, e, b),
                  "neg": rng.integers(0, e, (b, n))}
+        before = dict(K.LAUNCHES)
         runner(batch, None, 0.1)
+        step_launches.append({k: K.LAUNCHES[k] - before[k]
+                              for k in REPLICA_STEP_LAUNCHES})
         srv.sync.run_round(all_channels=True)
     pools = [t.detach().cpu().clone() for t in
              (srv.stores[0].main, srv.stores[0].cache, srv.stores[0].delta)]
@@ -486,17 +552,20 @@ def replica_run(at, dev, rng_seed):
     reads.append(w1.pull_sync(np.arange(e + r)))
     has_rep = runner._shard_has_replicas()
     srv.shutdown()
-    return pools, reads, has_rep
+    return pools, reads, has_rep, step_launches
 
 
 def phase_replicas(at, K, dev):
     before = dict(K.LAUNCHES)
-    pools_g, reads_g, rep_g = replica_run(at, dev, 7)
+    pools_g, reads_g, rep_g, steps_g = replica_run(at, dev, 7)
     used = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
     check(rep_g, "the replica phase held no replicas on the runner's shard")
     check(all(used[k] > 0 for k in STEP_KERNELS),
           f"replica phase skipped a kernel: {used}")
-    pools_c, reads_c, _ = replica_run(at, "cpu", 7)
+    check(all(s == REPLICA_STEP_LAUNCHES for s in steps_g),
+          f"replica-step launches {steps_g}, expected "
+          f"{REPLICA_STEP_LAUNCHES} per step")
+    pools_c, reads_c, _, _ = replica_run(at, "cpu", 7)
     for a, b_ in zip(pools_g, pools_c):
         check(torch.allclose(a, b_, rtol=1e-5, atol=1e-6),
               "fused steps on cuda and cpu differ beyond rtol 1e-5 / "
@@ -648,8 +717,67 @@ def fmt_t(r, key):
     v = r[key]
     if v is None:
         return "none"
-    lo, hi = r[key + "_spread"]
+    return fmt_s(v, *r[key + "_spread"])
+
+
+def fmt_s(v, lo, hi):
+    """median [min, max]"""
     return f"{v:.4f} [{lo:.4f}, {hi:.4f}]"
+
+
+def report_kernels(rec):
+    """Phase 2's lines: each kernel against its plain version."""
+    for name, r in rec.items():
+        print(f"phase 2: {name}: {fmt_t(r, 'ms')} ms (bound "
+              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}), plain "
+              f"{fmt_t(r, 'plain_ms')} ms, library {fmt_t(r, 'library_ms')}"
+              f" ms, max_abs_err {r['max_abs_err']}", flush=True)
+    k1 = rec["routed_gather"]
+    print(f"phase 2: K1 vs index_select, median [min, max] of 20: "
+          f"{fmt_t(k1, 'ms')} vs {fmt_t(k1, 'library_ms')} ms; "
+          f"multi-segment forms at {ROLE_SPLIT} bitwise", flush=True)
+    k3 = rec["ordered_scatter_add"]
+    print(f"phase 2: K3 three ways (zipf keys, longest run "
+          f"{k3['longest_run']}): wrapper {fmt_t(k3, 'ms')}"
+          f" ms; fold alone {fmt_s(*k3['fold_ms'])} ms (bound "
+          f"{k3['fold_bound'][0]:.4f} ms, share "
+          f"{k3['fold_bound'][0] / k3['fold_ms'][0]:.3f}); ordering pass "
+          f"(flat targets + sort) {fmt_s(*k3['order_ms'])} ms; torch.sort "
+          f"alone {fmt_s(*k3['sort_ms'])} ms; uniform keys (longest run "
+          f"{k3['uniform_longest_run']}) {fmt_s(*k3['uniform_ms'])} ms "
+          f"(bound {k3['uniform_bound'][0]:.4f} ms); multi-segment form at "
+          f"{ROLE_SPLIT} bitwise; deterministic over two runs", flush=True)
+    k4 = rec["pool_eval_counts"]
+    for model, r in (("complex", k4), ("rescal", k4["rescal"])):
+        print(f"phase 2: K4 {model} K={r['K']}: {fmt_t(r, 'ms')} ms (bound "
+              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}), plain "
+              f"{fmt_t(r, 'plain_ms')} ms, matmul+compare+sum "
+              f"{fmt_t(r, 'library_ms')} ms, count diff {r['max_abs_err']}"
+              f" within {r['ties']} near-ties, {r['counted']} counted",
+              flush=True)
+    print(f"phase 2: K4 exact on integer data: {k4['exact_counted']} "
+          f"counted, equal to the plain version", flush=True)
+
+
+def report_main_path(mp, step_launches):
+    """Phase 3's lines: the step's speed, launches and device profile."""
+    print(f"phase 3: fill {mp['fill_s']:.1f} s, {mp['ms_per_step']:.3f} "
+          f"ms/step, {mp['triples_per_s']:.0f} triples/s, loss "
+          f"{mp['first_loss']:.5f} -> {mp['last_loss']:.5f}, launches "
+          f"{step_launches} (per step {mp['per_step']}), peak "
+          f"{mp['peak_mem_gib']:.2f} GiB", flush=True)
+    prof = mp["profile"]
+    if prof is None:
+        print("phase 3: device time breakdown not measured (the profiler "
+              "recorded no device time)", flush=True)
+    else:
+        print(f"phase 3: profiled {prof['wall_ms_per_step']:.3f} ms/step "
+              f"wall, device busy {prof['device_ms_per_step']:.3f} ms/step "
+              f"({prof['busy_share']:.3f}), "
+              f"{prof['device_ops_per_step']:.1f} device operations "
+              f"(kernels, copies, fills) per step; top: " + "; ".join(
+                  f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"][:8]),
+              flush=True)
 
 
 def main(argv):
@@ -670,48 +798,26 @@ def main(argv):
     build_s = K.build()
     print(f"phase 1: kernels built in {build_s:.1f} s", flush=True)
     rng = np.random.default_rng(0)
+    if "--main-path-only" in argv:
+        # phase 3 alone, unchecked: runs against an earlier tree of the
+        # port too (copy the script there), for a like-with-like compare
+        K.reset_launches()
+        report_main_path(phase_main_path(at, K, dev, rng), dict(K.LAUNCHES))
+        return 0
     rec = phase_kernels(K, dev, rng)
-    for name, r in rec.items():
-        print(f"phase 2: {name}: {fmt_t(r, 'ms')} ms (bound "
-              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}), plain "
-              f"{fmt_t(r, 'plain_ms')} ms, library {fmt_t(r, 'library_ms')}"
-              f" ms, max_abs_err {r['max_abs_err']}", flush=True)
-    k1 = rec["routed_gather"]
-    print(f"phase 2: K1 vs index_select, median [min, max] of 20: "
-          f"{fmt_t(k1, 'ms')} vs {fmt_t(k1, 'library_ms')} ms", flush=True)
-    k4 = rec["pool_eval_counts"]
-    for model, r in (("complex", k4), ("rescal", k4["rescal"])):
-        print(f"phase 2: K4 {model} K={r['K']}: {fmt_t(r, 'ms')} ms (bound "
-              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}), plain "
-              f"{fmt_t(r, 'plain_ms')} ms, matmul+compare+sum "
-              f"{fmt_t(r, 'library_ms')} ms, count diff {r['max_abs_err']}"
-              f" within {r['ties']} near-ties, {r['counted']} counted",
-              flush=True)
-    print(f"phase 2: K4 exact on integer data: {k4['exact_counted']} "
-          f"counted, equal to the plain version", flush=True)
+    report_kernels(rec)
     K.reset_launches()
     mp = phase_main_path(at, K, dev, rng)
     step_launches = dict(K.LAUNCHES)
-    print(f"phase 3: fill {mp['fill_s']:.1f} s, {mp['ms_per_step']:.3f} "
-          f"ms/step, {mp['triples_per_s']:.0f} triples/s, loss "
-          f"{mp['first_loss']:.5f} -> {mp['last_loss']:.5f}, launches "
-          f"{step_launches} (per step {mp['per_step']}), peak "
-          f"{mp['peak_mem_gib']:.2f} GiB", flush=True)
-    prof = mp["profile"]
-    if prof is None:
-        print("phase 3: device time breakdown not measured (the profiler "
-              "recorded no device time)", flush=True)
-    else:
-        print(f"phase 3: profiled {prof['wall_ms_per_step']:.3f} ms/step "
-              f"wall, device busy {prof['device_ms_per_step']:.3f} ms/step "
-              f"({prof['busy_share']:.3f}); top: " + "; ".join(
-                  f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"][:8]),
-              flush=True)
+    report_main_path(mp, step_launches)
+    check(mp["per_step"] == dict(STEP_LAUNCHES, pool_eval_counts=0),
+          f"main-path launches per step {mp['per_step']}, expected "
+          f"{STEP_LAUNCHES}")
     check(all(step_launches[k] > 0 for k in STEP_KERNELS),
           f"a kernel of the main path never launched: {step_launches}")
     used = phase_replicas(at, K, dev)
-    print(f"phase 4: replica phase launches {used}; cuda and cpu agree",
-          flush=True)
+    print(f"phase 4: replica phase launches {used} (per replica step "
+          f"{REPLICA_STEP_LAUNCHES}); cuda and cpu agree", flush=True)
     app, app_launches = phase_app(K)
     tps = [100 * B / t for t in app["epoch_s"]]
     print(f"phase 5: app: generation {app['gen_s']:.2f} s, epochs "
@@ -754,6 +860,10 @@ def main(argv):
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"])
                for n, r in rec.items()]
+    k3 = rec["ordered_scatter_add"]
+    k3_line = kernels[list(rec).index("ordered_scatter_add")]
+    k3_line.update(fold_ms=k3["fold_ms"][0], order_ms=k3["order_ms"][0],
+                   sort_ms=k3["sort_ms"][0], uniform_ms=k3["uniform_ms"][0])
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)

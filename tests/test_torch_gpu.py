@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions (adapm_tpu_torch/ops/kernels.py) — bitwise for K1 and K3, within
+versions (adapm_tpu_torch/ops/kernels.py) — bitwise for K1 and K3 (their
+multi-segment forms, K3's long runs and chunk-crossing runs included,
+deterministic over two runs), within
 rtol 1e-5 for K2 (CUDA's rsqrt vs the CPU's 1/sqrt), K4's counts equal on
 integer-valued data (every summation order gives the same f32 sums) and
 within the near-tie rule on random data — plus a small fused step on
@@ -77,6 +79,114 @@ def test_ordered_scatter_add_bitwise_and_deterministic(cuda, L):
     assert torch.equal(_bits(outs[1]), _bits(ref))
 
 
+def _scatter_twice(cuda, base, segs, vals):
+    """K3 on the card twice from one base: both results, on the host."""
+    outs = []
+    for _ in range(2):
+        pool = base.clone().to(cuda)
+        K.ordered_scatter_add_segments(
+            pool, [(a.to(cuda), b.to(cuda)) for a, b in segs], vals.to(cuda))
+        outs.append(pool)
+    torch.cuda.synchronize()
+    return [_bits(o) for o in outs]
+
+
+def _scatter_case(rng, S, R, L, sh, sl, sizes):
+    base = torch.randn(S, R, L)
+    base[0, :2] = -0.0
+    n = len(sh)
+    vals = torch.from_numpy((rng.normal(size=(n, L)) * 10.0 ** rng.integers(
+        -3, 4, (n, 1))).astype(np.float32))
+    vals[::5] = -0.0
+    cuts = np.cumsum(sizes)[:-1]
+    segs = [(torch.from_numpy(np.ascontiguousarray(a)),
+             torch.from_numpy(np.ascontiguousarray(b)))
+            for a, b in zip(np.split(sh.astype(np.int32), cuts),
+                            np.split(sl.astype(np.int32), cuts))]
+    ref = base.clone()
+    for (a, b), v in zip(segs, torch.split(vals, list(sizes))):
+        K.ordered_scatter_add(ref, a, b, v.contiguous())
+    return base, segs, vals, _bits(ref)
+
+
+@pytest.mark.parametrize("L", [5, 12, 512, 600, 1030])
+def test_ordered_scatter_long_runs_and_chunk_boundaries(cuda, L):
+    """One target repeated 1,000 times (a run far longer than the ring),
+    runs of every length crossing the 32-entry chunks, out-of-range
+    entries, and several segments with an empty one: bitwise equal to
+    sequential plain calls and deterministic. L=600 and L=1030 loop
+    over column blocks (vector and scalar elements)."""
+    rng = np.random.default_rng(L)
+    S, R = 2, 64
+    hot = np.zeros(1000, np.int64)                       # row (0, 0)
+    runs = np.repeat(np.arange(1, 60), np.arange(1, 60) % 37 + 1)
+    tail = rng.integers(0, S * R, 700)
+    flat = np.concatenate([hot, runs, tail])
+    order = rng.permutation(len(flat))
+    flat = flat[order]
+    sh, sl = flat // R, flat % R
+    u = rng.random(len(flat))
+    sl[u < 0.05] = OOB
+    sh[(u >= 0.05) & (u < 0.08)] = -1
+    n = len(flat)
+    sizes = (n // 3, 0, n // 3, n - 2 * (n // 3))
+    base, segs, vals, ref = _scatter_case(rng, S, R, L, sh, sl, sizes)
+    a, b = _scatter_twice(cuda, base, segs, vals)
+    assert torch.equal(a, ref) and torch.equal(b, ref)
+
+
+def test_ordered_scatter_all_oob_empty_and_unaligned(cuda):
+    rng = np.random.default_rng(3)
+    S, R, L = 2, 16, 12
+    sh = np.zeros(300, np.int64)
+    sl = np.full(300, OOB, np.int64)
+    sl[::3] = -5
+    base, segs, vals, ref = _scatter_case(rng, S, R, L, sh, sl, (300,))
+    a, b = _scatter_twice(cuda, base, segs, vals)
+    assert torch.equal(a, ref) and torch.equal(b, ref)
+    assert torch.equal(a, _bits(base))                   # nothing lands
+    empty = torch.zeros(0, dtype=torch.int32)
+    a, _ = _scatter_twice(cuda, base, [(empty, empty)], torch.zeros(0, L))
+    assert torch.equal(a, _bits(base))
+    # an unaligned pool: L % 4 == 0 but the rows are not 16-byte aligned
+    sh, sl = _coords(rng, 400, S, 6)
+    vals = torch.randn(400, L)
+    ref = base.clone()
+    K.ordered_scatter_add(ref, sh, sl, vals)
+    store = torch.zeros(S * R * L + 1, device=cuda)
+    pool = store[1:].view(S, R, L)
+    pool.copy_(base.to(cuda))
+    assert pool.data_ptr() % 16 != 0
+    K.ordered_scatter_add(pool, sh.to(cuda), sl.to(cuda), vals.to(cuda))
+    assert torch.equal(_bits(pool), _bits(ref))
+
+
+@pytest.mark.parametrize("L", [5, 12, 512, 600])
+def test_routed_gather_segments_bitwise(cuda, L):
+    """Multi-segment K1, both forms, with an empty segment and more
+    segments than one launch takes: equal to per-segment plain calls."""
+    rng = np.random.default_rng(L + 1)
+    S, R, C = 3, 40, 20
+    main, cache, delta = (torch.randn(S, k, L) for k in (R, C, C))
+    main[0, :3] = -0.0
+    sizes = [70, 0, 33, 1, 300] + [5] * (K.MAX_SEGMENTS)
+    segs_m, segs_f = [], []
+    for n in sizes:
+        o = _coords(rng, n, S, R)
+        c = _coords(rng, n, S, C)
+        use_c = torch.from_numpy(rng.random(n) < 0.5)
+        segs_m.append(o)
+        segs_f.append(o + c + (use_c,))
+    for pools, segs in (((main, None, None), segs_m),
+                        ((main, cache, delta), segs_f)):
+        ref = torch.cat([K.routed_gather(*pools, *s) for s in segs])
+        dp = [None if p is None else p.to(cuda) for p in pools]
+        ds = [tuple(t.to(cuda) for t in s) for s in segs]
+        outs = [K.routed_gather_segments(*dp, ds) for _ in range(2)]
+        for o in outs:
+            assert torch.equal(_bits(o), _bits(ref))
+
+
 def test_adagrad_both_forms(cuda):
     g = torch.randn(300, 16)
     rows = torch.rand(300, 32)
@@ -84,6 +194,12 @@ def test_adagrad_both_forms(cuda):
     got = K.adagrad_update(g.to(cuda), rows.to(cuda)[:, 16:], 0.1, 1e-10)
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-7)
     assert torch.equal(_bits(got[:, 16:]), _bits(ref[:, 16:]))
+    # into a row slice of a larger update buffer, as the step writes it
+    buf = torch.full((310, 32), 7.0, device=cuda)
+    K.adagrad_update(g.to(cuda), rows.to(cuda)[:, 16:], 0.1, 1e-10,
+                     out=buf[5:305])
+    assert torch.equal(_bits(buf[5:305]), _bits(got))
+    assert bool((buf[:5] == 7).all() and (buf[305:] == 7).all())
     emb, acc = rows[:, :16].contiguous(), rows[:, 16:].contiguous()
     re, ra = K.adagrad_apply(g, emb, acc, 0.1, 1e-10)
     ge, ga = K.adagrad_apply(g.to(cuda), emb.to(cuda), acc.to(cuda), 0.1,
