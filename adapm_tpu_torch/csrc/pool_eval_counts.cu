@@ -16,225 +16,393 @@
 // the first K columns are read. The true key is excluded by KEY, not by
 // score. A coordinate outside the pool reads a zero row (fill, as K1).
 //
-// Bound on an H100: operations. Each candidate row (K f32) is read once
-// and meets all B queries on both sides: 2*B*K FMAs per 4*K bytes, which
-// at B=64 is 32 FMAs per byte, far above the f32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 flops per byte).
+// Bound on an H100: f32 operations. Each candidate row (K f32) is read
+// once and meets all B queries on both sides: 2*B*K FMAs per 4*K bytes,
+// at B=64 32 FMAs per byte, far above the f32 ridge (67 TFLOP/s over
+// 3.35 TB/s = 20 flops per byte). Dots stay f32 FMA chains in k order on
+// the CUDA cores: TF32 would flip counts at near-ties of the f32
+// reference.
 //
-// Design (simple and exact first): one 256-thread CTA takes a tile of 64
-// candidates times 64 queries. Candidate rows and both query tiles are
-// staged in shared memory K-major, 32 columns at a time (16-byte global
-// loads, the next chunk's in flight while this one is computed, where
-// the row length allows them), so each thread reads its 4 candidates and
-// 4+4 queries with three 16-byte shared loads per column and keeps a 4x4
-// tile of dots per side in registers. Dots are
-// f32 FMA chains in sequential k order (no TF32, no tensor cores: TF32
-// would flip counts at near-ties of the f32 reference). Each thread then
-// compares its 32 dots, a half-warp shuffle reduction sums the counts of
-// one query over the tile's 64 candidates, and one lane per query adds
-// them with an integer atomicAdd, which makes the result independent of
-// the order in which the CTAs run.
+// Design. One CTA of 256 threads per SM (a persistent grid: the launch
+// plan, ops/kernels.py _k4_plan, sizes it from the SM count) walks the
+// candidate tiles of 128 rows with stride gridDim.x, for one block of
+// Bq = 16*TQ queries (blockIdx.y). The kernel it replaces (64 x 64 tiles,
+// 3,125 short CTAs at 200,000 candidates) restaged both query tiles in
+// every CTA, staged through registers with transposing 4-byte stores
+// (4-way bank conflicts, two barriers per 32 columns) and held a 4 x 4
+// tile per thread. What each part does now:
+//  - Resident queries. The CTA copies its query block of both sides into
+//    shared memory once, as [K/4][Bq][4] (four consecutive k of a query
+//    in one 16-byte word), and reads it for every tile. Where the block
+//    does not fit beside the ring (large K even at Bq=16), the plan
+//    streams each chunk of the queries through the ring with its
+//    candidate chunk instead (`resident` = 0).
+//  - A cp.async ring. Candidate rows go from the pool to shared memory
+//    as 128-row x 64-column chunks, row-major with a pitch of 68 floats
+//    (16-byte cp.async.cg, or 4-byte cp.async.ca where rows or pointers
+//    are not 16-byte aligned: the template parameter kVec), the next
+//    chunk in flight while this one is computed; one barrier per chunk,
+//    no register staging, no transposing store. Columns past K and rows
+//    without a pool row are zero-filled by the copy.
+//  - Row pointers resolved ahead. The dependent lookups key -> owner/slot
+//    -> row pointer run as a register pipeline in 128 threads: a tile's
+//    keys are loaded two tiles ahead, its owner/slot one tile ahead, and
+//    its pointers are written to a shared table (8 tile slots) before
+//    the chunk copies that read them are issued, so no lookup stalls the
+//    FMA pipe.
+//  - A larger register tile. Thread (tx, ty) holds candidates
+//    tx + 16*j (j < 8) against queries TQ*ty + i (i < TQ) on both sides:
+//    64 accumulators at TQ = 4 (254 registers), fed per four k by eight
+//    16-byte candidate reads (pitch 68: the 8 lanes of a phase hit 8
+//    distinct bank quads) and 2*TQ broadcast query reads; the k loop of
+//    a chunk is unrolled 4 of 16 (fully unrolled ran 1-2% slower). A
+//    warp of 8 candidate lanes x 4 query groups, one wavefront per
+//    read, measured no faster (scripts/k4_variants.py).
+//  - Counts. Each thread keeps integer counts across all of its CTA's
+//    tiles; at the end a half-warp shuffle sums them and one integer
+//    atomicAdd per query and side per CTA lands them, independent of the
+//    order of the CTAs.
+// Each dot is one __fmaf_rn chain in k order, then fma(0, 0, acc) over
+// the zero-filled columns, which leaves it unchanged: on integer-valued
+// data every order gives the same sums, and elsewhere the counts differ
+// from any other f32 evaluation only at near-ties (ops/kernels.py
+// pool_eval_counts_plain).
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTC = 64;        // candidates per CTA
-constexpr int kTQ = 64;        // queries per CTA
-constexpr int kKC = 32;        // columns staged per pass
-constexpr int kPad = 4;        // row padding of the K-major tiles (floats)
+constexpr int kCt = 128;        // candidates per tile
+constexpr int kKC = 64;         // columns per ring stage
+constexpr int kPitch = kKC + 4; // floats per ring row (272 B)
+constexpr int kStages = 2;
 constexpr int kThreads = 256;
+constexpr int kSlots = 8;       // tile slots of the pointer/key tables
 
-// Stage one 32-column chunk of the candidate rows and both query tiles
-// into the K-major shared tiles. Vector form: 16-byte loads, so a warp
-// reads 4 rows x 128 contiguous bytes (rows need L % 4 == 0, K % 4 == 0
-// and 16-byte aligned pointers); the loads for chunk k0 + 32 are issued
-// before the compute of chunk k0 (register double buffering).
-struct Stage4 {
-  float4 r[2], o[2], s[2];
+struct Args {
+  const float* pool;
+  int shards, slots, L, K;
+  const int* owner;
+  const int* slot;
+  long long num_keys;
+  const int* keys;
+  long long nvalid;
+  const float* q_o;
+  const float* q_s;
+  const float* true_sc;
+  const int* okey;
+  const int* skey;
+  int B;
+  int* g_o;
+  int* g_s;
+  int resident;
 };
 
-__device__ __forceinline__ void load4(Stage4& st, const float* const* ptr,
-                                      const float* __restrict__ q_o,
-                                      const float* __restrict__ q_s, int K,
-                                      int k0, int q0, int B, int tid) {
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int e = tid + kThreads * m;  // 512 float4 per tile
-    const int r = e >> 3, c = k0 + 4 * (e & 7);
-    const float* p = ptr[r];
-    st.r[m] = (p != nullptr && c < K)
-                  ? __ldg(reinterpret_cast<const float4*>(p + c)) : z;
-    const int qb = q0 + r;
-    const bool ok = qb < B && c < K;
-    const long long off = (long long)qb * K + c;
-    st.o[m] = ok ? __ldg(reinterpret_cast<const float4*>(q_o + off)) : z;
-    st.s[m] = ok ? __ldg(reinterpret_cast<const float4*>(q_s + off)) : z;
-  }
+// bytes of dynamic shared memory the kernel lays out (must match
+// ops/kernels.py _k4_smem)
+long long smem_need(int Bq, int K, int resident) {
+  const long long kp = (long long)((K + kKC - 1) / kKC) * kKC;
+  const long long q = resident ? 2LL * kp * Bq : (long long)kStages * 2 * kKC * Bq;
+  return (long long)kSlots * kCt * (8 + 4) +
+         ((long long)kStages * kCt * kPitch + q) * 4;
 }
 
-__device__ __forceinline__ void store4(const Stage4& st,
-                                       float (*s_row)[kTC + kPad],
-                                       float (*s_qo)[kTQ + kPad],
-                                       float (*s_qs)[kTQ + kPad], int tid) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int e = tid + kThreads * m;
-    const int r = e >> 3, c = 4 * (e & 7);
-    const float4 v = st.r[m], a = st.o[m], b = st.s[m];
-    s_row[c][r] = v.x; s_row[c + 1][r] = v.y;
-    s_row[c + 2][r] = v.z; s_row[c + 3][r] = v.w;
-    s_qo[c][r] = a.x; s_qo[c + 1][r] = a.y;
-    s_qo[c + 2][r] = a.z; s_qo[c + 3][r] = a.w;
-    s_qs[c][r] = b.x; s_qs[c + 1][r] = b.y;
-    s_qs[c + 2][r] = b.z; s_qs[c + 3][r] = b.w;
-  }
+__device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 2) pool_eval_counts_kernel(
-    const float* __restrict__ pool, int shards, int slots, int L, int K,
-    const int* __restrict__ owner, const int* __restrict__ slot,
-    long long num_keys, const int* __restrict__ keys, long long nvalid,
-    const float* __restrict__ q_o, const float* __restrict__ q_s,
-    const float* __restrict__ true_sc, const int* __restrict__ okey,
-    const int* __restrict__ skey, int B, int* __restrict__ g_o,
-    int* __restrict__ g_s) {
-  __shared__ __align__(16) float s_row[kKC][kTC + kPad];
-  __shared__ __align__(16) float s_qo[kKC][kTQ + kPad];
-  __shared__ __align__(16) float s_qs[kKC][kTQ + kPad];
-  __shared__ const float* s_ptr[kTC];
-  __shared__ int s_key[kTC];
+__device__ __forceinline__ void cp4(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const long long c0 = (long long)blockIdx.x * kTC;
-  const int q0 = blockIdx.y * kTQ;
-  if (tid < kTC) {
-    const long long c = c0 + tid;
-    const float* p = nullptr;
-    int key = -1;
-    if (c < nvalid) {
-      key = keys[c];
-      if (key >= 0 && key < num_keys) {
-        const int sh = owner[key], sl = slot[key];
-        if (sh >= 0 && sh < shards && sl >= 0 && sl < slots)
-          p = pool + ((long long)sh * slots + sl) * (long long)L;
-      }
-    }
-    s_ptr[tid] = p;
-    s_key[tid] = key;
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int tx = tid & 15;  // candidates 4*tx .. 4*tx+3
-  const int ty = tid >> 4;  // queries 4*ty .. 4*ty+3
-  float acc_o[4][4], acc_s[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_o[j][i] = acc_s[j][i] = 0.f;
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  Stage4 st;
-  if (kVec) load4(st, s_ptr, q_o, q_s, K, 0, q0, B, tid);
-  for (int k0 = 0; k0 < K; k0 += kKC) {
+// Copy query columns [k0, k0 + 4*nkg) of the block's Bq queries, both
+// sides, into dst_o/dst_s laid out [nkg][Bq][4]; zero past B and K.
+template <int Bq, bool kVec>
+__device__ __forceinline__ void copy_queries(const Args& a, int q0, int k0,
+                                             int nkg, float* dst_o,
+                                             float* dst_s, int tid) {
+  const int n = nkg * Bq;
+  for (int e = tid; e < n; e += kThreads) {
+    const int kg = e / Bq, b = e - kg * Bq;
+    const int qb = q0 + b, k = k0 + 4 * kg;
+    const bool inb = qb < a.B;
+    const long long off = inb ? (long long)qb * a.K + k : 0;
+    float* d_o = dst_o + 4 * e;
+    float* d_s = dst_s + 4 * e;
     if (kVec) {
-      store4(st, s_row, s_qo, s_qs, tid);
+      const int bytes = inb && k < a.K ? 16 : 0;
+      cp16(d_o, bytes ? a.q_o + off : a.q_o, bytes);
+      cp16(d_s, bytes ? a.q_s + off : a.q_s, bytes);
     } else {
-      // scalar staging: a warp reads 32 consecutive columns of one row
-      for (int i = tid; i < kTC * kKC; i += kThreads) {
-        const int r = i / kKC, kk = i % kKC;
-        const float* p = s_ptr[r];
-        s_row[kk][r] = (p != nullptr && k0 + kk < K) ? __ldg(p + k0 + kk)
-                                                     : 0.f;
-      }
-      for (int i = tid; i < kTQ * kKC; i += kThreads) {
-        const int b = i / kKC, kk = i % kKC;
-        const int qb = q0 + b;
-        const bool ok = qb < B && k0 + kk < K;
-        const long long off = (long long)qb * K + k0 + kk;
-        s_qo[kk][b] = ok ? __ldg(q_o + off) : 0.f;
-        s_qs[kk][b] = ok ? __ldg(q_s + off) : 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int bytes = inb && k + kk < a.K ? 4 : 0;
+        cp4(d_o + kk, bytes ? a.q_o + off + kk : a.q_o, bytes);
+        cp4(d_s + kk, bytes ? a.q_s + off + kk : a.q_s, bytes);
       }
     }
-    __syncthreads();
-    if (kVec && k0 + kKC < K)
-      load4(st, s_ptr, q_o, q_s, K, k0 + kKC, q0, B, tid);
-    // columns past K are zero on both sides: fma(0, 0, acc) == acc, so
-    // the sum is the sequential-k FMA chain over the K real columns
+  }
+}
+
+template <int TQ, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+    pool_eval_counts_kernel(const Args a) {
+  constexpr int Bq = 16 * TQ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float** s_ptr = reinterpret_cast<const float**>(smem);  // [8][128]
+  int* s_key = reinterpret_cast<int*>(smem + kSlots * kCt * 8);  // [8][128]
+  float* ring = reinterpret_cast<float*>(smem + kSlots * kCt * 12);
+  float* qbuf = ring + kStages * kCt * kPitch;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.y * Bq;
+  const int nkc = (a.K + kKC - 1) / kKC;
+  const int kp = nkc * kKC;
+  const long long ntiles = (a.nvalid + kCt - 1) / kCt;
+  const long long first = blockIdx.x, step = gridDim.x;
+  if (first >= ntiles) return;
+  const int my_tiles = (int)((ntiles - 1 - first) / step + 1);
+  const int total = my_tiles * nkc;
+
+  // -- row-pointer pipeline (threads < 128, one candidate row each)
+  auto key_of = [&](int i) -> int {
+    if (i >= my_tiles) return -1;
+    const long long c = (first + (long long)i * step) * kCt + tid;
+    return c < a.nvalid ? a.keys[c] : -1;
+  };
+  auto in_table = [&](int key) { return key >= 0 && key < a.num_keys; };
+  auto row_ptr = [&](int sh, int sl) -> const float* {
+    return (sh >= 0 && sh < a.shards && sl >= 0 && sl < a.slots)
+               ? a.pool + ((long long)sh * a.slots + sl) * (long long)a.L
+               : nullptr;
+  };
+  // key_a/own_a/sl_a: tile i+1; key_b: tile i+2 (at event i)
+  int key_a = -1, own_a = -1, sl_a = -1, key_b = -1;
+  if (tid < kCt) {
+    const int k0 = key_of(0);
+    s_ptr[tid] = in_table(k0) ? row_ptr(a.owner[k0], a.slot[k0]) : nullptr;
+    s_key[tid] = k0;
+    key_a = key_of(1);
+    own_a = in_table(key_a) ? a.owner[key_a] : -1;
+    sl_a = in_table(key_a) ? a.slot[key_a] : -1;
+    key_b = key_of(2);
+  }
+  // event i: tile i's chunks are about to be issued; publish tile i+1's
+  // pointers and move the pipeline on by one tile
+  auto event = [&](int i) {
+    if (tid >= kCt) return;
+    const int sl8 = (i + 1) % kSlots;
+    s_ptr[sl8 * kCt + tid] = row_ptr(own_a, sl_a);
+    s_key[sl8 * kCt + tid] = key_a;
+    key_a = key_b;
+    own_a = in_table(key_a) ? a.owner[key_a] : -1;
+    sl_a = in_table(key_a) ? a.slot[key_a] : -1;
+    key_b = key_of(i + 3);
+  };
+
+  if (a.resident)
+    copy_queries<Bq, kVec>(a, q0, 0, kp / 4, qbuf, qbuf + kp * Bq, tid);
+
+  // issue the copies of stage s (tile s / nkc, chunk s % nkc) into ring
+  // slot s % kStages; always one commit group, empty past the end
+  int is_tile = 0, is_kc = 0;
+  auto issue = [&](int s) {
+    if (s < total) {
+      if (is_kc == 0) event(is_tile);
+      const int slot = s % kStages;
+      float* dst = ring + slot * kCt * kPitch;
+      const float* const* ptr = s_ptr + (is_tile % kSlots) * kCt;
+      const int c0 = is_kc * kKC;
+      if (kVec) {
 #pragma unroll
-    for (int kk = 0; kk < kKC; ++kk) {
-      const float4 r = *reinterpret_cast<const float4*>(&s_row[kk][4 * tx]);
-      const float4 a = *reinterpret_cast<const float4*>(&s_qo[kk][4 * ty]);
-      const float4 s = *reinterpret_cast<const float4*>(&s_qs[kk][4 * ty]);
-      const float rv[4] = {r.x, r.y, r.z, r.w};
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float sv[4] = {s.x, s.y, s.z, s.w};
+        for (int m = 0; m < kCt * kKC / 4 / kThreads; ++m) {
+          const int e = tid + kThreads * m;
+          const int r = e / (kKC / 4), cc = 4 * (e % (kKC / 4));
+          const float* p = ptr[r];
+          const int bytes = p != nullptr && c0 + cc < a.K ? 16 : 0;
+          cp16(dst + r * kPitch + cc, bytes ? p + c0 + cc : a.pool, bytes);
+        }
+      } else {
+#pragma unroll 4
+        for (int m = 0; m < kCt * kKC / kThreads; ++m) {
+          const int e = tid + kThreads * m;
+          const int r = e / kKC, cc = e % kKC;
+          const float* p = ptr[r];
+          const int bytes = p != nullptr && c0 + cc < a.K ? 4 : 0;
+          cp4(dst + r * kPitch + cc, bytes ? p + c0 + cc : a.pool, bytes);
+        }
+      }
+      if (!a.resident) {
+        float* qo = qbuf + slot * 2 * kKC * Bq;
+        copy_queries<Bq, kVec>(a, q0, c0, kKC / 4, qo, qo + kKC * Bq, tid);
+      }
+      if (++is_kc == nkc) { is_kc = 0; ++is_tile; }
+    }
+    cp_commit();
+  };
+
+  // this thread's queries: TQ*ty + i
+  float t[TQ];
+  int ok[TQ], sk[TQ], cnt_o[TQ], cnt_s[TQ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+  for (int i = 0; i < TQ; ++i) {
+    const int qb = q0 + TQ * ty + i;
+    const bool in = qb < a.B;
+    t[i] = in ? a.true_sc[qb] : 0.f;
+    ok[i] = in ? a.okey[qb] : -1;
+    sk[i] = in ? a.skey[qb] : -1;
+    cnt_o[i] = cnt_s[i] = 0;
+  }
+  __syncthreads();  // tile 0's pointer table
+  for (int s = 0; s < kStages - 1; ++s) {
+    issue(s);
+    __syncthreads();  // the event's table writes, before the next issue
+  }
+
+  float acc_o[8][TQ], acc_s[8][TQ];
+  int tile = 0, kc = 0;
+  for (int s = 0; s < total; ++s) {
+    cp_wait<kStages - 2>();  // stage s (and the resident queries) landed
+    __syncthreads();         // ... for every thread; slot s-1 is free
+    issue(s + kStages - 1);
+
+    if (kc == 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc_o[j][i] = __fmaf_rn(av[j], rv[i], acc_o[j][i]);
-          acc_s[j][i] = __fmaf_rn(sv[j], rv[i], acc_s[j][i]);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) acc_o[j][i] = acc_s[j][i] = 0.f;
+    }
+    const int slot = s % kStages;
+    const float* cr = ring + slot * kCt * kPitch + tx * kPitch;
+    const float* qo = a.resident ? qbuf + kc * kKC * Bq
+                                 : qbuf + slot * 2 * kKC * Bq;
+    const float* qs = qo + (a.resident ? kp * Bq : kKC * Bq);
+#pragma unroll 4  // 4 of the 16 (see the note at the top)
+    for (int kg = 0; kg < kKC / 4; ++kg) {
+      float4 r[8], qa[TQ], qb[TQ];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        r[j] = *reinterpret_cast<const float4*>(cr + 16 * j * kPitch + 4 * kg);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const int o = 4 * (kg * Bq + TQ * ty + i);
+        qa[i] = *reinterpret_cast<const float4*>(qo + o);
+        qb[i] = *reinterpret_cast<const float4*>(qs + o);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          acc_o[j][i] = __fmaf_rn(qa[i].x, r[j].x, acc_o[j][i]);
+          acc_s[j][i] = __fmaf_rn(qb[i].x, r[j].x, acc_s[j][i]);
+          acc_o[j][i] = __fmaf_rn(qa[i].y, r[j].y, acc_o[j][i]);
+          acc_s[j][i] = __fmaf_rn(qb[i].y, r[j].y, acc_s[j][i]);
+          acc_o[j][i] = __fmaf_rn(qa[i].z, r[j].z, acc_o[j][i]);
+          acc_s[j][i] = __fmaf_rn(qb[i].z, r[j].z, acc_s[j][i]);
+          acc_o[j][i] = __fmaf_rn(qa[i].w, r[j].w, acc_o[j][i]);
+          acc_s[j][i] = __fmaf_rn(qb[i].w, r[j].w, acc_s[j][i]);
         }
     }
-    __syncthreads();
-  }
 
-  int cnt_o[4], cnt_s[4];
+    if (kc == nkc - 1) {  // the tile's dots are whole: compare and count
+      const int* keys = s_key + (tile % kSlots) * kCt;
+      const long long cbase = (first + (long long)tile * step) * kCt;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int qb = q0 + 4 * ty + j;
-    cnt_o[j] = cnt_s[j] = 0;
-    if (qb >= B) continue;
-    const float t = true_sc[qb];
-    const int ok = okey[qb], sk = skey[qb];
+      for (int j = 0; j < 8; ++j) {
+        const int cl = tx + 16 * j;
+        const int key = keys[cl];
+        const bool v = cbase + cl < a.nvalid;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = 4 * tx + i;
-      if (c0 + c >= nvalid) continue;
-      const int key = s_key[c];
-      cnt_o[j] += (acc_o[j][i] > t) & (key != ok);
-      cnt_s[j] += (acc_s[j][i] > t) & (key != sk);
+        for (int i = 0; i < TQ; ++i) {
+          cnt_o[i] += v & (acc_o[j][i] > t[i]) & (key != ok[i]);
+          cnt_s[i] += v & (acc_s[j][i] > t[i]) & (key != sk[i]);
+        }
+      }
+      kc = 0;
+      ++tile;
+    } else {
+      ++kc;
     }
   }
+  cp_wait<0>();
+
   // sum over the 16 candidate lanes of a half-warp (lanes sharing ty)
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      cnt_o[j] += __shfl_xor_sync(0xffffffffu, cnt_o[j], off);
-      cnt_s[j] += __shfl_xor_sync(0xffffffffu, cnt_s[j], off);
+    for (int i = 0; i < TQ; ++i) {
+      cnt_o[i] += __shfl_xor_sync(0xffffffffu, cnt_o[i], off);
+      cnt_s[i] += __shfl_xor_sync(0xffffffffu, cnt_s[i], off);
     }
   if (tx == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qb = q0 + 4 * ty + j;
-      if (qb >= B) continue;
-      if (cnt_o[j]) atomicAdd(g_o + qb, cnt_o[j]);
-      if (cnt_s[j]) atomicAdd(g_s + qb, cnt_s[j]);
+    for (int i = 0; i < TQ; ++i) {
+      const int qb = q0 + TQ * ty + i;
+      if (qb >= a.B) continue;
+      if (cnt_o[i]) atomicAdd(a.g_o + qb, cnt_o[i]);
+      if (cnt_s[i]) atomicAdd(a.g_s + qb, cnt_s[i]);
     }
   }
 }
 
+template <int TQ, bool kVec>
+int launch(const Args& a, int smem, dim3 grid, cudaStream_t stream) {
+  auto* k = pool_eval_counts_kernel<TQ, kVec>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kVec>
+int launch_tq(const Args& a, int Bq, int smem, dim3 grid,
+              cudaStream_t stream) {
+  switch (Bq) {
+    case 16: return launch<1, kVec>(a, smem, grid, stream);
+    case 32: return launch<2, kVec>(a, smem, grid, stream);
+    case 48: return launch<3, kVec>(a, smem, grid, stream);
+    case 64: return launch<4, kVec>(a, smem, grid, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// g_o/g_s must be zeroed by the caller; the kernel adds into them.
+// g_o/g_s must be zeroed by the caller; the kernel adds into them. The
+// launch plan (Bq, stages, smem bytes, grid, resident) comes from
+// ops/kernels.py _k4_plan; a plan this source cannot run is refused with
+// cudaErrorInvalidValue before anything is launched.
 extern "C" int adapm_pool_eval_counts(
     const float* pool, int shards, int slots, int L, int K, const int* owner,
     const int* slot, long long num_keys, const int* keys, long long nvalid,
     const float* q_o, const float* q_s, const float* true_sc,
-    const int* okey, const int* skey, int B, int vec, int* g_o, int* g_s,
+    const int* okey, const int* skey, int B, int vec, int Bq, int stages,
+    int smem_bytes, int grid_x, int grid_y, int resident, int* g_o, int* g_s,
     cudaStream_t stream) {
   if (nvalid <= 0 || B <= 0) return 0;
-  const dim3 grid((unsigned)((nvalid + kTC - 1) / kTC),
-                  (unsigned)((B + kTQ - 1) / kTQ));
-  if (vec)
-    pool_eval_counts_kernel<true><<<grid, kThreads, 0, stream>>>(
-        pool, shards, slots, L, K, owner, slot, num_keys, keys, nvalid, q_o,
-        q_s, true_sc, okey, skey, B, g_o, g_s);
-  else
-    pool_eval_counts_kernel<false><<<grid, kThreads, 0, stream>>>(
-        pool, shards, slots, L, K, owner, slot, num_keys, keys, nvalid, q_o,
-        q_s, true_sc, okey, skey, B, g_o, g_s);
-  return (int)cudaGetLastError();
+  if (stages != kStages || grid_x <= 0 || grid_y <= 0 ||
+      (long long)grid_y * Bq < B ||
+      smem_bytes < smem_need(Bq, K, resident))
+    return (int)cudaErrorInvalidValue;
+  const Args a{pool, shards, slots, L,  K,     owner,  slot, num_keys,
+               keys, nvalid, q_o,   q_s, true_sc, okey, skey, B,
+               g_o,  g_s,    resident};
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  return vec ? launch_tq<true>(a, Bq, smem_bytes, grid, stream)
+             : launch_tq<false>(a, Bq, smem_bytes, grid, stream);
 }

@@ -32,7 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -133,7 +133,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     else:
         lib.adapm_pool_eval_counts.restype = I
         lib.adapm_pool_eval_counts.argtypes = [P, I, I, I, I, P, P, LL, P, LL,
-                                               P, P, P, P, P, I, I, P, P, P]
+                                               P, P, P, P, P] + [I] * 8 + \
+            [P, P, P]
     return lib
 
 
@@ -573,6 +574,76 @@ def pool_eval_counts_plain(pool, owner, slot, keys, nvalid: int, q_o, q_s,
     return (g_o, g_s, t_o, t_s) if ties else (g_o, g_s)
 
 
+# K4's launch geometry (kCt, kKC, kStages, kSlots in the source)
+K4_TILE, K4_CHUNK, K4_STAGES, K4_SLOTS = 128, 64, 2, 8
+K4_SMEM_MAX = 232_448            # dynamic shared memory of one H100 CTA
+K4_BQ = (64, 48, 32, 16)         # query blocks the kernel is built for
+
+
+class K4Plan(NamedTuple):
+    Bq: int                      # queries per CTA (16 groups x TQ)
+    Ct: int                      # candidates per tile
+    stages: int                  # chunks in flight in the cp.async ring
+    smem_bytes: int
+    grid: Tuple[int, int]        # (candidate CTAs, query blocks)
+    resident: bool               # query block held for the whole CTA
+    vec: bool                    # 16-byte copies (before pointer alignment)
+
+
+def _k4_smem(Bq: int, K: int, resident: bool) -> int:
+    """Dynamic shared memory of one K4 CTA (smem_need in the source):
+    the pointer and key tables, the candidate ring, and the query block
+    (all of K when resident, else one chunk per ring stage)."""
+    kp = -(-K // K4_CHUNK) * K4_CHUNK
+    q = 2 * kp * Bq if resident else K4_STAGES * 2 * K4_CHUNK * Bq
+    return K4_SLOTS * K4_TILE * 12 + \
+        (K4_STAGES * K4_TILE * (K4_CHUNK + 4) + q) * 4
+
+
+def _k4_plan(B: int, K: int, L: int, nvalid: int, sms: int) -> K4Plan:
+    """K4's launch plan for B queries of width K over `nvalid` candidates
+    on a card of `sms` SMs. The query block Bq is the one of K4_BQ whose
+    resident copy fits in shared memory and that costs least, counting
+    per candidate the query blocks times (Bq + 16) (the 16 stands for a
+    block's candidate copies and per-tile overhead; a tie takes the
+    larger Bq): B=64 takes 64, B=36 48, and a wider K fits only smaller
+    blocks. Where no block fits resident, queries stream through the
+    ring with the candidates. The grid holds about one CTA per SM:
+    ceil(B/Bq) query blocks times as many candidate CTAs as SMs remain
+    for each, none without a tile, the tiles spread evenly."""
+    best = None
+    for resident in (True, False):
+        for bq in K4_BQ:
+            smem = _k4_smem(bq, K, resident)
+            if smem > K4_SMEM_MAX:
+                continue
+            nqb = -(-B // bq)
+            cost = nqb * (bq + 16)
+            if best is None or cost < best[0]:
+                best = (cost, bq, smem)
+        if best is not None:
+            break
+    _, bq, smem = best
+    nqb = -(-B // bq)
+    ntiles = max(1, -(-nvalid // K4_TILE))
+    gx = max(1, min(ntiles, sms // nqb))
+    gx = -(-ntiles // -(-ntiles // gx))        # same rounds, fewer CTAs
+    return K4Plan(Bq=bq, Ct=K4_TILE, stages=K4_STAGES, smem_bytes=smem,
+                  grid=(gx, nqb), resident=resident,
+                  vec=L % 4 == 0 and K % 4 == 0)
+
+
+_sm_count: Dict[int, int] = {}
+
+
+def _sms(dev: torch.device) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sm_count:
+        _sm_count[i] = torch.cuda.get_device_properties(i) \
+            .multi_processor_count
+    return _sm_count[i]
+
+
 def pool_eval_counts(pool: torch.Tensor, owner: torch.Tensor,
                      slot: torch.Tensor, keys: torch.Tensor, nvalid: int,
                      q_o: torch.Tensor, q_s: torch.Tensor,
@@ -609,15 +680,17 @@ def pool_eval_counts(pool: torch.Tensor, owner: torch.Tensor,
              "pool_eval_counts: shape mismatch")
     _require(0 <= nvalid <= keys.numel(),
              "pool_eval_counts: nvalid exceeds the key table")
-    g_o = torch.zeros(B, dtype=torch.int32, device=pool.device)
-    g_s = torch.zeros_like(g_o)
+    g_o, g_s = torch.zeros((2, B), dtype=torch.int32, device=pool.device)
     if nvalid == 0 or B == 0:
         return g_o, g_s
-    vec = int(L % 4 == 0 and K % 4 == 0 and _aligned16(pool, q_o, q_s))
+    plan = _k4_plan(B, K, L, int(nvalid), _sms(pool.device))
+    vec = int(plan.vec and _aligned16(pool, q_o, q_s))
     rc = _lib("pool_eval_counts").adapm_pool_eval_counts(
         _ptr(pool), S, R, L, K, _ptr(owner), _ptr(slot), owner.numel(),
         _ptr(keys), int(nvalid), _ptr(q_o), _ptr(q_s), _ptr(true_sc),
-        _ptr(okey), _ptr(skey), B, vec, _ptr(g_o), _ptr(g_s), _stream())
+        _ptr(okey), _ptr(skey), B, vec, plan.Bq, plan.stages,
+        plan.smem_bytes, *plan.grid, int(plan.resident), _ptr(g_o),
+        _ptr(g_s), _stream())
     LAUNCHES["pool_eval_counts"] += 1
     _check(rc, "pool_eval_counts")
     return g_o, g_s

@@ -8,6 +8,8 @@ CPU, and runs the KGE application end to end on both routing paths.
     python3 chip_smoke.py --main-path-only   (phases 1 and 3, unchecked:
         copied into an earlier tree of the port, it times that tree's
         step the same way)
+    python3 chip_smoke.py --k4-only          (phase 1 and K4's part of
+        phase 2, the same way)
 
 Phases (any failure raises and exits non-zero):
   1. card name + power limit; build the kernels (nvcc, sm_90a).
@@ -23,7 +25,10 @@ Phases (any failure raises and exits non-zero):
      within tolerance; K4 pool_eval_counts: 64 queries against a
      200,000-entity pool in 65,536-key chunks: exact on integer-valued
      data, and ComplEx K=256 and RESCAL K=128 on random data under the
-     near-tie rule), with CUDA-event times (the
+     near-tie rule, each at B=64 and at the app's tail batch B=36, with
+     the share of the bound, the launch plan and the kernel's registers,
+     spills and static shared memory from its ptxas log), with CUDA-event
+     times (the
      median and the min-max spread of 20 launches) of kernel, plain
      version and one library call, and the least time the card could
      take.
@@ -72,6 +77,7 @@ import torch
 # main-path shape (the repo's flagship KGE configuration)
 E, R, D_MODEL, B, N = 200_000, 1_000, 128, 4096, 32
 EVAL_B, EVAL_CHUNK = 64, 65_536          # the app's eval batch and chunk
+K4_BATCHES = (EVAL_B, 36)   # the eval's full batch and its tail at 100
 STEP_KERNELS = ("routed_gather", "adagrad_update", "ordered_scatter_add")
 L = 4 * D_MODEL                       # [emb 2d | adagrad 2d]
 ROWS = 3 * B + B * N                  # gathered rows per step: 143,360
@@ -325,10 +331,12 @@ def timed(ms, plain_ms, library_ms, **kw):
 
 
 def phase_k4(K, dev, rng):
-    """K4 against its plain version at eval width: 64 queries, a
-    200,000-entity ComplEx pool (rows of 512 f32, K=256 read through the
-    row stride) in 4 chunks of 65,536 keys with a padded tail; the RESCAL
-    form (K=128) on the same pool."""
+    """K4 against its plain version at eval width: a 200,000-entity
+    ComplEx pool (rows of 512 f32, K=256 read through the row stride) in
+    4 chunks of 65,536 keys with a padded tail, the RESCAL form (K=128)
+    on the same pool, each at the app's full batch of 64 queries and its
+    tail batch of 36 (100 eval triples); exact on integer data at both
+    batch sizes."""
     from adapm_tpu_torch.models.kge import (_complex_queries,
                                             _rescal_queries, complex_score,
                                             rescal_score)
@@ -362,12 +370,17 @@ def phase_k4(K, dev, rng):
     qi_s = torch.randint(-3, 4, (EVAL_B, Ki), device=dev).float()
     cand_i = ipool[0, slot[o_k.long()], :Ki]
     true_i = (qi_o * cand_i).sum(1).contiguous()
-    iargs = (ipool, owner, slot, keys, E, qi_o, qi_s, true_i, o_k, s_k)
-    ge = K.pool_eval_counts(*iargs, parts=2)
-    pe = K.pool_eval_counts_plain(*iargs, parts=2)
-    check(all(torch.equal(a, b) for a, b in zip(ge, pe)),
-          "K4 counts differ from the plain version on integer data")
-    exact_counted = int(ge[0].sum() + ge[1].sum())
+    exact_counted = 0
+    for nb in K4_BATCHES:
+        iargs = (ipool, owner, slot, keys, E, qi_o[:nb].contiguous(),
+                 qi_s[:nb].contiguous(), true_i[:nb].contiguous(),
+                 o_k[:nb].contiguous(), s_k[:nb].contiguous())
+        ge = K.pool_eval_counts(*iargs, parts=2)
+        pe = K.pool_eval_counts_plain(*iargs, parts=2)
+        check(all(torch.equal(a, b) for a, b in zip(ge, pe)),
+              f"K4 counts differ from the plain version on integer data "
+              f"at B={nb}")
+        exact_counted += int(ge[0].sum() + ge[1].sum())
     del ipool, cand_i
 
     out = {}
@@ -385,45 +398,85 @@ def phase_k4(K, dev, rng):
             q_o, q_s = _rescal_queries(se, re_, oe)
             true = rescal_score(se, re_, oe)
             parts = 1
-        q_o, q_s, true = q_o.contiguous(), q_s.contiguous(), \
-            true.contiguous()
-        args = (pool, owner, slot, keys, E, q_o, q_s, true, o_k, s_k)
-        g_o, g_s = K.pool_eval_counts(*args, parts=parts)
-        p_o, p_s, t_o, t_s = K.pool_eval_counts_plain(*args, parts=parts,
-                                                      ties=True)
-        torch.cuda.synchronize()
-        diff = torch.cat([(g_o - p_o).abs(), (g_s - p_s).abs()])
-        ties = torch.cat([t_o, t_s])
-        check(bool((diff <= ties).all()),
-              f"K4 ({model}) counts differ from the plain version beyond "
-              f"the near-tie rule: diff {diff.tolist()} ties "
-              f"{ties.tolist()}")
-        check(bool((g_o > 0).any() and (g_o < E - 1).any()),
-              f"K4 ({model}) counts are degenerate")
         Kd = q_o.shape[1]
         flat = slot[torch.as_tensor(pad[:E], device=dev).long()]
         cand = pool[0, flat, :Kd].contiguous()   # the dense yardstick
+        for nb in K4_BATCHES:
+            qo, qs, tr = (x[:nb].contiguous() for x in (q_o, q_s, true))
+            args = (pool, owner, slot, keys, E, qo, qs, tr,
+                    o_k[:nb].contiguous(), s_k[:nb].contiguous())
+            g_o, g_s = K.pool_eval_counts(*args, parts=parts)
+            p_o, p_s, t_o, t_s = K.pool_eval_counts_plain(
+                *args, parts=parts, ties=True)
+            torch.cuda.synchronize()
+            diff = torch.cat([(g_o - p_o).abs(), (g_s - p_s).abs()])
+            ties = torch.cat([t_o, t_s])
+            check(bool((diff <= ties).all()),
+                  f"K4 ({model}, B={nb}) counts differ from the plain "
+                  f"version beyond the near-tie rule: diff {diff.tolist()} "
+                  f"ties {ties.tolist()}")
+            check(bool((g_o > 0).any() and (g_o < E - 1).any()),
+                  f"K4 ({model}, B={nb}) counts are degenerate")
 
-        def library():
-            t = true[:, None]
-            return ((q_o @ cand.T) > t).sum(1), ((q_s @ cand.T) > t).sum(1)
+            def library():
+                t = tr[:, None]
+                return ((qo @ cand.T) > t).sum(1), ((qs @ cand.T) > t).sum(1)
 
-        out[model] = timed(
-            max_abs_err=float(diff.max()), ties=int(ties.sum()),
-            counted=int(g_o.sum() + g_s.sum()), K=Kd,
-            ms=cuda_ms(lambda: K.pool_eval_counts(*args, parts=parts)),
-            plain_ms=cuda_ms(lambda: K.pool_eval_counts_plain(
-                *args, parts=parts)),
-            library_ms=cuda_ms(library),
-            # each real candidate row's K floats read once; 2 sides x B x
-            # E x K multiply-adds, 2 operations each
-            bound=bound(E * Kd * 4 + E * 4 + 2 * EVAL_B * Kd * 4,
-                        2 * 2 * EVAL_B * E * Kd))
+            out[model, nb] = timed(
+                max_abs_err=float(diff.max()), ties=int(ties.sum()),
+                counted=int(g_o.sum() + g_s.sum()), K=Kd, B=nb,
+                ms=cuda_ms(lambda: K.pool_eval_counts(*args, parts=parts)),
+                plain_ms=cuda_ms(lambda: K.pool_eval_counts_plain(
+                    *args, parts=parts)),
+                library_ms=cuda_ms(library),
+                # each real candidate row's K floats read once; 2 sides x
+                # B x E x K multiply-adds, 2 operations each
+                bound=bound(E * Kd * 4 + E * 4 + 2 * nb * Kd * 4,
+                            2 * 2 * nb * E * Kd))
         del cand
-    rec = dict(out["complex"])
-    rec["rescal"] = out["rescal"]
+    rec = dict(out["complex", EVAL_B])
+    rec["forms"] = {f"{m} B={nb}": r for (m, nb), r in out.items()}
     rec["exact_counted"] = exact_counted
+    plan = getattr(K, "_k4_plan", None)
+    if plan is not None:    # absent from trees before the launch plan
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        rec["plans"] = {f"K={kd} B={nb}": plan(nb, kd, L, E, sms)._asdict()
+                        for kd in (2 * D_MODEL, D_MODEL)
+                        for nb in K4_BATCHES}
+    rec["ptxas"] = ptxas_summary("pool_eval_counts")
     return rec
+
+
+def ptxas_summary(name):
+    """Registers, spills and static shared memory per kernel entry, from
+    the newest `-Xptxas -v` log of library `name` under build/kernels/."""
+    import glob
+    import re
+    logs = glob.glob(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "build", "kernels", f"lib{name}_*.ptxas.txt"))
+    if not logs:
+        return []
+    with open(max(logs, key=os.path.getmtime)) as fh:
+        text = fh.read()
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            tpl = re.search(r"kernelI(.*)EEv", m.group(1))
+            cur = dict(entry=tpl.group(1) if tpl else m.group(1))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur["static_smem"] = int(m.group(2) or 0)
+    return out
 
 
 def phase_main_path(at, K, dev, rng):
@@ -747,16 +800,27 @@ def report_kernels(rec):
           f"{k3['uniform_longest_run']}) {fmt_s(*k3['uniform_ms'])} ms "
           f"(bound {k3['uniform_bound'][0]:.4f} ms); multi-segment form at "
           f"{ROLE_SPLIT} bitwise; deterministic over two runs", flush=True)
-    k4 = rec["pool_eval_counts"]
-    for model, r in (("complex", k4), ("rescal", k4["rescal"])):
-        print(f"phase 2: K4 {model} K={r['K']}: {fmt_t(r, 'ms')} ms (bound "
-              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}), plain "
+    report_k4(rec["pool_eval_counts"])
+
+
+def report_k4(k4):
+    """K4's lines: each form and batch against its plain version, its
+    share of the bound, the launch plans and what ptxas reported."""
+    for form, r in k4["forms"].items():
+        print(f"phase 2: K4 {form} K={r['K']}: {fmt_t(r, 'ms')} ms (bound "
+              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}, share "
+              f"{r['bound'][0] / r['ms']:.3f}), plain "
               f"{fmt_t(r, 'plain_ms')} ms, matmul+compare+sum "
               f"{fmt_t(r, 'library_ms')} ms, count diff {r['max_abs_err']}"
               f" within {r['ties']} near-ties, {r['counted']} counted",
               flush=True)
-    print(f"phase 2: K4 exact on integer data: {k4['exact_counted']} "
-          f"counted, equal to the plain version", flush=True)
+    print(f"phase 2: K4 exact on integer data at B={K4_BATCHES}: "
+          f"{k4['exact_counted']} counted, equal to the plain version",
+          flush=True)
+    for key, p in k4.get("plans", {}).items():
+        print(f"phase 2: K4 plan {key}: {p}", flush=True)
+    for e in k4["ptxas"]:
+        print(f"phase 2: K4 ptxas {e}", flush=True)
 
 
 def report_main_path(mp, step_launches):
@@ -798,6 +862,12 @@ def main(argv):
     build_s = K.build()
     print(f"phase 1: kernels built in {build_s:.1f} s", flush=True)
     rng = np.random.default_rng(0)
+    if "--k4-only" in argv:
+        # K4's phase-2 checks and times alone, unchecked against the
+        # contract's other phases: copied into an earlier tree of the
+        # port, it times that tree's K4 the same way
+        report_k4(phase_k4(K, dev, rng))
+        return 0
     if "--main-path-only" in argv:
         # phase 3 alone, unchecked: runs against an earlier tree of the
         # port too (copy the script there), for a like-with-like compare

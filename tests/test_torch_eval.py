@@ -31,7 +31,7 @@ from adapm_tpu_torch.ops import kernels as K
 S, SLOTS, E, R, B, C = 2, 96, 150, 6, 10, 64   # C does not divide E
 
 
-def _pool_case(model, shared, d=6, seed=0):
+def _pool_case(model, shared, d=6, seed=0, B=B):
     """A random pool with entity and relation rows placed by a random
     owner/slot table; returns numpy inputs of the count program."""
     rng = np.random.default_rng(seed)
@@ -58,10 +58,10 @@ def _pool_case(model, shared, d=6, seed=0):
                 keys=pad.reshape(nch, C), s=s, r=r, o=o)
 
 
-@pytest.mark.parametrize("shared", [True, False], ids=["shared", "twopool"])
-@pytest.mark.parametrize("model", ["complex", "rescal"])
-def test_pool_eval_counts_match_jax(model, shared):
-    c = _pool_case(model, shared)
+def _jax_and_torch_counts(c, model, shared, batches):
+    """The JAX program on the whole query batch, the port's program once
+    per slice of it in `batches`, and the plain version's near-tie counts
+    of the port's inputs: numpy arrays."""
     cache_row = np.full(E + R, -1, np.int32)
     fj = jkge.make_pool_eval_counts(model, c["ent_dim"], c["rel_dim"], C,
                                     shared_pool=shared)
@@ -78,8 +78,10 @@ def test_pool_eval_counts_match_jax(model, shared):
     gj_o, gj_s, tj_sc = (np.asarray(x) for x in fj(
         *pj, tj, jnp.asarray(c["keys"]), np.int32(E),
         *[jnp.asarray(x) for x in q]))
-    gt_o, gt_s, tt_sc = ft(*pt, tt, torch.from_numpy(c["keys"]), E,
-                           *[torch.from_numpy(x) for x in q])
+    outs = [ft(*pt, tt, torch.from_numpy(c["keys"]), E,
+               *[torch.from_numpy(x[lo:hi]) for x in q])
+            for lo, hi in batches]
+    gt_o, gt_s, tt_sc = (torch.cat(x) for x in zip(*outs))
     np.testing.assert_allclose(tt_sc.numpy(), tj_sc, rtol=1e-6, atol=1e-6)
     for g in (gt_o.numpy(), gt_s.numpy()):
         assert g.min() >= 0 and g.max() <= E - 1 and g.any()
@@ -100,8 +102,29 @@ def test_pool_eval_counts_match_jax(model, shared):
         pt[0], tt[0], tt[1], torch.from_numpy(c["keys"]), E, q_o, q_s,
         tt_sc, torch.from_numpy(c["o"]), torch.from_numpy(c["s"]),
         parts=parts, ties=True)
-    assert (np.abs(gt_o.numpy() - gj_o) <= ties_o.numpy()).all()
-    assert (np.abs(gt_s.numpy() - gj_s) <= ties_s.numpy()).all()
+    return (gj_o, gj_s), (gt_o.numpy(), gt_s.numpy()), \
+        (ties_o.numpy(), ties_s.numpy())
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "twopool"])
+@pytest.mark.parametrize("model", ["complex", "rescal"])
+def test_pool_eval_counts_match_jax(model, shared):
+    c = _pool_case(model, shared)
+    jax_c, port_c, ties = _jax_and_torch_counts(c, model, shared, [(0, B)])
+    for j, t, n in zip(jax_c, port_c, ties):
+        assert (np.abs(t - j) <= n).all()
+
+
+@pytest.mark.parametrize("model", ["complex", "rescal"])
+def test_pool_eval_counts_app_batch_split_match_jax(model):
+    """The app's eval of 100 triples: batches of 64 and 36 (the kernel's
+    two query-block plans on the card) against the JAX program on all
+    100 at once."""
+    c = _pool_case(model, True, seed=4, B=100)
+    jax_c, port_c, ties = _jax_and_torch_counts(c, model, True,
+                                                [(0, 64), (64, 100)])
+    for j, t, n in zip(jax_c, port_c, ties):
+        assert (np.abs(t - j) <= n).all()
 
 
 @pytest.mark.parametrize("model", ["complex", "rescal"])

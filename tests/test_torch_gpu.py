@@ -208,37 +208,51 @@ def test_adagrad_both_forms(cuda):
     torch.testing.assert_close(ge.cpu(), re, rtol=1e-4, atol=1e-6)
 
 
-def _k4_case(rng, dev, B, K, L, E=700, C=256, integer=False):
-    S, R = 2, 400
+def _k4_case(rng, dev, B, Kd, L, E=700, C=256, integer=False, oob=False,
+             S=2, R=400):
     nk = E + 10
     flat = rng.permutation(S * R)[:nk]
     owner = torch.from_numpy((flat // R).astype(np.int32))
     slot = torch.from_numpy((flat % R).astype(np.int32))
+    if oob:  # keys whose coordinates lie outside the pool read zero rows
+        bad = rng.permutation(nk)[:nk // 10]
+        owner[bad[::3]] = S
+        slot[bad[1::3]] = -1
+        slot[bad[2::3]] = OOB
     if integer:
         pool = torch.from_numpy(rng.integers(-4, 5, (S, R, L))).float()
-        q_o, q_s = (torch.from_numpy(rng.integers(-3, 4, (B, K))).float()
+        q_o, q_s = (torch.from_numpy(rng.integers(-3, 4, (B, Kd))).float()
                     for _ in range(2))
     else:
         pool = torch.randn(S, R, L)
-        q_o, q_s = torch.randn(B, K), torch.randn(B, K)
+        q_o, q_s = torch.randn(B, Kd), torch.randn(B, Kd)
     nch = -(-E // C)
     pad = np.zeros(nch * C, np.int32)
     pad[:E] = rng.permutation(E)
     keys = torch.from_numpy(pad.reshape(nch, C))
     okey = torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
     skey = torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
-    # true scores of real candidates: exact ties on integer data
-    rows = pool[owner[okey.long()].long(), slot[okey.long()].long(), :K]
+    # true scores of real candidates (the true key is a candidate): exact
+    # ties on integer data
+    rows = K._fill_gather_plain(pool, owner[okey.long()],
+                                slot[okey.long()])[:, :Kd]
     true = (q_o * rows).sum(1)
     args = [pool, owner, slot, keys, E, q_o, q_s, true, okey, skey]
     return args, [a.to(dev) if torch.is_tensor(a) else a for a in args]
 
 
+def _k4_twice(dev_args, **kw):
+    """K4 on the card twice: the counts of both runs, on the host."""
+    outs = [K.pool_eval_counts(*dev_args, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    return [tuple(t.cpu() for t in o) for o in outs]
+
+
 @pytest.mark.parametrize("B,Kd,L", [(64, 256, 512), (150, 16, 32),
                                     (37, 7, 9), (5, 130, 130)])
 def test_pool_eval_counts_exact_on_integers(cuda, B, Kd, L):
-    """Vector and scalar staging, several query blocks, K not a
-    multiple of the 32-column chunk, a padded candidate tail."""
+    """Vector and scalar copies, several query blocks, K not a multiple
+    of the 32-column chunk, a padded candidate tail."""
     rng = np.random.default_rng(Kd)
     ref_args, dev_args = _k4_case(rng, cuda, B, Kd, L, integer=True)
     ref = K.pool_eval_counts(*ref_args)
@@ -257,6 +271,69 @@ def test_pool_eval_counts_near_ties(cuda):
                                                   ties=True)
     assert ((g_o.cpu() - p_o).abs() <= t_o).all()
     assert ((g_s.cpu() - p_s).abs() <= t_s).all()
+
+
+# the row length per K: K=7 and K=128 take unaligned rows (4-byte copies)
+K4_L = {7: 9, 128: 130, 256: 512, 512: 512}
+
+
+@pytest.mark.parametrize("Kd", [7, 128, 256, 512])
+@pytest.mark.parametrize("B", [1, 36, 64, 65, 150])
+def test_pool_eval_counts_plans_exact_and_near_ties(cuda, B, Kd):
+    """Every query-block size of the launch plan (B=1: 16, 36: 48, 64:
+    64, 65: two of 48, 150: three of 64; K=512 shrinks them) on 700
+    candidates: fewer tiles than CTAs, a partial last tile, a padded key
+    tail, OOB owner/slot coordinates, the true key among the candidates.
+    Integer data: equal to the plain version and over two runs; random
+    data: within the near-tie rule."""
+    rng = np.random.default_rng(B * 1000 + Kd)
+    ref_args, dev_args = _k4_case(rng, cuda, B, Kd, K4_L[Kd], integer=True,
+                                  oob=True)
+    ref = K.pool_eval_counts(*ref_args)
+    a, b = _k4_twice(dev_args)
+    assert all(torch.equal(x, y) for x, y in zip(a, ref))
+    assert all(torch.equal(x, y) for x, y in zip(b, ref))
+    assert int(ref[0].sum()) > 0
+    ref_args, dev_args = _k4_case(rng, cuda, B, Kd, K4_L[Kd], oob=True)
+    g_o, g_s = K.pool_eval_counts(*dev_args)
+    p_o, p_s, t_o, t_s = K.pool_eval_counts_plain(*ref_args, ties=True)
+    assert ((g_o.cpu() - p_o).abs() <= t_o).all()
+    assert ((g_s.cpu() - p_s).abs() <= t_s).all()
+
+
+@pytest.mark.parametrize("Kd,L", [(7, 9), (128, 130), (256, 512)])
+def test_pool_eval_counts_unaligned_pool(cuda, Kd, L):
+    """Rows that are not 16-byte aligned: L % 4 != 0, and a pool whose
+    base lies 4 bytes past an aligned address."""
+    rng = np.random.default_rng(Kd + 7)
+    ref_args, dev_args = _k4_case(rng, cuda, 36, Kd, L, integer=True)
+    pool = dev_args[0]
+    store = torch.zeros(pool.numel() + 1, device=cuda)
+    shifted = store[1:].view(pool.shape)
+    shifted.copy_(pool)
+    assert shifted.data_ptr() % 16 != 0
+    dev_args[0] = shifted
+    ref = K.pool_eval_counts(*ref_args)
+    for got in _k4_twice(dev_args):
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+
+
+@pytest.mark.parametrize("Kd,E", [(32, 150_000), (256, 150_000),
+                                  (1536, 2_000)])
+def test_pool_eval_counts_many_tiles_and_streamed_queries(cuda, Kd, E):
+    """Many tiles per CTA (the pointer pipeline wraps its 8 tile slots
+    many times; K=32 is one chunk per tile) and a K too wide for a
+    resident query block (queries stream through the ring): exact on
+    integer data against the plain version on the card."""
+    rng = np.random.default_rng(Kd)
+    S, R = 1, E + 64
+    _, dev_args = _k4_case(rng, cuda, 64, Kd, Kd, E=E, C=65_536,
+                           integer=True, oob=True, S=S, R=R)
+    plan = K._k4_plan(64, Kd, Kd, E, K._sms(dev_args[0].device))
+    assert plan.resident == (Kd < 1536)
+    ref = K.pool_eval_counts_plain(*dev_args)
+    for got in _k4_twice(dev_args):
+        assert all(torch.equal(x, y.cpu()) for x, y in zip(got, ref))
 
 
 def test_wrappers_raise_on_bad_cuda_input(cuda):
