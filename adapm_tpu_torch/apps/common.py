@@ -1,7 +1,6 @@
 """Shared application harness: the idioms every reference app uses
-(SURVEY.md §2.3 "Common app idioms"). The JAX package's `apps/common.py`
-without `ScanWindow`, which waits for `run_scan` (ROADMAP queue A,
-item 4).
+(SURVEY.md §2.3 "Common app idioms"), as in the JAX package's
+`apps/common.py`.
 
 - `enforce_random_keys`: random key shuffling for load balance — apps address
   logical keys, a fixed permutation maps them to physical PM keys
@@ -12,6 +11,8 @@ item 4).
 - `max_runtime` epoch cutoff.
 - wrap-around batching: the tail of a data partition wraps to its start
   (a few duplicate points per epoch), so every step has the same shape.
+- `ScanWindow`: the --scan_steps dispatch contract (K steps per
+  DeviceRoutedRunner.run_scan).
 """
 from __future__ import annotations
 
@@ -125,6 +126,44 @@ def wrap_batches(n: int, batch_size: int, rng: Optional[np.random.Generator]
             reps = -(-batch_size // n)  # n may be smaller than the shortfall
             idx = np.concatenate([idx, np.tile(order, reps)])[:batch_size]
         yield idx
+
+
+class ScanWindow:
+    """The apps' shared --scan_steps dispatch contract: a full K-batch
+    window trains in ONE dispatch (DeviceRoutedRunner.run_scan: a loop on
+    the CPU, one CUDA graph replay on the card) followed by
+    K * sync_rounds_per_step planner rounds; a partial tail window runs
+    per step, each step followed by its rounds. Batches in one window
+    must come from ONE worker shard: flush at worker/block boundaries."""
+
+    def __init__(self, server, K: int, sync_rounds_per_step: int,
+                 on_loss=None):
+        self.server = server
+        self.K = K
+        self.rounds = sync_rounds_per_step
+        self.on_loss = on_loss or (lambda loss: None)
+        self.buf: list = []  # (runner, roles, aux)
+
+    def add(self, runner, roles, aux, lr) -> None:
+        self.buf.append((runner, roles, aux))
+        if len(self.buf) == self.K:
+            self.flush(lr)
+
+    def flush(self, lr) -> None:
+        if not self.buf:
+            return
+        runner = self.buf[0][0]
+        if len(self.buf) == self.K and self.K > 1:
+            has_aux = self.buf[0][2] is not None
+            self.on_loss(runner.run_scan(
+                [r for _, r, _ in self.buf],
+                [a for _, _, a in self.buf] if has_aux else None, lr))
+            self.server.drive_rounds(len(self.buf) * self.rounds)
+        else:
+            for rn, roles, aux in self.buf:
+                self.on_loss(rn(roles, aux, lr))
+                self.server.drive_rounds(self.rounds)
+        self.buf.clear()
 
 
 class RuntimeGuard:

@@ -19,9 +19,10 @@ full-entity matmuls against a dense entity matrix.
 
 This is the JAX package's app with identical flags. It runs on `cuda`;
 `run_app(args, device="cpu")` runs the same code on the CPU, where every
-kernel takes its plain version. Not ported: `--scan_steps > 1` (run_scan,
-ROADMAP queue A, item 4) and the multi-process eval (queue A, item 11);
-both raise NotImplementedError.
+kernel takes its plain version. `--scan_steps K` (device routes) trains
+K batches per DeviceRoutedRunner.run_scan window: a CUDA graph replay on
+the card, a loop over the step on the CPU. Not ported: the multi-process
+eval (ROADMAP queue A, item 11), which raises NotImplementedError.
 
 Run: python -m adapm_tpu_torch.apps.knowledge_graph_embeddings --model complex ...
 """
@@ -40,10 +41,10 @@ from ..io import kge as kgeio
 from ..models.kge import make_eval_scores, make_kge_loss
 from ..ops.fused import DeviceRoutedRunner, DeviceRouter, FusedStepRunner
 from ..utils import Stopwatch, alog
-from .common import (KeyMapper, RuntimeGuard, add_common_arguments,
-                     enforce_full_replication, epoch_report,
-                     global_worker_slices, make_server, wrap_batches,
-                     worker0_init)
+from .common import (KeyMapper, RuntimeGuard, ScanWindow,
+                     add_common_arguments, enforce_full_replication,
+                     epoch_report, global_worker_slices, make_server,
+                     wrap_batches, worker0_init)
 
 # eval stats layout: [0:4] object side (mrr_sum, h1, h10, count),
 # [4:8] subject side — separated because the generators/datasets can have
@@ -373,9 +374,6 @@ def run_app(args, device=None) -> dict:
     `epoch_losses` (one mean loss per epoch) and host-clock seconds:
     `gen_s` (dataset), `epoch_s` (each epoch's training, up to its loss
     on the host) and `eval_s` (each evaluation)."""
-    if args.scan_steps > 1:
-        raise NotImplementedError("--scan_steps > 1 (run_scan) is not "
-                                  "ported yet (ROADMAP queue A, item 4)")
     dev = torch.device("cuda" if device is None else device)
     t_gen = time.perf_counter()
     truth_mrr = None
@@ -501,9 +499,29 @@ def run_app(args, device=None) -> dict:
                 if not args.device_routes:
                     handles[bi] = w.prepare_sample(B * N, fut, fut + 1)
 
-            for bi in range(min(max(args.lookahead, 1), len(batches))):
+            K = max(1, args.scan_steps) if args.device_routes else 1
+            for bi in range(min(max(args.lookahead, K), len(batches))):
                 prepare(bi, ahead=bi)
-            for bi in range(len(batches)):
+            tail_start = len(batches) - len(batches) % K if K > 1 else 0
+            if K > 1:
+                # K-step windows (runner.run_scan): one dispatch trains K
+                # batches; intents run a window ahead, and the K planner
+                # rounds and clock ticks follow the window. The tail short
+                # of K batches runs per step below.
+                look = max(args.lookahead, K)
+                window = ScanWindow(srv, K, args.sync_rounds_per_step,
+                                    on_loss=epoch_losses.append)
+                for lo in range(0, tail_start, K):
+                    for bi in range(lo + look,
+                                    min(lo + look + K, len(batches))):
+                        prepare(bi, ahead=bi - lo)
+                    for j in range(K):
+                        window.add(device_runner(w.shard),
+                                   triple_roles(train[batches[lo + j]]),
+                                   None, lr_epoch)
+                    for _ in range(K):
+                        w.advance_clock()
+            for bi in range(tail_start, len(batches)):
                 idx = batches[bi]
                 if bi + args.lookahead < len(batches):
                     prepare(bi + args.lookahead, ahead=args.lookahead)
@@ -523,11 +541,13 @@ def run_app(args, device=None) -> dict:
                 w.advance_clock()
         srv.quiesce()
 
-        # one device-to-host copy per epoch; the float32 pairwise sum of
-        # the JAX app
-        step_losses = torch.stack(epoch_losses).cpu().numpy() \
-            if epoch_losses else np.zeros(0, np.float32)
-        epoch_loss = float(np.sum(step_losses))
+        # one device-to-host copy per epoch; the JAX app's float32 sums:
+        # each window's [K] losses, then pairwise over windows and steps
+        step_losses = torch.cat([x.reshape(-1) for x in epoch_losses]) \
+            .cpu().numpy() if epoch_losses else np.zeros(0, np.float32)
+        sizes = [x.numel() for x in epoch_losses]
+        epoch_loss = float(np.sum(
+            [g.sum() for g in np.split(step_losses, np.cumsum(sizes)[:-1])]))
         nbatches = len(step_losses)
         result["epoch_s"].append(time.perf_counter() - t_epoch)
         # loss aggregation through the PS loss key (ps_allreduce idiom)
@@ -621,7 +641,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "(1.0 = constant, the reference behavior)")
     parser.add_argument("--scan_steps", type=int, default=1,
                         help="K>1: train K batches per device dispatch "
-                             "(runner.run_scan; not ported yet)")
+                             "(runner.run_scan: one CUDA graph replay per "
+                             "window on the card, a loop on the CPU; "
+                             "device routing only)")
     parser.add_argument("--device_routes",
                         action=argparse.BooleanOptionalAction, default=True,
                         help="device-routed fused step + on-device "

@@ -7,12 +7,17 @@
 //   fused form      upd[i] = [ -lr*g*rsqrt(acc + g*g + eps) | g*g ]
 //   standalone form acc' = acc + g*g;  emb' = emb - lr*g*rsqrt(acc' + eps)
 //
+// The fused form reads lr and eps from a 2-float device array when it is
+// given one (the fused step's, which a captured CUDA graph follows from
+// replay to replay, as K5 reads it), else takes them as arguments.
+//
 // Every operation is an explicitly rounded intrinsic in the order the
 // plain PyTorch version evaluates it, so nvcc cannot contract a
 // multiply-add into an FMA; rsqrt is 1/sqrt with both steps correctly
-// rounded (the CPU's torch.rsqrt arithmetic). The JAX package's
-// lax.rsqrt may differ in the last bit, which the model-math tolerance
-// covers.
+// rounded (the CPU's torch.rsqrt arithmetic). The fused form's
+// arithmetic lives in adagrad.cuh, which K5 (complex_step.cu) shares as
+// its epilogue. The JAX package's lax.rsqrt may differ in the last bit,
+// which the model-math tolerance covers.
 //
 // Bound on an H100: bytes (a handful of flops per 12-16 bytes moved).
 // Design: a grid-stride loop over 4-wide vectors; the accumulator is
@@ -20,29 +25,28 @@
 // stride, so no copy of it is made.
 #include <cuda_runtime.h>
 
+#include "adagrad.cuh"
+
 namespace {
 
-__device__ __forceinline__ float rsqrt_rn(float x) {
-  return __fdiv_rn(1.0f, __fsqrt_rn(x));
-}
-
-__device__ __forceinline__ void upd_one(float g, float a, float lr, float eps,
-                                        float* u, float* g2) {
-  const float gg = __fmul_rn(g, g);
-  const float s = __fadd_rn(__fadd_rn(a, gg), eps);
-  *u = __fmul_rn(__fmul_rn(-lr, g), rsqrt_rn(s));
-  *g2 = gg;
-}
+using adapm::rsqrt_rn;
+using adapm::upd_one;
 
 // n rows of D; g is [n, D] contiguous, acc rows start acc_stride floats
 // apart, upd is [n, 2D] contiguous. kVec: D and acc_stride are
-// multiples of 4 and every base pointer is 16-byte aligned.
+// multiples of 4 and every base pointer is 16-byte aligned. lr_eps, when
+// not null, holds (lr, eps) and overrides the two scalars.
 template <bool kVec>
 __global__ void adagrad_update_kernel(const float* __restrict__ g,
                                       const float* __restrict__ acc,
                                       long long acc_stride,
                                       float* __restrict__ upd, long long n,
-                                      int D, float lr, float eps) {
+                                      int D, const float* __restrict__ lr_eps,
+                                      float lr, float eps) {
+  if (lr_eps != nullptr) {
+    lr = __ldg(lr_eps);
+    eps = __ldg(lr_eps + 1);
+  }
   const int W = kVec ? 4 : 1;
   const int per_row = D / W;
   const long long total = n * per_row;
@@ -97,18 +101,19 @@ int grid_for(long long work, int threads) {
 
 extern "C" int adapm_adagrad_update(const float* g, const float* acc,
                                     long long acc_stride, float* upd,
-                                    long long n, int D, float lr, float eps,
-                                    int vec, cudaStream_t stream) {
+                                    long long n, int D, const float* lr_eps,
+                                    float lr, float eps, int vec,
+                                    cudaStream_t stream) {
   if (n <= 0 || D <= 0) return 0;
   const int threads = 256;
   if (vec)
     adagrad_update_kernel<true>
         <<<grid_for(n * (D / 4), threads), threads, 0, stream>>>(
-            g, acc, acc_stride, upd, n, D, lr, eps);
+            g, acc, acc_stride, upd, n, D, lr_eps, lr, eps);
   else
     adagrad_update_kernel<false>
         <<<grid_for(n * D, threads), threads, 0, stream>>>(
-            g, acc, acc_stride, upd, n, D, lr, eps);
+            g, acc, acc_stride, upd, n, D, lr_eps, lr, eps);
   return (int)cudaGetLastError();
 }
 

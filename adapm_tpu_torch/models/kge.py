@@ -7,7 +7,9 @@ Embedding layout: an entity row holds a complex vector of dimension `dim`
 as [re | im] (2*dim floats); ComplEx relations are the same; RESCAL
 relations are a real dim x dim matrix (dim^2 floats). The stored value
 row additionally carries the AdaGrad accumulator ([emb | acc],
-ops/fused.py). The gradient is plain autograd over the gathered rows.
+ops/fused.py). A ComplEx loss runs its step as the hand-written kernel
+K5 (KgeLoss.fused_update); RESCAL's gradient is plain autograd over the
+gathered rows.
 
 The eval programs rank every entity for both sides of a triple:
 `make_eval_scores` against a dense entity matrix, and
@@ -21,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.kernels import (pool_eval_counts, pool_eval_counts_plain,
-                           routed_gather)
+from ..ops.kernels import (complex_step, pool_eval_counts,
+                           pool_eval_counts_plain, routed_gather)
 
 
 def complex_score(s: torch.Tensor, r: torch.Tensor,
@@ -66,26 +68,53 @@ def _nll_loss(pos: torch.Tensor, neg_s: torch.Tensor, neg_o: torch.Tensor,
     return (pos_l + neg_l).mean()
 
 
-def make_kge_loss(model: str = "complex", self_adv_temp: float = 0.0,
-                  l2: float = 0.0):
+class KgeLoss:
     """loss_fn(embs, aux) for ops/fused.py. Roles: s, r, o [B, *]; neg
     [B, N] entity embeddings corrupting both the subject and the object
     side. `l2` > 0 adds per-batch (lazy) L2 on the positive triple's
-    rows."""
-    score = {"complex": complex_score, "rescal": rescal_score}[model]
+    rows.
 
-    def loss_fn(embs, aux):
+    `fused_update` is the loss's fused form, or None: the fused step
+    runs it in place of autograd and K2 when it is there. ComplEx has
+    one, the hand-written kernel K5 (ops/kernels.py complex_step); RESCAL
+    has none."""
+
+    def __init__(self, model: str = "complex", self_adv_temp: float = 0.0,
+                 l2: float = 0.0):
+        self.score = {"complex": complex_score, "rescal": rescal_score}[model]
+        self.self_adv_temp = float(self_adv_temp)
+        self.l2 = float(l2)
+        self.fused_update = self._complex_update if model == "complex" \
+            else None
+
+    def __call__(self, embs, aux):
         s, r, o, neg = embs["s"], embs["r"], embs["o"], embs["neg"]
-        pos = score(s, r, o)
-        neg_s = score(neg, r[:, None, :], o[:, None, :])
-        neg_o = score(s[:, None, :], r[:, None, :], neg)
-        loss = _nll_loss(pos, neg_s, neg_o, self_adv_temp)
-        if l2 > 0.0:
-            loss = loss + l2 * ((s * s).sum(-1) + (r * r).sum(-1)
-                                + (o * o).sum(-1)).mean()
+        pos = self.score(s, r, o)
+        neg_s = self.score(neg, r[:, None, :], o[:, None, :])
+        neg_o = self.score(s[:, None, :], r[:, None, :], neg)
+        loss = _nll_loss(pos, neg_s, neg_o, self.self_adv_temp)
+        if self.l2 > 0.0:
+            loss = loss + self.l2 * ((s * s).sum(-1) + (r * r).sum(-1)
+                                     + (o * o).sum(-1)).mean()
         return loss
 
-    return loss_fn
+    def _complex_update(self, rows, out, lr_eps) -> torch.Tensor:
+        """The ComplEx loss, its gradient and the AdaGrad delta rows in
+        one K5 launch: `rows` maps s, r, o, neg to gathered [emb | acc]
+        rows, `out` each trainable role to its delta rows (a frozen role
+        is missing), `lr_eps` is (lr, eps) on the rows' device. Returns
+        the mean loss."""
+        if sorted(rows) != ["neg", "o", "r", "s"]:
+            raise ValueError(f"KgeLoss: roles {sorted(rows)}, expected "
+                             "s, r, o, neg")
+        per = complex_step(rows["s"], rows["r"], rows["o"], rows["neg"],
+                           lr_eps, self.self_adv_temp, self.l2, out=out)
+        return per.sum() / per.shape[0]
+
+
+def make_kge_loss(model: str = "complex", self_adv_temp: float = 0.0,
+                  l2: float = 0.0) -> KgeLoss:
+    return KgeLoss(model, self_adv_temp, l2)
 
 
 def _complex_queries(s, r, o):

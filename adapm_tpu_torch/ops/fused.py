@@ -5,16 +5,25 @@ run a small dense compute + AdaGrad, Push additive updates (mf/update.h:32-70,
 word2vec.cc:718-743, kge.cc:415-530). Here the triad over a *batch* of data
 points is one step on the device:
 
-    route -> gather rows (K1) -> model loss -> autograd ->
-    AdaGrad transform (K2) -> ordered scatter-add (K3)
+    route -> gather rows (K1) -> model loss, gradient and AdaGrad
+    transform -> ordered scatter-add (K3)
 
 Updates remain additive deltas, so the parameter-manager semantics hold
 (pushes merge at the main copy; replica writes land in the delta pool and
 flow back through sync rounds): the step is a batched Push in PM terms.
 Value rows are [emb (D) | adagrad acc (D)]
 (matrix_factorization.cc:695-697). The roles of one length class share
-their launches: one K1 gathers them all, K2 writes each trainable role's
-rows into one update buffer, one K3 per pool (main, then delta) adds it.
+their launches: one K1 gathers them all, the model math writes each
+trainable role's delta rows into one update buffer, one K3 per pool
+(main, then delta) adds it.
+
+The loss chooses the model math, on both routing modes: a loss with a
+fused form (`loss_fn.fused_update`, e.g. a ComplEx KgeLoss in
+models/kge.py, which runs the hand-written kernel K5: loss, gradient and
+AdaGrad rows in one launch) runs it; any other loss (RESCAL, the other
+apps' losses) runs as PyTorch autograd, then K2 per trainable role.
+Both read lr and eps from one 2-float device tensor, so a captured
+graph follows them. On the CPU both take the kernels' plain versions.
 
 Two routing modes, as in the JAX package's `ops/fused.py`:
   host routes (build_routes, FusedStepRunner): the host resolves every
@@ -30,8 +39,11 @@ Two routing modes, as in the JAX package's `ops/fused.py`:
       key.
 
 The device-routed runner has both variants (with replicas, and the
-replica-free main-only variant). The K-step `run_scan` is not ported yet
-(ROADMAP queue A, item 4).
+replica-free main-only variant), and `run_scan`: K steps per dispatch
+with placement frozen for the window (make_device_routed_scan). On the
+CPU it is a plain loop over the step; on the card the window is a
+captured CUDA graph, replayed per window (DeviceRoutedRunner.run_scan
+says what it captures and when it captures again).
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ import torch
 
 from ..core.store import OOB, bucket_size
 from ..exec import dispatch_gate
+from . import kernels
 from .kernels import (adagrad_update, ordered_scatter_add_segments,
                       routed_gather, routed_gather_segments)
 
@@ -140,12 +153,38 @@ def _role_views(flat, spans, shapes) -> Dict[str, torch.Tensor]:
             for r, (o, n) in spans.items()}
 
 
+def _update_buffers(rows, train_classes):
+    """Per class, one [sum n, L] buffer for its trainable roles' delta
+    rows (sorted() role order), and each role's row slice of it."""
+    bufs, slices = {}, {}
+    for c, rs in train_classes.items():
+        L = rows[rs[0]].shape[-1]
+        n = [rows[r].numel() // L for r in rs]
+        buf = torch.empty((sum(n), L), dtype=rows[rs[0]].dtype,
+                          device=rows[rs[0]].device)
+        off = 0
+        for r, k in zip(rs, n):
+            slices[r] = buf[off:off + k]
+            off += k
+        bufs[c] = buf
+    return bufs, slices
+
+
 def _loss_and_updates(loss_fn, rows, role_dim, roles, train_classes, aux,
-                      lr, eps):
+                      lr_eps):
     """Loss over the gathered rows and, per class, one [sum n, 2D] buffer
-    of its trainable roles' AdaGrad delta rows (K2 writes each role's row
-    slice, in sorted() role order). Each role's embedding half is its own
-    autograd leaf, so a duplicated key gets one gradient per occurrence."""
+    of its trainable roles' AdaGrad delta rows; `lr_eps` is (lr, eps) as
+    a 2-float tensor on the rows' device. A loss with a fused form runs
+    it (`loss_fn.fused_update(rows, slices, lr_eps)`: K5 for ComplEx);
+    any other as autograd, each role's embedding half its own leaf (a
+    duplicated key gets one gradient per occurrence), then K2 per
+    trainable role."""
+    bufs, slices = _update_buffers(rows, train_classes)
+    fused_update = getattr(loss_fn, "fused_update", None)
+    if fused_update is not None:
+        for r in roles:
+            _require_row(rows[r], role_dim[r])
+        return fused_update(rows, slices, lr_eps), bufs
     trainable = [r for rs in train_classes.values() for r in rs]
     embs = {r: rows[r][..., : role_dim[r]] for r in roles}
     leaves = {r: embs[r].detach().requires_grad_() for r in trainable}
@@ -155,21 +194,18 @@ def _loss_and_updates(loss_fn, rows, role_dim, roles, train_classes, aux,
         loss = loss_fn(merged, aux)
         grads = dict(zip(trainable, torch.autograd.grad(
             loss, [leaves[r] for r in trainable])))
-    upds = {}
-    for c, rs in train_classes.items():
-        L = rows[rs[0]].shape[-1]
-        flat = [rows[r].reshape(-1, L) for r in rs]
-        buf = torch.empty((sum(f.shape[0] for f in flat), L),
-                          dtype=flat[0].dtype, device=flat[0].device)
-        off = 0
-        for r, f in zip(rs, flat):
-            D = role_dim[r]
-            n = f.shape[0]
-            adagrad_update(grads[r].reshape(-1, D).contiguous(), f[:, D:],
-                           lr, eps, out=buf[off:off + n])
-            off += n
-        upds[c] = buf
-    return loss.detach(), upds
+    for r in trainable:
+        D = role_dim[r]
+        adagrad_update(grads[r].reshape(-1, D).contiguous(),
+                       rows[r].reshape(-1, rows[r].shape[-1])[:, D:],
+                       out=slices[r], lr_eps=lr_eps)
+    return loss.detach(), bufs
+
+
+def _require_row(rows, dim: int) -> None:
+    if rows.shape[-1] != 2 * dim:
+        raise ValueError(f"value rows of {rows.shape[-1]} floats, expected "
+                         f"[emb {dim} | acc {dim}]")
 
 
 def make_fused_adagrad_step(loss_fn: Callable[..., torch.Tensor],
@@ -178,11 +214,12 @@ def make_fused_adagrad_step(loss_fn: Callable[..., torch.Tensor],
                             frozen_roles: Sequence[str] = ()):
     """The host-routed fused step:
 
-        step(pools, routes, aux, lr, eps) -> loss
+        step(pools, routes, aux, lr_eps) -> loss
 
       pools   tuple per class of (main, cache, delta), UPDATED IN PLACE
       routes  dict role -> Routes.as_tuple()
       aux     handed to loss_fn (labels, weights)
+      lr_eps  (lr, eps) as a 2-float tensor on the pools' device
 
     loss_fn(embs: dict role -> [..., D_role] tensor, aux) is the scalar
     mean loss; role rows are [emb | acc] of length 2*D; frozen roles are
@@ -198,7 +235,7 @@ def make_fused_adagrad_step(loss_fn: Callable[..., torch.Tensor],
     train_classes = _class_roles(
         role_class, [r for r in roles if r not in frozen_roles])
 
-    def step(pools, routes, aux, lr, eps):
+    def step(pools, routes, aux, lr_eps):
         shapes = {r: tuple(routes[r][0].shape) for r in roles}
         flat_routes = {r: tuple(t.reshape(-1) for t in routes[r])
                        for r in roles}
@@ -209,7 +246,7 @@ def make_fused_adagrad_step(loss_fn: Callable[..., torch.Tensor],
                                           [flat_routes[r] for r in rs])
             rows.update(_role_views(flat, _spans(rs, shapes), shapes))
         loss, upds = _loss_and_updates(loss_fn, rows, role_dim, roles,
-                                       train_classes, aux, lr, eps)
+                                       train_classes, aux, lr_eps)
         for c, rs in train_classes.items():
             main, _, delta = pools[c]
             fr = [flat_routes[r] for r in rs]
@@ -302,7 +339,7 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
     """The fused step that resolves routing from device table mirrors:
 
         step(pools, locstat, tables, keys, local_index, alias, generator,
-             aux, lr, eps) -> loss
+             aux, lr_eps) -> loss
 
       pools       tuple per class of (main, cache, delta), UPDATED IN PLACE
       locstat     int64 [4] device accumulator (params seen / params local /
@@ -314,7 +351,10 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
       alias       (prob, alias, key table) device tensors when
                   `neg_alias` (models/sgns.py build_alias_table), else None
       generator   torch.Generator on the pools' device
+      lr_eps      (lr, eps) as a 2-float tensor on the pools' device
 
+    `neg_role`'s keys are drawn on the device unless `keys` already holds
+    them (run_scan on the card draws them before its graph replays).
     Per class, the roles' keys are joined in sorted() role order, routed
     once and gathered by one K1 launch; every class is gathered before
     the first scatter. Each role's rows are its own autograd leaf (a
@@ -333,9 +373,10 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
         role_class, [r for r in roles if r not in frozen_roles])
 
     def step(pools, locstat, tables, keys, local_index, alias, generator,
-             aux, lr, eps):
+             aux, lr_eps):
         keys = dict(keys)
-        if neg_role is not None and (neg_alias or local_index is not None):
+        if neg_role is not None and neg_role not in keys and (
+                neg_alias or local_index is not None):
             keys[neg_role] = _draw_negatives(
                 neg_shape, local_index, alias if neg_alias else None,
                 generator)
@@ -363,13 +404,13 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
             spans[c] = _spans(rs, shapes)
             rows.update(_role_views(flat, spans[c], shapes))
         # one step = one batched pull + one push of the same keys; the op
-        # counts local iff every key it touched was local
+        # counts local iff every key it touched was local (fills, not
+        # host copies: the step runs inside a captured graph too)
         locstat += torch.stack([
-            torch.tensor(n_total, device=locstat.device), n_local,
-            torch.ones((), dtype=torch.int64, device=locstat.device),
-            (n_local == n_total).to(torch.int64)])
+            torch.full_like(n_local, n_total), n_local,
+            torch.ones_like(n_local), (n_local == n_total).to(torch.int64)])
         loss, upds = _loss_and_updates(loss_fn, rows, role_dim, roles,
-                                       train_classes, aux, lr, eps)
+                                       train_classes, aux, lr_eps)
         for c, rs in train_classes.items():
             main, _, delta = pools[c]
             rt = routes[c]
@@ -386,6 +427,79 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
         return loss
 
     return step
+
+
+def make_device_routed_scan(loss_fn: Callable[..., torch.Tensor],
+                            role_class: Dict[str, int],
+                            role_dim: Dict[str, int],
+                            shard: int,
+                            frozen_roles: Sequence[str] = (),
+                            neg_role: str = None,
+                            neg_shape: Tuple[int, ...] = None,
+                            no_replicas: bool = False,
+                            neg_alias: bool = False):
+    """K device-routed steps over stacked batches (the JAX package's
+    lax.scan window):
+
+        scan(pools, locstat, tables, keys, local_index, alias, generator,
+             auxes, lr_eps) -> losses [K]
+
+      keys   dict role -> [K, ...] device int tensor (step k reads [k])
+      auxes  K per-step aux values (a list, or a [K, ...] tensor), or None
+
+    Placement is frozen for the window: every step routes with the same
+    tables, and negatives are drawn from the generator step after step,
+    in the order K sequential steps draw them. The other arguments are
+    the step's (make_device_routed_step)."""
+    step = make_device_routed_step(loss_fn, role_class, role_dim, shard,
+                                   frozen_roles, neg_role, neg_shape,
+                                   no_replicas, neg_alias)
+
+    def scan(pools, locstat, tables, keys, local_index, alias, generator,
+             auxes, lr_eps):
+        K = next(iter(keys.values())).shape[0]
+        return torch.stack([
+            step(pools, locstat, tables, {r: t[k] for r, t in keys.items()},
+                 local_index, alias, generator,
+                 None if auxes is None else auxes[k], lr_eps)
+            for k in range(K)])
+
+    return scan
+
+
+class _LrEps:
+    """(lr, eps) as a 2-float tensor on the runner's device, refilled in
+    place (two fills, no host copy) only when they change: K5 and K2
+    read it, and a captured graph follows it from replay to replay."""
+
+    def __init__(self, device):
+        self.t = torch.zeros(2, dtype=torch.float32, device=device)
+        self.val = None
+
+    def __call__(self, lr: float, eps: float) -> torch.Tensor:
+        v = (float(lr), float(eps))
+        if v != self.val:
+            self.t[0].fill_(v[0])
+            self.t[1].fill_(v[1])
+            self.val = v
+        return self.t
+
+
+class _ScanGraph:
+    """One captured run_scan window: the CUDA graph, its static inputs
+    (the window's keys, aux) and output (the [K] losses), the addresses
+    of the tensors it reads and writes in place, and the kernel launches
+    of one replay."""
+
+    __slots__ = ("graph", "keys", "joined", "aux", "losses", "ptrs",
+                 "launches")
+
+    def __init__(self, keys, joined, aux):
+        self.graph = None
+        self.keys, self.joined, self.aux = keys, joined, aux
+        self.losses = None
+        self.ptrs = None
+        self.launches = None
 
 
 class DeviceRoutedRunner:
@@ -441,14 +555,19 @@ class DeviceRoutedRunner:
         self._local_index = None
         self._li_version = -1
         self._locstat = torch.zeros(4, dtype=torch.int64, device=dev)
+        self._lr_eps = _LrEps(dev)
         server._locality_sources.append(self.locality_counts)
-        mk = dict(loss_fn=loss_fn, role_class=role_class,
-                  role_dim=role_dim, shard=shard,
-                  frozen_roles=frozen_roles, neg_role=neg_role,
-                  neg_shape=neg_shape, neg_alias=self._alias is not None)
-        self.step_fn = make_device_routed_step(no_replicas=False, **mk)
+        self._mk = dict(loss_fn=loss_fn, role_class=role_class,
+                        role_dim=role_dim, shard=shard,
+                        frozen_roles=frozen_roles, neg_role=neg_role,
+                        neg_shape=neg_shape,
+                        neg_alias=self._alias is not None)
+        self.step_fn = make_device_routed_step(no_replicas=False, **self._mk)
         self._step_fn_norep = make_device_routed_step(no_replicas=True,
-                                                      **mk)
+                                                      **self._mk)
+        self._scan_fns: Dict[bool, Callable] = {}
+        self._graphs: Dict[tuple, _ScanGraph] = {}
+        self.graph_captures = 0
         self._rep_version = -1
         self._has_replicas = True
         self.steps = 0
@@ -565,10 +684,152 @@ class DeviceRoutedRunner:
                 else self._step_fn_norep
             with srv.exec.track("main"), _GATE:
                 loss = fn(pools, self._locstat, tables, keys, local_index,
-                          self._alias, self._gen, aux, float(lr),
-                          float(eps))
+                          self._alias, self._gen, aux, self._lr_eps(lr, eps))
             self.steps += 1
         return loss
+
+    def _scan_fn(self, no_replicas: bool):
+        fn = self._scan_fns.get(no_replicas)
+        if fn is None:
+            fn = self._scan_fns[no_replicas] = make_device_routed_scan(
+                no_replicas=no_replicas, **self._mk)
+        return fn
+
+    def run_scan(self, batches: Sequence[Dict[str, np.ndarray]], auxes,
+                 lr: float, eps: float = 1e-10) -> torch.Tensor:
+        """Train K steps in one dispatch (the JAX package's run_scan);
+        returns the [K] per-step losses (a device tensor) and adds K to
+        `steps`. The batches share roles and shapes; `auxes` is a list of
+        K per-step aux values (tensors or arrays of one shape), or None.
+        Placement freezes for the window: the routing tables are read
+        once and no planner round runs inside it; the write tracking
+        sees every batch; device-drawn negatives come in the order K
+        sequential calls draw them. So the pools, losses
+        and locality counts equal those of K sequential __call__s.
+
+        On the CPU the window is a loop over the step. On the card it is
+        a CUDA graph, captured once per (K, variant, shapes, aux shape)
+        and replayed per window (_graph_window)."""
+        srv = self.server
+        K = len(batches)
+        if K < 1:
+            raise ValueError("run_scan: empty window")
+        roles = sorted(batches[0])
+        shapes = {r: np.shape(batches[0][r]) for r in roles}
+        for b in batches:
+            self._check_batch(b)
+            if sorted(b) != roles or any(np.shape(b[r]) != shapes[r]
+                                         for r in roles):
+                raise ValueError("run_scan: the window's batches must "
+                                 "share roles and shapes")
+        if auxes is not None and len(auxes) != K:
+            raise ValueError("run_scan: one aux per batch")
+        with srv._lock:
+            for b in batches:
+                self._note_step_writes(b)
+            tables = self.router.tables()
+            local_index = self._local_neg_index() \
+                if self.neg_role is not None else None
+            self._mark_neg_writes()
+            pools = tuple((st.main, st.cache, st.delta) for st in srv.stores)
+            no_rep = not self._shard_has_replicas()
+            lr_eps = self._lr_eps(lr, eps)
+            kdtype = _key_dtype(srv.num_keys)
+            stacked = {r: np.stack([np.asarray(b[r], dtype=kdtype)
+                                    for b in batches]) for r in roles}
+            with srv.exec.track("main"), _GATE:
+                if self._locstat.device.type == "cuda":
+                    losses = self._graph_window(no_rep, pools, tables,
+                                                stacked, local_index, auxes)
+                else:
+                    losses = self._scan_fn(no_rep)(
+                        pools, self._locstat, tables, self._put_keys(stacked),
+                        local_index, self._alias, self._gen, auxes, lr_eps)
+            self.steps += K
+        return losses
+
+    def _graph_window(self, no_rep, pools, tables, stacked, local_index,
+                      auxes) -> torch.Tensor:
+        """One run_scan window on the card as a CUDA graph (caller holds
+        the server lock). The window's keys and aux are copied into static
+        buffers, and the negatives drawn into them eagerly, K draws in
+        sequence from the runner's generator: the graph holds no random
+        state, and the local index and its count stay out of it. The
+        first window of a signature runs eagerly on a side stream (the
+        warm-up PyTorch's graph capture asks for, and the window's real
+        steps), then the graph is captured; later windows replay it. A
+        capture holds the addresses of the pools, the routing tables, the
+        locality counters and (lr, eps): the planner may replace the
+        tables (DeviceRouter.refresh on a topology change), so a window
+        whose addresses differ captures again (`graph_captures` counts
+        captures; a new capture replaces the old one of its signature).
+        Capturing launches nothing, so the wrappers' launch counts
+        (kernels.LAUNCHES) are restored after it; each replay adds the
+        launches recorded at capture to kernels.REPLAYED. Intermediate
+        tensors live in the graph's pool; the result is a copy of its
+        static output."""
+        dev = self._locstat.device
+        K = len(next(iter(stacked.values())))
+        aux = None if auxes is None else torch.stack(
+            [torch.as_tensor(x, device=dev) for x in auxes])
+        sig = (K, no_rep, tuple((r, a.shape) for r, a in stacked.items()),
+               None if aux is None else (tuple(aux.shape), aux.dtype))
+        entry = self._graphs.get(sig)
+        if entry is None:
+            names = sorted(stacked)
+            parts = [(r, stacked[r].shape) for r in names]
+            if self.neg_role is not None:
+                parts.append((self.neg_role, (K,) + tuple(self._neg_shape)))
+            total = sum(int(np.prod(sh)) for _, sh in parts)
+            joined = torch.empty(total, device=dev, dtype=torch.as_tensor(
+                stacked[names[0]][:0]).dtype)
+            keys, off = {}, 0
+            for r, sh in parts:
+                n = int(np.prod(sh))
+                keys[r] = joined[off:off + n].view(sh)
+                off += n
+            entry = self._graphs[sig] = _ScanGraph(
+                keys, joined, None if aux is None else torch.empty_like(aux))
+        host = np.concatenate([stacked[r].reshape(-1)
+                               for r in sorted(stacked)])
+        entry.joined[:host.size].copy_(torch.from_numpy(host))
+        if self.neg_role is not None:
+            torch.stack([_draw_negatives(self._neg_shape, local_index,
+                                         self._alias, self._gen)
+                         for _ in range(K)], out=entry.keys[self.neg_role])
+        if aux is not None:
+            entry.aux.copy_(aux)
+        ptrs = tuple(t.data_ptr() for t in
+                     [x for p in pools for x in p] + list(tables)
+                     + [self._locstat, self._lr_eps.t] if t is not None)
+        if entry.graph is not None and entry.ptrs == ptrs:
+            entry.graph.replay()
+            for k, v in entry.launches.items():
+                kernels.REPLAYED[k] += v
+            return entry.losses.clone()
+        fn = self._scan_fn(no_rep)
+        args = (pools, self._locstat, tables, entry.keys, None, None, None,
+                entry.aux, self._lr_eps.t)
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = fn(*args).clone()
+        cur.wait_stream(side)
+        out.record_stream(cur)
+        entry.graph = None                      # release an older capture
+        before = dict(kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                entry.losses = fn(*args)
+            entry.launches = {k: kernels.LAUNCHES[k] - before[k]
+                              for k in before}
+        finally:
+            kernels.LAUNCHES.update(before)
+        entry.graph, entry.ptrs = graph, ptrs
+        self.graph_captures += 1
+        return out
 
 
 class FusedStepRunner:
@@ -583,6 +844,7 @@ class FusedStepRunner:
         self.frozen_roles = frozenset(frozen_roles)
         self.step_fn = make_fused_adagrad_step(
             loss_fn, role_class, role_dim, frozen_roles)
+        self._lr_eps = _LrEps(server.ctx.device)
         self.n_remote = 0
         self.steps = 0
 
@@ -608,7 +870,7 @@ class FusedStepRunner:
                                skip_roles=self.frozen_roles)
             pools = tuple((s.main, s.cache, s.delta) for s in srv.stores)
             with srv.exec.track("main"), _GATE:
-                loss = self.step_fn(pools, routes, aux, float(lr),
-                                    float(eps))
+                loss = self.step_fn(pools, routes, aux,
+                                    self._lr_eps(lr, eps))
         self.steps += 1
         return loss

@@ -7,6 +7,11 @@ PyTorch version.
     K3 ordered_scatter_add  csrc/ordered_scatter.cu (XLA: jaxport._scatter_add)
     K4 pool_eval_counts     csrc/pool_eval_counts.cu (XLA: models/kge.py
                                                      make_pool_eval_counts)
+    K5 complex_step         csrc/complex_step.cu    (XLA: ComplEx model math
+                                                     of ops/fused.py
+                                                     _build_device_routed_body;
+                                                     K2's arithmetic as its
+                                                     epilogue)
 
 K1 and K3 also take an ordered list of coordinate segments, one per
 role of a pool class (`routed_gather_segments`,
@@ -19,10 +24,13 @@ Every wrapper takes CUDA tensors to its kernel and CPU tensors to its
 plain version; there is no fallback between the two. A wrapper checks
 device, dtype, shape and contiguity, launches on the current stream,
 adds one to `LAUNCHES[name]` per launch, and raises if the launch
-failed. The kernels are compiled at first use with `nvcc` for sm_90a
+failed; the launches of a replayed CUDA graph count apart, in
+`REPLAYED`. The kernels are compiled at first use with `nvcc` for sm_90a
 (one process per source, all started together) into shared libraries
-with a plain C interface under `build/kernels/`, and loaded with ctypes.
-`build()` compiles them up front and returns the seconds it took.
+with a plain C interface under `build/kernels/`, and loaded with ctypes;
+a library's name carries a hash of its source and of the shared headers
+(`csrc/*.cuh`). `build()` compiles them up front and returns the seconds
+it took.
 """
 from __future__ import annotations
 
@@ -41,12 +49,19 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 _SOURCES = {"routed_gather": "routed_gather.cu",
             "adagrad": "adagrad.cu",
             "ordered_scatter": "ordered_scatter.cu",
-            "pool_eval_counts": "pool_eval_counts.cu"}
+            "pool_eval_counts": "pool_eval_counts.cu",
+            "complex_step": "complex_step.cu"}
 
-# launches per kernel since the last reset_launches() (chip_smoke.py
-# reads them to show the main path went through the kernels)
+# launches per kernel since the last reset_launches(), counted by the
+# wrappers (chip_smoke.py reads them to show the main path went through
+# the kernels)
 LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
-                            "ordered_scatter_add": 0, "pool_eval_counts": 0}
+                            "ordered_scatter_add": 0, "pool_eval_counts": 0,
+                            "complex_step": 0}
+# launches made by replays of captured CUDA graphs (ops/fused.py
+# run_scan): each replay adds the launches recorded at its capture. No
+# wrapper runs then, so LAUNCHES does not count them.
+REPLAYED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 # segments one K1/K3 launch takes (kMaxSeg in the sources); the wrappers
 # join any beyond it into the last
@@ -58,7 +73,7 @@ _build_lock = threading.Lock()
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = REPLAYED[k] = 0
 
 
 def _build_dir() -> str:
@@ -76,6 +91,16 @@ def _nvcc() -> str:
     return path
 
 
+def _headers() -> bytes:
+    """The shared headers' bytes, part of every library's hash."""
+    out = b""
+    for h in sorted(os.listdir(_CSRC)):
+        if h.endswith(".cuh"):
+            with open(os.path.join(_CSRC, h), "rb") as f:
+                out += f.read()
+    return out
+
+
 def build() -> float:
     """Compile (or find already compiled) every kernel library and load
     it; returns the wall seconds. Idempotent and thread-safe."""
@@ -86,10 +111,11 @@ def build() -> float:
         if not todo:
             return 0.0
         outs, procs = {}, {}
+        headers = _headers()
         for name, src in todo.items():
             path = os.path.join(_CSRC, src)
             with open(path, "rb") as f:
-                tag = hashlib.sha256(f.read()).hexdigest()[:16]
+                tag = hashlib.sha256(f.read() + headers).hexdigest()[:16]
             out = os.path.join(_build_dir(), f"lib{name}_{tag}.so")
             outs[name] = out
             if os.path.exists(out):
@@ -122,9 +148,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_routed_gather.argtypes = [P] * 9 + [I, P] + [I] * 6 + [P]
     elif name == "adagrad":
         lib.adapm_adagrad_update.restype = I
-        lib.adapm_adagrad_update.argtypes = [P, P, LL, P, LL, I, F, F, I, P]
+        lib.adapm_adagrad_update.argtypes = [P, P, LL, P, LL, I, P, F, F,
+                                              I, P]
         lib.adapm_adagrad_apply.restype = I
         lib.adapm_adagrad_apply.argtypes = [P] * 5 + [LL, F, F, P]
+    elif name == "complex_step":
+        lib.adapm_complex_step_smem.restype = LL
+        lib.adapm_complex_step_smem.argtypes = [I, I]
+        lib.adapm_complex_step.restype = I
+        lib.adapm_complex_step.argtypes = [P, LL, P, P] * 4 + \
+            [P, P, I, I, I, F, F, I, P]
     elif name == "ordered_scatter":
         lib.adapm_flat_targets.restype = I
         lib.adapm_flat_targets.argtypes = [P, P, P, I, P, I, I, P]
@@ -310,21 +343,32 @@ def adagrad_update_plain(g: torch.Tensor, acc: torch.Tensor, lr: float,
     return torch.cat([upd, g2], dim=-1)
 
 
-def adagrad_update(g: torch.Tensor, acc: torch.Tensor, lr: float,
-                   eps: float, out: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+def adagrad_update(g: torch.Tensor, acc: torch.Tensor,
+                   lr: Optional[float] = None, eps: Optional[float] = None,
+                   out: Optional[torch.Tensor] = None,
+                   lr_eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Delta row of the fused step: [-lr*g*rsqrt(acc + g^2 + eps) | g^2]
     for g [n, D] and acc [n, D] (acc may be the accumulator half of the
-    gathered [n, 2D] rows: only its last dim must be contiguous).
-    Writes into `out` (a contiguous f32 [n, 2D], e.g. a row slice of the
-    step's update buffer) when given, else into a new [n, 2D]; returns
-    it."""
+    gathered [n, 2D] rows: only its last dim must be contiguous). lr and
+    eps are floats, or `lr_eps` is (lr, eps) as a contiguous f32 [2] on
+    g's device, which the kernel reads (the fused step's, as K5 reads
+    it: a captured graph follows it). Writes into `out` (a contiguous
+    f32 [n, 2D], e.g. a row slice of the step's update buffer) when
+    given, else into a new [n, 2D]; returns it."""
+    _require((lr_eps is None) == (lr is not None and eps is not None),
+             "adagrad_update: give lr and eps, or lr_eps")
+    if lr_eps is not None:
+        _require(lr_eps.dtype == torch.float32 and lr_eps.numel() == 2
+                 and lr_eps.is_contiguous(),
+                 "adagrad_update: lr_eps must be a contiguous f32 [2]")
     if out is not None:
         _require(out.dtype == torch.float32 and out.is_contiguous()
                  and g.dim() == 2
                  and tuple(out.shape) == (g.shape[0], 2 * g.shape[1]),
                  "adagrad_update: out must be contiguous f32 [n, 2D]")
-    if not _on_cuda(g, acc, out):
+    if not _on_cuda(g, acc, out, lr_eps):
+        if lr_eps is not None:
+            lr, eps = lr_eps.tolist()
         upd = adagrad_update_plain(g, acc, lr, eps)
         return upd if out is None else out.copy_(upd)
     _require(g.dtype == torch.float32 and acc.dtype == torch.float32,
@@ -341,8 +385,8 @@ def adagrad_update(g: torch.Tensor, acc: torch.Tensor, lr: float,
     vec = int(D % 4 == 0 and acc.stride(0) % 4 == 0
               and _aligned16(g, acc, upd))
     rc = _lib("adagrad").adapm_adagrad_update(
-        _ptr(g), _ptr(acc), acc.stride(0), _ptr(upd), n, D, float(lr),
-        float(eps), vec, _stream())
+        _ptr(g), _ptr(acc), acc.stride(0), _ptr(upd), n, D, _ptr(lr_eps),
+        float(lr or 0.0), float(eps or 0.0), vec, _stream())
     LAUNCHES["adagrad_update"] += 1
     _check(rc, "adagrad_update")
     return upd
@@ -694,3 +738,180 @@ def pool_eval_counts(pool: torch.Tensor, owner: torch.Tensor,
     LAUNCHES["pool_eval_counts"] += 1
     _check(rc, "pool_eval_counts")
     return g_o, g_s
+
+
+# ---------------------------------------------------------------------------
+# K5 complex_step
+# ---------------------------------------------------------------------------
+
+COMPLEX_ROLES = ("s", "r", "o", "neg")
+
+
+def _lae_grad(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """g times the derivative of logaddexp(x, 0), as autograd forms it:
+    g / (1 + exp(0 - x))."""
+    return g / (1 + torch.exp(torch.zeros_like(x) - x))
+
+
+def _complex_grads(s, r, o, neg, self_adv_temp: float, l2: float):
+    """The ComplEx loss's per-triple values and its gradient per role, in
+    closed form over the embedding halves s, r, o [B, 2d] and neg
+    [B, N, 2d]. The terms are grouped as PyTorch's autograd groups them
+    for models/kge.py KgeLoss (every product, sum and reduction in the
+    same association), so on the CPU this is bitwise the autograd
+    gradient; the kernel groups them as NS/NO sums (csrc/complex_step.cu)
+    and agrees within the f32 model-math tolerance."""
+    B = s.shape[0]
+    d = s.shape[-1] // 2
+    sr, si, rr, ri, orr, oi = (x[..., h] for x in (s, r, o)
+                               for h in (slice(None, d), slice(d, None)))
+    nr, ni = neg[..., :d], neg[..., d:]
+    sru, siu, rru, riu, oru, oiu = (x[:, None] for x in
+                                    (sr, si, rr, ri, orr, oi))
+    p1, p2, p3, p4 = sr * rr, si * rr, sr * ri, si * ri        # pos
+    pos = (p1 * orr + p2 * oi + p3 * oi - p4 * orr).sum(-1)
+    q1, q2, q3, q4 = nr * rru, ni * rru, nr * riu, ni * riu   # neg as s
+    ns = (q1 * oru + q2 * oiu + q3 * oiu - q4 * oru).sum(-1)
+    m1, m2, m3, m4 = sru * rru, siu * rru, sru * riu, siu * riu  # neg as o
+    no = (m1 * nr + m2 * ni + m3 * ni - m4 * nr).sum(-1)
+
+    def softplus(x):
+        return torch.logaddexp(x, torch.zeros_like(x))
+
+    g0 = s.new_ones(()).expand(B) / B          # d mean / d loss_b
+    g0n = g0[:, None].expand(ns.shape)
+    if self_adv_temp > 0.0:
+        ws = torch.softmax(self_adv_temp * ns, dim=-1)
+        wo = torch.softmax(self_adv_temp * no, dim=-1)
+        nll = softplus(-pos) + ((ws * softplus(ns)).sum(-1)
+                                + (wo * softplus(no)).sum(-1))
+        gs, go = _lae_grad(g0n * ws, ns), _lae_grad(g0n * wo, no)
+    else:
+        nll = softplus(-pos) + (softplus(ns).sum(-1) + softplus(no).sum(-1))
+        gs, go = _lae_grad(g0n, ns), _lae_grad(g0n, no)
+    gp = -_lae_grad(g0, -pos)
+    gp, gs, go = gp[:, None], gs[..., None], go[..., None]
+
+    def cat(a, b):
+        return torch.cat([a, b], -1)
+
+    def S(x):                                   # sum over the negatives
+        return x.sum(1)
+
+    # s: the positive score, then the object-side corruptions
+    s_pos = cat((gp * orr) * rr + (gp * oi) * ri,
+                (gp * oi) * rr + ((-gp) * orr) * ri)
+    s_neg = cat(S(go * nr) * rr + S(go * ni) * ri,
+                S(go * ni) * rr + S((-go) * nr) * ri)
+    # o: the positive score, then the subject-side corruptions
+    o_pos = cat(gp * p1 + (-gp) * p4, gp * p2 + gp * p3)
+    o_neg = cat(S(gs * q1) + S((-gs) * q4), S(gs * q2) + S(gs * q3))
+    # r: positive, subject side, object side
+    r_pos = cat((gp * orr) * sr + (gp * oi) * si,
+                (gp * oi) * sr + ((-gp) * orr) * si)
+    r_ns = cat(S((gs * oru) * nr) + S((gs * oiu) * ni),
+               S((gs * oiu) * nr) + S(((-gs) * oru) * ni))
+    r_no = cat(S(go * nr) * sr + S(go * ni) * si,
+               S(go * ni) * sr + S((-go) * nr) * si)
+    g_neg = cat((gs * oru) * rru + (gs * oiu) * riu,
+                (gs * oiu) * rru + ((-gs) * oru) * riu) \
+        + cat(go * m1 + (-go) * m4, go * m2 + go * m3)
+    if l2 > 0.0:
+        gl = (s.new_ones(()) * l2).expand(B)[:, None] / B
+        grads = {"s": (2 * (gl * s) + s_neg) + s_pos,
+                 "o": (2 * (gl * o) + o_neg) + o_pos,
+                 "r": ((2 * (gl * r) + r_no) + r_ns) + r_pos,
+                 "neg": g_neg}
+        sq = (s * s).sum(-1) + (r * r).sum(-1) + (o * o).sum(-1)
+        return nll + l2 * sq, grads
+    grads = {"s": s_neg + s_pos, "o": o_neg + o_pos,
+             "r": (r_no + r_ns) + r_pos, "neg": g_neg}
+    return nll, grads
+
+
+def complex_step_plain(s, r, o, neg, lr_eps: torch.Tensor,
+                       self_adv_temp: float = 0.0, l2: float = 0.0,
+                       out=None, grad_out=None) -> torch.Tensor:
+    """The plain version of K5 (any device): the closed-form loss and
+    gradient (`_complex_grads`), then K2's plain update rule per role in
+    `out`. Arguments and result as complex_step."""
+    out, grad_out = out or {}, grad_out or {}
+    D = s.shape[-1] // 2
+    rows = {"s": s, "r": r, "o": o, "neg": neg}
+    loss, grads = _complex_grads(*(rows[k][..., :D] for k in COMPLEX_ROLES),
+                                 float(self_adv_temp), float(l2))
+    lr, eps = (float(x) for x in lr_eps.tolist())
+    for k in COMPLEX_ROLES:
+        g = grads[k].reshape(-1, D)
+        if grad_out.get(k) is not None:
+            grad_out[k].copy_(g)
+        if out.get(k) is not None:
+            acc = rows[k].reshape(-1, 2 * D)[:, D:]
+            out[k].copy_(adagrad_update_plain(g, acc, lr, eps))
+    return loss
+
+
+def complex_step(s: torch.Tensor, r: torch.Tensor, o: torch.Tensor,
+                 neg: torch.Tensor, lr_eps: torch.Tensor,
+                 self_adv_temp: float = 0.0, l2: float = 0.0,
+                 out: Optional[Dict[str, torch.Tensor]] = None,
+                 grad_out: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """The ComplEx step's model math in one launch: s, r, o [B, 4d] and
+    neg [B, N, 4d] are gathered rows [emb 2d | acc 2d] (views of K1's
+    buffer: only the last dim must be contiguous); lr_eps is a 2-float
+    device tensor (lr, eps), read by the kernel, so a captured graph
+    follows it. For each role in `out` (a contiguous f32 [rows, 4d], e.g.
+    a row slice of the step's update buffer) writes the AdaGrad delta
+    rows [-lr*g*rsqrt(acc + g^2 + eps) | g^2] (K2's arithmetic); roles
+    missing from `out` are frozen: read, never written. `grad_out`
+    optionally takes each role's raw gradient [rows, 2d]. Returns the
+    [B] per-triple loss (the batch loss is its sum over B)."""
+    out = {k: v for k, v in (out or {}).items() if v is not None}
+    grad_out = {k: v for k, v in (grad_out or {}).items() if v is not None}
+    _require(s.dim() == 2 and r.shape == s.shape and o.shape == s.shape
+             and neg.dim() == 3 and neg.shape[0] == s.shape[0]
+             and neg.shape[2] == s.shape[1] and s.shape[1] % 4 == 0,
+             "complex_step: s, r, o must be [B, 4d] and neg [B, N, 4d]")
+    B, L = s.shape
+    N, d = neg.shape[1], L // 4
+    nrows = {"s": B, "r": B, "o": B, "neg": B * N}
+    for outs, width in ((out, L), (grad_out, L // 2)):
+        for k, t in outs.items():
+            _require(k in nrows and tuple(t.shape) == (nrows[k], width)
+                     and t.dtype == torch.float32 and t.is_contiguous(),
+                     f"complex_step: output {k!r} must be contiguous f32 "
+                     f"[{nrows.get(k)}, {width}]")
+    _require(self_adv_temp >= 0.0, "complex_step: self_adv_temp < 0")
+    if not _on_cuda(s, r, o, neg, lr_eps, *out.values(),
+                    *grad_out.values()):
+        return complex_step_plain(s, r, o, neg, lr_eps, self_adv_temp, l2,
+                                  out, grad_out)
+    negf = neg.reshape(B * N, L)
+    ins = (s, r, o, negf)
+    for t in ins:
+        _require(t.dtype == torch.float32 and t.stride(-1) == 1,
+                 "complex_step: rows must be f32 with contiguous rows")
+    _require(lr_eps.dtype == torch.float32 and lr_eps.numel() == 2
+             and lr_eps.is_contiguous(),
+             "complex_step: lr_eps must be a contiguous f32 [2]")
+    lib = _lib("complex_step")
+    smem = lib.adapm_complex_step_smem(N, d)
+    _require(smem <= K4_SMEM_MAX,
+             f"complex_step: N={N}, d={d} needs {smem} bytes of shared "
+             f"memory, more than one CTA has ({K4_SMEM_MAX})")
+    loss = torch.empty(B, dtype=torch.float32, device=s.device)
+    if B == 0:
+        return loss
+    vec = int(d % 4 == 0 and all(t.stride(0) % 4 == 0 for t in ins)
+              and _aligned16(*ins, *out.values(), *grad_out.values()))
+    per_role = []
+    for k, t in zip(COMPLEX_ROLES, ins):
+        per_role += [_ptr(t), t.stride(0), _ptr(out.get(k)),
+                     _ptr(grad_out.get(k))]
+    rc = lib.adapm_complex_step(*per_role, _ptr(loss), _ptr(lr_eps), B, N,
+                                d, float(self_adv_temp), float(l2), vec,
+                                _stream())
+    LAUNCHES["complex_step"] += 1
+    _check(rc, "complex_step")
+    return loss

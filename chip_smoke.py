@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version at the main path's
 shapes, drives the device-routed ComplEx KGE training step through the
-parameter manager at full width, checks a small replica run against the
+parameter manager at full width (eagerly, and as run_scan windows
+replayed from a CUDA graph), checks a small replica run against the
 CPU, and runs the KGE application end to end on both routing paths.
 
     python3 chip_smoke.py [--json PATH]
@@ -27,33 +28,48 @@ Phases (any failure raises and exits non-zero):
      data, and ComplEx K=256 and RESCAL K=128 on random data under the
      near-tie rule, each at B=64 and at the app's tail batch B=36, with
      the share of the bound, the launch plan and the kernel's registers,
-     spills and static shared memory from its ptxas log), with CUDA-event
-     times (the
-     median and the min-max spread of 20 launches) of kernel, plain
-     version and one library call, and the least time the card could
-     take.
+     spills and static shared memory from its ptxas log); K5
+     complex_step: the step's rows (K1's buffer, zipf duplicates) at
+     B=4096, N=32, d=128 for self_adv_temp T in {0, 1} and l2 in {0, 0.1},
+     loss and update rows within rtol 1e-5 / atol 1e-6, bitwise over two
+     runs, and K2 on K5's own gradient output equal to K5's update rows
+     bit for bit, timed beside the parent's eager model math on the same
+     rows (KgeLoss under autograd, then four K2 launches). CUDA-event
+     times (the median and the min-max spread of 20 launches) of kernel,
+     plain version and one library call, and the least time the card
+     could take.
   3. the main path: setup(201,000 keys, 512) on cuda, slab fill, a
      DeviceRoutedRunner for ComplEx with on-device negatives (B=4096,
      N=32), warmup, then 32 steps of intent -> step -> sync round ->
      advance_clock; launch counts of every kernel over the main path,
-     checked per step (one K1, four K2, one K3: one launch per pool
-     class), and the profiler's device operations per step.
+     checked per step (one K1, one K5, no K2, one K3: one launch per pool
+     class), and the profiler's device operations per step. Then
+     run_scan: two servers from one fill, 16 sequential steps on one and
+     two windows of K=8 on the other (the first runs eagerly and is
+     captured as a CUDA graph, the second replays it): losses and the
+     whole main pool bitwise equal; then 4 windows timed against 32
+     eager steps of the same runner calls, one window profiled, and the
+     number of captures.
   4. replica phase: 2 virtual shards, two workers with competing
      intents (the replica step variant, K1's cache+delta form, K3 in the
-     sync merge; one K1 and two K3 per step, main then delta), the same
+     sync merge; one K1, one K5 and two K3 per step, main then delta), the same
      fused steps on cuda and on cpu within
      tolerance, then an add-only push/pull/set/sync sequence on both,
      bitwise.
   5. the KGE app (apps/knowledge_graph_embeddings.py, main's parse and
      run) at full width: ComplEx d=128, 200,000 entities, 409,600
      lowrank triples generated on the card, B=4096, N=32, 2 epochs of
-     100 device-routed steps, pool-count eval (K4) after each; launch
-     counts of K1-K4 over the run.
+     100 device-routed steps as --scan_steps 8 (12 graph windows and a
+     4-step tail per epoch), pool-count eval (K4) after each; launch
+     counts of every kernel over the run.
   6. the host-routed app path (--no-device_routes, PullSample
      negatives) at the same width for 10 steps; then test_kge_app's
      small configuration on cuda and on cpu (epoch losses within rtol
      1e-4, MRR within 0.02, and the eval counts of one checkpoint under
-     the near-tie rule).
+     the near-tie rule), and its RESCAL form on both (autograd and K2:
+     epoch losses within rtol 1e-4).
+Every path's launch counts are set to 0 just before it runs and read
+just after; each path must have launched each of its kernels.
 The near-tie rule: the kernel sums each dot in another order than the
 plain version's matmuls, so a count may differ by at most the number of
 candidates whose score lies within the f32 dot-product error bound of
@@ -78,17 +94,22 @@ import torch
 E, R, D_MODEL, B, N = 200_000, 1_000, 128, 4096, 32
 EVAL_B, EVAL_CHUNK = 64, 65_536          # the app's eval batch and chunk
 K4_BATCHES = (EVAL_B, 36)   # the eval's full batch and its tail at 100
-STEP_KERNELS = ("routed_gather", "adagrad_update", "ordered_scatter_add")
+STEP_KERNELS = ("routed_gather", "complex_step", "ordered_scatter_add")
+# the kernels each ComplEx path launches (K2 runs on the RESCAL path)
+APP_KERNELS = STEP_KERNELS + ("pool_eval_counts",)
+RESCAL_KERNELS = ("routed_gather", "adagrad_update", "ordered_scatter_add",
+                  "pool_eval_counts")
 L = 4 * D_MODEL                       # [emb 2d | adagrad 2d]
 ROWS = 3 * B + B * N                  # gathered rows per step: 143,360
 ROLE_SPLIT = [B, B, B, B * N]         # the step's four roles, one class
 # launches per main-path step (S=1, no replicas) and per replica step:
-# one K1 and one K3 per pool per class, K2 per trainable role
-STEP_LAUNCHES = {"routed_gather": 1, "adagrad_update": 4,
+# one K1 and one K3 per pool per class, one K5 for the model math
+STEP_LAUNCHES = {"routed_gather": 1, "complex_step": 1, "adagrad_update": 0,
                  "ordered_scatter_add": 1}
-REPLICA_STEP_LAUNCHES = {"routed_gather": 1, "adagrad_update": 4,
-                         "ordered_scatter_add": 2}
+REPLICA_STEP_LAUNCHES = {"routed_gather": 1, "complex_step": 1,
+                         "adagrad_update": 0, "ordered_scatter_add": 2}
 STEPS, WARMUP = 32, 3
+SCAN_K, SCAN_TIMED = 8, 4             # run_scan window, windows timed
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM
 F32_FLOPS = 67e12                     # H100 SXM, outside the tensor cores
 
@@ -138,13 +159,15 @@ def device_breakdown(step, n):
             step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, counts = {}, {}
     launches = 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         by_name[ev.key] = by_name.get(ev.key, 0.0) + \
             ev.self_device_time_total / 1e3
+        label = _kernel_label(ev.key)
+        counts[label] = counts.get(label, 0) + ev.count
         launches += ev.count
     busy_ms = sum(by_name.values())
     if busy_ms <= 0:
@@ -152,7 +175,7 @@ def device_breakdown(step, n):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return dict(wall_ms_per_step=wall_ms / n, device_ms_per_step=busy_ms / n,
                 busy_share=busy_ms / wall_ms,
-                device_ops_per_step=launches / n,
+                device_ops_per_step=launches / n, counts=counts,
                 top_ms_per_step=[(_kernel_label(k), v / n) for k, v in top])
 
 
@@ -292,6 +315,12 @@ def phase_kernels(K, dev, rng):
     ref2 = K.adagrad_update_plain(g, acc, 0.1, 1e-10)
     check(torch.allclose(got2, ref2, rtol=1e-5, atol=1e-7),
           "K2 differs from its plain version beyond rtol 1e-5 / atol 1e-7")
+    # the fused step's form: (lr, eps) read from the device
+    dev2 = K.adagrad_update(g, acc, lr_eps=torch.tensor([0.1, 1e-10],
+                                                        device=dev))
+    check(torch.equal(dev2.view(torch.int32), got2.view(torch.int32)),
+          "K2 reading (lr, eps) from the device differs from K2 taking "
+          "them as arguments")
     emb_a, acc_a = K.adagrad_apply(g, rows[:, :Dh].contiguous(),
                                    acc.contiguous(), 0.1, 1e-10)
     emb_r, acc_r = K.adagrad_apply_plain(g, rows[:, :Dh], acc, 0.1, 1e-10)
@@ -317,7 +346,90 @@ def phase_kernels(K, dev, rng):
     torch.cuda.empty_cache()
     rec["pool_eval_counts"] = phase_k4(K, dev, rng)
     torch.cuda.empty_cache()
+    rec["complex_step"] = phase_k5(K, dev, rng)
+    torch.cuda.empty_cache()
     return rec
+
+
+def phase_k5(K, dev, rng):
+    """K5 against its plain version on the step's rows: K1's gather of a
+    pool (the app's init scale, accumulators 1e-6 plus up to 1e-3) by the
+    step's zipf-skewed keys, viewed per role as the step views them."""
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops import fused
+    Dh = 2 * D_MODEL
+    slots = -8 * (-int(np.ceil((E + R) * 1.25)) // 8)
+    pool = torch.randn((1, slots, L), device=dev) * 0.1
+    pool[..., Dh:] = 1e-6 + torch.rand((1, slots, Dh), device=dev) * 1e-3
+    keys = np.concatenate([skewed_keys(rng, E, B), rng.integers(E, E + R, B),
+                           skewed_keys(rng, E, B),
+                           rng.integers(0, E, B * N)])
+    rows = K.routed_gather(
+        pool, None, None, torch.zeros(ROWS, dtype=torch.int32, device=dev),
+        torch.as_tensor(keys.astype(np.int32), device=dev))
+    del pool
+    role = {"s": rows[:B], "r": rows[B:2 * B], "o": rows[2 * B:3 * B],
+            "neg": rows[3 * B:].reshape(B, N, L)}
+    args = (role["s"], role["r"], role["o"], role["neg"])
+    nrows = {"s": B, "r": B, "o": B, "neg": B * N}
+    lr_eps = torch.tensor([0.1, 1e-10], device=dev)
+
+    def buffers(width):
+        return {k: torch.empty((n, width), device=dev)
+                for k, n in nrows.items()}
+
+    err, forms = 0.0, {}
+    for T, l2 in ((0.0, 0.0), (1.0, 0.0), (0.0, 0.1), (1.0, 0.1)):
+        u1, u2, up, g1 = buffers(L), buffers(L), buffers(L), buffers(Dh)
+        l1 = K.complex_step(*args, lr_eps, T, l2, out=u1, grad_out=g1)
+        l2_ = K.complex_step(*args, lr_eps, T, l2, out=u2)
+        lp = K.complex_step_plain(*args, lr_eps, T, l2, out=up)
+        torch.cuda.synchronize()
+        check(torch.equal(l1.view(torch.int32), l2_.view(torch.int32))
+              and all(torch.equal(u1[k].view(torch.int32),
+                                  u2[k].view(torch.int32)) for k in u1),
+              f"K5 (T={T}, l2={l2}) is not deterministic from run to run")
+        form_err = float((l1 - lp).abs().max())
+        check(torch.allclose(l1, lp, rtol=1e-5, atol=1e-6),
+              f"K5 (T={T}, l2={l2}) loss differs from its plain version "
+              f"beyond rtol 1e-5 / atol 1e-6 (max {form_err})")
+        for k in u1:
+            e = float((u1[k] - up[k]).abs().max())
+            check(torch.allclose(u1[k], up[k], rtol=1e-5, atol=1e-6),
+                  f"K5 (T={T}, l2={l2}) update rows of {k} differ from the "
+                  f"plain version beyond rtol 1e-5 / atol 1e-6 (max {e})")
+            acc = role[k].reshape(-1, L)[:, Dh:]
+            k2 = K.adagrad_update(g1[k], acc, 0.1, 1e-10)
+            check(torch.equal(k2.view(torch.int32), u1[k].view(torch.int32)),
+                  f"K2 on K5's gradient of {k} differs from K5's update rows")
+            form_err = max(form_err, e)
+        forms[f"T={T} l2={l2}"] = form_err
+        err = max(err, form_err)
+        del u1, u2, up, g1
+    out = buffers(L)
+    loss_fn = make_kge_loss("complex")
+    roles = sorted(role)
+
+    def eager():
+        # the parent's model math: autograd of the same loss, K2 per role
+        # (the lambda hides the loss's fused form)
+        return fused._loss_and_updates(
+            lambda e, aux: loss_fn(e, aux), role, dict.fromkeys(roles, Dh),
+            roles, {0: roles}, None, lr_eps)
+
+    # read every row once, write one update row per row; flops: the two
+    # partials (8d), 2N+1 dots of 2d, NS and NO (8Nd), the gradients
+    # (about 40d) and g_neg (4Nd) per triple, the epilogue (7 per value)
+    flops = B * (8 * D_MODEL + (2 * N + 1) * 2 * Dh + 12 * N * D_MODEL
+                 + 40 * D_MODEL) + ROWS * Dh * 7
+    return timed(
+        max_abs_err=err, forms=forms,
+        ms=cuda_ms(lambda: K.complex_step(*args, lr_eps, out=out)),
+        plain_ms=cuda_ms(lambda: K.complex_step_plain(*args, lr_eps,
+                                                      out=out),
+                         reps=5, warmup=1),
+        library_ms=None, bound=bound(2 * ROWS * L * 4 + B * 4, flops),
+        eager_ms=cuda_ms(eager, reps=10), ptxas=ptxas_summary("complex_step"))
 
 
 def timed(ms, plain_ms, library_ms, **kw):
@@ -542,6 +654,104 @@ def phase_main_path(at, K, dev, rng):
     return out
 
 
+def phase_scan(at, K, dev, seed):
+    """Phase 3, run_scan: the same device-routed ComplEx runner as the
+    main path on two servers filled alike. Server A takes 16 sequential
+    steps, server B two windows of SCAN_K (the first runs eagerly and is
+    captured, the second replays the graph): losses and main pools must
+    be bitwise equal. Then A takes 32 more eager steps and B 4 windows,
+    each timed on the host clock up to a synchronize, and one window of
+    B is profiled: its trace must hold SCAN_K launches of each step
+    kernel (K1, K5, K3's two) and none of K2. Launch counts: B's, from
+    0 before its first window, the wrappers' (the eager first window)
+    apart from the replay's (kernels.REPLAYED)."""
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    rng = np.random.default_rng(seed)
+    batches = [{"s": skewed_keys(rng, E, B), "r": rng.integers(E, E + R, B),
+                "o": skewed_keys(rng, E, B)}
+               for _ in range(2 * SCAN_K + SCAN_TIMED * SCAN_K + SCAN_K)]
+
+    def build():
+        srv = at.setup(E + R, L, opts=at.SystemOptions(
+            cache_slots_per_shard=1, sync_max_per_sec=0), device=dev)
+        w = srv.make_worker(0)
+        fill = np.random.default_rng(seed)
+        for lo in range(0, E + R, 50_000):
+            hi = min(lo + 50_000, E + R)
+            vals = fill.normal(size=(hi - lo, L)).astype(np.float32) * 0.1
+            vals[:, L // 2:] = 1e-6
+            w.set(np.arange(lo, hi), vals)
+        srv.block()
+        roles = ("s", "r", "o", "neg")
+        return srv, DeviceRoutedRunner(
+            srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
+            role_dim=dict.fromkeys(roles, L // 2), neg_role="neg",
+            neg_shape=(B, N), neg_population=np.arange(E), seed=0)
+
+    n_eq = 2 * SCAN_K
+    srv_a, run_a = build()
+    seq = torch.stack([run_a(b, None, 0.1) for b in batches[:n_eq]])
+    main_a = srv_a.stores[0].main.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[n_eq:n_eq + SCAN_TIMED * SCAN_K]:
+        run_a(b, None, 0.1)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / (SCAN_TIMED * SCAN_K)
+    srv_a.shutdown()
+    del srv_a, run_a
+    torch.cuda.empty_cache()
+
+    srv_b, run_b = build()
+    K.reset_launches()
+    win = torch.cat([run_b.run_scan(batches[i:i + SCAN_K], None, 0.1)
+                     for i in range(0, n_eq, SCAN_K)])
+    torch.cuda.synchronize()
+    launches, replayed = dict(K.LAUNCHES), dict(K.REPLAYED)
+    check(torch.equal(win.view(torch.int32), seq.view(torch.int32)),
+          f"run_scan losses differ from sequential steps: {win.tolist()} "
+          f"vs {seq.tolist()}")
+    check(torch.equal(srv_b.stores[0].main.view(torch.int32),
+                      main_a.view(torch.int32)),
+          "run_scan's main pool differs from sequential steps' (bitwise)")
+    del main_a
+    check(all(launches[k] + replayed[k] == n_eq * STEP_LAUNCHES[k]
+              for k in STEP_LAUNCHES),
+          f"run_scan launches {launches}, replayed {replayed}, expected "
+          f"{STEP_LAUNCHES} per step")
+    t0 = time.perf_counter()
+    for i in range(SCAN_TIMED):
+        lo = n_eq + i * SCAN_K
+        run_b.run_scan(batches[lo:lo + SCAN_K], None, 0.1)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3 / (SCAN_TIMED * SCAN_K)
+    lo = n_eq + SCAN_TIMED * SCAN_K
+    prof = device_breakdown(
+        lambda i: run_b.run_scan(batches[lo:lo + SCAN_K], None, 0.1), 1)
+    check(prof is not None, "run_scan: the profiler recorded no device "
+          "time, so the replay's kernels cannot be checked")
+    want = dict(routed_gather_kernel=SCAN_K, complex_step_kernel=SCAN_K,
+                flat_targets_kernel=SCAN_K, ordered_fold_kernel=SCAN_K,
+                adagrad_update_kernel=0)
+    seen = {k: prof["counts"].get(k, 0) for k in want}
+    check(seen == want, f"run_scan: a replayed window ran {seen} in the "
+          f"trace, expected {want}")
+    out = dict(ms_per_step=scan_ms, eager_ms_per_step=eager_ms,
+               captures=run_b.graph_captures, launches=launches,
+               replayed=replayed, replay_trace=seen, losses=win.tolist(),
+               profile=prof)
+    if prof is not None:                # one window of SCAN_K steps
+        for k in ("wall_ms_per_step", "device_ms_per_step",
+                  "device_ops_per_step"):
+            prof[k] /= SCAN_K
+        prof["top_ms_per_step"] = [(n, v / SCAN_K)
+                                   for n, v in prof["top_ms_per_step"]]
+    srv_b.shutdown()
+    torch.cuda.empty_cache()
+    return out
+
+
 def replica_run(at, dev, rng_seed):
     """Phase 4 body on `dev`: two shards, competing intents, fused steps
     with injected negatives in the replica variant, sync merges, then an
@@ -646,10 +856,12 @@ SMALL_ARGS = ["--model", "complex", "--dim", "8", "--neg_ratio", "2",
 
 def run_app(kge, K, argv, dev=None):
     """The app as `main(argv)` runs it (parse, then run_app), with the
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after (the
+    wrappers' returned, the graph replays' in res["replayed"])."""
     args = kge.build_parser().parse_args(argv)
     K.reset_launches()
     res = kge.run_app(args, device=dev)
+    res["replayed"] = dict(K.REPLAYED)
     return res, dict(K.LAUNCHES)
 
 
@@ -657,8 +869,18 @@ def check_app(res, launches, what, kernels):
     losses = res["epoch_losses"]
     check(np.isfinite(losses).all(), f"{what}: non-finite loss {losses}")
     check(0 < res["mrr"] <= 1, f"{what}: MRR {res['mrr']} outside (0, 1]")
+    check_launched(launches, what, kernels)
+
+
+def check_launched(launches, what, kernels):
+    """Each of the path's kernels launched; K2 (the RESCAL path's) not on
+    a ComplEx path, K5 not on the RESCAL path."""
     missing = [k for k in kernels if launches[k] == 0]
     check(not missing, f"{what}: kernels never launched: {missing}")
+    other = "complex_step" if "adagrad_update" in kernels \
+        else "adagrad_update"
+    check(launches[other] == 0,
+          f"{what}: {other} launched {launches[other]} times")
 
 
 class HostClock:
@@ -696,24 +918,31 @@ def phase_app(K):
     from adapm_tpu_torch.io import kge as kgeio
     from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
     argv = APP_ARGS + ["--synthetic_triples", str(100 * B), "--epochs", "2",
-                       "--eval_every", "1", "--eval_triples", "100"]
+                       "--eval_every", "1", "--eval_triples", "100",
+                       "--scan_steps", str(SCAN_K)]
     torch.cuda.reset_peak_memory_stats()
     clock = HostClock([
         (kgeio, "_generate_lowrank_device", "generate (total)"),
         (kgeio.TripleDataset, "filters", "TripleDataset.filters"),
         (kge.KgeRun, "init_model", "init_model"),
         (DeviceRoutedRunner, "__call__", "fused step call"),
+        (DeviceRoutedRunner, "run_scan", "run_scan window call"),
         (SyncManager, "run_round", "sync round"),
         (kge, "_pool_counts", "eval device counts"),
         (kge, "_filter_correct", "eval filter correction")])
     with clock:
         res, launches = run_app(kge, K, argv)
     res["host_seconds"] = clock.seconds
-    check_app(res, launches, "phase 5", list(K.LAUNCHES))
+    check_app(res, launches, "phase 5", APP_KERNELS)
     losses = res["epoch_losses"]
     check(losses[1] < losses[0], f"phase 5: loss did not fall: {losses}")
     check(res["replicas_created"] == 0,
           f"phase 5: {res['replicas_created']} replicas at S=1")
+    steps = 2 * 100
+    check(launches["complex_step"] + res["replayed"]["complex_step"]
+          == steps, f"phase 5: K5 launched {launches['complex_step']} "
+          f"times and replayed {res['replayed']['complex_step']} times "
+          f"in {steps} steps")
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return res, launches
 
@@ -726,7 +955,7 @@ def phase_host_routes(K):
                        "--eval_every", "1", "--eval_triples", "100",
                        "--no-device_routes"]
     full, launches = run_app(kge, K, argv)
-    check_app(full, launches, "phase 6 (full width)", list(K.LAUNCHES))
+    check_app(full, launches, "phase 6 (full width)", APP_KERNELS)
 
     ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "chip_smoke_ckpt")
@@ -758,7 +987,18 @@ def phase_host_routes(K):
     check((np.abs(g_o - c_o) <= t_o).all() and (np.abs(g_s - c_s) <= t_s)
           .all(), "phase 6: eval counts of one checkpoint differ between "
           "cuda and cpu beyond the near-tie rule")
+    # RESCAL: the autograd path and K2's standalone launches
+    rescal = SMALL_ARGS + ["--model", "rescal"]
+    res_rg, rescal_launches = run_app(kge, K, rescal)
+    check_app(res_rg, rescal_launches, "phase 6 (RESCAL)", RESCAL_KERNELS)
+    res_rc, _ = run_app(kge, K, rescal, dev="cpu")
+    rg, rc = (np.array(r["epoch_losses"]) for r in (res_rg, res_rc))
+    check(np.allclose(rg, rc, rtol=1e-4, atol=0),
+          f"phase 6: RESCAL cuda and cpu epoch losses differ beyond rtol "
+          f"1e-4: {rg} vs {rc}")
     return dict(full=full, full_launches=launches,
+                rescal_launches=rescal_launches,
+                rescal_losses_cuda=rg.tolist(), rescal_losses_cpu=rc.tolist(),
                 small_losses_cuda=lg.tolist(), small_losses_cpu=lc.tolist(),
                 small_mrr_cuda=res_g["mrr"], small_mrr_cpu=res_c["mrr"],
                 count_diff=int(np.abs(g_o - c_o).sum()
@@ -801,6 +1041,14 @@ def report_kernels(rec):
           f"(bound {k3['uniform_bound'][0]:.4f} ms); multi-segment form at "
           f"{ROLE_SPLIT} bitwise; deterministic over two runs", flush=True)
     report_k4(rec["pool_eval_counts"])
+    k5 = rec["complex_step"]
+    print(f"phase 2: K5 at B={B}, N={N}, d={D_MODEL}: {fmt_t(k5, 'ms')} ms "
+          f"(bound {k5['bound'][0]:.4f} ms, share "
+          f"{k5['bound'][0] / k5['ms']:.3f}); the parent's eager model math "
+          f"(autograd + 4 K2) {fmt_s(*k5['eager_ms'])} ms; plain "
+          f"{fmt_t(k5, 'plain_ms')} ms; max abs err per (T, l2) "
+          f"{k5['forms']}; deterministic, K2 on its gradient bitwise its "
+          f"update rows; ptxas {k5['ptxas']}", flush=True)
 
 
 def report_k4(k4):
@@ -844,6 +1092,23 @@ def report_main_path(mp, step_launches):
               flush=True)
 
 
+def report_scan(sc):
+    """Phase 3's run_scan line."""
+    prof = sc["profile"]
+    busy = "not measured" if prof is None else (
+        f"device {prof['device_ms_per_step']:.3f} ms/step, "
+        f"{prof['device_ops_per_step']:.1f} device operations/step, busy "
+        f"{prof['busy_share']:.3f} of the window's wall; top: " + "; ".join(
+            f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"][:6]))
+    print(f"phase 3: run_scan K={SCAN_K}: 2 windows bitwise equal to "
+          f"{2 * SCAN_K} sequential steps (losses and main pool); "
+          f"{sc['ms_per_step']:.3f} ms/step over {SCAN_TIMED} windows vs "
+          f"{sc['eager_ms_per_step']:.3f} ms/step for the same eager calls; "
+          f"{sc['captures']} capture(s); launches {sc['launches']}, "
+          f"replayed {sc['replayed']}; the profiled replay's trace "
+          f"{sc['replay_trace']}; profiled window: {busy}", flush=True)
+
+
 def main(argv):
     json_path = argv[argv.index("--json") + 1] if "--json" in argv else None
     if not torch.cuda.is_available():
@@ -883,8 +1148,12 @@ def main(argv):
     check(mp["per_step"] == dict(STEP_LAUNCHES, pool_eval_counts=0),
           f"main-path launches per step {mp['per_step']}, expected "
           f"{STEP_LAUNCHES}")
-    check(all(step_launches[k] > 0 for k in STEP_KERNELS),
-          f"a kernel of the main path never launched: {step_launches}")
+    check_launched(step_launches, "phase 3", STEP_KERNELS)
+    sc = phase_scan(at, K, dev, 1)
+    report_scan(sc)
+    check_launched(sc["launches"], "phase 3 (run_scan)", STEP_KERNELS)
+    check(sc["captures"] == 1, f"run_scan captured {sc['captures']} graphs "
+          "for one signature and one placement")
     used = phase_replicas(at, K, dev)
     print(f"phase 4: replica phase launches {used} (per replica step "
           f"{REPLICA_STEP_LAUNCHES}); cuda and cpu agree", flush=True)
@@ -893,11 +1162,13 @@ def main(argv):
     print(f"phase 5: app: generation {app['gen_s']:.2f} s, epochs "
           f"{[round(t, 3) for t in app['epoch_s']]} s "
           f"({[round(x) for x in tps]} triples/s), evals "
-          f"{[round(t, 3) for t in app['eval_s']]} s, losses "
+          f"{[round(t, 3) for t in app['eval_s']]} s, scan_steps {SCAN_K}, "
+          f"losses "
           f"{app['epoch_losses']}, MRR {app['mrr']:.4g} (o "
           f"{app['mrr_o']:.4g}, s {app['mrr_s']:.4g}), test MRR "
           f"{app['test_mrr']:.4g}, ceiling {app['truth_mrr']:.4f}, launches "
-          f"{app_launches}, peak {app['peak_mem_gib']:.2f} GiB", flush=True)
+          f"{app_launches}, replayed {app['replayed']}, peak "
+          f"{app['peak_mem_gib']:.2f} GiB", flush=True)
     print("phase 5: host seconds inside: " + "; ".join(
         f"{k} {v:.3f}" for k, v in app["host_seconds"].items()), flush=True)
     hr = phase_host_routes(K)
@@ -909,7 +1180,9 @@ def main(argv):
           f"{hr['full_launches']}; small config losses cuda "
           f"{hr['small_losses_cuda']} vs cpu {hr['small_losses_cpu']}, MRR "
           f"{hr['small_mrr_cuda']:.4f} vs {hr['small_mrr_cpu']:.4f}, count "
-          f"diff {hr['count_diff']} within {hr['ties']} near-ties",
+          f"diff {hr['count_diff']} within {hr['ties']} near-ties; RESCAL "
+          f"losses cuda {hr['rescal_losses_cuda']} vs cpu "
+          f"{hr['rescal_losses_cpu']}, launches {hr['rescal_launches']}",
           flush=True)
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
@@ -920,12 +1193,23 @@ def main(argv):
                                        "adapm_tpu/device/jaxport.py:95"),
                "pool_eval_counts": ("adapm_tpu_torch/csrc/"
                                     "pool_eval_counts.cu",
-                                    "adapm_tpu/models/kge.py:238")}
+                                    "adapm_tpu/models/kge.py:238"),
+               "complex_step": ("adapm_tpu_torch/csrc/complex_step.cu",
+                                "adapm_tpu/ops/fused.py:370")}
+    paths = dict(step=step_launches, scan=sc["launches"],
+                 scan_replayed=sc["replayed"], replica=used,
+                 app=app_launches, app_replayed=app["replayed"],
+                 host_routes=hr["full_launches"],
+                 rescal=hr["rescal_launches"])
+    # `launches`: the wrappers' count in the app run (phase 5) for the
+    # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
+    # whose standalone launches it keeps; the launches of replayed
+    # graphs stand apart under *_replayed
+    home = {"adagrad_update": "rescal"}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
-                    replaces=sources[n][1], launches=app_launches[n],
-                    launches_by_path=dict(
-                        step=step_launches[n], app=app_launches[n],
-                        host_routes=hr["full_launches"][n]),
+                    replaces=sources[n][1],
+                    launches=paths[home.get(n, "app")][n],
+                    launches_by_path={p: v[n] for p, v in paths.items()},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"])
@@ -939,7 +1223,7 @@ def main(argv):
                     exist_ok=True)
         with open(json_path, "w") as fh:
             json.dump({"card": smi, "kernels": kernels, "timings": rec,
-                       "main_path": mp, "replica_launches": used,
+                       "main_path": mp, "scan": sc, "replica_launches": used,
                        "app": app, "host_routes": hr, "build_s": build_s},
                       fh, indent=1, default=str)
     print(smi)

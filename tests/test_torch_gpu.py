@@ -4,8 +4,11 @@ multi-segment forms, K3's long runs and chunk-crossing runs included,
 deterministic over two runs), within
 rtol 1e-5 for K2 (CUDA's rsqrt vs the CPU's 1/sqrt), K4's counts equal on
 integer-valued data (every summation order gives the same f32 sums) and
-within the near-tie rule on random data — plus a small fused step on
-cuda against the same step on cpu.
+within the near-tie rule on random data, K5 within rtol 1e-5 / atol 1e-6
+(its sums run in another order than the plain version's) and bitwise
+over two runs, its epilogue bitwise K2 — plus a small fused step on
+cuda against the same step on cpu, and run_scan's CUDA graph against
+sequential steps, bitwise.
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -385,3 +388,146 @@ def test_small_fused_steps_cuda_match_cpu(cuda):
                                         srv.stores[0].delta)])
     for a, b in zip(*pools):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _k5_rows(rng, B, N, d, dev, stride=None):
+    """s, r, o [B, 4d] and neg [B, N, 4d] as row views of one buffer (as
+    K1 writes the step's rows), rows `stride` floats apart; each
+    triple's first negative repeats its subject row."""
+    L = 4 * d
+    W = stride or L
+    n = 3 * B + B * N
+    buf = rng.normal(size=(n, W)).astype(np.float32) * 0.3
+    buf[:, 2 * d:L] = rng.random((n, 2 * d)).astype(np.float32) * 0.01 \
+        + 1e-6
+    buf[3 * B::N] = buf[:B]
+    t = torch.from_numpy(buf).to(dev)[:, :L]
+    return t[:B], t[B:2 * B], t[2 * B:3 * B], t[3 * B:].reshape(B, N, L)
+
+
+def _k5_run(rows, lr_eps, T, l2, frozen=()):
+    s = rows[0]
+    B, L = s.shape
+    N = rows[3].shape[1]
+    n = {"s": B, "r": B, "o": B, "neg": B * N}
+    out = {k: torch.full((n[k], L), float("nan"), device=s.device)
+           for k in n if k not in frozen}
+    grad = {k: torch.empty(n[k], L // 2, device=s.device) for k in n}
+    per = K.complex_step(*rows, lr_eps, T, l2, out=out, grad_out=grad)
+    return per, out, grad
+
+
+@pytest.mark.parametrize("B,N,d,stride,T,l2", [
+    (64, 8, 16, None, 0.0, 0.0), (64, 8, 16, None, 1.0, 0.1),
+    (33, 5, 7, None, 1.0, 0.0), (40, 3, 8, 35, 0.0, 0.1),
+    (17, 40, 128, 520, 1.0, 0.1)])
+def test_complex_step_matches_plain(cuda, B, N, d, stride, T, l2):
+    rng = np.random.default_rng(B + N + d)
+    rows = _k5_rows(rng, B, N, d, cuda, stride)
+    lr_eps = torch.tensor([0.1, 1e-10], device=cuda)
+    pc, oc, gc = _k5_run([x.cpu() for x in rows], lr_eps.cpu(), T, l2)
+    runs = [_k5_run(rows, lr_eps, T, l2) for _ in range(2)]
+    _, of, _ = _k5_run(rows, lr_eps, T, l2, frozen=("r", "neg"))
+    torch.cuda.synchronize()
+    per, out, grad = runs[0]
+    torch.testing.assert_close(per.cpu(), pc, rtol=1e-5, atol=1e-6)
+    for k in oc:
+        torch.testing.assert_close(out[k].cpu(), oc[k], rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(grad[k].cpu(), gc[k], rtol=1e-5,
+                                   atol=1e-6)
+        # deterministic, and the epilogue is K2's arithmetic
+        assert torch.equal(_bits(out[k]), _bits(runs[1][1][k])), k
+        flat = {"s": rows[0], "r": rows[1], "o": rows[2],
+                "neg": rows[3].reshape(-1, 4 * d)}[k]
+        k2 = K.adagrad_update(grad[k], flat[:, 2 * d:], 0.1, 1e-10)
+        assert torch.equal(_bits(k2), _bits(out[k])), k
+    assert torch.equal(_bits(per), _bits(runs[1][0]))
+    assert set(of) == {"s", "o"}
+    for k in of:                       # freezing a role changes no other
+        assert torch.equal(_bits(of[k]), _bits(out[k])), k
+
+
+def test_complex_step_rejects_what_it_cannot_run(cuda):
+    rows = _k5_rows(np.random.default_rng(0), 4, 2, 8, cuda)
+    lr_eps = torch.tensor([0.1, 1e-10], device=cuda)
+    with pytest.raises(ValueError, match="lr_eps"):
+        K.complex_step(*rows, lr_eps.double())
+    with pytest.raises(ValueError, match="output"):
+        K.complex_step(*rows, lr_eps, out={"s": torch.empty(
+            4, 31, device=cuda)})
+    big = _k5_rows(np.random.default_rng(0), 2, 120, 128, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.complex_step(*big, lr_eps)
+
+
+def _aux_loss(embs, aux):
+    pos = (embs["s"] * embs["o"]).sum(-1)
+    neg = (embs["s"][:, None, :] * embs["neg"]).sum(-1)
+    return (aux * torch.nn.functional.softplus(-pos)
+            + torch.nn.functional.softplus(neg).sum(-1)).mean()
+
+
+@pytest.mark.parametrize("loss", ["complex", "aux"])
+def test_run_scan_graph_matches_sequential_bitwise(cuda, loss):
+    """Four windows of 4 steps (device-drawn negatives; the aux loss
+    takes a per-step aux and K2) against 16 sequential steps: equal
+    losses, pools and locality, and the sequential steps' launches equal
+    the windows' eager and replayed ones. The lr changes at the second
+    window (K5 and K2 read it from the device: no new capture) and the
+    routing tables are replaced before the fourth (a capture holds their
+    address: captured again, in place of the old graph)."""
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    roles = ("s", "r", "o", "neg") if loss == "complex" else \
+        ("s", "o", "neg")
+    res = []
+    for mode in ("sequential", "scan"):
+        rng = np.random.default_rng(0)
+        srv = at.setup(400, 64, device=cuda,
+                       opts=at.SystemOptions(sync_max_per_sec=0))
+        w = srv.make_worker(0)
+        vals = rng.normal(size=(400, 64)).astype(np.float32) * 0.1
+        vals[:, 32:] = 1e-6
+        w.wait(w.set(np.arange(400), vals))
+        fn = make_kge_loss("complex", 1.0, 0.01) if loss == "complex" \
+            else _aux_loss
+        run = DeviceRoutedRunner(
+            srv, fn, role_class=dict.fromkeys(roles, 0),
+            role_dim=dict.fromkeys(roles, 32), neg_role="neg",
+            neg_shape=(64, 4), neg_population=np.arange(380), seed=3)
+        batches = [{r: rng.integers(380, 400, 64) if r == "r"
+                    else rng.integers(0, 380, 64) for r in roles
+                    if r != "neg"} for _ in range(16)]
+        auxes = [torch.full((64,), 0.5 + i / 8, device=cuda)
+                 for i in range(16)]
+        lrs = [0.1] * 4 + [0.05] * 12
+        K.reset_launches()
+        losses = []
+        for i in range(0, 16, 4):
+            if i == 12:
+                run.router._version = None      # new table tensors
+            if mode == "sequential":
+                losses += [run(batches[j], auxes[j] if loss == "aux"
+                               else None, lrs[j]) for j in range(i, i + 4)]
+            else:
+                losses.append(run.run_scan(
+                    batches[i:i + 4], auxes[i:i + 4] if loss == "aux"
+                    else None, lrs[i]))
+        torch.cuda.synchronize()
+        res.append((torch.cat([x.reshape(-1) for x in losses]).cpu(),
+                    srv.stores[0].main.cpu(), run.locality_counts(),
+                    {k: K.LAUNCHES[k] + K.REPLAYED[k] for k in K.LAUNCHES},
+                    dict(K.REPLAYED), run.graph_captures, len(run._graphs)))
+        srv.shutdown()
+    (la, pa, ca, ka, ra, _, _), (lb, pb, cb, kb, rb, captures, graphs) = res
+    assert torch.equal(_bits(la), _bits(lb))
+    assert torch.equal(_bits(pa), _bits(pb))
+    assert ca == cb and ka == kb, (ca, cb, ka, kb)
+    assert captures == 2 and graphs == 1
+    assert ka["complex_step"] == (16 if loss == "complex" else 0)
+    # the first window runs eagerly, windows 2 and 3 replay, the fourth
+    # captures again and runs eagerly
+    assert not any(ra.values())
+    assert rb["routed_gather"] == 8, rb

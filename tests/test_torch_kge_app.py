@@ -181,8 +181,21 @@ def test_jax_checkpoint_evaluates_alike(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
-        _port(["--scan_steps", "4", "--epochs", "1"])
+    """What the port has not taken over raises: the multi-process pool
+    eval (ROADMAP queue A, item 11). (--scan_steps is ported:
+    tests/test_torch_complex_step.py.)"""
+    from adapm_tpu_torch.io import kge as kgeio
+    args = tk.build_parser().parse_args(
+        ["--dim", "4", "--synthetic_entities", "30",
+         "--synthetic_relations", "2", "--synthetic_triples", "64"] + FAST)
+    ds = kgeio.generate_synthetic(30, 2, 64, seed=1)
+    run = tk.KgeRun(args, ds, device="cpu")
+    run.init_model()
+    run.srv.glob = object()            # what a multi-process run holds
+    with pytest.raises(NotImplementedError, match="queue A, item 11"):
+        tk.evaluate(run, ds.test[:8])
+    run.srv.glob = None
+    run.srv.shutdown()
 
 
 def test_app_imports_neither_jax_nor_the_jax_package():
