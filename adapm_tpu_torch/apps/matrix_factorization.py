@@ -1,0 +1,298 @@
+"""Matrix factorization app (reference apps/matrix_factorization.cc), the
+JAX package's `apps/matrix_factorization.py` with identical flags.
+
+SGD MF with AdaGrad, L2, and bold-driver step size, in the reference's three
+access orders (matrix_factorization.cc:409-579):
+
+  dsgd        worker x subepoch disjoint column-block schedule, barrier per
+              subepoch, intent one subepoch ahead
+  columnwise  each worker walks its points sorted by column, intent
+              `--lookahead` batches ahead
+  plain       shuffled SGD over the worker's row-block partition
+
+Key layout (reference :692-693): row keys [0, m), column keys [m, m+n);
+value row = [factor (rank) | AdaGrad (rank)] (:695-697). Batches run as one
+fused step (ops/fused.py: K1 gather -> K7 mf_step -> K3 scatter-add) with
+the batch's ratings as its aux. It runs on `cuda`; `run_app(args,
+device="cpu")` runs the same code on the CPU, where every kernel takes its
+plain version. `--scan_steps K` (device routes) trains K batches per
+DeviceRoutedRunner.run_scan window (a CUDA graph replay on the card,
+whose ratings are copied into the graph's static buffer per window; the
+bold driver's lr lives in a device tensor the graph reads).
+
+Run: python -m adapm_tpu_torch.apps.matrix_factorization --rows ...
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..io import mf as mfio
+from ..models.mf import make_mf_loss
+from ..ops.fused import DeviceRoutedRunner, FusedStepRunner
+from ..utils import Stopwatch, alog
+from .common import (KeyMapper, RuntimeGuard, ScanWindow,
+                     add_common_arguments, enforce_full_replication,
+                     epoch_report, make_server, wrap_batches,
+                     worker0_init)
+
+
+def _load_data(args):
+    if args.data:
+        rows, cols, vals, m, n = mfio.read_coo(args.data)
+    else:
+        rows, cols, vals, _, _ = mfio.generate_synthetic(
+            args.rows, args.cols, args.rank, args.nnz, seed=args.seed)
+        m, n = args.rows, args.cols
+    return rows, cols, vals, m, n
+
+
+def _init_factors(args, m, n, rank, rng):
+    if args.init_w and args.init_h:
+        W = mfio.read_dense(args.init_w)[:, :rank]
+        H = mfio.read_dense(args.init_h)[:, :rank]
+    else:
+        W = (rng.random((m, rank)).astype(np.float32) - 0.5) / np.sqrt(rank)
+        H = (rng.random((n, rank)).astype(np.float32) - 0.5) / np.sqrt(rank)
+    return W, H
+
+
+def run_app(args, device=None) -> dict:
+    """Train as the CLI says, on `device` (default cuda). Returns `loss`
+    (the best epoch's full-data loss, the JAX app's return value),
+    `epoch_losses`, `lrs` (the bold driver's lr per epoch), `steps`
+    (fused steps per epoch), host-clock seconds `gen_s` and `epoch_s`
+    (each epoch's training up to the quiesce), and `graph_captures`."""
+    dev = torch.device("cuda" if device is None else device)
+    t_gen = time.perf_counter()
+    rows, cols, vals, m, n = _load_data(args)
+    gen_s = time.perf_counter() - t_gen
+    rank = args.rank
+    num_keys = m + n
+    rng = np.random.default_rng(args.seed)
+
+    kmap = KeyMapper(num_keys, args.enforce_random_keys, seed=args.seed)
+    srv = make_server(args, num_keys, value_lengths=2 * rank,
+                      num_workers=args.num_workers or None, device=dev)
+    num_workers = args.num_workers or srv.num_shards
+    workers = [srv.make_worker(i) for i in range(num_workers)]
+
+    W, H = _init_factors(args, m, n, rank, rng)
+    init = np.concatenate(
+        [np.concatenate([W, np.full_like(W, args.adagrad_init)], axis=1),
+         np.concatenate([H, np.full_like(H, args.adagrad_init)], axis=1)])
+    worker0_init(workers, kmap(np.arange(num_keys)), init)
+    if args.enforce_full_replication:
+        enforce_full_replication(workers, num_keys)
+
+    runner = FusedStepRunner(
+        srv, make_mf_loss(args.l2), role_class={"w": 0, "h": 0},
+        role_dim={"w": rank, "h": rank})
+
+    # --device_routes: routing tables mirrored on the device, the host
+    # ships only the raw key batch per step (ops/fused.py)
+    dev_runners = {}
+
+    def device_runner(shard: int) -> DeviceRoutedRunner:
+        if shard not in dev_runners:
+            dev_runners[shard] = DeviceRoutedRunner(
+                srv, make_mf_loss(args.l2), role_class={"w": 0, "h": 0},
+                role_dim={"w": rank, "h": rank}, shard=shard,
+                seed=args.seed + shard)
+        return dev_runners[shard]
+
+    # row-block data partition over ALL workers of ALL processes
+    # (reference mf/io.h:125+; DSGD's block schedule spans them too)
+    from ..parallel import control
+    P, pid = control.num_processes(), control.process_id()
+    total_workers = P * num_workers
+    part = mfio.partition_points(rows, total_workers, m)
+    by_worker = [np.nonzero(part == pid * num_workers + wi)[0]
+                 for wi in range(num_workers)]
+    B = args.batch_size
+    lr = args.lr
+    prev_loss = np.inf
+    best_loss = np.inf
+    guard = RuntimeGuard(args.max_runtime)
+    watch = Stopwatch(start=True)
+    result = {"epoch_losses": [], "lrs": [], "steps": [], "epoch_s": [],
+              "gen_s": gen_s}
+    steps = 0
+
+    # --scan_steps K (device-routed only): buffer K batches and train
+    # them in ONE dispatch (ScanWindow — the shared app contract;
+    # placement frozen per window). The clock still advances per batch
+    # at buffering time; intent windows are extended by K-1 clocks to
+    # cover the dispatch delay. The window is flushed at every
+    # worker/block boundary (shards must not mix in one window) and
+    # before each barrier/quiesce. lr changes per epoch (bold driver), so
+    # the CURRENT lr is passed at every add/flush.
+    K = max(1, args.scan_steps) if args.device_routes else 1
+    scan_win = ScanWindow(srv, K, args.sync_rounds_per_step)
+
+    def flush_scan():
+        scan_win.flush(lr)
+
+    def train_batch(w, idx):
+        nonlocal steps
+        steps += 1
+        roles = {"w": kmap(rows[idx]), "h": kmap(cols[idx] + m)}
+        if args.device_routes and K > 1:
+            scan_win.add(device_runner(w.shard), roles,
+                         np.asarray(vals[idx]), lr)
+            w.advance_clock()
+            return None
+        if args.device_routes:
+            loss = device_runner(w.shard)(roles, np.asarray(vals[idx]), lr)
+        else:
+            loss = runner(roles, np.asarray(vals[idx]), lr, shard=w.shard)
+        srv.drive_rounds(args.sync_rounds_per_step)
+        w.advance_clock()
+        return loss
+
+    def signal_intent(w, idx, start, end):
+        ks = np.concatenate([kmap(rows[idx]), kmap(cols[idx] + m)])
+        w.intent(np.unique(ks), start, end + (K - 1))
+
+    for epoch in range(args.epochs):
+        t_epoch = time.perf_counter()
+        steps = 0
+        if args.algorithm == "dsgd":
+            sched = mfio.dsgd_schedule(total_workers, epoch, seed=args.seed)
+            cblock = mfio.column_block(cols, total_workers, n)
+            for s in range(total_workers):
+                for wi, w in enumerate(workers):
+                    gwi = pid * num_workers + wi  # global worker id
+                    mine = by_worker[wi]
+                    blk = mine[cblock[mine] == sched[s, gwi]]
+                    # intent for the *next* subepoch's block; the clock
+                    # advances once per batch, so the window starts after
+                    # this block's batches and spans the next block's
+                    nb_cur = max(-(-len(blk) // B), 1)
+                    if s + 1 < total_workers:
+                        nxt = mine[cblock[mine] == sched[s + 1, gwi]]
+                        if len(nxt):
+                            nb_nxt = max(-(-len(nxt) // B), 1)
+                            signal_intent(w, nxt, w.current_clock + nb_cur,
+                                          w.current_clock + nb_cur + nb_nxt)
+                    # fixed batch size B: wrap_batches tiles small blocks so
+                    # every fused step has one shape
+                    for idx in wrap_batches(len(blk), B, rng):
+                        train_batch(w, blk[idx])
+                    flush_scan()
+                srv.barrier()  # per-subepoch barrier (reference :409-458)
+        elif args.algorithm == "columnwise":
+            for wi, w in enumerate(workers):
+                mine = by_worker[wi][np.argsort(cols[by_worker[wi]],
+                                                kind="stable")]
+                batches = list(wrap_batches(len(mine), B))
+                for bi, idx in enumerate(batches):
+                    la = bi + args.lookahead
+                    if la < len(batches):
+                        signal_intent(w, mine[batches[la]],
+                                      w.current_clock + args.lookahead,
+                                      w.current_clock + args.lookahead + 1)
+                    train_batch(w, mine[idx])
+                flush_scan()
+        else:  # plain SGD
+            for wi, w in enumerate(workers):
+                mine = by_worker[wi]
+                batches = list(wrap_batches(len(mine), B, rng))
+                for bi, idx in enumerate(batches):
+                    la = bi + args.lookahead
+                    if la < len(batches):
+                        signal_intent(w, mine[batches[la]],
+                                      w.current_clock + args.lookahead,
+                                      w.current_clock + args.lookahead + 1)
+                    train_batch(w, mine[idx])
+                flush_scan()
+
+        srv.quiesce()
+        result["epoch_s"].append(time.perf_counter() - t_epoch)
+        result["steps"].append(steps)
+        Wc, Hc = _current_factors(srv, kmap, m, n, rank)
+        loss = _full_loss(Wc, Hc, rows, cols, vals, args.l2)
+        result["epoch_losses"].append(loss)
+        result["lrs"].append(lr)
+        epoch_report("mf", epoch, loss, watch, extra=f"lr={lr:.4f}")
+        # bold driver (reference matrix_factorization.cc): grow on success,
+        # shrink on divergence — compared to the *previous* epoch, so a
+        # recovery after one bad epoch counts as success again
+        lr = lr * args.bold_inc if loss <= prev_loss else lr * args.bold_dec
+        prev_loss = loss
+        best_loss = min(best_loss, loss)
+        if guard.expired():
+            alog("[mf] max_runtime reached")
+            break
+
+    if args.export_prefix and pid == 0:
+        Wc, Hc = _current_factors(srv, kmap, m, n, rank)
+        mfio.write_dense(args.export_prefix + "W.mma", Wc)
+        mfio.write_dense(args.export_prefix + "H.mma", Hc)
+    result["loss"] = float(best_loss)
+    result["graph_captures"] = sum(r.graph_captures
+                                   for r in dev_runners.values())
+    alog("[mf]", srv.sync.report())
+    srv.shutdown()
+    return result
+
+
+def _current_factors(srv, kmap, m, n, rank):
+    flat = srv.read_main(kmap(np.arange(m + n)))
+    rowsz = 2 * rank
+    M = flat.reshape(m + n, rowsz)[:, :rank]
+    return M[:m], M[m:]
+
+
+def _full_loss(W, H, rows, cols, vals, l2):
+    pred = (W[rows] * H[cols]).sum(-1)
+    loss = float(((pred - vals) ** 2).sum())
+    if l2:
+        loss += l2 * float((W * W).sum() + (H * H).sum())
+    return loss
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--data", default=None,
+                        help="MatrixMarket coordinate file (else synthetic)")
+    parser.add_argument("--rows", type=int, default=200)
+    parser.add_argument("--cols", type=int, default=100)
+    parser.add_argument("--nnz", type=int, default=4000)
+    parser.add_argument("--rank", type=int, default=16)
+    parser.add_argument("--l2", type=float, default=0.01)
+    parser.add_argument("--algorithm", default="dsgd",
+                        choices=["dsgd", "columnwise", "plain"])
+    parser.add_argument("--scan_steps", type=int, default=1,
+                        help="K>1: train K batches per device dispatch "
+                             "(runner.run_scan: one CUDA graph replay per "
+                             "window on the card, a loop on the CPU; "
+                             "device routing only)")
+    parser.add_argument("--lookahead", type=int, default=2,
+                        help="intent batches ahead (columnwise/plain)")
+    parser.add_argument("--adagrad_init", type=float, default=1e-6)
+    parser.add_argument("--bold_inc", type=float, default=1.05)
+    parser.add_argument("--bold_dec", type=float, default=0.5)
+    parser.add_argument("--device_routes",
+                        action=argparse.BooleanOptionalAction, default=True,
+                        help="device-routed fused step (the hot path; "
+                             "default on, --no-device_routes for host "
+                             "routing)")
+    parser.add_argument("--init_w", default=None)
+    parser.add_argument("--init_h", default=None)
+    parser.add_argument("--export_prefix", default=None)
+    add_common_arguments(parser)
+    return parser
+
+
+def main(argv=None, device=None) -> int:
+    run_app(build_parser().parse_args(argv), device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

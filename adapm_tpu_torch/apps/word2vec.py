@@ -1,0 +1,320 @@
+"""SGNS word2vec app (reference apps/word2vec.cc), the JAX package's
+`apps/word2vec.py` with identical flags.
+
+Two PM keys per word — syn0 (input) = 2w, syn1 (output) = 2w+1
+(word2vec.cc:83-105); unigram^0.75 negative table (:125-144); AdaGrad; the
+logical clock advances per sentence and a read-ahead pipeline (default 1000
+sentences, :561-626) signals `Intent` + `PrepareSample` for future sentences.
+Pair generation for a future sentence is precomputed with a per-sentence
+seeded RNG — the moral equivalent of the reference's PeekableRandom
+(:445-491), which pre-draws future window sizes.
+
+Training pairs accumulate into fixed-size batches for the fused step
+(ops/fused.py: K1 gather -> K6 sgns_step -> K3 scatter-add). It runs on
+`cuda`; `run_app(args, device="cpu")` runs the same code on the CPU,
+where every kernel takes its plain version. `--scan_steps K` (device
+routes) trains K batches per DeviceRoutedRunner.run_scan window: a CUDA
+graph replay on the card, a loop over the step on the CPU.
+
+Run: python -m adapm_tpu_torch.apps.word2vec --synthetic_vocab ...
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+from collections import deque
+from typing import List
+
+import numpy as np
+import torch
+
+from ..io import text as textio
+from ..models.sgns import (build_alias_table, build_unigram_table,
+                           sgns_loss, subsample_mask, syn0_key, syn1_key)
+from ..ops.fused import DeviceRoutedRunner, FusedStepRunner
+from ..utils import Stopwatch, alog
+from .common import (KeyMapper, RuntimeGuard, ScanWindow,
+                     add_common_arguments, enforce_full_replication,
+                     epoch_report, global_worker_slices, make_server,
+                     worker0_init)
+
+ROLES = ("center", "ctx", "neg")
+
+
+def _pairs_for(sent: np.ndarray, sent_idx: int, window: int, seed: int,
+               counts=None, total: int = 0, sample_t: float = 0.0):
+    """Deterministic pairs for a sentence — identical at intent time and at
+    train time (PeekableRandom pattern). Frequent-word subsampling
+    (word2vec.cc --sample) is applied before pair generation, also
+    deterministically per sentence."""
+    rng = np.random.default_rng(seed * 1_000_003 + sent_idx)
+    if sample_t > 0 and counts is not None:
+        sent = sent[subsample_mask(counts, sent, total, sample_t, rng)]
+    return textio.skipgram_pairs(sent, window, rng)
+
+
+def _epoch_mean(losses) -> float:
+    """The JAX app's epoch loss: the float32 mean over every step's loss
+    (a window contributes its [K] losses), one device-to-host copy."""
+    if not losses:
+        return 0.0
+    flat = torch.cat([x.reshape(-1) for x in losses]).cpu().numpy()
+    return float(np.mean(flat))
+
+
+def run_app(args, device=None) -> dict:
+    """Train as the CLI says, on `device` (default cuda). Returns `loss`
+    (the last epoch's mean loss, the JAX app's return value),
+    `epoch_losses`, `steps` (fused steps per epoch), host-clock seconds
+    `corpus_s` (corpus, vocabulary and sentences) and `epoch_s` (each
+    epoch up to its loss on the host), and `graph_captures`."""
+    dev = torch.device("cuda" if device is None else device)
+    t_corpus = time.perf_counter()
+    if args.data:
+        corpus = args.data
+    else:
+        corpus = args.synthetic_path or os.path.join(
+            tempfile.gettempdir(), "adapm_w2v_corpus.txt")
+        textio.generate_synthetic_corpus(
+            corpus, vocab_size=args.synthetic_vocab,
+            num_sentences=args.synthetic_sentences, seed=args.seed)
+    words, counts, vocab = textio.build_vocab(corpus, args.min_count)
+    total_words = int(counts.sum())
+    V, d = len(words), args.dim
+    if V == 0:
+        raise SystemExit("empty vocabulary")
+    sents: List[np.ndarray] = list(textio.sentences(corpus, vocab))
+    corpus_s = time.perf_counter() - t_corpus
+    num_keys = 2 * V
+
+    kmap = KeyMapper(num_keys, args.enforce_random_keys, seed=args.seed)
+    srv = make_server(args, num_keys, value_lengths=2 * d,
+                      num_workers=args.num_workers or None, device=dev)
+    num_workers = args.num_workers or srv.num_shards
+    workers = [srv.make_worker(i) for i in range(num_workers)]
+
+    # init: syn0 ~ U[-.5/d, .5/d], syn1 = 0 (classic w2v); [emb | adagrad]
+    rng = np.random.default_rng(args.seed)
+    init = np.zeros((num_keys, 2 * d), dtype=np.float32)
+    init[syn0_key(np.arange(V)), :d] = \
+        (rng.random((V, d)).astype(np.float32) - 0.5) / d
+    init[:, d:] = args.adagrad_init
+    worker0_init(workers, kmap(np.arange(num_keys)), init)
+    if args.enforce_full_replication:
+        enforce_full_replication(workers, num_keys)
+
+    # negative sampling: unigram^0.75 over words -> syn1 physical keys; the
+    # Local scheme may only snap to other syn1 keys (never syn0)
+    word_sampler = build_unigram_table(counts)
+    srv.enable_sampling_support(
+        lambda n, r: kmap(syn1_key(word_sampler(n, r))),
+        allowed_keys=kmap(syn1_key(np.arange(V))))
+
+    runner = FusedStepRunner(
+        srv, sgns_loss, role_class=dict.fromkeys(ROLES, 0),
+        role_dim=dict.fromkeys(ROLES, d))
+
+    B, N = args.batch_size, args.negative
+
+    # --device_routes: negatives drawn on the device from the
+    # unigram^0.75 alias table with a Local-scheme snap (the reference's
+    # negative table, word2vec.cc:125-144, as two O(V) device arrays);
+    # per step the host ships only the center/context key batch
+    dev_runners = {}
+
+    def device_runner(shard: int) -> DeviceRoutedRunner:
+        if shard not in dev_runners:
+            dev_runners[shard] = DeviceRoutedRunner(
+                srv, sgns_loss, role_class=dict.fromkeys(ROLES, 0),
+                role_dim=dict.fromkeys(ROLES, d),
+                shard=shard, neg_role="neg", neg_shape=(B, N),
+                neg_population=kmap(syn1_key(np.arange(V))),
+                neg_alias=build_alias_table(counts),
+                seed=args.seed + shard)
+        return dev_runners[shard]
+    guard = RuntimeGuard(args.max_runtime)
+    watch = Stopwatch(start=True)
+    result = {"epoch_losses": [], "steps": [], "epoch_s": [],
+              "corpus_s": corpus_s, "loss": 0.0}
+
+    # per-worker contiguous sentence partition over all processes'
+    # workers (reference :524-531)
+    slices = global_worker_slices(len(sents), num_workers)
+
+    # --scan_steps K (device-routed only): buffer K materialized batches
+    # and train them in ONE dispatch (runner.run_scan — same contract as
+    # the KGE app: placement frozen per window, negative draws identical
+    # to K sequential steps). Clocks still advance per SENTENCE; a
+    # buffered batch waits up to ~K*B/pairs-per-sentence clocks before
+    # dispatch, so intent windows are extended by a slack estimated from
+    # the corpus (otherwise replicas could expire while a batch sits in
+    # the window).
+    K = max(1, args.scan_steps) if args.device_routes else 1
+    scan_slack = 0
+    if K > 1:
+        probe = [len(_pairs_for(sents[si], si, args.window, args.seed,
+                                counts, total_words, args.sample)[0])
+                 for si in range(min(50, len(sents)))]
+        est_pairs = max(1.0, float(np.mean(probe)) if probe else 1.0)
+        scan_slack = int(np.ceil(K * B / est_pairs)) * 2 + K
+
+    for epoch in range(args.epochs):
+        t_epoch = time.perf_counter()
+        # losses stay device tensors until epoch end: a float() per step
+        # would serialize host and device
+        losses = []
+        for wi, w in enumerate(workers):
+            my = slices[wi].tolist()
+            # (sent position, sample handle) for prepared future sentences
+            prepared: deque = deque()
+            buf_c: List[np.ndarray] = []
+            buf_x: List[np.ndarray] = []
+            buf_n: List[np.ndarray] = []
+
+            def prepare(pos: int, ahead: int) -> None:
+                """Signal intent + prepare negatives for the sentence that
+                will be trained `ahead` clocks from now."""
+                si = my[pos]
+                c, x = _pairs_for(sents[si], si, args.window, args.seed,
+                                  counts, total_words, args.sample)
+                if len(c) == 0:
+                    prepared.append((pos, None, c, x))
+                    return
+                fut = w.current_clock + ahead
+                ks = np.unique(np.concatenate(
+                    [kmap(syn0_key(c)), kmap(syn1_key(x))]))
+                w.intent(ks, fut, fut + 1 + scan_slack)
+                h = None if args.device_routes else \
+                    w.prepare_sample(len(c) * N, fut, fut + 1)
+                prepared.append((pos, h, c, x))
+
+            # prime the pipeline
+            for pos in range(min(args.readahead, len(my))):
+                prepare(pos, ahead=pos)
+
+            scan_win = ScanWindow(srv, K, args.sync_rounds_per_step,
+                                  on_loss=losses.append)
+
+            def step(cc, xx, nn):
+                if args.device_routes:
+                    return device_runner(w.shard)(
+                        {"center": cc, "ctx": xx}, None, args.lr)
+                return runner({"center": cc, "ctx": xx, "neg": nn},
+                              None, args.lr, shard=w.shard)
+
+            n_buf = 0
+            for pos in range(len(my)):
+                if pos + args.readahead < len(my):
+                    prepare(pos + args.readahead, ahead=args.readahead)
+                _, h, c, x = prepared.popleft()
+                if len(c):
+                    if h is not None:
+                        negk = w.pull_sample_keys(h, len(c) * N)
+                        w.finish_sample(h)
+                        buf_n.append(np.asarray(negk).reshape(len(c), N))
+                    buf_c.append(kmap(syn0_key(c)))
+                    buf_x.append(kmap(syn1_key(x)))
+                    n_buf += len(c)
+
+                while n_buf >= B:
+                    cc = np.concatenate(buf_c)
+                    xx = np.concatenate(buf_x)
+                    nn = np.concatenate(buf_n) if buf_n else None
+                    if K > 1:
+                        scan_win.add(device_runner(w.shard),
+                                     {"center": cc[:B], "ctx": xx[:B]},
+                                     None, args.lr)
+                    else:
+                        losses.append(step(cc[:B], xx[:B],
+                                           None if nn is None else nn[:B]))
+                        srv.drive_rounds(args.sync_rounds_per_step)
+                    buf_c, buf_x = [cc[B:]], [xx[B:]]
+                    buf_n = [] if nn is None else [nn[B:]]
+                    n_buf -= B
+                w.advance_clock()
+            scan_win.flush(args.lr)  # partial window at worker end
+            # tail: wrap-pad the remaining pairs into one final batch
+            if n_buf > 0:
+                cc = np.concatenate(buf_c)
+                xx = np.concatenate(buf_x)
+                nn = np.concatenate(buf_n) if buf_n else None
+                reps = -(-B // len(cc))
+                losses.append(step(
+                    np.tile(cc, reps)[:B], np.tile(xx, reps)[:B],
+                    None if nn is None else np.tile(nn, (reps, 1))[:B]))
+        srv.quiesce()
+        mean_loss = _epoch_mean(losses)
+        from ..parallel import control
+        mean_loss = float(control.allreduce(mean_loss, "mean")[0])
+        result["epoch_s"].append(time.perf_counter() - t_epoch)
+        result["steps"].append(sum(x.numel() for x in losses))
+        result["epoch_losses"].append(mean_loss)
+        result["loss"] = mean_loss
+        epoch_report("w2v", epoch, mean_loss, watch)
+        if args.export_prefix and control.process_id() == 0:
+            _export(srv, kmap, words, d,
+                    f"{args.export_prefix}epoch{epoch}.txt")
+        if guard.expired():
+            alog("[w2v] max_runtime reached")
+            break
+
+    result["graph_captures"] = sum(r.graph_captures
+                                   for r in dev_runners.values())
+    alog("[w2v]", srv.sync.report())
+    srv.shutdown()
+    return result
+
+
+def _export(srv, kmap, words, d, path: str) -> None:
+    """Write syn0 embeddings in the classic word2vec text format (the
+    reference writes epoch embeddings, word2vec.cc:367-416)."""
+    V = len(words)
+    flat = srv.read_main(kmap(syn0_key(np.arange(V))))
+    emb = flat.reshape(V, 2 * d)[:, :d]
+    with open(path, "w") as f:
+        f.write(f"{V} {d}\n")
+        for w, row in zip(words, emb):
+            f.write(w + " " + " ".join(f"{v:.6f}" for v in row) + "\n")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--data", default=None, help="corpus text file")
+    parser.add_argument("--synthetic_path", default=None)
+    parser.add_argument("--synthetic_vocab", type=int, default=200)
+    parser.add_argument("--synthetic_sentences", type=int, default=300)
+    parser.add_argument("--dim", type=int, default=32)
+    parser.add_argument("--window", type=int, default=5)
+    parser.add_argument("--negative", type=int, default=5)
+    parser.add_argument("--min_count", type=int, default=1)
+    parser.add_argument("--sample", type=float, default=1e-3,
+                        help="frequent-word subsampling threshold "
+                             "(word2vec.cc --sample; 0 disables)")
+    parser.add_argument("--readahead", type=int, default=1000,
+                        help="sentences of intent/sample lookahead")
+    parser.add_argument("--scan_steps", type=int, default=1,
+                        help="K>1: train K batches per device dispatch "
+                             "(runner.run_scan: one CUDA graph replay per "
+                             "window on the card, a loop on the CPU; "
+                             "device routing only)")
+    parser.add_argument("--device_routes",
+                        action=argparse.BooleanOptionalAction, default=True,
+                        help="device-routed fused step + on-device "
+                             "unigram^0.75 negatives (the hot path; default "
+                             "on, --no-device_routes for host routing)")
+    parser.add_argument("--adagrad_init", type=float, default=1e-6)
+    parser.add_argument("--export_prefix", default=None)
+    add_common_arguments(parser)
+    return parser
+
+
+def main(argv=None, device=None) -> int:
+    run_app(build_parser().parse_args(argv), device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

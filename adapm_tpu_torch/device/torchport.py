@@ -256,8 +256,9 @@ class TorchDevicePort(DevicePort):
 
     def compile(self, fn, **kwargs):
         raise NotImplementedError(
-            "the port runs its steps eagerly; multi-step capture "
-            "(run_scan as a CUDA graph) is ROADMAP queue A, item 4")
+            "the port compiles no program from a function: its steps run "
+            "eagerly, and K-step windows are captured as CUDA graphs by "
+            "ops/fused.py DeviceRoutedRunner.run_scan")
 
     def compile_collective(self, fn, mesh, in_specs, out_specs):
         raise NotImplementedError("the collective exchange is not ported "

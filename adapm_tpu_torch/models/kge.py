@@ -98,12 +98,12 @@ class KgeLoss:
                                      + (o * o).sum(-1)).mean()
         return loss
 
-    def _complex_update(self, rows, out, lr_eps) -> torch.Tensor:
+    def _complex_update(self, rows, out, lr_eps, aux) -> torch.Tensor:
         """The ComplEx loss, its gradient and the AdaGrad delta rows in
         one K5 launch: `rows` maps s, r, o, neg to gathered [emb | acc]
         rows, `out` each trainable role to its delta rows (a frozen role
-        is missing), `lr_eps` is (lr, eps) on the rows' device. Returns
-        the mean loss."""
+        is missing), `lr_eps` is (lr, eps) on the rows' device; `aux` is
+        unused. Returns the mean loss."""
         if sorted(rows) != ["neg", "o", "r", "s"]:
             raise ValueError(f"KgeLoss: roles {sorted(rows)}, expected "
                              "s, r, o, neg")

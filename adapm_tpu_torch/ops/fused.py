@@ -18,10 +18,11 @@ trainable role's delta rows into one update buffer, one K3 per pool
 (main, then delta) adds it.
 
 The loss chooses the model math, on both routing modes: a loss with a
-fused form (`loss_fn.fused_update`, e.g. a ComplEx KgeLoss in
-models/kge.py, which runs the hand-written kernel K5: loss, gradient and
-AdaGrad rows in one launch) runs it; any other loss (RESCAL, the other
-apps' losses) runs as PyTorch autograd, then K2 per trainable role.
+fused form (`loss_fn.fused_update`: a ComplEx KgeLoss in models/kge.py
+runs the hand-written kernel K5, models/sgns.py SgnsLoss K6,
+models/mf.py MfLoss K7: loss, gradient and AdaGrad rows in one launch)
+runs it; any other loss (RESCAL, a caller's own) runs as PyTorch
+autograd, then K2 per trainable role.
 Both read lr and eps from one 2-float device tensor, so a captured
 graph follows them. On the CPU both take the kernels' plain versions.
 
@@ -175,16 +176,16 @@ def _loss_and_updates(loss_fn, rows, role_dim, roles, train_classes, aux,
     """Loss over the gathered rows and, per class, one [sum n, 2D] buffer
     of its trainable roles' AdaGrad delta rows; `lr_eps` is (lr, eps) as
     a 2-float tensor on the rows' device. A loss with a fused form runs
-    it (`loss_fn.fused_update(rows, slices, lr_eps)`: K5 for ComplEx);
-    any other as autograd, each role's embedding half its own leaf (a
-    duplicated key gets one gradient per occurrence), then K2 per
-    trainable role."""
+    it (`loss_fn.fused_update(rows, slices, lr_eps, aux)`: K5 for
+    ComplEx, K6 for SGNS, K7 for MF); any other as autograd, each role's
+    embedding half its own leaf (a duplicated key gets one gradient per
+    occurrence), then K2 per trainable role."""
     bufs, slices = _update_buffers(rows, train_classes)
     fused_update = getattr(loss_fn, "fused_update", None)
     if fused_update is not None:
         for r in roles:
             _require_row(rows[r], role_dim[r])
-        return fused_update(rows, slices, lr_eps), bufs
+        return fused_update(rows, slices, lr_eps, aux), bufs
     trainable = [r for rs in train_classes.values() for r in rs]
     embs = {r: rows[r][..., : role_dim[r]] for r in roles}
     leaves = {r: embs[r].detach().requires_grad_() for r in trainable}

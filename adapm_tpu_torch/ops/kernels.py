@@ -12,6 +12,10 @@ PyTorch version.
                                                      _build_device_routed_body;
                                                      K2's arithmetic as its
                                                      epilogue)
+    K6 sgns_step            csrc/sgns_step.cu       (XLA: the same body with
+                                                     models/sgns.py sgns_loss)
+    K7 mf_step              csrc/mf_step.cu         (XLA: the same body with
+                                                     models/mf.py make_mf_loss)
 
 K1 and K3 also take an ordered list of coordinate segments, one per
 role of a pool class (`routed_gather_segments`,
@@ -50,14 +54,16 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
             "adagrad": "adagrad.cu",
             "ordered_scatter": "ordered_scatter.cu",
             "pool_eval_counts": "pool_eval_counts.cu",
-            "complex_step": "complex_step.cu"}
+            "complex_step": "complex_step.cu",
+            "sgns_step": "sgns_step.cu",
+            "mf_step": "mf_step.cu"}
 
 # launches per kernel since the last reset_launches(), counted by the
 # wrappers (chip_smoke.py reads them to show the main path went through
 # the kernels)
 LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
                             "ordered_scatter_add": 0, "pool_eval_counts": 0,
-                            "complex_step": 0}
+                            "complex_step": 0, "sgns_step": 0, "mf_step": 0}
 # launches made by replays of captured CUDA graphs (ops/fused.py
 # run_scan): each replay adds the launches recorded at its capture. No
 # wrapper runs then, so LAUNCHES does not count them.
@@ -158,6 +164,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_complex_step.restype = I
         lib.adapm_complex_step.argtypes = [P, LL, P, P] * 4 + \
             [P, P, I, I, I, F, F, I, P]
+    elif name == "sgns_step":
+        lib.adapm_sgns_step.restype = I
+        lib.adapm_sgns_step.argtypes = [P, LL, P, P] * 3 + [P, P, I, I, I, I,
+                                                             P]
+    elif name == "mf_step":
+        lib.adapm_mf_step.restype = I
+        lib.adapm_mf_step.argtypes = [P, LL, P, P] * 2 + [P, P, P, I, I, F,
+                                                           I, P]
     elif name == "ordered_scatter":
         lib.adapm_flat_targets.restype = I
         lib.adapm_flat_targets.argtypes = [P, P, P, I, P, I, I, P]
@@ -741,6 +755,57 @@ def pool_eval_counts(pool: torch.Tensor, owner: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K5-K7: the model math of a fused step (shared checks and plain emission)
+# ---------------------------------------------------------------------------
+
+
+def _emit_plain(rows, grads, roles, lr_eps, out, grad_out) -> None:
+    """Write each role's gradient into `grad_out` and its AdaGrad delta
+    rows (K2's plain rule on the role's accumulator half) into `out`."""
+    lr, eps = (float(v) for v in lr_eps.tolist())
+    for k in roles:
+        D = rows[k].shape[-1] // 2
+        g = grads[k].reshape(-1, D)
+        if grad_out.get(k) is not None:
+            grad_out[k].copy_(g)
+        if out.get(k) is not None:
+            acc = rows[k].reshape(-1, 2 * D)[:, D:]
+            out[k].copy_(adagrad_update_plain(g, acc, lr, eps))
+
+
+def _check_outs(what, nrows, width, out, grad_out):
+    for outs, wd in ((out, 2 * width), (grad_out, width)):
+        for k, t in outs.items():
+            _require(k in nrows and tuple(t.shape) == (nrows[k], wd)
+                     and t.dtype == torch.float32 and t.is_contiguous(),
+                     f"{what}: output {k!r} must be contiguous f32 "
+                     f"[{nrows.get(k)}, {wd}]")
+
+
+def _check_rows(what, ins, lr_eps):
+    for t in ins:
+        _require(t.dtype == torch.float32 and t.stride(-1) == 1,
+                 f"{what}: rows must be f32 with contiguous rows")
+    _require(lr_eps.dtype == torch.float32 and lr_eps.numel() == 2
+             and lr_eps.is_contiguous(),
+             f"{what}: lr_eps must be a contiguous f32 [2]")
+
+
+def _role_args(roles, ins, out, grad_out):
+    args = []
+    for k, t in zip(roles, ins):
+        args += [_ptr(t), t.stride(0), _ptr(out.get(k)),
+                 _ptr(grad_out.get(k))]
+    return args
+
+
+def _vec(d, ins, *outs) -> int:
+    """The 16-byte path: d % 4 == 0 and every row 16-byte aligned."""
+    return int(d % 4 == 0 and all(t.stride(0) % 4 == 0 for t in ins)
+               and _aligned16(*ins, *outs))
+
+
+# ---------------------------------------------------------------------------
 # K5 complex_step
 # ---------------------------------------------------------------------------
 
@@ -835,19 +900,12 @@ def complex_step_plain(s, r, o, neg, lr_eps: torch.Tensor,
     """The plain version of K5 (any device): the closed-form loss and
     gradient (`_complex_grads`), then K2's plain update rule per role in
     `out`. Arguments and result as complex_step."""
-    out, grad_out = out or {}, grad_out or {}
     D = s.shape[-1] // 2
     rows = {"s": s, "r": r, "o": o, "neg": neg}
     loss, grads = _complex_grads(*(rows[k][..., :D] for k in COMPLEX_ROLES),
                                  float(self_adv_temp), float(l2))
-    lr, eps = (float(x) for x in lr_eps.tolist())
-    for k in COMPLEX_ROLES:
-        g = grads[k].reshape(-1, D)
-        if grad_out.get(k) is not None:
-            grad_out[k].copy_(g)
-        if out.get(k) is not None:
-            acc = rows[k].reshape(-1, 2 * D)[:, D:]
-            out[k].copy_(adagrad_update_plain(g, acc, lr, eps))
+    _emit_plain(rows, grads, COMPLEX_ROLES, lr_eps, out or {},
+                grad_out or {})
     return loss
 
 
@@ -875,26 +933,15 @@ def complex_step(s: torch.Tensor, r: torch.Tensor, o: torch.Tensor,
              "complex_step: s, r, o must be [B, 4d] and neg [B, N, 4d]")
     B, L = s.shape
     N, d = neg.shape[1], L // 4
-    nrows = {"s": B, "r": B, "o": B, "neg": B * N}
-    for outs, width in ((out, L), (grad_out, L // 2)):
-        for k, t in outs.items():
-            _require(k in nrows and tuple(t.shape) == (nrows[k], width)
-                     and t.dtype == torch.float32 and t.is_contiguous(),
-                     f"complex_step: output {k!r} must be contiguous f32 "
-                     f"[{nrows.get(k)}, {width}]")
+    _check_outs("complex_step", {"s": B, "r": B, "o": B, "neg": B * N},
+                L // 2, out, grad_out)
     _require(self_adv_temp >= 0.0, "complex_step: self_adv_temp < 0")
     if not _on_cuda(s, r, o, neg, lr_eps, *out.values(),
                     *grad_out.values()):
         return complex_step_plain(s, r, o, neg, lr_eps, self_adv_temp, l2,
                                   out, grad_out)
-    negf = neg.reshape(B * N, L)
-    ins = (s, r, o, negf)
-    for t in ins:
-        _require(t.dtype == torch.float32 and t.stride(-1) == 1,
-                 "complex_step: rows must be f32 with contiguous rows")
-    _require(lr_eps.dtype == torch.float32 and lr_eps.numel() == 2
-             and lr_eps.is_contiguous(),
-             "complex_step: lr_eps must be a contiguous f32 [2]")
+    ins = (s, r, o, neg.reshape(B * N, L))
+    _check_rows("complex_step", ins, lr_eps)
     lib = _lib("complex_step")
     smem = lib.adapm_complex_step_smem(N, d)
     _require(smem <= K4_SMEM_MAX,
@@ -903,15 +950,165 @@ def complex_step(s: torch.Tensor, r: torch.Tensor, o: torch.Tensor,
     loss = torch.empty(B, dtype=torch.float32, device=s.device)
     if B == 0:
         return loss
-    vec = int(d % 4 == 0 and all(t.stride(0) % 4 == 0 for t in ins)
-              and _aligned16(*ins, *out.values(), *grad_out.values()))
-    per_role = []
-    for k, t in zip(COMPLEX_ROLES, ins):
-        per_role += [_ptr(t), t.stride(0), _ptr(out.get(k)),
-                     _ptr(grad_out.get(k))]
-    rc = lib.adapm_complex_step(*per_role, _ptr(loss), _ptr(lr_eps), B, N,
-                                d, float(self_adv_temp), float(l2), vec,
-                                _stream())
+    rc = lib.adapm_complex_step(
+        *_role_args(COMPLEX_ROLES, ins, out, grad_out), _ptr(loss),
+        _ptr(lr_eps), B, N, d, float(self_adv_temp), float(l2),
+        _vec(d, ins, *out.values(), *grad_out.values()), _stream())
     LAUNCHES["complex_step"] += 1
     _check(rc, "complex_step")
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# K6 sgns_step and K7 mf_step
+# ---------------------------------------------------------------------------
+
+SGNS_ROLES = ("center", "ctx", "neg")
+MF_ROLES = ("w", "h")
+# warps (pairs or ratings) per CTA of K6 and K7 (kWarps in the sources)
+K67_WARPS = 8
+_SMEM_STATIC = 48 * 1024
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as logaddexp(x, 0), the loss modules' softplus."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _sgns_grads(c, x, neg):
+    """The SGNS loss's per-pair values and its gradient per role in
+    closed form over the embedding halves c, x [B, d] and neg [B, N, d],
+    grouped as PyTorch's autograd groups models/sgns.py SgnsLoss (the
+    mean's 1/B, logaddexp's derivative, the broadcast's sum over the
+    negatives), so on the CPU this is bitwise the autograd gradient."""
+    B = c.shape[0]
+    pos = (c * x).sum(-1)
+    negs = (c[:, None, :] * neg).sum(-1)
+    loss = _softplus(-pos) + _softplus(negs).sum(-1)
+    g0 = c.new_ones(()).expand(B) / B          # d mean / d loss_b
+    gp = (-_lae_grad(g0, -pos))[:, None]
+    gn = _lae_grad(g0[:, None].expand(negs.shape), negs)[..., None]
+    return loss, {"center": gp * x + (gn * neg).sum(1), "ctx": gp * c,
+                  "neg": gn * c[:, None, :]}
+
+
+def _mf_grads(w, h, x, l2: float):
+    """The MF loss's per-rating values e^2 + l2 (|w|^2 + |h|^2), e = w.h -
+    x, and its gradient per role, grouped as autograd groups models/mf.py
+    MfLoss (the mean's 1/B, pow's 2e, each squared norm's two products
+    summed before the residual's term), so on the CPU this is bitwise
+    the autograd gradient."""
+    B = w.shape[0]
+    e = (w * h).sum(-1) - x
+    loss = e ** 2 + l2 * ((w * w).sum(-1) + (h * h).sum(-1))
+    g0 = w.new_ones(()).expand(B) / B
+    ge = (g0 * (2.0 * e))[:, None]
+    gr = (g0 * l2)[:, None]
+    return loss, {"w": ge * h + (gr * w + gr * w),
+                  "h": ge * w + (gr * h + gr * h)}
+
+
+def sgns_step_plain(center, ctx, neg, lr_eps: torch.Tensor, out=None,
+                    grad_out=None) -> torch.Tensor:
+    """The plain version of K6 (any device): the closed-form loss and
+    gradient (`_sgns_grads`), then K2's plain update rule per role in
+    `out`. Arguments and result as sgns_step."""
+    out, grad_out = out or {}, grad_out or {}
+    d = center.shape[-1] // 2
+    rows = {"center": center, "ctx": ctx, "neg": neg}
+    loss, grads = _sgns_grads(center[..., :d], ctx[..., :d], neg[..., :d])
+    _emit_plain(rows, grads, SGNS_ROLES, lr_eps, out, grad_out)
+    return loss
+
+
+def sgns_step(center: torch.Tensor, ctx: torch.Tensor, neg: torch.Tensor,
+              lr_eps: torch.Tensor,
+              out: Optional[Dict[str, torch.Tensor]] = None,
+              grad_out: Optional[Dict[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """The SGNS step's model math in one launch: center, ctx [B, 2d] and
+    neg [B, N, 2d] are gathered rows [emb d | acc d] (views of K1's
+    buffer: only the last dim must be contiguous); lr_eps is (lr, eps) as
+    a 2-float tensor on their device, read by the kernel. For each role
+    in `out` (a contiguous f32 [rows, 2d]) writes the AdaGrad delta rows
+    [-lr*g*rsqrt(acc + g^2 + eps) | g^2]; roles missing from `out` are
+    frozen. `grad_out` optionally takes each role's gradient [rows, d].
+    Returns the [B] per-pair loss softplus(-c.x) + sum_n softplus(c.n_n)
+    (the batch loss is its mean)."""
+    out = {k: v for k, v in (out or {}).items() if v is not None}
+    grad_out = {k: v for k, v in (grad_out or {}).items() if v is not None}
+    _require(center.dim() == 2 and ctx.shape == center.shape
+             and neg.dim() == 3 and neg.shape[0] == center.shape[0]
+             and neg.shape[2] == center.shape[1]
+             and center.shape[1] % 2 == 0,
+             "sgns_step: center, ctx must be [B, 2d] and neg [B, N, 2d]")
+    B, L = center.shape
+    N, d = neg.shape[1], L // 2
+    _check_outs("sgns_step", {"center": B, "ctx": B, "neg": B * N}, d,
+                out, grad_out)
+    if not _on_cuda(center, ctx, neg, lr_eps, *out.values(),
+                    *grad_out.values()):
+        return sgns_step_plain(center, ctx, neg, lr_eps, out, grad_out)
+    ins = (center, ctx, neg.reshape(B * N, L))
+    _check_rows("sgns_step", ins, lr_eps)
+    _require(K67_WARPS * (N + 1) * 4 <= _SMEM_STATIC,
+             f"sgns_step: N={N} negatives exceed the kernel's shared "
+             "memory")
+    loss = torch.empty(B, dtype=torch.float32, device=center.device)
+    if B == 0:
+        return loss
+    rc = _lib("sgns_step").adapm_sgns_step(
+        *_role_args(SGNS_ROLES, ins, out, grad_out), _ptr(loss),
+        _ptr(lr_eps), B, N, d,
+        _vec(d, ins, *out.values(), *grad_out.values()), _stream())
+    LAUNCHES["sgns_step"] += 1
+    _check(rc, "sgns_step")
+    return loss
+
+
+def mf_step_plain(w, h, x, lr_eps: torch.Tensor, l2: float = 0.0,
+                  out=None, grad_out=None) -> torch.Tensor:
+    """The plain version of K7 (any device): the closed-form loss and
+    gradient (`_mf_grads`), then K2's plain update rule per role in
+    `out`. Arguments and result as mf_step."""
+    out, grad_out = out or {}, grad_out or {}
+    r = w.shape[-1] // 2
+    loss, grads = _mf_grads(w[..., :r], h[..., :r], x, float(l2))
+    _emit_plain({"w": w, "h": h}, grads, MF_ROLES, lr_eps, out, grad_out)
+    return loss
+
+
+def mf_step(w: torch.Tensor, h: torch.Tensor, x: torch.Tensor,
+            lr_eps: torch.Tensor, l2: float = 0.0,
+            out: Optional[Dict[str, torch.Tensor]] = None,
+            grad_out: Optional[Dict[str, torch.Tensor]] = None
+            ) -> torch.Tensor:
+    """The MF step's model math in one launch: w, h [B, 2r] are gathered
+    rows [factor r | acc r] (views of K1's buffer) and x the [B] f32
+    ratings; lr_eps as in sgns_step. Writes the AdaGrad delta rows of
+    each role in `out` (roles missing are frozen) and optionally each
+    role's gradient into `grad_out` [B, r]. Returns the [B] per-rating
+    loss (w.h - x)^2 + l2 (|w|^2 + |h|^2) (the batch loss is its mean)."""
+    out = {k: v for k, v in (out or {}).items() if v is not None}
+    grad_out = {k: v for k, v in (grad_out or {}).items() if v is not None}
+    _require(w.dim() == 2 and h.shape == w.shape and w.shape[1] % 2 == 0
+             and x.dim() == 1 and x.shape[0] == w.shape[0],
+             "mf_step: w, h must be [B, 2r] and x [B]")
+    B, L = w.shape
+    r = L // 2
+    _check_outs("mf_step", {"w": B, "h": B}, r, out, grad_out)
+    if not _on_cuda(w, h, x, lr_eps, *out.values(), *grad_out.values()):
+        return mf_step_plain(w, h, x, lr_eps, l2, out, grad_out)
+    _check_rows("mf_step", (w, h), lr_eps)
+    _require(x.dtype == torch.float32 and x.is_contiguous(),
+             "mf_step: ratings must be contiguous f32 [B]")
+    loss = torch.empty(B, dtype=torch.float32, device=w.device)
+    if B == 0:
+        return loss
+    rc = _lib("mf_step").adapm_mf_step(
+        *_role_args(MF_ROLES, (w, h), out, grad_out), _ptr(x), _ptr(loss),
+        _ptr(lr_eps), B, r, float(l2),
+        _vec(r, (w, h), *out.values(), *grad_out.values()), _stream())
+    LAUNCHES["mf_step"] += 1
+    _check(rc, "mf_step")
     return loss

@@ -3,12 +3,14 @@ kernels, holds each against its plain PyTorch version at the main path's
 shapes, drives the device-routed ComplEx KGE training step through the
 parameter manager at full width (eagerly, and as run_scan windows
 replayed from a CUDA graph), checks a small replica run against the
-CPU, and runs the KGE application end to end on both routing paths.
+CPU, runs the KGE application end to end on both routing paths, then
+the word2vec step and application and the matrix-factorization
+application the same way.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --main-path-only   (phases 1 and 3, unchecked:
-        copied into an earlier tree of the port, it times that tree's
-        step the same way)
+    python3 chip_smoke.py --main-path-only   (phase 1 and phase 3's
+        step alone: copied into an earlier tree of the port, it times
+        that tree's step the same way)
     python3 chip_smoke.py --k4-only          (phase 1 and K4's part of
         phase 2, the same way)
 
@@ -34,10 +36,17 @@ Phases (any failure raises and exits non-zero):
      loss and update rows within rtol 1e-5 / atol 1e-6, bitwise over two
      runs, and K2 on K5's own gradient output equal to K5's update rows
      bit for bit, timed beside the parent's eager model math on the same
-     rows (KgeLoss under autograd, then four K2 launches). CUDA-event
-     times (the median and the min-max spread of 20 launches) of kernel,
-     plain version and one library call, and the least time the card
-     could take.
+     rows (KgeLoss under autograd, then four K2 launches); K6 sgns_step
+     on the w2v step's rows at bench_w2v's width (B=8,192 pairs, N=5
+     negatives drawn from the alias table, d=128: 57,344 rows of 256
+     f32, zipf duplicates) and K7 mf_step at B=8,192 ratings, rank 128,
+     l2 in {0, 0.01}, each within rtol 1e-5 / atol 1e-6 of its plain
+     version, bitwise over two runs and K2 on its gradient bitwise its
+     update rows, timed beside the parent's path on the same rows (the
+     loss under autograd, then one K2 per role). CUDA-event times (the
+     median and the min-max spread of 20 launches) of kernel, plain
+     version and one library call, and the least time the card could
+     take.
   3. the main path: setup(201,000 keys, 512) on cuda, slab fill, a
      DeviceRoutedRunner for ComplEx with on-device negatives (B=4096,
      N=32), warmup, then 32 steps of intent -> step -> sync round ->
@@ -68,8 +77,29 @@ Phases (any failure raises and exits non-zero):
      1e-4, MRR within 0.02, and the eval counts of one checkpoint under
      the near-tie rule), and its RESCAL form on both (autograd and K2:
      epoch losses within rtol 1e-4).
+  7. the word2vec step: setup(200,000 keys, 256) on cuda, bench_w2v's
+     slab fill, a DeviceRoutedRunner for SGNS with alias negatives
+     (B=8,192, N=5), 32 steps of intent -> step -> sync round -> clock,
+     each step's launches checked (one K1, one K6, one K3, no K2), the
+     profiler's device operations and ms per step, pairs/s; then
+     run_scan windows of K=8 against 16 sequential steps, bitwise
+     (losses and main pool), and timed against the same eager calls.
+  8. the word2vec app (apps/word2vec.py, main's parse and run) on cuda:
+     d=128, N=5, B=8,192, --scan_steps 8, a synthetic zipf corpus of
+     20,000 sentences over a 100,000-word generator vocabulary, 2
+     epochs: loss finite and falling, K6's wrapper and replayed
+     launches adding up to the steps, the device busy share and the
+     host seconds; then the host-routed small configuration on cuda and
+     on cpu (epoch losses within rtol 1e-4).
+  9. the MF app (apps/matrix_factorization.py) on cuda at rank 128 on a
+     MovieLens-1M-sized synthetic matrix (6,040 x 3,706, 1,000,209
+     ratings), dsgd, 2 epochs, device routes with --scan_steps 8 and
+     host routes: loss falling, K7's launches adding up to the steps;
+     then test_mf_app's configuration on cuda and on cpu on both routing
+     paths (epoch losses within rtol 1e-4).
 Every path's launch counts are set to 0 just before it runs and read
-just after; each path must have launched each of its kernels.
+just after; each path must have launched each of its kernels and no
+other path's model-math kernel (K2, K5, K6, K7).
 The near-tie rule: the kernel sums each dot in another order than the
 plain version's matmuls, so a count may differ by at most the number of
 candidates whose score lies within the f32 dot-product error bound of
@@ -86,6 +116,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -110,6 +141,22 @@ REPLICA_STEP_LAUNCHES = {"routed_gather": 1, "complex_step": 1,
                          "adagrad_update": 0, "ordered_scatter_add": 2}
 STEPS, WARMUP = 32, 3
 SCAN_K, SCAN_TIMED = 8, 4             # run_scan window, windows timed
+# word2vec at bench.py bench_w2v's width: V words (keys 2w, 2w+1), rows
+# [emb d | adagrad d], B pairs, N alias-drawn negatives per pair
+V_W2V, D_W2V, B_W2V, N_W2V = 100_000, 128, 8192, 5
+L_W2V = 2 * D_W2V
+W2V_ROWS = 2 * B_W2V + B_W2V * N_W2V      # gathered rows per step: 57,344
+W2V_LR = 0.05                             # bench_w2v's
+# matrix factorization at rank 128 on a MovieLens-1M-sized matrix
+# (6,040 x 3,706, 1,000,209 ratings), synthetic low-rank values
+MF_ROWS, MF_COLS, MF_NNZ, MF_RANK, B_MF = 6_040, 3_706, 1_000_209, 128, 8192
+W2V_KERNELS = ("routed_gather", "sgns_step", "ordered_scatter_add")
+MF_KERNELS = ("routed_gather", "mf_step", "ordered_scatter_add")
+# the step kernels that compute model math: a path launches its own and
+# none of the others
+MODEL_KERNELS = ("adagrad_update", "complex_step", "sgns_step", "mf_step")
+W2V_STEP_LAUNCHES = {"routed_gather": 1, "sgns_step": 1,
+                     "adagrad_update": 0, "ordered_scatter_add": 1}
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM
 F32_FLOPS = 67e12                     # H100 SXM, outside the tensor cores
 
@@ -138,6 +185,38 @@ def cuda_ms(fn, reps=20, warmup=3):
     torch.cuda.synchronize()
     t = np.array([a.elapsed_time(b) for a, b in evs])
     return float(np.median(t)), float(t.min()), float(t.max())
+
+
+def kernel_ms(fn, kernel, reps=20, warmup=3, between=None):
+    """The profiler's view of `reps` calls of fn(): the device
+    milliseconds of each launch of the kernel whose name contains
+    `kernel`, as (median, min, max), and the device milliseconds per
+    call of everything the calls ran. For a kernel shorter than its
+    wrapper's host time, CUDA events around each call (cuda_ms) measure
+    the host's launch gap as well; the trace measures the kernel alone.
+    `between()` runs before each call (e.g. an L2 flush)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if between is not None:
+                between()
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in evs) / 1e3 / reps
+    if kernel is None:
+        return None, total
+    mine = np.array([e.self_device_time_total for e in evs
+                     if kernel in e.name]) / 1e3
+    check(len(mine) == reps, f"the trace holds {len(mine)} launches of "
+          f"{kernel}, expected {reps}")
+    return (float(np.median(mine)), float(mine.min()),
+            float(mine.max())), total
 
 
 def bound(nbytes, flops):
@@ -348,7 +427,187 @@ def phase_kernels(K, dev, rng):
     torch.cuda.empty_cache()
     rec["complex_step"] = phase_k5(K, dev, rng)
     torch.cuda.empty_cache()
+    rec["sgns_step"] = phase_k6(K, dev, rng)
+    torch.cuda.empty_cache()
+    rec["mf_step"] = phase_k7(K, dev, rng)
+    torch.cuda.empty_cache()
     return rec
+
+
+def check_k67(K, name, got, got2, plain, grads, rows, d, form):
+    """K6/K7 against the plain version (loss and update rows within rtol
+    1e-5 / atol 1e-6), against itself over two runs (bitwise), and K2 on
+    its gradient output against its update rows (bitwise). Returns the
+    largest absolute error."""
+    (l1, u1), (l2_, u2), (lp, up) = got, got2, plain
+    torch.cuda.synchronize()
+    check(torch.equal(l1.view(torch.int32), l2_.view(torch.int32))
+          and all(torch.equal(u1[k].view(torch.int32),
+                              u2[k].view(torch.int32)) for k in u1),
+          f"{name} ({form}) is not deterministic from run to run")
+    err = float((l1 - lp).abs().max())
+    check(torch.allclose(l1, lp, rtol=1e-5, atol=1e-6),
+          f"{name} ({form}) loss differs from its plain version beyond "
+          f"rtol 1e-5 / atol 1e-6 (max {err})")
+    for k in u1:
+        e = float((u1[k] - up[k]).abs().max())
+        check(torch.allclose(u1[k], up[k], rtol=1e-5, atol=1e-6),
+              f"{name} ({form}) update rows of {k} differ from the plain "
+              f"version beyond rtol 1e-5 / atol 1e-6 (max {e})")
+        acc = rows[k].reshape(-1, 2 * d)[:, d:]
+        k2 = K.adagrad_update(grads[k], acc, 0.1, 1e-10)
+        check(torch.equal(k2.view(torch.int32), u1[k].view(torch.int32)),
+              f"K2 on {name}'s gradient of {k} differs from its update "
+              "rows")
+        err = max(err, e)
+    return err
+
+
+def step_rows(K, dev, nkeys, keys, L_, scale, seed):
+    """The step's gathered rows [emb | acc] of L_ floats: K1's gather of a
+    pool (values normal x `scale`, accumulators 1e-6 plus up to 1e-3) by
+    the step's keys."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    slots = -8 * (-int(np.ceil(nkeys * 1.25)) // 8)   # the store's rule
+    pool = torch.randn((1, slots, L_), device=dev, generator=g) * scale
+    pool[..., L_ // 2:] = 1e-6 + torch.rand(
+        (1, slots, L_ // 2), device=dev, generator=g) * 1e-3
+    n = len(keys)
+    return K.routed_gather(
+        pool, None, None, torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.as_tensor(keys.astype(np.int32), device=dev))
+
+
+def phase_k6(K, dev, rng):
+    """K6 on the w2v step's rows at bench_w2v's width: zipf-skewed center
+    and context keys, negatives drawn on the device from the unigram^0.75
+    alias table (the runner's own draw), the rows viewed per role as the
+    step views them."""
+    from adapm_tpu_torch.models.sgns import (build_alias_table, sgns_loss,
+                                             syn1_key)
+    from adapm_tpu_torch.ops import fused
+    d = D_W2V
+    prob, alias = build_alias_table(1.0 / (np.arange(V_W2V) + 10.0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    neg = fused._draw_negatives(
+        (B_W2V, N_W2V), None,
+        (torch.as_tensor(prob, device=dev), torch.as_tensor(alias,
+                                                            device=dev),
+         torch.as_tensor(syn1_key(np.arange(V_W2V)).astype(np.int32),
+                         device=dev)), gen)
+    keys = np.concatenate([2 * skewed_keys(rng, V_W2V, B_W2V),
+                           2 * skewed_keys(rng, V_W2V, B_W2V) + 1,
+                           neg.reshape(-1).cpu().numpy()])
+    rows = step_rows(K, dev, 2 * V_W2V, keys, L_W2V, 0.05, 1)
+    role = {"center": rows[:B_W2V], "ctx": rows[B_W2V:2 * B_W2V],
+            "neg": rows[2 * B_W2V:].reshape(B_W2V, N_W2V, L_W2V)}
+    args = (role["center"], role["ctx"], role["neg"])
+    nrows = {"center": B_W2V, "ctx": B_W2V, "neg": B_W2V * N_W2V}
+    lr_eps = torch.tensor([0.1, 1e-10], device=dev)
+
+    def buffers(width):
+        return {k: torch.empty((n, width), device=dev)
+                for k, n in nrows.items()}
+
+    def run(fn, grad=None):
+        out = buffers(L_W2V)
+        return fn(*args, lr_eps, out=out, grad_out=grad), out
+
+    grads = buffers(d)
+    err = check_k67(K, "K6", run(K.sgns_step, grads), run(K.sgns_step),
+                    run(K.sgns_step_plain), grads, role, d, "w2v")
+    out = buffers(L_W2V)
+    roles = sorted(role)
+
+    def eager():
+        # the parent's model math: autograd of the same loss, K2 per role
+        # (the lambda hides the loss's fused form)
+        return fused._loss_and_updates(
+            lambda e, aux: sgns_loss(e, aux), role, dict.fromkeys(roles, d),
+            roles, {0: roles}, None, lr_eps)
+
+    # each gathered row read once, one update row written per row, the
+    # [B] losses; flops: 1 + N dots and as many gradient terms of 2d per
+    # pair, the epilogue (7 per value)
+    flops = B_W2V * (N_W2V + 1) * 4 * d + W2V_ROWS * d * 7
+    return timed_k67(
+        dev, lambda: K.sgns_step(*args, lr_eps, out=out), "sgns_step_kernel",
+        lambda: K.sgns_step_plain(*args, lr_eps, out=out), eager,
+        max_abs_err=err,
+        bound=bound(2 * W2V_ROWS * L_W2V * 4 + B_W2V * 4, flops),
+        ptxas=ptxas_summary("sgns_step"),
+        unique_rows=int(np.unique(keys).size))
+
+
+def timed_k67(dev, kern, name, plain, eager, **kw):
+    """A K6/K7 record: `ms` is the kernel's device time from the trace
+    (kernel_ms), as the step finds its inputs (K1 has just written them:
+    hot in L2 where they fit), `cold_ms` the same after writing 256 MB
+    between launches (L2 cold), `call_ms` the wrapper call between CUDA
+    events; the plain version and the parent's eager path between CUDA
+    events (as they run: host-bound where their launches are short),
+    with their device time per call beside."""
+    k_ms, _ = kernel_ms(kern, name)
+    flush = torch.empty(64 << 20, device=dev)
+    cold, _ = kernel_ms(kern, name, between=flush.zero_)
+    del flush
+    kw["cold_ms"] = cold
+    _, plain_dev = kernel_ms(plain, None, reps=5, warmup=1)
+    _, eager_dev = kernel_ms(eager, None, reps=5, warmup=1)
+    return timed(ms=k_ms, plain_ms=cuda_ms(plain), library_ms=None,
+                 call_ms=cuda_ms(kern), eager_ms=cuda_ms(eager),
+                 plain_device_ms=plain_dev, eager_device_ms=eager_dev, **kw)
+
+
+def phase_k7(K, dev, rng):
+    """K7 on the MF step's rows: B ratings of the MovieLens-1M-sized
+    matrix (uniform row and column keys, as the synthetic generator
+    draws them), rank 128, with l2 in {0, 0.01}."""
+    from adapm_tpu_torch.models.mf import make_mf_loss
+    from adapm_tpu_torch.ops import fused
+    d = MF_RANK
+    keys = np.concatenate([rng.integers(0, MF_ROWS, B_MF),
+                           rng.integers(MF_ROWS, MF_ROWS + MF_COLS, B_MF)])
+    rows = step_rows(K, dev, MF_ROWS + MF_COLS, keys, 2 * MF_RANK, 0.1,
+                     2)
+    role = {"w": rows[:B_MF], "h": rows[B_MF:]}
+    x = torch.randn(B_MF, device=dev)
+    lr_eps = torch.tensor([0.1, 1e-10], device=dev)
+
+    def buffers(width):
+        return {k: torch.empty((B_MF, width), device=dev) for k in role}
+
+    forms, err = {}, 0.0
+    for l2 in (0.0, 0.01):
+        def run(fn, grad=None):
+            out = buffers(2 * d)
+            return fn(role["w"], role["h"], x, lr_eps, l2, out=out,
+                      grad_out=grad), out
+        grads = buffers(d)
+        forms[f"l2={l2}"] = check_k67(
+            K, "K7", run(K.mf_step, grads), run(K.mf_step),
+            run(K.mf_step_plain), grads, role, d, f"l2={l2}")
+        err = max(err, forms[f"l2={l2}"])
+    out = buffers(2 * d)
+    loss_fn = make_mf_loss(0.01)
+
+    def eager():
+        return fused._loss_and_updates(
+            lambda e, aux: loss_fn(e, aux), role, dict.fromkeys(role, d),
+            ["h", "w"], {0: ["h", "w"]}, x, lr_eps)
+
+    flops = B_MF * 3 * 2 * d * 2 + 2 * B_MF * d * 7
+    return timed_k67(
+        dev,
+        lambda: K.mf_step(role["w"], role["h"], x, lr_eps, 0.01, out=out),
+        "mf_step_kernel",
+        lambda: K.mf_step_plain(role["w"], role["h"], x, lr_eps, 0.01,
+                                out=out), eager,
+        max_abs_err=err, forms=forms,
+        bound=bound(2 * 2 * B_MF * 2 * d * 4 + 2 * B_MF * 4, flops),
+        ptxas=ptxas_summary("mf_step"))
 
 
 def phase_k5(K, dev, rng):
@@ -591,35 +850,66 @@ def ptxas_summary(name):
     return out
 
 
-def phase_main_path(at, K, dev, rng):
-    """Phase 3: the port's main path at full width."""
+class StepPath(NamedTuple):
+    """One model's device-routed training step through the PM, as phases
+    3 and 7 drive it: `build(seed)` returns (server, worker, runner) with
+    the table filled from `seed`, `batches(rng, n)` n key batches; the
+    step's lr, batch size and unit, the launches of one step, and the
+    model kernel's name in a trace."""
+    phase: str
+    build: Callable
+    batches: Callable
+    lr: float
+    B: int
+    unit: str
+    launches: dict
+    kernel: str
+
+
+def kge_server(at, dev, seed):
+    """bench_tpu's setup on `dev`: 201,000 keys of [emb 256 | adagrad
+    256], a slab fill (normal x 0.1, accumulators 1e-6), and the
+    device-routed ComplEx runner with uniform on-device negatives."""
     from adapm_tpu_torch.models import make_kge_loss
     from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
-    t0 = time.perf_counter()
     srv = at.setup(E + R, L, opts=at.SystemOptions(
         cache_slots_per_shard=1, sync_max_per_sec=0), device=dev)
     w = srv.make_worker(0)
+    fill = np.random.default_rng(seed)
     for lo in range(0, E + R, 50_000):
         hi = min(lo + 50_000, E + R)
-        vals = rng.normal(size=(hi - lo, L)).astype(np.float32) * 0.1
+        vals = fill.normal(size=(hi - lo, L)).astype(np.float32) * 0.1
         vals[:, L // 2:] = 1e-6
         w.set(np.arange(lo, hi), vals)
     srv.block()
-    fill_s = time.perf_counter() - t0
     roles = ("s", "r", "o", "neg")
-    runner = DeviceRoutedRunner(
+    return srv, w, DeviceRoutedRunner(
         srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
         role_dim=dict.fromkeys(roles, L // 2), neg_role="neg",
         neg_shape=(B, N), neg_population=np.arange(E), seed=0)
-    batches = [{"s": skewed_keys(rng, E, B),
-                "r": rng.integers(E, E + R, B),
-                "o": skewed_keys(rng, E, B)} for _ in range(4)]
+
+
+def kge_batches(rng, n):
+    """bench_tpu's batches: zipf-skewed subject and object keys."""
+    return [{"s": skewed_keys(rng, E, B), "r": rng.integers(E, E + R, B),
+             "o": skewed_keys(rng, E, B)} for _ in range(n)]
+
+
+def phase_main_path(K, path, seed):
+    """Phases 3 and 7: the path's step at full width through the PM: the
+    fill, warmup, then STEPS steps of intent -> step -> sync round ->
+    advance_clock, the launches of every step checked against the path's;
+    a profiled window of 4 steps after timing."""
+    t0 = time.perf_counter()
+    srv, w, runner = path.build(seed)
+    fill_s = time.perf_counter() - t0
+    batches = path.batches(np.random.default_rng(seed), 4)
     intents = [np.unique(np.concatenate(list(b.values()))) for b in batches]
 
     def pm_step(i):
         nxt = (i + 1) % len(batches)
         w.intent(intents[nxt], w.current_clock + 1, w.current_clock + 2)
-        loss = runner(batches[i % len(batches)], None, 0.1)
+        loss = runner(batches[i % len(batches)], None, path.lr)
         srv.sync.run_round()
         w.advance_clock()
         return loss
@@ -628,125 +918,113 @@ def phase_main_path(at, K, dev, rng):
     for i in range(1, WARMUP + 1):
         pm_step(i)
     torch.cuda.synchronize()
-    before = dict(K.LAUNCHES)
+    losses, steps = [], []
     t0 = time.perf_counter()
-    losses = [pm_step(i) for i in range(WARMUP + 1, WARMUP + 1 + STEPS)]
+    for i in range(WARMUP + 1, WARMUP + 1 + STEPS):
+        before = dict(K.LAUNCHES)
+        losses.append(pm_step(i))
+        steps.append({k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES})
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / STEPS
-    per_step = {k: (K.LAUNCHES[k] - before[k]) / STEPS for k in K.LAUNCHES}
+    want = {**dict.fromkeys(K.LAUNCHES, 0), **path.launches}
+    bad = [(i, st) for i, st in enumerate(steps) if st != want]
+    check(not bad, f"{path.phase}: steps launched {bad[:2]}, expected "
+          f"{path.launches} on every step")
     # the last step trains batch 0 again: its loss must have fallen
+    check((WARMUP + 1 + STEPS) % len(batches) == 0, "last step batch")
     last = float(pm_step(WARMUP + 1 + STEPS))
     losses = [float(x) for x in losses]
     # where the step's time goes: a short profiled window after timing
     prof = device_breakdown(lambda i: pm_step(WARMUP + 2 + STEPS + i), 4)
-    check((WARMUP + 1 + STEPS) % len(batches) == 0, "last step batch")
     check(np.isfinite(losses).all() and np.isfinite([first, last]).all(),
-          "non-finite loss on the main path")
-    check(last < first, f"loss did not fall: first {first}, last {last}")
-    check(not runner._shard_has_replicas(), "main path expected no replicas")
-    main = srv.stores[0].main
-    check(bool(torch.isfinite(main).all()), "non-finite parameters")
-    out = dict(fill_s=fill_s, ms_per_step=dt * 1e3, triples_per_s=B / dt,
-               first_loss=first, last_loss=last, per_step=per_step,
+          f"{path.phase}: non-finite loss on the main path")
+    check(last < first, f"{path.phase}: loss did not fall: first {first}, "
+          f"last {last}")
+    check(not runner._shard_has_replicas(),
+          f"{path.phase}: main path expected no replicas")
+    check(bool(torch.isfinite(srv.stores[0].main).all()),
+          f"{path.phase}: non-finite parameters")
+    out = dict(fill_s=fill_s, ms_per_step=dt * 1e3, per_s=path.B / dt,
+               first_loss=first, last_loss=last, per_step=steps[0],
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                profile=prof)
     srv.shutdown()
+    torch.cuda.empty_cache()
     return out
 
 
-def phase_scan(at, K, dev, seed):
-    """Phase 3, run_scan: the same device-routed ComplEx runner as the
-    main path on two servers filled alike. Server A takes 16 sequential
-    steps, server B two windows of SCAN_K (the first runs eagerly and is
-    captured, the second replays the graph): losses and main pools must
-    be bitwise equal. Then A takes 32 more eager steps and B 4 windows,
-    each timed on the host clock up to a synchronize, and one window of
-    B is profiled: its trace must hold SCAN_K launches of each step
-    kernel (K1, K5, K3's two) and none of K2. Launch counts: B's, from
-    0 before its first window, the wrappers' (the eager first window)
-    apart from the replay's (kernels.REPLAYED)."""
-    from adapm_tpu_torch.models import make_kge_loss
-    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+def phase_scan(K, path, seed):
+    """Phases 3 and 7, run_scan: the path's runner on two servers filled
+    alike. Server A takes 16 sequential steps, server B two windows of
+    SCAN_K (the first runs eagerly and is captured, the second replays
+    the graph): losses and main pools must be bitwise equal. Then A takes
+    32 more eager steps and B 4 windows, each timed on the host clock up
+    to a synchronize, and one window of B is profiled: its trace must
+    hold SCAN_K launches of each step kernel (K1, the model kernel, K3's
+    two) and none of K2. Launch counts: B's, from 0 before its first
+    window, the wrappers' (the eager first window) apart from the
+    replay's (kernels.REPLAYED)."""
     rng = np.random.default_rng(seed)
-    batches = [{"s": skewed_keys(rng, E, B), "r": rng.integers(E, E + R, B),
-                "o": skewed_keys(rng, E, B)}
-               for _ in range(2 * SCAN_K + SCAN_TIMED * SCAN_K + SCAN_K)]
-
-    def build():
-        srv = at.setup(E + R, L, opts=at.SystemOptions(
-            cache_slots_per_shard=1, sync_max_per_sec=0), device=dev)
-        w = srv.make_worker(0)
-        fill = np.random.default_rng(seed)
-        for lo in range(0, E + R, 50_000):
-            hi = min(lo + 50_000, E + R)
-            vals = fill.normal(size=(hi - lo, L)).astype(np.float32) * 0.1
-            vals[:, L // 2:] = 1e-6
-            w.set(np.arange(lo, hi), vals)
-        srv.block()
-        roles = ("s", "r", "o", "neg")
-        return srv, DeviceRoutedRunner(
-            srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
-            role_dim=dict.fromkeys(roles, L // 2), neg_role="neg",
-            neg_shape=(B, N), neg_population=np.arange(E), seed=0)
-
     n_eq = 2 * SCAN_K
-    srv_a, run_a = build()
-    seq = torch.stack([run_a(b, None, 0.1) for b in batches[:n_eq]])
+    batches = path.batches(rng, n_eq + SCAN_TIMED * SCAN_K + SCAN_K)
+    srv_a, _, run_a = path.build(seed)
+    seq = torch.stack([run_a(b, None, path.lr) for b in batches[:n_eq]])
     main_a = srv_a.stores[0].main.clone()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b in batches[n_eq:n_eq + SCAN_TIMED * SCAN_K]:
-        run_a(b, None, 0.1)
+        run_a(b, None, path.lr)
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) * 1e3 / (SCAN_TIMED * SCAN_K)
     srv_a.shutdown()
     del srv_a, run_a
     torch.cuda.empty_cache()
 
-    srv_b, run_b = build()
+    srv_b, _, run_b = path.build(seed)
     K.reset_launches()
-    win = torch.cat([run_b.run_scan(batches[i:i + SCAN_K], None, 0.1)
+    win = torch.cat([run_b.run_scan(batches[i:i + SCAN_K], None, path.lr)
                      for i in range(0, n_eq, SCAN_K)])
     torch.cuda.synchronize()
     launches, replayed = dict(K.LAUNCHES), dict(K.REPLAYED)
     check(torch.equal(win.view(torch.int32), seq.view(torch.int32)),
-          f"run_scan losses differ from sequential steps: {win.tolist()} "
-          f"vs {seq.tolist()}")
+          f"{path.phase}: run_scan losses differ from sequential steps: "
+          f"{win.tolist()} vs {seq.tolist()}")
     check(torch.equal(srv_b.stores[0].main.view(torch.int32),
                       main_a.view(torch.int32)),
-          "run_scan's main pool differs from sequential steps' (bitwise)")
+          f"{path.phase}: run_scan's main pool differs from sequential "
+          "steps' (bitwise)")
     del main_a
-    check(all(launches[k] + replayed[k] == n_eq * STEP_LAUNCHES[k]
-              for k in STEP_LAUNCHES),
-          f"run_scan launches {launches}, replayed {replayed}, expected "
-          f"{STEP_LAUNCHES} per step")
+    check(all(launches[k] + replayed[k] == n_eq * path.launches[k]
+              for k in path.launches),
+          f"{path.phase}: run_scan launches {launches}, replayed "
+          f"{replayed}, expected {path.launches} per step")
     t0 = time.perf_counter()
     for i in range(SCAN_TIMED):
         lo = n_eq + i * SCAN_K
-        run_b.run_scan(batches[lo:lo + SCAN_K], None, 0.1)
+        run_b.run_scan(batches[lo:lo + SCAN_K], None, path.lr)
     torch.cuda.synchronize()
     scan_ms = (time.perf_counter() - t0) * 1e3 / (SCAN_TIMED * SCAN_K)
     lo = n_eq + SCAN_TIMED * SCAN_K
     prof = device_breakdown(
-        lambda i: run_b.run_scan(batches[lo:lo + SCAN_K], None, 0.1), 1)
-    check(prof is not None, "run_scan: the profiler recorded no device "
-          "time, so the replay's kernels cannot be checked")
-    want = dict(routed_gather_kernel=SCAN_K, complex_step_kernel=SCAN_K,
-                flat_targets_kernel=SCAN_K, ordered_fold_kernel=SCAN_K,
-                adagrad_update_kernel=0)
+        lambda i: run_b.run_scan(batches[lo:lo + SCAN_K], None, path.lr), 1)
+    check(prof is not None, f"{path.phase}: run_scan: the profiler "
+          "recorded no device time, so the replay's kernels cannot be "
+          "checked")
+    want = {"routed_gather_kernel": SCAN_K, path.kernel: SCAN_K,
+            "flat_targets_kernel": SCAN_K, "ordered_fold_kernel": SCAN_K,
+            "adagrad_update_kernel": 0}
     seen = {k: prof["counts"].get(k, 0) for k in want}
-    check(seen == want, f"run_scan: a replayed window ran {seen} in the "
-          f"trace, expected {want}")
+    check(seen == want, f"{path.phase}: run_scan: a replayed window ran "
+          f"{seen} in the trace, expected {want}")
+    for k in ("wall_ms_per_step", "device_ms_per_step",
+              "device_ops_per_step"):          # one window of SCAN_K steps
+        prof[k] /= SCAN_K
+    prof["top_ms_per_step"] = [(n, v / SCAN_K)
+                               for n, v in prof["top_ms_per_step"]]
     out = dict(ms_per_step=scan_ms, eager_ms_per_step=eager_ms,
-               captures=run_b.graph_captures, launches=launches,
-               replayed=replayed, replay_trace=seen, losses=win.tolist(),
-               profile=prof)
-    if prof is not None:                # one window of SCAN_K steps
-        for k in ("wall_ms_per_step", "device_ms_per_step",
-                  "device_ops_per_step"):
-            prof[k] /= SCAN_K
-        prof["top_ms_per_step"] = [(n, v / SCAN_K)
-                                   for n, v in prof["top_ms_per_step"]]
+               per_s=path.B / scan_ms * 1e3, captures=run_b.graph_captures,
+               launches=launches, replayed=replayed, replay_trace=seen,
+               losses=win.tolist(), profile=prof)
     srv_b.shutdown()
     torch.cuda.empty_cache()
     return out
@@ -854,13 +1132,27 @@ SMALL_ARGS = ["--model", "complex", "--dim", "8", "--neg_ratio", "2",
               "--sys.prefetch", "0"]
 
 
-def run_app(kge, K, argv, dev=None):
-    """The app as `main(argv)` runs it (parse, then run_app), with the
-    launch counts set to 0 just before and read just after (the
-    wrappers' returned, the graph replays' in res["replayed"])."""
-    args = kge.build_parser().parse_args(argv)
+def run_app(app, K, argv, dev=None, profile=False):
+    """An app as main(argv) runs it (parse, then run_app), with the launch
+    counts set to 0 just before and read just after (the wrappers'
+    returned, the graph replays' in res["replayed"]). `profile=True`
+    traces the run's device activity (CUDA only: no host events) and
+    adds its device seconds and busy share of the epochs' wall time."""
+    args = app.build_parser().parse_args(argv)
     K.reset_launches()
-    res = kge.run_app(args, device=dev)
+    if not profile:
+        res = app.run_app(args, device=dev)
+    else:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as trace
+        with trace(activities=[ProfilerActivity.CUDA]) as prof:
+            res = app.run_app(args, device=dev)
+        dev_s = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    ) / 1e6
+        # None: the trace recorded no device time (not measured)
+        res["device_s"] = dev_s or None
+        res["busy_share"] = dev_s / sum(res["epoch_s"]) if dev_s else None
     res["replayed"] = dict(K.REPLAYED)
     return res, dict(K.LAUNCHES)
 
@@ -873,14 +1165,15 @@ def check_app(res, launches, what, kernels):
 
 
 def check_launched(launches, what, kernels):
-    """Each of the path's kernels launched; K2 (the RESCAL path's) not on
-    a ComplEx path, K5 not on the RESCAL path."""
+    """Each of the path's kernels launched, and no model-math kernel of
+    another path: K2 (the RESCAL path's) not on a ComplEx, SGNS or MF
+    path, K5 only on ComplEx paths, K6 only on word2vec's, K7 only on
+    MF's."""
     missing = [k for k in kernels if launches[k] == 0]
     check(not missing, f"{what}: kernels never launched: {missing}")
-    other = "complex_step" if "adagrad_update" in kernels \
-        else "adagrad_update"
-    check(launches[other] == 0,
-          f"{what}: {other} launched {launches[other]} times")
+    other = {k: launches[k] for k in MODEL_KERNELS
+             if k not in kernels and launches[k]}
+    check(not other, f"{what}: other paths' kernels launched: {other}")
 
 
 class HostClock:
@@ -1006,6 +1299,149 @@ def phase_host_routes(K):
                 ties=int(t_o.sum() + t_s.sum()))
 
 
+def w2v_server(at, dev, seed):
+    """bench_w2v's setup on `dev`: 200,000 keys of [emb 128 | adagrad 128],
+    a slab fill (normal x 0.05, accumulators 1e-6), and a device-routed
+    SGNS runner drawing N negatives per pair from the unigram^0.75 alias
+    table of zipf counts 1/(i+10) over the syn1 keys."""
+    from adapm_tpu_torch.models.sgns import (build_alias_table, sgns_loss,
+                                             syn1_key)
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    nk = 2 * V_W2V
+    srv = at.setup(nk, L_W2V, opts=at.SystemOptions(
+        cache_slots_per_shard=1, sync_max_per_sec=0), device=dev)
+    w = srv.make_worker(0)
+    fill = np.random.default_rng(seed)
+    for lo in range(0, nk, 100_000):
+        hi = min(lo + 100_000, nk)
+        vals = fill.normal(size=(hi - lo, L_W2V)).astype(np.float32) * 0.05
+        vals[:, D_W2V:] = 1e-6
+        w.set(np.arange(lo, hi), vals)
+    srv.block()
+    roles = ("center", "ctx", "neg")
+    runner = DeviceRoutedRunner(
+        srv, sgns_loss, role_class=dict.fromkeys(roles, 0),
+        role_dim=dict.fromkeys(roles, D_W2V), neg_role="neg",
+        neg_shape=(B_W2V, N_W2V), neg_population=syn1_key(np.arange(V_W2V)),
+        neg_alias=build_alias_table(1.0 / (np.arange(V_W2V) + 10.0)),
+        seed=0)
+    return srv, w, runner
+
+
+def w2v_batches(rng, n):
+    """bench_w2v's batches: zipf-skewed center (syn0) and context (syn1)
+    keys."""
+    return [{"center": 2 * skewed_keys(rng, V_W2V, B_W2V),
+             "ctx": 2 * skewed_keys(rng, V_W2V, B_W2V) + 1}
+            for _ in range(n)]
+
+
+W2V_APP_ARGS = ["--dim", str(D_W2V), "--negative", str(N_W2V),
+                "--batch_size", str(B_W2V), "--scan_steps", str(SCAN_K),
+                "--synthetic_vocab", str(V_W2V), "--synthetic_sentences",
+                "20000", "--epochs", "2", "--lr", str(W2V_LR),
+                "--sys.sync.max_per_sec", "0", "--sys.prefetch", "0"]
+# tests/test_torch_w2v_mf_apps.py's host-routed configuration
+W2V_SMALL_ARGS = ["--synthetic_vocab", "80", "--synthetic_sentences", "120",
+                  "--dim", "8", "--window", "3", "--negative", "4",
+                  "--epochs", "3", "--batch_size", "256", "--lr", "0.03",
+                  "--readahead", "30", "--seed", "11", "--no-device_routes",
+                  "--num_shards", "8", "--sys.sync.max_per_sec", "0",
+                  "--sys.prefetch", "0"]
+MF_APP_ARGS = ["--rows", str(MF_ROWS), "--cols", str(MF_COLS), "--nnz",
+               str(MF_NNZ), "--rank", str(MF_RANK), "--batch_size",
+               str(B_MF), "--algorithm", "dsgd", "--epochs", "2",
+               "--sys.sync.max_per_sec", "0", "--sys.prefetch", "0"]
+# tests/test_torch_w2v_mf_apps.py's MF configuration (test_mf_app's)
+MF_SMALL_ARGS = ["--rows", "48", "--cols", "32", "--nnz", "600", "--rank",
+                 "4", "--epochs", "6", "--batch_size", "16", "--lr", "0.1",
+                 "--algorithm", "dsgd", "--num_shards", "8",
+                 "--sys.sync.max_per_sec", "0", "--sys.prefetch", "0"]
+
+
+def phase_w2v_app(K):
+    """Phase 8: the word2vec app through its entry point on cuda at full
+    width on a synthetic zipf corpus, 2 epochs of --scan_steps 8; then
+    the host-routed small configuration on cuda and on cpu."""
+    from adapm_tpu_torch.apps import word2vec as w2v
+    from adapm_tpu_torch.core.kv import Worker
+    from adapm_tpu_torch.core.sync import SyncManager
+    from adapm_tpu_torch.io import text as textio
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    corpus = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_w2v_corpus.txt")
+    os.makedirs(os.path.dirname(corpus), exist_ok=True)
+    argv = W2V_APP_ARGS + ["--synthetic_path", corpus]
+    clock = HostClock([
+        (textio, "generate_synthetic_corpus", "corpus generation"),
+        (textio, "build_vocab", "build_vocab"),
+        (w2v, "_pairs_for", "pairs (intent and train)"),
+        (Worker, "intent", "intent"),
+        (DeviceRoutedRunner, "__call__", "fused step call"),
+        (DeviceRoutedRunner, "run_scan", "run_scan window call"),
+        (SyncManager, "run_round", "sync round")])
+    with clock:
+        res, launches = run_app(w2v, K, argv, profile=True)
+    res["host_seconds"] = clock.seconds
+    losses = res["epoch_losses"]
+    check(np.isfinite(losses).all(), f"phase 8: non-finite loss {losses}")
+    check(losses[1] < losses[0], f"phase 8: loss did not fall: {losses}")
+    check_launched(launches, "phase 8", W2V_KERNELS)
+    steps = sum(res["steps"])
+    k6 = launches["sgns_step"] + res["replayed"]["sgns_step"]
+    check(k6 == steps, f"phase 8: K6 launched {launches['sgns_step']} "
+          f"times and replayed {res['replayed']['sgns_step']} times in "
+          f"{steps} steps")
+    with open(corpus) as f:
+        res["vocab"] = len({w for line in f for w in line.split()})
+    small_g, host_launches = run_app(w2v, K, W2V_SMALL_ARGS + [
+        "--synthetic_path", corpus + ".small"])
+    check_launched(host_launches, "phase 8 (host routes)", W2V_KERNELS)
+    small_c, _ = run_app(w2v, K, W2V_SMALL_ARGS + [
+        "--synthetic_path", corpus + ".small"], dev="cpu")
+    lg, lc = (np.array(r["epoch_losses"]) for r in (small_g, small_c))
+    check(np.allclose(lg, lc, rtol=1e-4, atol=0),
+          f"phase 8: host-routed w2v epoch losses cuda {lg} vs cpu {lc} "
+          "beyond rtol 1e-4")
+    return dict(app=res, launches=launches, host_launches=host_launches,
+                small_cuda=lg.tolist(), small_cpu=lc.tolist())
+
+
+def phase_mf_app(K):
+    """Phase 9: the MF app on cuda at rank 128 (a MovieLens-1M-sized
+    synthetic matrix, dsgd) on both routing paths, K7 launches adding
+    up to the steps; then test_mf_app's configuration (8 virtual shards)
+    on cuda and on cpu, both routing paths."""
+    from adapm_tpu_torch.apps import matrix_factorization as mf
+    out = {}
+    for routes, extra in (("device", ["--scan_steps", str(SCAN_K)]),
+                          ("host", ["--no-device_routes"])):
+        res, launches = run_app(mf, K, MF_APP_ARGS + extra,
+                                    profile=routes == "device")
+        what = f"phase 9 ({routes} routes)"
+        losses = res["epoch_losses"]
+        check(np.isfinite(losses).all(), f"{what}: non-finite {losses}")
+        check(losses[1] < losses[0], f"{what}: loss did not fall: {losses}")
+        check_launched(launches, what, MF_KERNELS)
+        k7 = launches["mf_step"] + res["replayed"]["mf_step"]
+        check(k7 == sum(res["steps"]),
+              f"{what}: K7 launched {launches['mf_step']} times and "
+              f"replayed {res['replayed']['mf_step']} times in "
+              f"{sum(res['steps'])} steps")
+        out[routes] = dict(res=res, launches=launches)
+    for routes in ("device", "host"):
+        argv = MF_SMALL_ARGS + (["--no-device_routes"]
+                                if routes == "host" else [])
+        rg, _ = run_app(mf, K, argv)
+        rc, _ = run_app(mf, K, argv, dev="cpu")
+        lg, lc = np.array(rg["epoch_losses"]), np.array(rc["epoch_losses"])
+        check(np.allclose(lg, lc, rtol=1e-4, atol=0),
+              f"phase 9: MF ({routes} routes) epoch losses cuda {lg} vs cpu "
+              f"{lc} beyond rtol 1e-4")
+        out[f"small_{routes}"] = dict(cuda=lg.tolist(), cpu=lc.tolist())
+    return out
+
+
 def fmt_t(r, key):
     v = r[key]
     if v is None:
@@ -1049,6 +1485,25 @@ def report_kernels(rec):
           f"{fmt_t(k5, 'plain_ms')} ms; max abs err per (T, l2) "
           f"{k5['forms']}; deterministic, K2 on its gradient bitwise its "
           f"update rows; ptxas {k5['ptxas']}", flush=True)
+    for name, what in (("sgns_step", f"K6 at B={B_W2V}, N={N_W2V}, "
+                                     f"d={D_W2V} ({W2V_ROWS} rows)"),
+                       ("mf_step", f"K7 at B={B_MF}, rank {MF_RANK}, "
+                                   "l2=0.01")):
+        r = rec[name]
+        print(f"phase 2: {what}: kernel {fmt_t(r, 'ms')} ms in the trace "
+              f"(bound {r['bound'][0]:.4f} ms, {r['bound'][1]}, share "
+              f"{r['bound'][0] / r['ms']:.3f}), L2-cold "
+              f"{fmt_s(*r['cold_ms'])} ms (share "
+              f"{r['bound'][0] / r['cold_ms'][0]:.3f}), the wrapper call "
+              f"between "
+              f"events {fmt_s(*r['call_ms'])} ms; the parent's eager model "
+              f"math (autograd + one K2 per role) {fmt_s(*r['eager_ms'])} "
+              f"ms between events, {r['eager_device_ms']:.4f} ms of device "
+              f"time; plain {fmt_t(r, 'plain_ms')} ms, "
+              f"{r['plain_device_ms']:.4f} ms of device time; max abs err "
+              f"{r.get('forms', r['max_abs_err'])}; deterministic, K2 on its "
+              f"gradient bitwise its update rows; ptxas {r['ptxas']}",
+              flush=True)
 
 
 def report_k4(k4):
@@ -1071,19 +1526,22 @@ def report_k4(k4):
         print(f"phase 2: K4 ptxas {e}", flush=True)
 
 
-def report_main_path(mp, step_launches):
-    """Phase 3's lines: the step's speed, launches and device profile."""
-    print(f"phase 3: fill {mp['fill_s']:.1f} s, {mp['ms_per_step']:.3f} "
-          f"ms/step, {mp['triples_per_s']:.0f} triples/s, loss "
-          f"{mp['first_loss']:.5f} -> {mp['last_loss']:.5f}, launches "
-          f"{step_launches} (per step {mp['per_step']}), peak "
-          f"{mp['peak_mem_gib']:.2f} GiB", flush=True)
+def report_main_path(mp, step_launches, path):
+    """Phase 3's or 7's lines: the step's speed, launches and device
+    profile."""
+    ph = path.phase
+    print(f"{ph}: {path.unit} step: fill {mp['fill_s']:.1f} s, "
+          f"{mp['ms_per_step']:.3f} ms/step, {mp['per_s']:.0f} "
+          f"{path.unit}/s, loss {mp['first_loss']:.5f} -> "
+          f"{mp['last_loss']:.5f}, launches {step_launches} (each step "
+          f"{mp['per_step']}), peak {mp['peak_mem_gib']:.2f} GiB",
+          flush=True)
     prof = mp["profile"]
     if prof is None:
-        print("phase 3: device time breakdown not measured (the profiler "
+        print(f"{ph}: device time breakdown not measured (the profiler "
               "recorded no device time)", flush=True)
     else:
-        print(f"phase 3: profiled {prof['wall_ms_per_step']:.3f} ms/step "
+        print(f"{ph}: profiled {prof['wall_ms_per_step']:.3f} ms/step "
               f"wall, device busy {prof['device_ms_per_step']:.3f} ms/step "
               f"({prof['busy_share']:.3f}), "
               f"{prof['device_ops_per_step']:.1f} device operations "
@@ -1092,24 +1550,77 @@ def report_main_path(mp, step_launches):
               flush=True)
 
 
-def report_scan(sc):
-    """Phase 3's run_scan line."""
+def report_scan(sc, path):
+    """Phase 3's or 7's run_scan line."""
     prof = sc["profile"]
     busy = "not measured" if prof is None else (
         f"device {prof['device_ms_per_step']:.3f} ms/step, "
         f"{prof['device_ops_per_step']:.1f} device operations/step, busy "
         f"{prof['busy_share']:.3f} of the window's wall; top: " + "; ".join(
             f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"][:6]))
-    print(f"phase 3: run_scan K={SCAN_K}: 2 windows bitwise equal to "
+    print(f"{path.phase}: run_scan K={SCAN_K}: 2 windows bitwise equal to "
           f"{2 * SCAN_K} sequential steps (losses and main pool); "
-          f"{sc['ms_per_step']:.3f} ms/step over {SCAN_TIMED} windows vs "
+          f"{sc['ms_per_step']:.3f} ms/step ({sc['per_s']:.0f} "
+          f"{path.unit}/s) over {SCAN_TIMED} windows vs "
           f"{sc['eager_ms_per_step']:.3f} ms/step for the same eager calls; "
           f"{sc['captures']} capture(s); launches {sc['launches']}, "
           f"replayed {sc['replayed']}; the profiled replay's trace "
           f"{sc['replay_trace']}; profiled window: {busy}", flush=True)
 
 
+def report_w2v_app(app):
+    """Phase 8's lines."""
+    a = app["app"]
+    steps = sum(a["steps"])
+    rates = [round(n * B_W2V / t) for n, t in zip(a["steps"], a["epoch_s"])]
+    print(f"phase 8: w2v app: {a['vocab']} words in the corpus, corpus "
+          f"{a['corpus_s']:.2f} s, epochs "
+          f"{[round(t, 3) for t in a['epoch_s']]} s ({rates} pairs/s), "
+          f"steps {a['steps']}, losses {a['epoch_losses']}, "
+          f"captures {a['graph_captures']}, device {a['device_s']} s, "
+          f"busy share {a['busy_share']}, launches {app['launches']}, "
+          f"replayed {a['replayed']} (K6 {steps} = steps); host-routed "
+          f"small config losses cuda {app['small_cuda']} vs cpu "
+          f"{app['small_cpu']}", flush=True)
+    print("phase 8: host seconds inside: " + "; ".join(
+        f"{k} {v:.3f}" for k, v in a["host_seconds"].items()), flush=True)
+
+
+def report_mf(mfr):
+    """Phase 9's lines."""
+    for routes in ("device", "host"):
+        r = mfr[routes]["res"]
+        busy = "" if "busy_share" not in r else (
+            f", device {r['device_s']} s, busy share {r['busy_share']}")
+        print(f"phase 9: MF app ({routes} routes): epochs "
+              f"{[round(t, 3) for t in r['epoch_s']]} s, steps {r['steps']}"
+              f", losses {r['epoch_losses']}, captures "
+              f"{r['graph_captures']}{busy}, launches "
+              f"{mfr[routes]['launches']}, replayed {r['replayed']}",
+              flush=True)
+    print(f"phase 9: MF small config cuda vs cpu: device routes "
+          f"{mfr['small_device']}, host routes {mfr['small_host']}",
+          flush=True)
+
+
+def drive_path(K, path, kernels, seed):
+    """Phase 3 or 7: the path's main path (counts set to 0 just before,
+    read just after) and its run_scan windows, reported and checked."""
+    K.reset_launches()
+    mp = phase_main_path(K, path, seed)
+    launches = dict(K.LAUNCHES)
+    report_main_path(mp, launches, path)
+    check_launched(launches, path.phase, kernels)
+    sc = phase_scan(K, path, seed + 1)
+    report_scan(sc, path)
+    check_launched(sc["launches"], f"{path.phase} (run_scan)", kernels)
+    check(sc["captures"] == 1, f"{path.phase}: run_scan captured "
+          f"{sc['captures']} graphs for one signature and one placement")
+    return mp, launches, sc
+
+
 def main(argv):
+    t_start = time.perf_counter()
     json_path = argv[argv.index("--json") + 1] if "--json" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1133,27 +1644,22 @@ def main(argv):
         # port, it times that tree's K4 the same way
         report_k4(phase_k4(K, dev, rng))
         return 0
+    kge_path = StepPath("phase 3", lambda seed: kge_server(at, dev, seed),
+                        kge_batches, 0.1, B, "triples", STEP_LAUNCHES,
+                        "complex_step_kernel")
+    w2v_path = StepPath("phase 7", lambda seed: w2v_server(at, dev, seed),
+                        w2v_batches, W2V_LR, B_W2V, "pairs",
+                        W2V_STEP_LAUNCHES, "sgns_step_kernel")
     if "--main-path-only" in argv:
         # phase 3 alone, unchecked: runs against an earlier tree of the
         # port too (copy the script there), for a like-with-like compare
         K.reset_launches()
-        report_main_path(phase_main_path(at, K, dev, rng), dict(K.LAUNCHES))
+        report_main_path(phase_main_path(K, kge_path, 0), dict(K.LAUNCHES),
+                         kge_path)
         return 0
     rec = phase_kernels(K, dev, rng)
     report_kernels(rec)
-    K.reset_launches()
-    mp = phase_main_path(at, K, dev, rng)
-    step_launches = dict(K.LAUNCHES)
-    report_main_path(mp, step_launches)
-    check(mp["per_step"] == dict(STEP_LAUNCHES, pool_eval_counts=0),
-          f"main-path launches per step {mp['per_step']}, expected "
-          f"{STEP_LAUNCHES}")
-    check_launched(step_launches, "phase 3", STEP_KERNELS)
-    sc = phase_scan(at, K, dev, 1)
-    report_scan(sc)
-    check_launched(sc["launches"], "phase 3 (run_scan)", STEP_KERNELS)
-    check(sc["captures"] == 1, f"run_scan captured {sc['captures']} graphs "
-          "for one signature and one placement")
+    mp, step_launches, sc = drive_path(K, kge_path, STEP_KERNELS, 0)
     used = phase_replicas(at, K, dev)
     print(f"phase 4: replica phase launches {used} (per replica step "
           f"{REPLICA_STEP_LAUNCHES}); cuda and cpu agree", flush=True)
@@ -1184,6 +1690,11 @@ def main(argv):
           f"losses cuda {hr['rescal_losses_cuda']} vs cpu "
           f"{hr['rescal_losses_cpu']}, launches {hr['rescal_launches']}",
           flush=True)
+    st, w2v_step_launches, sc7 = drive_path(K, w2v_path, W2V_KERNELS, 2)
+    w2v_app = phase_w2v_app(K)
+    report_w2v_app(w2v_app)
+    mfr = phase_mf_app(K)
+    report_mf(mfr)
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
                "adagrad_update": ("adapm_tpu_torch/csrc/adagrad.cu",
@@ -1195,17 +1706,31 @@ def main(argv):
                                     "pool_eval_counts.cu",
                                     "adapm_tpu/models/kge.py:238"),
                "complex_step": ("adapm_tpu_torch/csrc/complex_step.cu",
-                                "adapm_tpu/ops/fused.py:370")}
+                                "adapm_tpu/ops/fused.py:370"),
+               "sgns_step": ("adapm_tpu_torch/csrc/sgns_step.cu",
+                             "adapm_tpu/ops/fused.py:370"),
+               "mf_step": ("adapm_tpu_torch/csrc/mf_step.cu",
+                           "adapm_tpu/ops/fused.py:370")}
     paths = dict(step=step_launches, scan=sc["launches"],
                  scan_replayed=sc["replayed"], replica=used,
                  app=app_launches, app_replayed=app["replayed"],
                  host_routes=hr["full_launches"],
-                 rescal=hr["rescal_launches"])
+                 rescal=hr["rescal_launches"],
+                 w2v_step=w2v_step_launches, w2v_scan=sc7["launches"],
+                 w2v_scan_replayed=sc7["replayed"],
+                 w2v_app=w2v_app["launches"],
+                 w2v_app_replayed=w2v_app["app"]["replayed"],
+                 w2v_host_routes=w2v_app["host_launches"],
+                 mf_app=mfr["device"]["launches"],
+                 mf_app_replayed=mfr["device"]["res"]["replayed"],
+                 mf_host_routes=mfr["host"]["launches"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
-    # whose standalone launches it keeps; the launches of replayed
-    # graphs stand apart under *_replayed
-    home = {"adagrad_update": "rescal"}
+    # whose standalone launches it keeps, in the word2vec and MF app runs
+    # (phases 8 and 9, device routes) for K6 and K7; the launches of
+    # replayed graphs stand apart under *_replayed
+    home = {"adagrad_update": "rescal", "sgns_step": "w2v_app",
+            "mf_step": "mf_app"}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=paths[home.get(n, "app")][n],
@@ -1214,6 +1739,10 @@ def main(argv):
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"])
                for n, r in rec.items()]
+    for line in kernels:   # the parent's eager path (K5-K7), K6/K7's
+        for key in ("eager_ms", "cold_ms", "call_ms"):   # other views
+            if key in rec[line["name"]]:
+                line[key] = rec[line["name"]][key][0]
     k3 = rec["ordered_scatter_add"]
     k3_line = kernels[list(rec).index("ordered_scatter_add")]
     k3_line.update(fold_ms=k3["fold_ms"][0], order_ms=k3["order_ms"][0],
@@ -1224,8 +1753,11 @@ def main(argv):
         with open(json_path, "w") as fh:
             json.dump({"card": smi, "kernels": kernels, "timings": rec,
                        "main_path": mp, "scan": sc, "replica_launches": used,
-                       "app": app, "host_routes": hr, "build_s": build_s},
-                      fh, indent=1, default=str)
+                       "app": app, "host_routes": hr, "build_s": build_s,
+                       "w2v_step": st, "w2v_scan": sc7, "w2v_app": w2v_app,
+                       "mf_app": mfr}, fh, indent=1, default=str)
+    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

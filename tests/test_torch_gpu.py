@@ -6,9 +6,10 @@ rtol 1e-5 for K2 (CUDA's rsqrt vs the CPU's 1/sqrt), K4's counts equal on
 integer-valued data (every summation order gives the same f32 sums) and
 within the near-tie rule on random data, K5 within rtol 1e-5 / atol 1e-6
 (its sums run in another order than the plain version's) and bitwise
-over two runs, its epilogue bitwise K2 — plus a small fused step on
-cuda against the same step on cpu, and run_scan's CUDA graph against
-sequential steps, bitwise.
+over two runs, its epilogue bitwise K2; K6 and K7 the same way — plus
+a small fused step on cuda against the same step on cpu, and run_scan's
+CUDA graph against sequential steps, bitwise (ComplEx, a K2 loss with
+aux, SGNS with alias-drawn negatives, MF with its ratings as aux).
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -531,3 +532,159 @@ def test_run_scan_graph_matches_sequential_bitwise(cuda, loss):
     # captures again and runs eagerly
     assert not any(ra.values())
     assert rb["routed_gather"] == 8, rb
+
+
+def _k67_rows(rng, n, d, dev, stride=None, dup_every=None):
+    """n rows [emb d | acc d] as row views of one buffer (as K1 writes
+    the step's rows), `stride` floats apart."""
+    W = stride or 2 * d
+    buf = rng.normal(size=(n, W)).astype(np.float32) * 0.4
+    buf[:, d:2 * d] = rng.random((n, d)).astype(np.float32) * 0.01 + 1e-6
+    if dup_every:
+        buf[::dup_every] = buf[0]
+    return torch.from_numpy(buf).to(dev)[:, :2 * d]
+
+
+def _k67_check(run, plain, outs, rows, d):
+    """Kernel against plain within rtol 1e-5 / atol 1e-6, bitwise over
+    two runs, and K2 on the kernel's gradients bitwise its update rows."""
+    per_p, out_p, grad_p = plain
+    (per, out, grad), (per2, out2, _) = run
+    torch.cuda.synchronize()
+    torch.testing.assert_close(per.cpu(), per_p, rtol=1e-5, atol=1e-6)
+    assert torch.equal(_bits(per), _bits(per2))
+    for k in outs:
+        torch.testing.assert_close(out[k].cpu(), out_p[k], rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(grad[k].cpu(), grad_p[k], rtol=1e-5,
+                                   atol=1e-6)
+        assert torch.equal(_bits(out[k]), _bits(out2[k])), k
+        k2 = K.adagrad_update(grad[k], rows[k].reshape(-1, 2 * d)[:, d:],
+                              0.1, 1e-10)
+        assert torch.equal(_bits(k2), _bits(out[k])), k
+
+
+@pytest.mark.parametrize("B,N,d,stride", [
+    (64, 5, 128, None), (33, 3, 8, None), (40, 4, 7, None),
+    (17, 6, 12, 30), (9, 2, 300, None)])
+def test_sgns_step_matches_plain(cuda, B, N, d, stride):
+    rng = np.random.default_rng(B + N + d)
+    flat = _k67_rows(rng, 2 * B + B * N, d, cuda, stride, dup_every=7)
+    rows = {"center": flat[:B], "ctx": flat[B:2 * B],
+            "neg": flat[2 * B:].reshape(B, N, 2 * d)}
+    lr_eps = torch.tensor([0.1, 1e-10], device=cuda)
+    n = {"center": B, "ctx": B, "neg": B * N}
+
+    def go(rs, dev, frozen=()):
+        out = {k: torch.full((n[k], 2 * d), float("nan"), device=dev)
+               for k in n if k not in frozen}
+        grad = {k: torch.empty(n[k], d, device=dev) for k in n}
+        per = K.sgns_step(rs["center"], rs["ctx"], rs["neg"],
+                          lr_eps.to(dev), out=out, grad_out=grad)
+        return per, out, grad
+    plain = go({k: v.cpu() for k, v in rows.items()}, "cpu")
+    _k67_check([go(rows, cuda), go(rows, cuda)], plain, n, rows, d)
+    per_f, out_f, _ = go(rows, cuda, frozen=("neg",))
+    ref = go(rows, cuda)
+    assert set(out_f) == {"center", "ctx"}
+    for k in out_f:                   # freezing a role changes no other
+        assert torch.equal(_bits(out_f[k]), _bits(ref[1][k])), k
+
+
+@pytest.mark.parametrize("B,d,stride,l2", [
+    (8192, 128, None, 0.0), (8192, 128, None, 0.01), (37, 5, None, 0.01),
+    (50, 16, 40, 0.0), (20, 260, None, 0.01)])
+def test_mf_step_matches_plain(cuda, B, d, stride, l2):
+    rng = np.random.default_rng(B + d)
+    flat = _k67_rows(rng, 2 * B, d, cuda, stride, dup_every=5)
+    rows = {"w": flat[:B], "h": flat[B:]}
+    x = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(cuda)
+    lr_eps = torch.tensor([0.1, 1e-10], device=cuda)
+
+    def go(rs, xx, dev):
+        out = {k: torch.full((B, 2 * d), float("nan"), device=dev)
+               for k in rs}
+        grad = {k: torch.empty(B, d, device=dev) for k in rs}
+        per = K.mf_step(rs["w"], rs["h"], xx, lr_eps.to(dev), l2, out=out,
+                        grad_out=grad)
+        return per, out, grad
+    plain = go({k: v.cpu() for k, v in rows.items()}, x.cpu(), "cpu")
+    _k67_check([go(rows, x, cuda), go(rows, x, cuda)], plain, rows, rows, d)
+
+
+def test_k6_k7_reject_what_they_cannot_run(cuda):
+    lr_eps = torch.tensor([0.1, 1e-10], device=cuda)
+    r = torch.zeros(4, 16, device=cuda)
+    with pytest.raises(ValueError, match="lr_eps"):
+        K.sgns_step(r, r, r.reshape(4, 1, 16), lr_eps.double())
+    with pytest.raises(ValueError, match="ratings"):
+        K.mf_step(r, r, torch.zeros(4, device=cuda, dtype=torch.float64),
+                  lr_eps)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.sgns_step(r, r, torch.zeros(4, 2000, 16, device=cuda), lr_eps)
+
+
+@pytest.mark.parametrize("loss", ["mf", "sgns"])
+def test_k6_k7_graph_windows_match_sequential_bitwise(cuda, loss):
+    """MF with its ratings as per-step aux (numpy arrays, as the app
+    passes them) and SGNS with alias-drawn negatives: four windows of 4
+    against 16 sequential steps, the lr changing after the first window
+    (the bold driver: no new capture). Equal losses, pools and launches;
+    one capture; K6 or K7 once per step and no K2."""
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.models import sgns
+    from adapm_tpu_torch.models.mf import make_mf_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    res = []
+    for mode in ("sequential", "scan"):
+        rng = np.random.default_rng(0)
+        srv = at.setup(400, 32, device=cuda,
+                       opts=at.SystemOptions(sync_max_per_sec=0))
+        w = srv.make_worker(0)
+        vals = rng.normal(size=(400, 32)).astype(np.float32) * 0.1
+        vals[:, 16:] = 1e-6
+        w.wait(w.set(np.arange(400), vals))
+        if loss == "mf":
+            rc = {"w": 0, "h": 0}
+            run = DeviceRoutedRunner(srv, make_mf_loss(0.01), rc,
+                                     dict.fromkeys(rc, 16))
+            batches = [{"w": rng.integers(0, 250, 64),
+                        "h": rng.integers(250, 400, 64)} for _ in range(16)]
+            auxes = [rng.normal(size=64).astype(np.float32)
+                     for _ in range(16)]
+        else:
+            rc = {"center": 0, "ctx": 0, "neg": 0}
+            run = DeviceRoutedRunner(
+                srv, sgns.sgns_loss, rc, dict.fromkeys(rc, 16),
+                neg_role="neg", neg_shape=(64, 5),
+                neg_population=sgns.syn1_key(np.arange(200)),
+                neg_alias=sgns.build_alias_table(
+                    1.0 / (np.arange(200) + 10.0)), seed=3)
+            batches = [{"center": 2 * rng.integers(0, 200, 64),
+                        "ctx": 2 * rng.integers(0, 200, 64) + 1}
+                       for _ in range(16)]
+            auxes = [None] * 16
+        lrs = [0.1] * 4 + [0.05] * 12
+        K.reset_launches()
+        losses = []
+        for i in range(0, 16, 4):
+            if mode == "sequential":
+                losses += [run(batches[j], auxes[j], lrs[j])
+                           for j in range(i, i + 4)]
+            else:
+                losses.append(run.run_scan(
+                    batches[i:i + 4], None if loss == "sgns"
+                    else auxes[i:i + 4], lrs[i]))
+        torch.cuda.synchronize()
+        res.append((torch.cat([x.reshape(-1) for x in losses]).cpu(),
+                    srv.stores[0].main.cpu(), run.locality_counts(),
+                    {k: K.LAUNCHES[k] + K.REPLAYED[k] for k in K.LAUNCHES},
+                    run.graph_captures))
+        srv.shutdown()
+    (la, pa, ca, ka, _), (lb, pb, cb, kb, captures) = res
+    assert torch.equal(_bits(la), _bits(lb))
+    assert torch.equal(_bits(pa), _bits(pb))
+    assert ca == cb and ka == kb, (ca, cb, ka, kb)
+    assert captures == 1
+    kern = "mf_step" if loss == "mf" else "sgns_step"
+    assert ka[kern] == 16 and ka["adagrad_update"] == 0, ka

@@ -118,6 +118,9 @@ def test_unported_port_methods_name_their_roadmap_item():
         tp.gather_cold()
     with pytest.raises(NotImplementedError, match="B10"):
         tp.compile_collective(None, None, None, None)
+    with pytest.raises(NotImplementedError,
+                       match="DeviceRoutedRunner.run_scan"):
+        tp.compile(None)
     pools = [torch.zeros(S, k, L) for k in (R, C, C)]
     z = np.zeros(1, np.int32)
     with pytest.raises(NotImplementedError, match="B8"):
