@@ -18,9 +18,11 @@ This is the JAX package's `core/kv.py` for one process, over torch pools
     host when it is finished;
   - a single coarse lock serializes table and pool mutation.
 
-Every optional plane of the JAX server (tiering, prefetch, serving,
-streaming, workload/decision traces, learned policy, checkpoints, kernel
-cost tables, fault injection, the multi-process layer) is not ported:
+The serving plane (`adapm_tpu_torch/serve`) attaches itself as
+`_serve_plane` and reads the kernel cost table (`costs`,
+`--sys.costs.table`). Every other optional plane of the JAX server
+(tiering, prefetch, streaming, workload/decision traces, learned policy,
+checkpoints, fault injection, the multi-process layer) is not ported:
 asking for one raises NotImplementedError naming its ROADMAP item, and
 the corresponding attributes stay None.
 """
@@ -96,7 +98,6 @@ _UNPORTED_PLANES = (
     ("policy_file", "the learned policy plane", "queue A, item 10"),
     ("fault_spec", "fault injection", "queue A, item 10"),
     ("ckpt_every_s", "periodic checkpoints", "queue A, item 10"),
-    ("costs_table", "the kernel cost table", "queue A, item 9"),
     ("stream_batch", "the streaming plane", "queue A, item 11"),
     ("stream_freshness_slo_ms", "the streaming plane", "queue A, item 11"),
     ("collective_sync", "the collective exchange", "queue B, B10"),
@@ -191,8 +192,14 @@ class Server:
         # the planes that are not ported: always None here
         self.tier = self.prefetch = self.glob = self.net = None
         self.stream = self.wtrace = self.decisions = self.policy = None
-        self.ckpt = self.costs = self.flight = self.fault = None
+        self.ckpt = self.flight = self.fault = None
         self.sampling = None  # set by enable_sampling_support
+        # the serving plane attaches itself here (serve.ServePlane), so
+        # metrics_snapshot folds its readiness in and shutdown closes it
+        self._serve_plane = None
+        # set while the server is DEGRADED (begin_degraded): the serving
+        # plane sheds every lookup with ServeDegradedError
+        self._degraded_reason: Optional[str] = None
 
         self._c_topo_bumps = self.obs.counter("kv.topology_bumps")
         self.obs.gauge("kv.topology_version",
@@ -211,6 +218,25 @@ class Server:
             _port = self.stores[0].port
             self.obs.gauge("device.programs_total", shared=True,
                            fn=lambda p=_port: p.programs)
+
+        # the measured kernel cost table (ops/costs.py), attached when
+        # --sys.costs.table names one: calibrate=1 measures K1 and K8 on
+        # these stores and writes the table; otherwise a missing or
+        # unreadable file means no table (the built-in choice applies)
+        self.costs = None
+        if self.opts.costs_table:
+            from ..ops.costs import KernelCostTable, calibrate_server
+            if self.opts.costs_calibrate:
+                self.costs = calibrate_server(self)
+                self.costs.save(self.opts.costs_table)
+            else:
+                try:
+                    self.costs = KernelCostTable.load(
+                        self.opts.costs_table)
+                except OSError:
+                    self.costs = None
+            if self.costs is not None:
+                self.costs.bind_metrics(self.obs)
 
         self.ab = Addressbook(
             key_class, self.ctx.num_shards,
@@ -697,12 +723,44 @@ class Server:
         for _ in range(n):
             self.sync.run_round()
 
+    def dead_nodes(self, max_age_s: float = 10.0) -> list:
+        """Peer processes whose heartbeat has gone stale. One process,
+        no heartbeat: none (the JAX server's answer with heartbeats
+        off)."""
+        return []
+
+    # -- degraded readiness --------------------------------------------------
+
+    def begin_degraded(self, reason: str) -> None:
+        """Flip the server into DEGRADED state: the serving plane sheds
+        every lookup loudly with ServeDegradedError (at the session door
+        AND at batch-serve time), and readiness reports the reason. For
+        any maintenance window in which reads must not race a state
+        mutation. A plain write: readers are lock-free, and a lookup
+        that read None just before the flip linearizes before the
+        guarded mutation begins."""
+        self._degraded_reason = str(reason)
+
+    def end_degraded(self) -> None:
+        self._degraded_reason = None
+
+    @property
+    def degraded(self) -> bool:
+        return self._degraded_reason is not None
+
+    @property
+    def degraded_reason(self) -> Optional[str]:
+        return self._degraded_reason
+
     def shutdown(self) -> None:
-        """Idempotent teardown: executor, pool quiesce, stats/trace
+        """Idempotent teardown: the serving plane first (its dispatchers
+        read the pools), then the executor, pool quiesce, stats/trace
         export, registry unhook."""
         if self._shutdown_done:
             return
         self._shutdown_done = True
+        if self._serve_plane is not None:
+            self._serve_plane.close()
         self.exec.close()
         self.block()
         self.sync.close()
@@ -758,13 +816,22 @@ class Server:
 
     def metrics_snapshot(self) -> Dict:
         """The structured telemetry dict: `schema_version`,
-        `metrics_enabled`, and the registry's sections plus `kv`, `exec`
-        and `device`."""
+        `metrics_enabled`, and the registry's sections plus `kv`, `exec`,
+        `device`, `serve` and `slo` (the last two `{}` without a serving
+        plane or without an SLO controller). With a plane attached,
+        `serve.readiness` is its `health.readiness()` dict."""
         out: Dict = {"schema_version": 1,
                      "metrics_enabled": bool(self.obs.enabled),
-                     "kv": {}, "exec": {}, "device": {}}
+                     "kv": {}, "exec": {}, "device": {}, "serve": {},
+                     "slo": {}}
         if not self.obs.enabled:
             return out
+        plane = self._serve_plane
+        serve_ready = None
+        if plane is not None:
+            # probe readiness ONCE, before the registry snapshot: the
+            # serve.ready/dead_peers gauges then read this result
+            serve_ready = plane.health.readiness()
         for sec, vals in self.obs.snapshot().items():
             out.setdefault(sec, {}).update(vals)
         agg: Dict[str, int] = {}
@@ -778,6 +845,10 @@ class Server:
         out["exec"].update(self.exec.stats())
         if self.stores:
             out["device"].update(self.stores[0].port.stats())
+        if plane is not None and plane.slo is not None:
+            out["slo"].update(plane.slo.report())
+        if serve_ready is not None:
+            out["serve"]["readiness"] = serve_ready
         return out
 
     def write_trace(self) -> Optional[str]:

@@ -134,6 +134,22 @@ class ShardedStore:
         if m.any():
             self.main_epoch[owner_sh[m], owner_sl[m]] = self._next_epoch()
 
+    def export_epochs(self, o_sh: np.ndarray,
+                      o_sl: np.ndarray) -> np.ndarray:
+        """Copy of the main-row write epochs at (shard, slot) coordinates,
+        recorded by the serve replica under the server lock when it
+        takes a snapshot."""
+        return self.main_epoch[o_sh, o_sl].copy()
+
+    def epochs_unchanged(self, o_sh: np.ndarray, o_sl: np.ndarray,
+                         epochs: np.ndarray) -> bool:
+        """True iff every (shard, slot) row's main epoch still equals the
+        exported value: the serve replica's staleness guard. A host read,
+        safe without the lock: every write path bumps the epoch under the
+        server lock BEFORE it enqueues its program, so a write that
+        completed before this check is always seen."""
+        return bool(np.array_equal(self.main_epoch[o_sh, o_sl], epochs))
+
     def _vals_bucket(self, vals, bucket: int) -> np.ndarray:
         v = np.zeros((bucket, self.value_length), dtype=np.float32)
         v[: vals.shape[0]] = np.asarray(vals)
@@ -148,6 +164,26 @@ class ShardedStore:
                        (c_slot, OOB), (use_cache, False),
                        minimum=self.bucket_min)
         return self.port.gather(self.main, self.cache, self.delta, *a)
+
+    def gather_pool(self, o_shard, o_slot, c_shard, c_slot, use_cache,
+                    seg, nbags: int, pooling: str = "sum"):
+        """Fused embedding-bag read: the member rows read as `gather`
+        reads them, pooled into per-bag rows in one port program (K8).
+        `seg` maps each member to its bag (< nbags); the result's first
+        `nbags` rows are the pooled rows (the rest is bucket padding).
+        Bit-identical to host-pooling this batch's `gather` rows with
+        `np.add.at`."""
+        n = len(o_shard)
+        self.gathers += 1
+        nb = bucket_size(max(int(nbags), 1), self.bucket_min)
+        out = torch.zeros((nb, self.value_length), dtype=self.dtype,
+                          device=self.main.device)
+        a = pad_bucket(n, (o_shard, 0), (o_slot, OOB), (c_shard, 0),
+                       (c_slot, OOB), (use_cache, False),
+                       (np.asarray(seg, dtype=np.int32), OOB),
+                       minimum=self.bucket_min)
+        return self.port.gather_pool(self.main, self.cache, self.delta,
+                                     *a, out, pooling=pooling)
 
     def scatter_add(self, o_shard, o_slot, d_shard, d_slot, vals):
         n = len(o_shard)

@@ -40,7 +40,13 @@
 // over column blocks of 128 elements.
 #include <cuda_runtime.h>
 
+#include "routed_read.cuh"
+
 namespace {
+
+using adapm::routed_load;
+using adapm::routed_source;
+using adapm::routed_value;
 
 constexpr int kMaxSeg = 8;   // segments per call (the wrapper packs more)
 constexpr int kWarps = 8;    // warps per block
@@ -56,24 +62,6 @@ struct Segments {
   long long end[kMaxSeg];    // cumulative ends
   int count;
 };
-
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-
-__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
-                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
-}
-
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ float4 zero<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
 
 // kFull: the cache+delta form.
 template <typename T, bool kFull>
@@ -94,17 +82,9 @@ __global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
     long long start = 0;
     while (s + 1 < segs.count && r >= segs.end[s]) start = segs.end[s++];
     const long long k = r - start;
-    src = -1;
-    if (kFull && segs.use_c[s][k]) {
-      from_c = true;
-      const int sh = segs.c_sh[s][k], sl = segs.c_sl[s][k];
-      if (sh >= 0 && sh < c_shards && sl >= 0 && sl < c_slots)
-        src = ((long long)sh * c_slots + sl) * W;
-    } else {
-      const int sh = segs.o_sh[s][k], sl = segs.o_sl[s][k];
-      if (sh >= 0 && sh < shards && sl >= 0 && sl < slots)
-        src = ((long long)sh * slots + sl) * W;
-    }
+    src = routed_source<kFull>(segs.o_sh[s], segs.o_sl[s], segs.c_sh[s],
+                               segs.c_sl[s], segs.use_c[s], k, shards,
+                               slots, c_shards, c_slots, W, &from_c);
   }
   long long gsrc[kRows];
   bool gc[kRows];
@@ -122,16 +102,9 @@ __global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
 #pragma unroll
       for (int k = 0; k < kNV; ++k) {
         const int c = cb + k * 32 + lane;
-        va[g][k] = zero<T>();
-        if (kFull) vb[kFull ? g : 0][k] = zero<T>();
-        if (gsrc[g] >= 0 && c < W) {
-          if (kFull && gc[g]) {
-            va[g][k] = __ldg(cache + gsrc[g] + c);
-            vb[kFull ? g : 0][k] = __ldg(delta + gsrc[g] + c);
-          } else {
-            va[g][k] = __ldg(main_pool + gsrc[g] + c);
-          }
-        }
+        if (c < W)
+          routed_load<T, kFull>(main_pool, cache, delta, gsrc[g], gc[g], c,
+                                &va[g][k], &vb[kFull ? g : 0][k]);
       }
     }
     // ... then the stores
@@ -143,10 +116,8 @@ __global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
       for (int k = 0; k < kNV; ++k) {
         const int c = cb + k * 32 + lane;
         if (c >= W) continue;
-        T v = va[g][k];
-        if (kFull && gc[g] && gsrc[g] >= 0)
-          v = add_rn(v, vb[kFull ? g : 0][k]);
-        __stcs(o + c, v);
+        __stcs(o + c, routed_value<T, kFull>(va[g][k], vb[kFull ? g : 0][k],
+                                             gsrc[g], gc[g]));
       }
     }
   }

@@ -11,7 +11,9 @@ package's `device/jaxport.py`, with the same semantics, bit for bit:
     semantics);
   - sets drop out-of-range entries, and of several entries naming one
     row the LAST wins (`refport._drop_set`), resolved before the write;
-  - copies are clones and choices are selects, so -0.0 survives.
+  - copies are clones and choices are selects, so -0.0 survives;
+  - a bag read (K8 `gather_pool`) folds its member rows into their
+    bags in batch order, as the scatter-adds do.
 
 Pools are UPDATED IN PLACE and returned: where JAX donates a buffer and
 returns its replacement, this port writes into the caller's tensor, and
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from ..exec import dispatch_gate
-from ..ops.kernels import ordered_scatter_add, routed_gather
+from ..ops.kernels import gather_pool, ordered_scatter_add, routed_gather
 from .port import DevicePort
 
 _GATE = dispatch_gate()
@@ -73,6 +75,19 @@ def drop_set(pool: torch.Tensor, sh: torch.Tensor, sl: torch.Tensor,
     last[:-1] = sf[:-1] != sf[1:]
     keep = order[last & (sf >= 0)]
     pool.view(S * R, L)[flat[keep]] = vals[keep]
+
+
+def _non_decreasing(seg) -> bool:
+    """Whether a bag-index array is non-decreasing, read on the host: a
+    numpy array (the store's, as the serving path builds it) or a CPU
+    tensor. A CUDA tensor answers False (no device sync): K8 then orders
+    its members first."""
+    if isinstance(seg, torch.Tensor):
+        if seg.device.type != "cpu":
+            return False
+        seg = seg.numpy()
+    seg = np.asarray(seg)
+    return bool((seg[1:] >= seg[:-1]).all())
 
 
 def fill_gather(pool: torch.Tensor, sh: torch.Tensor,
@@ -219,11 +234,23 @@ class TorchDevicePort(DevicePort):
                                  dtype=arr.dtype, device=d))
         return arr
 
-    # -- not ported yet: bag reads, tiered cold path, wire ingest ------------
+    def gather_pool(self, main, cache, delta, o_shard, o_slot, c_shard,
+                    c_slot, use_cache, seg, out, pooling="sum"):
+        """K8. `out` is consumed: a f32 tensor on the pools' device is
+        pooled into in place; anything else is copied there first."""
+        self.programs += 1
+        d = main.device
+        if not (isinstance(out, torch.Tensor) and out.device == d
+                and out.dtype == main.dtype and out.is_contiguous()):
+            out = torch.tensor(np.asarray(out), dtype=main.dtype, device=d)
+        with _GATE:
+            return gather_pool(main, cache, delta, _idx(o_shard, d),
+                               _idx(o_slot, d), _idx(c_shard, d),
+                               _idx(c_slot, d), _mask(use_cache, d),
+                               _idx(seg, d), out, pooling,
+                               sorted_seg=_non_decreasing(seg))
 
-    def gather_pool(self, *args, **kwargs):
-        raise NotImplementedError("fused embedding-bag reads are not "
-                                  "ported yet (ROADMAP queue B, B7)")
+    # -- not ported yet: tiered cold path, wire ingest -----------------------
 
     def _cold(self, *args, **kwargs):
         raise NotImplementedError("the tiered cold path and wire ingest "

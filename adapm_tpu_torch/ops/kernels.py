@@ -16,6 +16,9 @@ PyTorch version.
                                                      models/sgns.py sgns_loss)
     K7 mf_step              csrc/mf_step.cu         (XLA: the same body with
                                                      models/mf.py make_mf_loss)
+    K8 gather_pool          csrc/gather_pool.cu     (XLA: jaxport._gather_pool,
+                                                     the serving plane's fused
+                                                     embedding-bag read)
 
 K1 and K3 also take an ordered list of coordinate segments, one per
 role of a pool class (`routed_gather_segments`,
@@ -56,14 +59,16 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
             "pool_eval_counts": "pool_eval_counts.cu",
             "complex_step": "complex_step.cu",
             "sgns_step": "sgns_step.cu",
-            "mf_step": "mf_step.cu"}
+            "mf_step": "mf_step.cu",
+            "gather_pool": "gather_pool.cu"}
 
 # launches per kernel since the last reset_launches(), counted by the
 # wrappers (chip_smoke.py reads them to show the main path went through
 # the kernels)
 LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
                             "ordered_scatter_add": 0, "pool_eval_counts": 0,
-                            "complex_step": 0, "sgns_step": 0, "mf_step": 0}
+                            "complex_step": 0, "sgns_step": 0, "mf_step": 0,
+                            "gather_pool": 0}
 # launches made by replays of captured CUDA graphs (ops/fused.py
 # run_scan): each replay adds the launches recorded at its capture. No
 # wrapper runs then, so LAUNCHES does not count them.
@@ -172,6 +177,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_mf_step.restype = I
         lib.adapm_mf_step.argtypes = [P, LL, P, P] * 2 + [P, P, P, I, I, F,
                                                            I, P]
+    elif name == "gather_pool":
+        lib.adapm_gather_pool.restype = I
+        lib.adapm_gather_pool.argtypes = [P] * 10 + [LL, P] + [I] * 8 + [P]
     elif name == "ordered_scatter":
         lib.adapm_flat_targets.restype = I
         lib.adapm_flat_targets.argtypes = [P, P, P, I, P, I, I, P]
@@ -574,6 +582,90 @@ def ordered_scatter_add_segments(pool: torch.Tensor, segments,
         return
     sf, perm = ordered_scatter_order(pool, segments)
     ordered_scatter_fold(pool, sf, perm, vals)
+
+
+# ---------------------------------------------------------------------------
+# K8 gather_pool
+# ---------------------------------------------------------------------------
+
+
+def gather_pool_plain(main, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c,
+                      seg, out, pooling: str = "sum") -> torch.Tensor:
+    """The plain version of K8 (any device): K1's plain read of the
+    member rows, K3's plain ordered fold of them into `out` (batch order,
+    out-of-range seg dropped), then for mean one division per bag by its
+    member count, zeros for an empty bag. In place into `out`; returns
+    it."""
+    rows = routed_gather_plain(main, cache, delta, o_sh, o_sl, c_sh, c_sl,
+                               use_c)
+    nb = out.shape[0]
+    pool = out.view(1, nb, -1)
+    sf, perm = torch.sort(_flat_targets_plain(pool, torch.zeros_like(seg),
+                                              seg), stable=True)
+    ordered_scatter_fold_plain(pool, sf, perm, rows)
+    if pooling == "mean":
+        s = seg.long()
+        cnt = torch.bincount(s[(s >= 0) & (s < nb)], minlength=nb).to(
+            out.dtype)[:, None]
+        out.copy_(torch.where(cnt > 0, out / cnt.clamp(min=1),
+                              torch.zeros_like(out)))
+    return out
+
+
+def gather_pool(main, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c, seg,
+                out: torch.Tensor, pooling: str = "sum",
+                sorted_seg: bool = False) -> torch.Tensor:
+    """Fused embedding-bag read, in place: out[seg[i]] += row[i] in batch
+    order for every member i whose seg is in [0, nbags), where row[i] is
+    K1's routed read (cache+delta where use_c, else main); for "mean",
+    each bag is then divided once by its member count (zeros for an
+    empty bag). Pools [S, slots, L] f32, coordinates and seg [n] int32,
+    use_c [n] bool, out [nbags, L] f32 (each bag's starting value).
+    `sorted_seg` says seg is non-decreasing, as the serving path builds
+    it; otherwise the members are ordered first by K3's stable ordering
+    pass. Returns `out`."""
+    _require(pooling in ("sum", "mean"),
+             f"gather_pool: pooling must be 'sum' or 'mean' (got "
+             f"{pooling!r})")
+    if not _on_cuda(main, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c, seg,
+                    out):
+        return gather_pool_plain(main, cache, delta, o_sh, o_sl, c_sh, c_sl,
+                                 use_c, seg, out, pooling)
+    S, R, L = main.shape
+    for t in (main, cache, delta):
+        _require(t.dtype == torch.float32 and t.dim() == 3
+                 and t.is_contiguous() and t.shape[-1] == L,
+                 "gather_pool: pools must be contiguous f32 [S, slots, L]")
+    _require(cache.shape == delta.shape,
+             "gather_pool: cache and delta shapes differ")
+    n = seg.numel()
+    for t in (o_sh, o_sl, c_sh, c_sl, seg):
+        _require(t.dtype == torch.int32 and t.dim() == 1 and t.numel() == n
+                 and t.is_contiguous(),
+                 "gather_pool: coordinates and seg must be contiguous int32 "
+                 "[n]")
+    _require(use_c.dtype == torch.bool and use_c.numel() == n
+             and use_c.is_contiguous(),
+             "gather_pool: use_c must be contiguous bool [n]")
+    _require(out.dtype == torch.float32 and out.dim() == 2
+             and out.shape[1] == L and out.is_contiguous(),
+             "gather_pool: out must be contiguous f32 [nbags, L]")
+    nb = out.shape[0]
+    if nb == 0:
+        return out
+    perm = None
+    if not sorted_seg and n:
+        seg, perm = ordered_scatter_order(out.view(1, nb, L),
+                                          [(torch.zeros_like(seg), seg)])
+    vec = int(L % 4 == 0 and _aligned16(main, cache, delta, out))
+    rc = _lib("gather_pool").adapm_gather_pool(
+        _ptr(main), _ptr(cache), _ptr(delta), _ptr(o_sh), _ptr(o_sl),
+        _ptr(c_sh), _ptr(c_sl), _ptr(use_c), _ptr(seg), _ptr(perm), n,
+        _ptr(out), nb, S, R, cache.shape[0], cache.shape[1], L,
+        int(pooling == "mean"), vec, _stream())
+    LAUNCHES["gather_pool"] += 1
+    _check(rc, "gather_pool")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ parameter manager at full width (eagerly, and as run_scan windows
 replayed from a CUDA graph), checks a small replica run against the
 CPU, runs the KGE application end to end on both routing paths, then
 the word2vec step and application and the matrix-factorization
-application the same way.
+application the same way, and serves lookups and embedding-bag reads
+through the serving plane.
 
     python3 chip_smoke.py [--json PATH]
     python3 chip_smoke.py --main-path-only   (phase 1 and phase 3's
@@ -43,10 +44,18 @@ Phases (any failure raises and exits non-zero):
      l2 in {0, 0.01}, each within rtol 1e-5 / atol 1e-6 of its plain
      version, bitwise over two runs and K2 on its gradient bitwise its
      update rows, timed beside the parent's path on the same rows (the
-     loss under autograd, then one K2 per role). CUDA-event times (the
-     median and the min-max spread of 20 launches) of kernel, plain
-     version and one library call, and the least time the card could
-     take.
+     loss under autograd, then one K2 per role); K8 gather_pool at two
+     batches of phase 10's bag path over the 7,116,632-key DLRM table,
+     padded as the store pads them: the path's own (8 requests, one per
+     client: 54,784 members, 6,656 bags of L=256) and a full coalesced
+     batch (64 requests: 438,272 members, 53,248 bags), each in sum and
+     mean, every member owner-served (S=1) and again a quarter
+     replica-served (S=2, cache + delta), bitwise its plain version and
+     over two runs, timed in the trace and between CUDA events beside
+     its plain version and embedding_bag(mode="sum") on the same owner
+     rows. CUDA-event times (the median and the min-max spread of 20
+     launches) of kernel, plain version and one library call, and the
+     least time the card could take.
   3. the main path: setup(201,000 keys, 512) on cuda, slab fill, a
      DeviceRoutedRunner for ComplEx with on-device negatives (B=4096,
      N=32), warmup, then 32 steps of intent -> step -> sync round ->
@@ -97,9 +106,27 @@ Phases (any failure raises and exits non-zero):
      host routes: loss falling, K7's launches adding up to the steps;
      then test_mf_app's configuration on cuda and on cpu on both routing
      paths (epoch losses within rtol 1e-4).
+ 10. the serving plane (adapm_tpu_torch/serve) at full width: (a) flat
+     lookups on phase 3's table (201,000 keys of 512 f32): 32 client
+     threads of 100 lookups of 64 zipf keys (deadline 1 s), first with
+     the default knobs on a quiescent table (every reply bitwise
+     Worker.pull), then on fresh keys with 2 dispatchers and a
+     65,536-row replica while a pusher adds to the table's cold half
+     (after quiesce(), lookups bitwise Worker.pull again, and after a
+     forced refresh, lookups of keys the snapshot covers served from the
+     replica and bitwise Worker.pull); (b)
+     embedding-bag reads at the DLRM-DCNv2 shape: 8 client threads of
+     50 lookup_bags requests of 32 samples (26 tables, 832 bags, 6,848
+     members a request) over the 7,116,632-key table, segments sum,
+     mean, and sum with --sys.serve.bags 0: every reply bitwise
+     pool_bags_host over Worker.pull, the third segment bitwise the
+     first, K8 launched once per fused batch. Lookups/s and samples/s,
+     p50/p99 of serve.latency_s, the mean coalesced batch, the replica
+     hit rate, launches, and a profiled rerun of each segment for the
+     device busy share and K1's and K8's device time.
 Every path's launch counts are set to 0 just before it runs and read
 just after; each path must have launched each of its kernels and no
-other path's model-math kernel (K2, K5, K6, K7).
+kernel another path owns (K2, K5, K6, K7, K8).
 The near-tie rule: the kernel sums each dot in another order than the
 plain version's matmuls, so a count may differ by at most the number of
 candidates whose score lies within the f32 dot-product error bound of
@@ -157,6 +184,24 @@ MF_KERNELS = ("routed_gather", "mf_step", "ordered_scatter_add")
 MODEL_KERNELS = ("adagrad_update", "complex_step", "sgns_step", "mf_step")
 W2V_STEP_LAUNCHES = {"routed_gather": 1, "sgns_step": 1,
                      "adagrad_update": 0, "ordered_scatter_add": 1}
+# kernels that belong to one path: a path launches its own and none of
+# the others' (the model math, and K8, the bag read of phase 10)
+OWNED_KERNELS = MODEL_KERNELS + ("gather_pool",)
+# the bag-serving shape of the MLPerf Training DLRM-DCNv2 reference
+# (recommendation_v2/torchrec_dcn, Criteo 1TB multi-hot): 26 sparse
+# features of embedding dim 128 with these cardinalities and multi-hot
+# sizes (214 members a sample), each table cut to DLRM_CAP rows (204M
+# rows of 1 KB do not fit on one card: 7,116,632 keys), rows
+# [emb 128 | adagrad 128]
+DLRM_CARDS = (40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63,
+              40000000, 3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14,
+              40000000, 40000000, 40000000, 590152, 12973, 108, 36)
+DLRM_HOTS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1)
+DLRM_CAP, DLRM_SAMPLES, L_DLRM = 1_000_000, 32, 256
+K8_REQUESTS = 64              # one coalesced batch (--sys.serve.max_batch)
+BAG_CLIENTS, BAG_REQUESTS = 8, 50        # phase 10 (b): clients x requests
+SERVE_CLIENTS, SERVE_LOOKUPS = 32, 100   # phase 10 (a): clients x lookups
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM
 F32_FLOPS = 67e12                     # H100 SXM, outside the tensor cores
 
@@ -431,6 +476,8 @@ def phase_kernels(K, dev, rng):
     torch.cuda.empty_cache()
     rec["mf_step"] = phase_k7(K, dev, rng)
     torch.cuda.empty_cache()
+    rec["gather_pool"] = phase_k8(K, dev, rng)
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -691,6 +738,157 @@ def phase_k5(K, dev, rng):
         eager_ms=cuda_ms(eager, reps=10), ptxas=ptxas_summary("complex_step"))
 
 
+def dlrm_table():
+    """The DLRM-DCNv2 tables cut to DLRM_CAP rows each: (rows per table,
+    each table's first key)."""
+    caps = np.minimum(np.asarray(DLRM_CARDS, np.int64), DLRM_CAP)
+    return caps, np.concatenate([[0], np.cumsum(caps)[:-1]])
+
+
+def dlrm_request(rng, caps, offs):
+    """One lookup_bags request: DLRM_SAMPLES samples, one bag per sample
+    and table of that table's multi-hot size, members zipf-skewed within
+    their table. Returns (tables, bags) as lookup_bags takes them."""
+    tables, bags = [], []
+    for cap, off, h in zip(caps, offs, DLRM_HOTS):
+        tables.append(off + skewed_keys(rng, int(cap), DLRM_SAMPLES * h))
+        bags.append(np.arange(0, DLRM_SAMPLES * h + 1, h))
+    return tables, bags
+
+
+def k8_batch(rng, nreq, caps, offs):
+    """One coalesced batch of the bag path: `nreq` requests of phase 10's
+    traffic, planned by serve/bags.py plan_bag_batch. Returns (member
+    keys, seg, bags)."""
+    from adapm_tpu_torch.serve.bags import BagLookupRequest, plan_bag_batch
+    reqs = []
+    for _ in range(nreq):
+        tables, bags = dlrm_request(rng, caps, offs)
+        reqs.append(BagLookupRequest(tables, bags, "sum",
+                                     np.concatenate(tables)))
+    groups, _ = plan_bag_batch(reqs, np.zeros(int(caps.sum()), np.int32))
+    g = groups[(0, "sum")]
+    check(len(g["keys"]) == nreq * DLRM_SAMPLES * sum(DLRM_HOTS)
+          and g["nbags"] == nreq * DLRM_SAMPLES * len(DLRM_HOTS),
+          f"K8 batch: {len(g['keys'])} members, {g['nbags']} bags")
+    return g["keys"], g["seg"], g["nbags"]
+
+
+def k8_bytes(keys, use_c, c_sl, nbags):
+    """The bytes K8's function must move for one batch of sum pooling:
+    each distinct row read once (a main row for an owner-served member;
+    a cache and a delta row for a replica-served one), per member its
+    use_c flag, the two coordinates its flag selects and its seg, and the
+    bags' rows read as starting values and written once. The bucket's
+    padding (members with seg = OOB, empty bags past nbags) needs
+    nothing."""
+    rows = (len(np.unique(keys[~use_c]))
+            + 2 * len(np.unique(c_sl[use_c])))
+    return rows * L_DLRM * 4 + len(keys) * 13 + 2 * nbags * L_DLRM * 4
+
+
+def phase_k8(K, dev, rng):
+    """Phase 2, K8, over the full DLRM table at two batches of the bag
+    path, each planned as phase 10 plans it and padded as
+    ShardedStore.gather_pool pads it: the path's own (BAG_CLIENTS
+    requests, the most its clients can have in flight; its numbers go
+    into the kernels line) and one full coalesced batch (K8_REQUESTS,
+    --sys.serve.max_batch). Sum and mean, with every member owner-served
+    (S=1) and again with a quarter replica-served (S=2, cache + delta):
+    bitwise its plain version and over two runs; timed in the trace and
+    with CUDA events, beside its plain version and embedding_bag."""
+    from adapm_tpu_torch.core.store import OOB, bucket_size, pad_bucket
+    caps, offs = dlrm_table()
+    nkeys = int(caps.sum())
+    slots = -8 * (-int(np.ceil(nkeys * 1.25)) // 8)      # the store's rule
+    main = torch.randn((1, slots, L_DLRM), device=dev)
+    main[0, :4] = -0.0
+    main2 = main.view(2, slots // 2, L_DLRM)
+    cslots = 65_536
+    cache1 = torch.randn((1, 8, L_DLRM), device=dev)
+    delta1 = torch.randn((1, 8, L_DLRM), device=dev)
+    cache2 = torch.randn((2, cslots, L_DLRM), device=dev)
+    delta2 = torch.randn((2, cslots, L_DLRM), device=dev)
+    s1, s2 = "S=1", "S=2, 1/4 replica-served"
+    recs = {}
+    for nreq in (BAG_CLIENTS, K8_REQUESTS):
+        keys, seg, nbags = k8_batch(rng, nreq, caps, offs)
+        n = len(keys)
+        nb = bucket_size(nbags)
+
+        def cols(*arrays_and_fills, n=n):
+            return [torch.as_tensor(a, device=dev)
+                    for a in pad_bucket(n, *arrays_and_fills)]
+
+        z = np.zeros(n, np.int32)
+        seg_t = cols((seg, OOB))[0]
+        o_sh1, o_sl1 = cols((z, 0), (keys.astype(np.int32), OOB))
+        no_c = cols((z, 0), (np.full(n, OOB, np.int32), OOB),
+                    (z > 0, False))
+        # S=2: owners k % 2, k // 2; a quarter from shard 0's replicas,
+        # with o_sl = OOB where the cache serves (as the batcher routes)
+        use_c = rng.random(n) < 0.25
+        c_sl = rng.integers(0, cslots, n).astype(np.int32)
+        o_sl2 = np.where(use_c, OOB, keys // 2).astype(np.int32)
+        rep = cols(((keys % 2).astype(np.int32), 0), (o_sl2, OOB), (z, 0),
+                   (c_sl, OOB), (use_c, False))
+        forms = {s1: (main, cache1, delta1, o_sh1, o_sl1, *no_c),
+                 s2: (main2, cache2, delta2, *rep)}
+        errs = {}
+        for form, args in forms.items():
+            for pooling in ("sum", "mean"):
+                outs = [K.gather_pool(*args, seg_t,
+                                      torch.zeros((nb, L_DLRM), device=dev),
+                                      pooling, sorted_seg=True)
+                        for _ in range(2)]
+                ref = K.gather_pool_plain(
+                    *args, seg_t, torch.zeros((nb, L_DLRM), device=dev),
+                    pooling)
+                check(torch.equal(outs[0].view(torch.int32),
+                                  outs[1].view(torch.int32)),
+                      f"K8 ({nreq} requests, {form}, {pooling}) is not "
+                      "deterministic")
+                check(torch.equal(outs[0].view(torch.int32),
+                                  ref.view(torch.int32)),
+                      f"K8 ({nreq} requests, {form}, {pooling}) differs "
+                      "from its plain version")
+                errs[f"{form} {pooling}"] = float(
+                    (outs[0] - ref).abs().max())
+        out = torch.zeros((nb, L_DLRM), device=dev)
+
+        def k8(pooling="sum", a=forms[s1], seg_t=seg_t, out=out):
+            K.gather_pool(*a, seg_t, out, pooling, sorted_seg=True)
+
+        trace, _ = kernel_ms(k8, "gather_pool_kernel")
+        flat = torch.as_tensor(keys, device=dev)
+        starts = torch.as_tensor(np.searchsorted(seg, np.arange(nbags)),
+                                 device=dev)
+        table = main.view(-1, L_DLRM)
+        library = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            flat, table, starts, mode="sum"))
+        lib_err = float((torch.nn.functional.embedding_bag(
+            flat, table, starts, mode="sum") - K.gather_pool(
+                *forms[s1], seg_t, torch.zeros((nb, L_DLRM), device=dev),
+                "sum", sorted_seg=True)[:nbags]).abs().max())
+        nrep = int(use_c.sum())
+        recs[nreq] = timed(
+            trace, cuda_ms(lambda: K.gather_pool_plain(
+                *forms[s1], seg_t, out, "sum"), reps=5, warmup=1),
+            library, max_abs_err=max(errs.values()), forms_err=errs,
+            event_ms=cuda_ms(k8), mean_trace_ms=kernel_ms(
+                lambda: k8("mean"), "gather_pool_kernel")[0],
+            replica_trace_ms=kernel_ms(
+                lambda: k8("sum", forms[s2]), "gather_pool_kernel")[0],
+            bound=bound(k8_bytes(keys, z > 0, c_sl, nbags), n * L_DLRM),
+            replica_bound=bound(k8_bytes(keys, use_c, c_sl, nbags),
+                                (n + nrep) * L_DLRM),
+            requests=nreq, members=n, bags=nbags,
+            distinct_rows=int(len(np.unique(keys))),
+            library_max_abs_diff=lib_err)
+    return dict(recs[BAG_CLIENTS], full_batch=recs[K8_REQUESTS],
+                ptxas=ptxas_summary("gather_pool"))
+
+
 def timed(ms, plain_ms, library_ms, **kw):
     """A kernel record from (median, min, max) timings."""
     out = dict(kw, ms=ms[0], ms_spread=ms[1:], plain_ms=plain_ms[0],
@@ -866,12 +1064,9 @@ class StepPath(NamedTuple):
     kernel: str
 
 
-def kge_server(at, dev, seed):
-    """bench_tpu's setup on `dev`: 201,000 keys of [emb 256 | adagrad
-    256], a slab fill (normal x 0.1, accumulators 1e-6), and the
-    device-routed ComplEx runner with uniform on-device negatives."""
-    from adapm_tpu_torch.models import make_kge_loss
-    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+def kge_table(at, dev, seed):
+    """bench_tpu's table on `dev`: 201,000 keys of [emb 256 | adagrad
+    256], a slab fill (normal x 0.1, accumulators 1e-6)."""
     srv = at.setup(E + R, L, opts=at.SystemOptions(
         cache_slots_per_shard=1, sync_max_per_sec=0), device=dev)
     w = srv.make_worker(0)
@@ -882,6 +1077,15 @@ def kge_server(at, dev, seed):
         vals[:, L // 2:] = 1e-6
         w.set(np.arange(lo, hi), vals)
     srv.block()
+    return srv, w
+
+
+def kge_server(at, dev, seed):
+    """kge_table and the device-routed ComplEx runner with uniform
+    on-device negatives."""
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    srv, w = kge_table(at, dev, seed)
     roles = ("s", "r", "o", "neg")
     return srv, w, DeviceRoutedRunner(
         srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
@@ -1103,6 +1307,7 @@ def phase_replicas(at, K, dev):
     check(rep_g, "the replica phase held no replicas on the runner's shard")
     check(all(used[k] > 0 for k in STEP_KERNELS),
           f"replica phase skipped a kernel: {used}")
+    check(used["gather_pool"] == 0, "the replica phase launched K8")
     check(all(s == REPLICA_STEP_LAUNCHES for s in steps_g),
           f"replica-step launches {steps_g}, expected "
           f"{REPLICA_STEP_LAUNCHES} per step")
@@ -1165,13 +1370,13 @@ def check_app(res, launches, what, kernels):
 
 
 def check_launched(launches, what, kernels):
-    """Each of the path's kernels launched, and no model-math kernel of
-    another path: K2 (the RESCAL path's) not on a ComplEx, SGNS or MF
-    path, K5 only on ComplEx paths, K6 only on word2vec's, K7 only on
-    MF's."""
+    """Each of the path's kernels launched, and no kernel another path
+    owns: K2 (the RESCAL path's) not on a ComplEx, SGNS or MF path, K5
+    only on ComplEx paths, K6 only on word2vec's, K7 only on MF's, K8
+    only on the bag-serving path."""
     missing = [k for k in kernels if launches[k] == 0]
     check(not missing, f"{what}: kernels never launched: {missing}")
-    other = {k: launches[k] for k in MODEL_KERNELS
+    other = {k: launches[k] for k in OWNED_KERNELS
              if k not in kernels and launches[k]}
     check(not other, f"{what}: other paths' kernels launched: {other}")
 
@@ -1442,6 +1647,338 @@ def phase_mf_app(K):
     return out
 
 
+def serve_segment(srv, plane, requests, call, profile=False):
+    """One serving segment: a client thread per list in `requests`, each
+    issuing its requests one after another through its own session as
+    call(session, request). Returns the replies, the wall seconds from
+    the release of all clients to the last reply, the clients' own
+    latencies, the window of serve.latency_s / serve.batch_size and of
+    the serve counters, and (`profile`) the trace's device time by
+    kernel (CUDA activity only)."""
+    import threading
+    names = ("batches_total", "replica_hits_total", "bag_fused_total",
+             "bag_hostpool_total", "replica_stale_fallbacks_total")
+    before = {k: srv.obs.find(f"serve.{k}") for k in names}
+    before = {k: 0 if c is None else c.value for k, c in before.items()}
+    h_lat, h_b = (srv.obs.find(f"serve.{k}")
+                  for k in ("latency_s", "batch_size"))
+    lat0, b0 = h_lat.snap(), h_b.snap()
+    replies = [[None] * len(r) for r in requests]
+    lats, errors = [], []
+    go = threading.Barrier(len(requests) + 1)
+
+    def client(ci):
+        try:
+            sess = plane.session()
+            go.wait(timeout=120)
+            for i, req in enumerate(requests[ci]):
+                t0 = time.perf_counter()
+                replies[ci][i] = call(sess, req)
+                lats.append(time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append((ci, repr(e)))
+            if not go.broken:
+                go.abort()
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(len(requests))]
+    for t in threads:
+        t.start()
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as trace
+        prof = trace(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    go.wait(timeout=120)
+    t0 = time.perf_counter()
+    for t in threads:                     # one deadline for all clients
+        t.join(timeout=max(0.0, t0 + 300 - time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    check(not any(t.is_alive() for t in threads), "a serve client hung")
+    check(not errors, f"serve clients failed: {errors[:3]}")
+    lat1, b1 = h_lat.snap(), h_b.snap()
+    win = {"count": lat1["count"] - lat0["count"], "bounds": lat1["bounds"],
+           "buckets": [a - b for a, b in zip(lat1["buckets"],
+                                             lat0["buckets"])]}
+    from adapm_tpu_torch.obs.metrics import hist_percentile
+    after = {k: srv.obs.find(f"serve.{k}") for k in names}
+    counts = {k: int((0 if c is None else c.value) - before[k])
+              for k, c in after.items()}
+    n = sum(len(r) for r in requests)
+    out = dict(replies=replies, wall_s=wall, requests=n, per_s=n / wall,
+               p50_ms=hist_percentile(win, 0.5) * 1e3,
+               p99_ms=hist_percentile(win, 0.99) * 1e3,
+               client_p50_ms=float(np.percentile(lats, 50)) * 1e3,
+               client_p99_ms=float(np.percentile(lats, 99)) * 1e3,
+               mean_batch=(b1["sum"] - b0["sum"]) / max(
+                   1, b1["count"] - b0["count"]), counts=counts,
+               replica_hit_rate=counts["replica_hits_total"] / max(
+                   1, counts["batches_total"]))
+    if prof is not None:
+        by = {}
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by[ev.key] = by.get(ev.key, 0.0) + \
+                    ev.self_device_time_total / 1e3
+        dev_ms = sum(by.values())
+        out["device_ms"] = dev_ms or None
+        out["busy_share"] = dev_ms / (wall * 1e3) if dev_ms else None
+        out["kernel_ms"] = {k: sum(v for name, v in by.items() if k in name)
+                            for k in ("routed_gather_kernel",
+                                      "gather_pool_kernel")}
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+        out["top_ms"] = [(_kernel_label(k), v) for k, v in top]
+    return out
+
+
+def phase_serve_flat(at, K, dev):
+    """Phase 10 (a): flat lookups on the flagship KGE table (phase 3's
+    table and fill): SERVE_CLIENTS threads of SERVE_LOOKUPS lookups of 64
+    zipf keys each. Segment 1 with the default knobs on a quiescent
+    table, every reply bitwise Worker.pull; segment 2 with 2 dispatchers
+    and a 65,536-row replica while a pusher adds to the cold half of the
+    table, on fresh keys, then after quiesce() lookups bitwise
+    Worker.pull again. Each segment is run again under the profiler for
+    its device time."""
+    import dataclasses
+    import threading
+    from adapm_tpu_torch.serve import ServePlane
+    t0 = time.perf_counter()
+    srv, w = kge_table(at, dev, 5)
+    fill_s = time.perf_counter() - t0
+
+    def draw(seed):
+        """Each client's lookups: zipf keys from its own generator."""
+        gens = [np.random.default_rng(seed + ci)
+                for ci in range(SERVE_CLIENTS)]
+        return [[skewed_keys(g, E + R, 64) for _ in range(SERVE_LOOKUPS)]
+                for g in gens]
+
+    reqs = draw(100)
+
+    def call(sess, keys):
+        return sess.lookup(keys, deadline_ms=1000)
+
+    out = dict(fill_s=fill_s)
+    K.reset_launches()
+    plane = ServePlane(srv)
+    seg1 = serve_segment(srv, plane, reqs, call)
+    launches = dict(K.LAUNCHES)
+    check_launched(launches, "phase 10 (flat)", ("routed_gather",))
+    for ci, rs in enumerate(reqs):
+        for keys, got in zip(rs, seg1["replies"][ci]):
+            check(np.array_equal(got.view(np.uint32),
+                                 w.pull_sync(keys).view(np.uint32)),
+                  "phase 10: a lookup differs from Worker.pull")
+    seg1["launches"] = launches
+    prof1 = serve_segment(srv, plane, reqs, call, profile=True)
+    plane.close()
+    opts2 = dataclasses.replace(srv.opts, serve_dispatchers=2,
+                                serve_replica_rows=65_536)
+    plane = ServePlane(srv, opts=opts2)
+    stop, pushes = threading.Event(), [0]
+
+    def pusher():
+        prng = np.random.default_rng(7)
+        while not stop.is_set():
+            k = prng.integers((E + R) // 2, E + R, 64)
+            w.push(k, prng.normal(size=(64, L)).astype(np.float32) * 1e-3)
+            pushes[0] += 1
+            time.sleep(0.001)
+
+    pt = threading.Thread(target=pusher)
+    pt.start()
+    K.reset_launches()
+    try:
+        # fresh keys of the same distribution: replayed lists would find
+        # every key they ask for in the replica snapshot
+        seg2 = serve_segment(srv, plane, draw(300), call)
+        seg2["launches"] = dict(K.LAUNCHES)
+        prof2 = serve_segment(srv, plane, draw(400), call, profile=True)
+    finally:
+        stop.set()
+        pt.join(timeout=60)
+    check(not pt.is_alive(), "phase 10: the pusher hung")
+    srv.quiesce()
+    sess = plane.session()
+    for rs in reqs:
+        for keys in rs[:10]:
+            check(np.array_equal(sess.lookup(keys).view(np.uint32),
+                                 w.pull_sync(keys).view(np.uint32)),
+                  "phase 10: after quiesce a lookup differs from "
+                  "Worker.pull")
+    # the replica's lock-free path, independent of timing: refresh the
+    # snapshot, then look up keys it covers (a background refresh may
+    # swap the snapshot between the two, so each round draws anew)
+    hits = srv.obs.find("serve.replica_hits_total")
+    hits0, kr = hits.value, np.random.default_rng(500)
+    for _ in range(10):
+        check(plane.replica.refresh_now() > 0,
+              "phase 10: the replica refresh snapshotted no rows")
+        keys = kr.choice(plane.replica._snap.keys, 64, replace=False)
+        check(np.array_equal(sess.lookup(keys).view(np.uint32),
+                             w.pull_sync(keys).view(np.uint32)),
+              "phase 10: a lookup of replica-covered keys differs from "
+              "Worker.pull")
+    replica_served = int(hits.value - hits0)
+    check(replica_served > 0, "phase 10: no lookup of replica-covered "
+          "keys was served from the replica")
+    plane.close()
+    srv.shutdown()
+    for seg, prof in ((seg1, prof1), (seg2, prof2)):
+        seg.pop("replies")
+        for k in ("device_ms", "busy_share", "kernel_ms", "top_ms"):
+            seg[k] = prof.get(k)
+        seg["profiled_per_s"] = prof["per_s"]
+    out.update(seg1=seg1, seg2=seg2, pushes=pushes[0],
+               replica_served=replica_served)
+    return out
+
+
+def phase_serve_bags(at, K, dev):
+    """Phase 10 (b): embedding-bag lookups at the DLRM-DCNv2 shape
+    (DLRM_CAP rows per table, 7,116,632 keys of [emb 128 | adagrad 128]):
+    BAG_CLIENTS threads of BAG_REQUESTS lookup_bags requests of
+    DLRM_SAMPLES samples; segments "sum", "mean" and "sum" with
+    --sys.serve.bags 0 (flat union + host pool). Every reply bitwise
+    pool_bags_host over Worker.pull of its members, the third segment
+    bitwise the first, K8 launched once per fused batch (one length
+    class, one pooling per segment) and not at all in the third."""
+    from adapm_tpu_torch.serve import ServePlane
+    from adapm_tpu_torch.serve.bags import pool_bags_host
+    caps, offs = dlrm_table()
+    nkeys = int(caps.sum())
+    t0 = time.perf_counter()
+    srv = at.setup(nkeys, L_DLRM, opts=at.SystemOptions(
+        cache_slots_per_shard=1, sync_max_per_sec=0), device=dev)
+    w = srv.make_worker(0)
+    fill = np.random.default_rng(4)
+    for lo in range(0, nkeys, 1 << 20):
+        hi = min(lo + (1 << 20), nkeys)
+        vals = fill.standard_normal((hi - lo, L_DLRM), dtype=np.float32)
+        vals *= 0.01
+        w.set(np.arange(lo, hi), vals)
+    srv.block()
+    fill_s = time.perf_counter() - t0
+    reqs = []
+    for ci in range(BAG_CLIENTS):
+        rng = np.random.default_rng(200 + ci)
+        reqs.append([dlrm_request(rng, caps, offs)
+                     for _ in range(BAG_REQUESTS)])
+    plane = ServePlane(srv)
+    segs = {}
+    K.reset_launches()
+    for name, pooling, fused in (("sum", "sum", True),
+                                 ("mean", "mean", True),
+                                 ("sum, --sys.serve.bags 0", "sum",
+                                  False)):
+        plane.opts.serve_bags = fused
+        before = K.LAUNCHES["gather_pool"]
+        seg = serve_segment(
+            srv, plane, reqs, lambda sess, r, p=pooling: sess.lookup_bags(
+                r[0], r[1], pooling=p, deadline_ms=10_000))
+        seg["k8_launches"] = K.LAUNCHES["gather_pool"] - before
+        want = seg["counts"]["bag_fused_total"] if fused else 0
+        check(seg["k8_launches"] == want,
+              f"phase 10 ({name}): K8 launched {seg['k8_launches']} "
+              f"times for {want} fused batches")
+        segs[name] = seg
+    launches = dict(K.LAUNCHES)
+    check_launched(launches, "phase 10 (bags)", ("gather_pool",))
+    plane.opts.serve_bags = True
+    prof = serve_segment(
+        srv, plane, reqs, lambda sess, r: sess.lookup_bags(
+            r[0], r[1], pooling="sum", deadline_ms=10_000), profile=True)
+    plane.close()
+    for ci, rs in enumerate(reqs):
+        for i, (tables, bags) in enumerate(rs):
+            rows = w.pull_sync(np.concatenate(tables))
+            lo = 0
+            for t, (ks, bg) in enumerate(zip(tables, bags)):
+                mine = rows[lo:lo + len(ks)]
+                lo += len(ks)
+                seg_ix = np.repeat(np.arange(len(bg) - 1),
+                                   np.diff(bg)).astype(np.int32)
+                for name, pooling in (("sum", "sum"), ("mean", "mean"),
+                                      ("sum, --sys.serve.bags 0", "sum")):
+                    ref = pool_bags_host(mine, seg_ix, len(bg) - 1, pooling)
+                    got = segs[name]["replies"][ci][i][t]
+                    check(np.array_equal(got.view(np.uint32),
+                                         ref.view(np.uint32)),
+                          f"phase 10 ({name}): request {ci}/{i} table {t} "
+                          "differs from pool_bags_host over Worker.pull")
+    srv.shutdown()
+    for seg in segs.values():
+        seg.pop("replies")
+        seg["samples_per_s"] = seg["per_s"] * DLRM_SAMPLES
+        seg["bags_per_s"] = seg["samples_per_s"] * len(DLRM_HOTS)
+    prof.pop("replies")
+    k8_ms = prof["kernel_ms"]["gather_pool_kernel"]
+    return dict(fill_s=fill_s, keys=nkeys, segments=segs,
+                launches=launches, profile=dict(
+                    samples_per_s=prof["per_s"] * DLRM_SAMPLES,
+                    device_ms=prof["device_ms"],
+                    busy_share=prof["busy_share"], k8_ms=k8_ms,
+                    k8_share=k8_ms / prof["device_ms"]
+                    if prof["device_ms"] else None, top_ms=prof["top_ms"]))
+
+
+def report_serve(flat, bags, smi):
+    """Phase 10's lines, each with the card's nvidia-smi line."""
+    for name, seg in (("segment 1 (default knobs)", flat["seg1"]),
+                      ("segment 2 (2 dispatchers, 65,536-row replica, "
+                       f"{flat['pushes']} pushes)", flat["seg2"])):
+        busy = "not measured" if seg["busy_share"] is None else (
+            f"{seg['busy_share']:.4f} ({seg['device_ms']:.1f} ms of device "
+            f"time, K1 {seg['kernel_ms']['routed_gather_kernel']:.1f} ms, "
+            f"{seg['profiled_per_s']:.0f} lookups/s under the profiler; "
+            "top: " + "; ".join(f"{k} {v:.1f}" for k, v in seg["top_ms"])
+            + ")")
+        print(f"phase 10: flat {name}: {seg['requests']} lookups of 64 keys "
+              f"by {SERVE_CLIENTS} clients in {seg['wall_s']:.3f} s, "
+              f"{seg['per_s']:.0f} lookups/s, serve.latency_s p50 "
+              f"{seg['p50_ms']:.3f} p99 {seg['p99_ms']:.3f} ms (clients' "
+              f"own p50 {seg['client_p50_ms']:.3f} p99 "
+              f"{seg['client_p99_ms']:.3f} ms), mean batch "
+              f"{seg['mean_batch']:.2f} requests, replica hit rate "
+              f"{seg['replica_hit_rate']:.4f} (stale fallbacks "
+              f"{seg['counts']['replica_stale_fallbacks_total']}), K1 "
+              f"launches {seg['launches']['routed_gather']}, device busy "
+              f"{busy} | {smi}", flush=True)
+    print(f"phase 10: flat, after quiesce: {SERVE_CLIENTS * 10} lookups "
+          "bitwise Worker.pull;"
+          f" after a forced refresh {flat['replica_served']} of 10 lookups "
+          "of snapshot-covered keys served from the replica, all 10 bitwise "
+          "Worker.pull", flush=True)
+    for name, seg in bags["segments"].items():
+        print(f"phase 10: bags {name}: {seg['requests']} requests of "
+              f"{DLRM_SAMPLES} samples x {len(DLRM_HOTS)} tables by "
+              f"{BAG_CLIENTS} clients in {seg['wall_s']:.3f} s, "
+              f"{seg['samples_per_s']:.0f} samples/s, "
+              f"{seg['bags_per_s']:.0f} bags/s, serve.latency_s p50 "
+              f"{seg['p50_ms']:.3f} p99 {seg['p99_ms']:.3f} ms (clients' "
+              f"own p50 {seg['client_p50_ms']:.3f} p99 "
+              f"{seg['client_p99_ms']:.3f} ms), mean batch "
+              f"{seg['mean_batch']:.2f}, fused batches "
+              f"{seg['counts']['bag_fused_total']}, host-pooled "
+              f"{seg['counts']['bag_hostpool_total']}, K8 launches "
+              f"{seg['k8_launches']} | {smi}", flush=True)
+    p = bags["profile"]
+    busy = "not measured" if p["busy_share"] is None else (
+        f"busy {p['busy_share']:.4f}, device {p['device_ms']:.1f} ms, K8 "
+        f"{p['k8_ms']:.1f} ms ({p['k8_share']:.3f} of the device time); "
+        "top: " + "; ".join(f"{k} {v:.1f}" for k, v in p["top_ms"]))
+    print(f"phase 10: bags sum under the profiler: "
+          f"{p['samples_per_s']:.0f} samples/s, {busy}; table of "
+          f"{bags['keys']} keys filled in {bags['fill_s']:.1f} s; every "
+          "reply bitwise pool_bags_host over Worker.pull, bags-0 replies "
+          f"bitwise the sum segment's | {smi}", flush=True)
+
+
 def fmt_t(r, key):
     v = r[key]
     if v is None:
@@ -1477,6 +2014,7 @@ def report_kernels(rec):
           f"(bound {k3['uniform_bound'][0]:.4f} ms); multi-segment form at "
           f"{ROLE_SPLIT} bitwise; deterministic over two runs", flush=True)
     report_k4(rec["pool_eval_counts"])
+    report_k8(rec["gather_pool"])
     k5 = rec["complex_step"]
     print(f"phase 2: K5 at B={B}, N={N}, d={D_MODEL}: {fmt_t(k5, 'ms')} ms "
           f"(bound {k5['bound'][0]:.4f} ms, share "
@@ -1504,6 +2042,28 @@ def report_kernels(rec):
               f"{r.get('forms', r['max_abs_err'])}; deterministic, K2 on its "
               f"gradient bitwise its update rows; ptxas {r['ptxas']}",
               flush=True)
+
+
+def report_k8(k8):
+    """K8's phase-2 lines: the path's batch, then the full one."""
+    for r in (k8, k8["full_batch"]):
+        print(f"phase 2: K8 at a bag batch of {r['requests']} requests x "
+              f"{DLRM_SAMPLES} samples ({r['members']} members, "
+              f"{r['distinct_rows']} distinct rows, {r['bags']} bags, "
+              f"L={L_DLRM}): kernel {fmt_t(r, 'ms')} ms in the trace, "
+              f"{fmt_s(*r['event_ms'])} ms between CUDA events (bound "
+              f"{r['bound'][0]:.4f} ms, {r['bound'][1]}, share "
+              f"{r['bound'][0] / r['ms']:.3f}); mean "
+              f"{fmt_s(*r['mean_trace_ms'])} ms; a quarter replica-served "
+              f"(S=2) {fmt_s(*r['replica_trace_ms'])} ms (bound "
+              f"{r['replica_bound'][0]:.4f} ms, share "
+              f"{r['replica_bound'][0] / r['replica_trace_ms'][0]:.3f}); "
+              f"plain {fmt_t(r, 'plain_ms')} ms; embedding_bag(sum) "
+              f"{fmt_t(r, 'library_ms')} ms (max abs diff to K8 "
+              f"{r['library_max_abs_diff']:.3g}); bitwise its plain "
+              f"version and over two runs in every form {r['forms_err']}",
+              flush=True)
+    print(f"phase 2: K8 ptxas {k8['ptxas']}", flush=True)
 
 
 def report_k4(k4):
@@ -1695,6 +2255,9 @@ def main(argv):
     report_w2v_app(w2v_app)
     mfr = phase_mf_app(K)
     report_mf(mfr)
+    serve_flat = phase_serve_flat(at, K, dev)
+    serve_bags = phase_serve_bags(at, K, dev)
+    report_serve(serve_flat, serve_bags, smi)
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
                "adagrad_update": ("adapm_tpu_torch/csrc/adagrad.cu",
@@ -1710,7 +2273,9 @@ def main(argv):
                "sgns_step": ("adapm_tpu_torch/csrc/sgns_step.cu",
                              "adapm_tpu/ops/fused.py:370"),
                "mf_step": ("adapm_tpu_torch/csrc/mf_step.cu",
-                           "adapm_tpu/ops/fused.py:370")}
+                           "adapm_tpu/ops/fused.py:370"),
+               "gather_pool": ("adapm_tpu_torch/csrc/gather_pool.cu",
+                               "adapm_tpu/device/jaxport.py:79")}
     paths = dict(step=step_launches, scan=sc["launches"],
                  scan_replayed=sc["replayed"], replica=used,
                  app=app_launches, app_replayed=app["replayed"],
@@ -1723,14 +2288,18 @@ def main(argv):
                  w2v_host_routes=w2v_app["host_launches"],
                  mf_app=mfr["device"]["launches"],
                  mf_app_replayed=mfr["device"]["res"]["replayed"],
-                 mf_host_routes=mfr["host"]["launches"])
+                 mf_host_routes=mfr["host"]["launches"],
+                 serve_flat=serve_flat["seg1"]["launches"],
+                 serve_flat_replica=serve_flat["seg2"]["launches"],
+                 serve_bags=serve_bags["launches"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
     # whose standalone launches it keeps, in the word2vec and MF app runs
-    # (phases 8 and 9, device routes) for K6 and K7; the launches of
-    # replayed graphs stand apart under *_replayed
+    # (phases 8 and 9, device routes) for K6 and K7, in phase 10's bag
+    # segments for K8; the launches of replayed graphs stand apart under
+    # *_replayed
     home = {"adagrad_update": "rescal", "sgns_step": "w2v_app",
-            "mf_step": "mf_app"}
+            "mf_step": "mf_app", "gather_pool": "serve_bags"}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=paths[home.get(n, "app")][n],
@@ -1739,14 +2308,19 @@ def main(argv):
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"])
                for n, r in rec.items()]
-    for line in kernels:   # the parent's eager path (K5-K7), K6/K7's
-        for key in ("eager_ms", "cold_ms", "call_ms"):   # other views
+    for line in kernels:   # the parent's eager path (K5-K7), K6-K8's
+        for key in ("eager_ms", "cold_ms", "call_ms", "event_ms"):  # views
             if key in rec[line["name"]]:
                 line[key] = rec[line["name"]][key][0]
     k3 = rec["ordered_scatter_add"]
     k3_line = kernels[list(rec).index("ordered_scatter_add")]
     k3_line.update(fold_ms=k3["fold_ms"][0], order_ms=k3["order_ms"][0],
                    sort_ms=k3["sort_ms"][0], uniform_ms=k3["uniform_ms"][0])
+    full = rec["gather_pool"]["full_batch"]   # K8 at a 64-request batch
+    kernels[list(rec).index("gather_pool")].update(
+        full_batch_ms=full["ms"], full_batch_bound_ms=full["bound"][0],
+        full_batch_plain_ms=full["plain_ms"],
+        full_batch_library_ms=full["library_ms"])
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
@@ -1755,7 +2329,9 @@ def main(argv):
                        "main_path": mp, "scan": sc, "replica_launches": used,
                        "app": app, "host_routes": hr, "build_s": build_s,
                        "w2v_step": st, "w2v_scan": sc7, "w2v_app": w2v_app,
-                       "mf_app": mfr}, fh, indent=1, default=str)
+                       "mf_app": mfr, "serve_flat": serve_flat,
+                       "serve_bags": serve_bags}, fh, indent=1,
+                      default=str)
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(smi)

@@ -288,6 +288,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "loss = float(r({'s': [0, 1, 2, 3], 'r': [30, 31, 32, 33],\n"
         "                'o': [4, 5, 6, 7]}, None, 0.1))\n"
         "assert loss == loss\n"
+        "from adapm_tpu_torch.serve import ServePlane\n"
+        "import adapm_tpu_torch.serve.admission, adapm_tpu_torch.serve.bags\n"
+        "import adapm_tpu_torch.serve.batcher, adapm_tpu_torch.serve.health\n"
+        "import adapm_tpu_torch.serve.replica, adapm_tpu_torch.serve.session\n"
+        "import adapm_tpu_torch.obs.slo, adapm_tpu_torch.ops.costs\n"
+        "with ServePlane(s) as plane:\n"
+        "    sess = plane.session()\n"
+        "    assert sess.lookup([1, 2]).shape == (2, 16)\n"
+        "    (p,) = sess.lookup_bags([[1, 2, 3]], [[0, 1, 3]])\n"
+        "    assert p.shape == (2, 16)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'adapm_tpu')]\n"
         "assert not bad, bad\n"

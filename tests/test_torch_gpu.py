@@ -688,3 +688,73 @@ def test_k6_k7_graph_windows_match_sequential_bitwise(cuda, loss):
     assert captures == 1
     kern = "mf_step" if loss == "mf" else "sgns_step"
     assert ka[kern] == 16 and ka["adagrad_update"] == 0, ka
+
+
+@pytest.mark.parametrize("L", [256, 7, 600])
+@pytest.mark.parametrize("pooling", ["sum", "mean"])
+def test_gather_pool_bitwise_both_forms_sorted_and_not(cuda, L, pooling):
+    """K8 against its plain version, bitwise: every member owner-served
+    and a quarter replica-served, sorted seg (the serving path's, with
+    OOB padding and empty bags) and an unsorted one (ordered by K3's
+    ordering pass first), random starting values with -0.0 among them
+    (an empty bag keeps its own under sum), long bags; deterministic
+    over two runs."""
+    rng = np.random.default_rng(L)
+    S, R, C, n, nb = 2, 40, 20, 3000, 300
+    main, cache, delta = (torch.randn(S, k, L) for k in (R, C, C))
+    main[0, :3] = -0.0
+    o = _coords(rng, n, S, R)
+    c = _coords(rng, n, S, C)
+    use_c = torch.from_numpy(rng.random(n) < 0.25)
+    sizes = rng.integers(0, 30, nb)
+    sizes[5] = 700                                # a long bag
+    seg = np.repeat(np.arange(nb), sizes)[:n - 40].astype(np.int32)
+    seg = np.concatenate([seg, np.full(n - len(seg), OOB, np.int32)])
+    out0 = torch.randn(nb + 8, L)
+    out0[:4] = -0.0
+    perm = torch.from_numpy(rng.permutation(n))
+    for args in ((main, cache, delta) + o + c + (torch.zeros_like(use_c),),
+                 (main, cache, delta) + o + c + (use_c,)):
+        for order in ("sorted", "unsorted"):
+            s = torch.from_numpy(seg)
+            a = list(args)
+            if order == "unsorted":
+                a = [x if x.dim() == 3 else x[perm] for x in a]
+                s = s[perm]
+            ref = K.gather_pool(*a, s, out0.clone(), pooling)
+            got = [K.gather_pool(*[x.to(cuda) for x in a], s.to(cuda),
+                                 out0.clone().to(cuda), pooling,
+                                 sorted_seg=order == "sorted")
+                   for _ in range(2)]
+            assert torch.equal(_bits(got[0]), _bits(ref)), order
+            assert torch.equal(_bits(got[1]), _bits(got[0]))
+
+
+def test_gather_pool_through_the_port_and_the_store(cuda):
+    """TorchDevicePort.gather_pool and ShardedStore.gather_pool on the
+    card against the same calls on the CPU, bitwise; the store path
+    launches K8 once per call with seg checked sorted on the host."""
+    from adapm_tpu_torch.core.store import ShardedStore
+    from adapm_tpu_torch.device.context import make_context
+    rng = np.random.default_rng(1)
+    L, nk = 256, 500
+    stores = [ShardedStore(nk, L, make_context(2, d)) for d in ("cpu",
+                                                                cuda)]
+    sh = (np.arange(nk) % 2).astype(np.int32)
+    sl = (np.arange(nk) // 2).astype(np.int32)
+    vals = rng.normal(size=(nk, L)).astype(np.float32)
+    z = np.zeros(nk, np.int32)
+    m = 4000
+    pick = rng.integers(0, nk, m)
+    seg = np.sort(rng.integers(0, 700, m)).astype(np.int32)
+    args = (sh[pick], sl[pick], np.zeros(m, np.int32),
+            np.full(m, OOB, np.int32), np.zeros(m, bool), seg, 700)
+    for pooling in ("sum", "mean"):
+        got = []
+        for st in stores:
+            st.set_rows(sh, sl, vals, z, np.full(nk, OOB, np.int32))
+            before = K.LAUNCHES["gather_pool"]
+            got.append(st.gather_pool(*args, pooling=pooling))
+            assert K.LAUNCHES["gather_pool"] - before == \
+                (1 if st.main.is_cuda else 0)
+        assert torch.equal(_bits(got[1]), _bits(got[0]))

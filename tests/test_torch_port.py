@@ -112,8 +112,6 @@ def test_torch_port_matches_numpy_ref_port_bitwise_every_op(seed):
 
 def test_unported_port_methods_name_their_roadmap_item():
     tp = TorchDevicePort()
-    with pytest.raises(NotImplementedError, match="B7"):
-        tp.gather_pool()
     with pytest.raises(NotImplementedError, match="B8"):
         tp.gather_cold()
     with pytest.raises(NotImplementedError, match="B10"):
