@@ -18,36 +18,69 @@
 // distinct rows of the batch, once each), the coordinates and the
 // pooled rows written; there is one add per member value. What the
 // fused read saves over gather + pool is the [n, L] rows tensor: this
-// kernel writes none. Design: one warp per bag. seg is non-decreasing
-// on the serving path (serve/bags.py plan_bag_batch builds it so and
-// padding appends OOB), so bag b's members are one contiguous run; the
-// warp finds it with two 33-ary searches (32 probes a round, about 5
-// dependent rounds at 4e5 members), then folds the run in order into
-// registers, kGroup members at a time: the group's coordinates are
-// resolved by its first lanes, every load of the group is issued
-// before the first add, then the adds run in member order. The pooled
-// row is written once. Rows of a multiple of 4 floats (the serving
-// path's L = 256: two float4 a lane) take 16-byte loads; other lengths
-// take the same kernel with 4-byte elements. Where seg is not sorted
-// (a direct call), the wrapper orders the members first with K3's
-// stable ordering and passes the permutation; the fold then reads
-// member perm[j] at sorted position j, which keeps batch order within
-// each bag.
+// kernel writes none.
+//
+// Design. seg is non-decreasing (serve/bags.py plan_bag_batch builds it
+// so and padding appends OOB; where it is not, the wrapper orders the
+// members first with K3's stable ordering and passes the permutation,
+// and the fold reads member perm[j] at sorted position j). So each bag
+// is one run of positions, and each column of a bag folds on its own:
+// a bag's columns can go to different warps without changing a bit,
+// while its members must fold one after another. On the serving path
+// most bags hold 1-3 members and one in 26 holds 100, so in a fold of
+// one warp a bag the longest bag's chain, not the bytes, set the pace.
+// Here:
+//
+// - A work item is one span of kSpan seg positions and one slice of 32
+//   columns (of T: float4 where L % 4 == 0). It owns the bags whose
+//   first member lies in its span and folds them, for its columns, as
+//   one stream of members in order. Bag bounds come from one coalesced
+//   look at seg[j-1], seg[j] over the span (a bag starts where seg
+//   changes); no search.
+// - Sources are resolved off the chain: the coordinates of the stream's
+//   next batch of 32 members are loaded two batches ahead into
+//   registers, one member a lane, and turned by routed_source into a
+//   row offset and a cache flag in shared memory a batch ahead.
+// - The fold issues only row loads: each lane keeps kDepth members'
+//   loads of its column (main, or cache and delta, and the bag's
+//   starting value at a bag's first member) in flight in a cp.async
+//   ring in shared memory, and adds them in member order as they land.
+//   Four are enough: a deeper ring costs shared memory that more
+//   resident warps use better (scripts/k8_variants.py).
+// - A persistent grid of as many CTAs as fit on the card at once takes
+//   the first wave of items by stride, so at the serving path's batch
+//   (fewer items than warps) every bag starts at once and no warp waits
+//   on a counter. Where the items outnumber the warps, a warp that is
+//   done takes its next item from a counter, so the warps that drew
+//   long streams take fewer items. The counter is the launch stream's
+//   own: launches on one stream run one after another, and the last
+//   warp of a launch resets it. Long spans first, or all items from the
+//   counter, cost more than they gave (tools/k8_variants.py).
+// - Under mean, a run of empty bags becomes zeros: written by the warp
+//   whose span holds the run's end, but for the chunks of kChunk bags
+//   that lie wholly inside it, which are items of their own (the
+//   bucket's padding bags would otherwise fall to one warp).
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 #include "routed_read.cuh"
 
 namespace {
 
 using adapm::add_rn;
-using adapm::routed_load;
 using adapm::routed_source;
-using adapm::routed_value;
 using adapm::zero;
 
-constexpr int kWarps = 8;    // warps (bags) per block
-constexpr int kGroup = 4;    // members whose loads are in flight together
-constexpr int kNV = 2;       // elements per lane per column block
+constexpr int kWarps = 4;    // warps per CTA
+constexpr int kSpan = 64;    // seg positions per work item
+constexpr int kDepth = 4;    // members in flight per lane (the ring)
+constexpr int kChunk = 64;   // bags per zeroing item (mean pooling)
+constexpr int kSlots = 64;   // streams with a work counter of their own
+
+// per stream slot: the next item past the first wave, and the warps done
+__device__ unsigned long long g_next[kSlots];
+__device__ unsigned int g_done[kSlots];
 
 __device__ __forceinline__ float div_rn(float a, float d) {
   return __fdiv_rn(a, d);
@@ -56,6 +89,76 @@ __device__ __forceinline__ float div_rn(float a, float d) {
 __device__ __forceinline__ float4 div_rn(float4 a, float d) {
   return make_float4(__fdiv_rn(a.x, d), __fdiv_rn(a.y, d),
                      __fdiv_rn(a.z, d), __fdiv_rn(a.w, d));
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const float4* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp's shared memory: the ring (per stage and lane: the member's
+// main or cache value, its delta value, the bag's starting value) and
+// two batches of resolved members.
+template <typename T>
+struct WarpSmem {
+  T ring[kDepth][3][32];
+  long long code[2][32];   // row offset >= 0: main; -1: a zero row;
+                           // <= -2: cache+delta at offset -2 - code
+  int bag[2][32];          // the member's bag, -1 past the stream
+  unsigned char first[2][32];   // the member starts its bag
+};
+
+struct Args {
+  const int *o_sh, *o_sl, *c_sh, *c_sl;
+  const unsigned char* use_c;
+  const int* seg;
+  const long long* perm;
+  long long n;
+  int nbags, shards, slots, c_shards, c_slots, W, mean, slices;
+  long long span_items, items;   // the span items, then (mean) chunks
+  int slot;   // the stream's counter, or -1: every item by stride
+};
+
+// A member's coordinates as loaded (two batches ahead of its fold).
+struct Raw {
+  int seg, o_sh, o_sl, c_sh, c_sl;
+  unsigned char use_c;
+};
+
+__device__ __forceinline__ int clamp_bag(int s, int nbags) {
+  return s < 0 ? -1 : (s >= nbags ? nbags : s);
+}
+
+__device__ __forceinline__ Raw load_raw(const Args& a, long long j) {
+  Raw r{a.nbags, 0, 0, 0, 0, 0};
+  if (j < a.n) {
+    const long long m = a.perm != nullptr ? __ldg(a.perm + j) : j;
+    r.seg = __ldg(a.seg + j);
+    r.use_c = __ldg(a.use_c + m);
+    r.o_sh = __ldg(a.o_sh + m);
+    r.o_sl = __ldg(a.o_sl + m);
+    r.c_sh = __ldg(a.c_sh + m);
+    r.c_sl = __ldg(a.c_sl + m);
+  }
+  return r;
 }
 
 // First position in the non-decreasing seg[0, n) whose value is >= v,
@@ -79,97 +182,223 @@ __device__ __forceinline__ long long warp_lower_bound(const int* seg,
   return lo;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
-    const T* __restrict__ main_pool, const T* __restrict__ cache,
-    const T* __restrict__ delta, const int* __restrict__ o_sh,
-    const int* __restrict__ o_sl, const int* __restrict__ c_sh,
-    const int* __restrict__ c_sl, const unsigned char* __restrict__ use_c,
-    const int* __restrict__ seg, const long long* __restrict__ perm,
-    long long n, T* __restrict__ out, int nbags, int shards, int slots,
-    int c_shards, int c_slots, int W, int mean) {
-  const int lane = threadIdx.x & 31;
-  const long long b = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
-                      >> 5;
-  if (b >= nbags) return;            // the whole warp leaves together
-  const long long lo = warp_lower_bound(seg, n, b, lane);
-  const long long hi = warp_lower_bound(seg, n, b + 1, lane);
-  // an empty bag keeps its starting value under sum, so its row is
-  // neither read nor written (the bucket's padding bags, past the last)
-  if (hi == lo && !mean) return;
-  T* o = out + b * (long long)W;
-  for (int cb = 0; cb < W; cb += 32 * kNV) {
-    T acc[kNV];
-#pragma unroll
-    for (int k = 0; k < kNV; ++k) {
-      const int c = cb + k * 32 + lane;
-      acc[k] = c < W ? o[c] : zero<T>();
-    }
-    for (long long j0 = lo; j0 < hi; j0 += kGroup) {
-      // lane g < kGroup resolves member j0 + g of the run
-      long long src = -2;                       // -2: past the run
-      bool from_c = false;
-      if (lane < kGroup && j0 + lane < hi) {
-        const long long m = perm != nullptr ? perm[j0 + lane] : j0 + lane;
-        src = routed_source<true>(o_sh, o_sl, c_sh, c_sl, use_c, m, shards,
-                                  slots, c_shards, c_slots, W, &from_c);
-      }
-      long long gsrc[kGroup];
-      bool gc[kGroup];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        gsrc[g] = __shfl_sync(~0u, src, g);
-        gc[g] = __shfl_sync(~0u, (int)from_c, g) != 0;
-      }
-      T va[kGroup][kNV], vb[kGroup][kNV];
-      // every load of the group first ...
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-#pragma unroll
-        for (int k = 0; k < kNV; ++k) {
-          const int c = cb + k * 32 + lane;
-          // a column past the row loads nothing (its src reads as a
-          // zero row) and is never stored
-          routed_load<T, true>(main_pool, cache, delta,
-                               c < W ? gsrc[g] : -1, gc[g], c, &va[g][k],
-                               &vb[g][k]);
-        }
-      }
-      // ... then the adds, in member order
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        if (gsrc[g] == -2) break;
-#pragma unroll
-        for (int k = 0; k < kNV; ++k)
-          acc[k] = add_rn(acc[k], routed_value<T, true>(
-                                      va[g][k], vb[g][k], gsrc[g], gc[g]));
-      }
-    }
-    if (mean) {
-      const float cnt = (float)(hi - lo);      // exact below 2^24
-#pragma unroll
-      for (int k = 0; k < kNV; ++k)
-        acc[k] = hi > lo ? div_rn(acc[k], cnt) : zero<T>();
-    }
-#pragma unroll
-    for (int k = 0; k < kNV; ++k) {
-      const int c = cb + k * 32 + lane;
-      if (c < W) __stcs(o + c, acc[k]);
-    }
-  }
+// the warp's next item past the first wave, from the stream's counter
+__device__ __forceinline__ long long take(int slot, int lane) {
+  unsigned long long v = 0;
+  if (lane == 0) v = atomicAdd(&g_next[slot], 1ull);
+  return (long long)__shfl_sync(~0u, v, 0);
 }
 
 template <typename T>
-int launch(const T* main_pool, const T* cache, const T* delta,
-           const int* o_sh, const int* o_sl, const int* c_sh,
-           const int* c_sl, const unsigned char* use_c, const int* seg,
-           const long long* perm, long long n, T* out, int nbags,
-           int shards, int slots, int c_shards, int c_slots, int W,
-           int mean, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((nbags + kWarps - 1) / kWarps);
-  gather_pool_kernel<T><<<blocks, kWarps * 32, 0, stream>>>(
-      main_pool, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c, seg, perm, n,
-      out, nbags, shards, slots, c_shards, c_slots, W, mean);
+__global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
+    const T* __restrict__ main_pool, const T* __restrict__ cache,
+    const T* __restrict__ delta, T* __restrict__ out, Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  WarpSmem<T>& sm = reinterpret_cast<WarpSmem<T>*>(smem_raw)[wid];
+  const long long nwarps = (long long)gridDim.x * kWarps;
+  for (long long item = (long long)blockIdx.x * kWarps + wid;
+       item < a.items;
+       item = a.slot >= 0 ? nwarps + take(a.slot, lane) : item + nwarps) {
+    if (item >= a.span_items) {
+      // mean: kChunk bags that no member falls in become zeros here, so
+      // that a long run of empty bags (the bucket's padding) is spread
+      // over many warps
+      const long long z = item - a.span_items;
+      const int c = (int)(z % a.slices) * 32 + lane;
+      const int b0 = (int)(z / a.slices) * kChunk;
+      const int b1 = min(b0 + kChunk, a.nbags);
+      const long long p = warp_lower_bound(a.seg, a.n, b0, lane);
+      if ((p == a.n || __ldg(a.seg + p) >= b1) && c < a.W)
+        for (int b = b0; b < b1; ++b)
+          __stcs(out + (long long)b * a.W + c, zero<T>());
+      continue;
+    }
+    const long long span = item / a.slices;
+    const int c = (int)(item % a.slices) * 32 + lane;   // this lane's column
+    const bool col = c < a.W;
+    const long long s0 = span * kSpan, s1 = s0 + kSpan;
+    // the bags that start in the span (a change of seg at position j in
+    // [s0, s1), j <= n; position n ends the last run), and under mean
+    // the empty bags between two runs, written as zeros here but for
+    // the chunks that lie wholly among them (a chunk item's)
+    long long start = -1;
+    for (int h = 0; h < kSpan; h += 32) {
+      const long long j = s0 + h + lane;
+      const bool in = j <= a.n;
+      int p = -1, q = a.nbags;
+      if (in) {
+        if (j > 0) p = clamp_bag(__ldg(a.seg + j - 1), a.nbags);
+        if (j < a.n) q = clamp_bag(__ldg(a.seg + j), a.nbags);
+      }
+      const unsigned starts =
+          __ballot_sync(~0u, in && q != p && q >= 0 && q < a.nbags);
+      if (start < 0 && starts) start = s0 + h + __ffs(starts) - 1;
+      if (a.mean) {
+        unsigned gaps = __ballot_sync(~0u, in && q > p + 1);
+        while (gaps) {
+          const int l = __ffs(gaps) - 1;
+          gaps &= gaps - 1;
+          const int lo = __shfl_sync(~0u, p, l) + 1;
+          const int hi = __shfl_sync(~0u, q, l);
+          for (int b = lo; b < hi; ++b) {
+            const int b0 = b / kChunk * kChunk;
+            const int b1 = min(b0 + kChunk, a.nbags);
+            if (b0 >= lo && b1 <= hi)        // a chunk item's
+              b = b1 - 1;
+            else if (col)
+              __stcs(out + (long long)b * a.W + c, zero<T>());
+          }
+        }
+      }
+    }
+    if (start < 0) continue;             // whole warp: no bag starts here
+    // the stream: from `start` to the first change of seg at or past
+    // s1, or to the first member outside [0, nbags)
+    int carry = -1;                      // clamped seg of the last member
+    bool ended = false;
+    // resolve the batch of members [base, base + 32) from `r` into buf
+    auto resolve = [&](long long base, const Raw& r, int buf) {
+      const long long j = base + lane;
+      const int q = j < a.n ? clamp_bag(r.seg, a.nbags) : a.nbags;
+      int p = __shfl_up_sync(~0u, q, 1);
+      if (lane == 0) p = carry;
+      const bool change = j == start || q != p;
+      const bool stop = ended || j >= a.n ||
+                        (j > start && change &&
+                         (j >= s1 || q < 0 || q >= a.nbags));
+      const unsigned stops = __ballot_sync(~0u, stop);
+      const bool past = stops && lane >= __ffs(stops) - 1;
+      bool from_c = false;
+      long long code = -1;
+      if (!past) {
+        const long long src = routed_source<true>(
+            &r.o_sh, &r.o_sl, &r.c_sh, &r.c_sl, &r.use_c, 0, a.shards,
+            a.slots, a.c_shards, a.c_slots, a.W, &from_c);
+        code = src < 0 ? -1 : (from_c ? -2 - src : src);
+      }
+      sm.code[buf][lane] = code;
+      sm.bag[buf][lane] = past ? -1 : q;
+      sm.first[buf][lane] = change;
+      carry = __shfl_sync(~0u, q, 31);
+      ended = ended || stops != 0;
+    };
+    // issue the loads of member (buf, i) into ring stage st
+    auto issue = [&](int buf, int i, int st) {
+      const int bag = sm.bag[buf][i];
+      if (bag >= 0 && col) {
+        const long long code = sm.code[buf][i];
+        if (code >= 0) {
+          cp_async(&sm.ring[st][0][lane], main_pool + code + c);
+        } else if (code <= -2) {
+          cp_async(&sm.ring[st][0][lane], cache + (-2 - code) + c);
+          cp_async(&sm.ring[st][1][lane], delta + (-2 - code) + c);
+        }
+        if (sm.first[buf][i])
+          cp_async(&sm.ring[st][2][lane], out + (long long)bag * a.W + c);
+      }
+      cp_commit();                        // one group per member, always
+    };
+    Raw next = load_raw(a, start + 32 + lane);
+    resolve(start, load_raw(a, start + lane), 0);
+    __syncwarp();
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) issue(0, d, d);
+    T acc = zero<T>();
+    int cur = -1;                         // the bag being folded
+    long long cur_lo = 0;                 // its first position
+    long long j = start;
+    int st = 0;                           // member j's ring stage
+    auto flush = [&]() {                  // bag cur ends before j
+      if (cur >= 0 && col) {
+        const T v = a.mean ? div_rn(acc, (float)(j - cur_lo)) : acc;
+        __stcs(out + (long long)cur * a.W + c, v);
+      }
+    };
+    for (long long base = start;; base += 32) {
+      const int buf = (int)(((base - start) >> 5) & 1);
+      resolve(base + 32, next, buf ^ 1);
+      if (!ended) next = load_raw(a, base + 64 + lane);
+      __syncwarp();
+      bool done = false;
+      for (int i = 0; i < 32; ++i, ++j) {
+        const int bag = sm.bag[buf][i];
+        if (bag < 0) {
+          done = true;
+          break;
+        }
+        cp_wait<kDepth - 1>();            // member j's group has landed
+        const long long code = sm.code[buf][i];
+        if (sm.first[buf][i]) {
+          flush();
+          cur = bag;
+          cur_lo = j;
+          acc = sm.ring[st][2][lane];
+        }
+        // routed_value: the main read as loaded, cache+delta as one
+        // rounded add, +0 for a zero row
+        const T v = code == -1 ? zero<T>()
+                    : code >= 0 ? sm.ring[st][0][lane]
+                                : add_rn(sm.ring[st][0][lane],
+                                         sm.ring[st][1][lane]);
+        acc = add_rn(acc, v);
+        const int k = i + kDepth;         // the member kDepth ahead
+        issue(k < 32 ? buf : buf ^ 1, k & 31, st);
+        st = st + 1 == kDepth ? 0 : st + 1;
+      }
+      if (done) break;
+      __syncwarp();                       // buf is rewritten next round
+    }
+    flush();
+    cp_wait<0>();
+    __syncwarp();
+  }
+  if (a.slot >= 0 && lane == 0 &&
+      atomicAdd(&g_done[a.slot], 1u) == gridDim.x * kWarps - 1) {
+    g_next[a.slot] = 0;                   // the last warp: ready for the
+    g_done[a.slot] = 0;                   // stream's next launch
+  }
+}
+
+// The counter slot of `stream`, or -1 once kSlots streams have one.
+int stream_slot(cudaStream_t stream) {
+  static std::mutex mu;
+  static cudaStream_t seen[kSlots];
+  static int used = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (seen[i] == stream) return i;
+  if (used == kSlots) return -1;
+  seen[used] = stream;
+  return used++;
+}
+
+template <typename T>
+int launch(const T* main_pool, const T* cache, const T* delta, T* out,
+           Args a, cudaStream_t stream) {
+  // the persistent grid: as many CTAs as fit on the card at once
+  static int grid_cap = 0;
+  const int smem = kWarps * (int)sizeof(WarpSmem<T>);
+  if (grid_cap == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gather_pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gather_pool_kernel<T>, kWarps * 32, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid_cap = sms * per_sm;
+  }
+  const long long want = (a.items + kWarps - 1) / kWarps;
+  const unsigned blocks = (unsigned)(want < grid_cap ? want : grid_cap);
+  a.slot = a.items > (long long)blocks * kWarps ? stream_slot(stream) : -1;
+  gather_pool_kernel<T><<<blocks, kWarps * 32, smem, stream>>>(
+      main_pool, cache, delta, out, a);
   return (int)cudaGetLastError();
 }
 
@@ -189,14 +418,17 @@ extern "C" int adapm_gather_pool(
   if (cache == nullptr || delta == nullptr)
     return (int)cudaErrorInvalidValue;
   if (nbags <= 0) return 0;
+  const int W = vec ? L / 4 : L;
+  Args a{o_sh,  o_sl,   c_sh,     c_sl,    use_c, seg, perm, n, nbags,
+         shards, slots, c_shards, c_slots, W,     mean, (W + 31) / 32, 0,
+         0,      -1};
+  a.span_items = (n / kSpan + 1) * a.slices;
+  a.items = a.span_items +
+            (mean ? (nbags + kChunk - 1) / kChunk * (long long)a.slices : 0);
   if (vec)
     return launch<float4>(reinterpret_cast<const float4*>(main_pool),
                           reinterpret_cast<const float4*>(cache),
-                          reinterpret_cast<const float4*>(delta), o_sh, o_sl,
-                          c_sh, c_sl, use_c, seg, perm, n,
-                          reinterpret_cast<float4*>(out), nbags, shards,
-                          slots, c_shards, c_slots, L / 4, mean, stream);
-  return launch<float>(main_pool, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c,
-                       seg, perm, n, out, nbags, shards, slots, c_shards,
-                       c_slots, L, mean, stream);
+                          reinterpret_cast<const float4*>(delta),
+                          reinterpret_cast<float4*>(out), a, stream);
+  return launch<float>(main_pool, cache, delta, out, a, stream);
 }

@@ -112,6 +112,15 @@ def _headers() -> bytes:
     return out
 
 
+def nvcc_command(src: str, out: str) -> list:
+    """The nvcc line every kernel library is built with: sm_90a, with
+    ptxas's registers and spills on its output; the shared headers are
+    found from any directory."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-I", _CSRC, "-o", out, src]
+
+
 def build() -> float:
     """Compile (or find already compiled) every kernel library and load
     it; returns the wall seconds. Idempotent and thread-safe."""
@@ -132,12 +141,9 @@ def build() -> float:
             if os.path.exists(out):
                 continue
             tmp = f"{out}.tmp{os.getpid()}"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, path]
             procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
+                nvcc_command(path, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), tmp, out)
         for name, (p, tmp, out) in procs.items():
             log, _ = p.communicate()
             if p.returncode != 0:

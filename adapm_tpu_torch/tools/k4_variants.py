@@ -5,17 +5,15 @@ RESCAL K=128, at B=64 and B=36, on integer-valued data (every variant
 must stay exact against the plain version, except the one that skips
 its copies on purpose).
 
-Each variant is the current source with a few text edits, built with the
-same nvcc line as ops/kernels.py into build/k4_variants/, bound with
-`kernels._bind` and swapped into `kernels._libs` so that the public
-wrapper (with its launch plan) runs it. Also printed: ptxas registers
-and spills per entry, the SASS opcode counts of the TQ=4 16-byte entry
-(cuobjdump), and the SM clock and power beside each round.
+Each variant is the current source with a few text edits, built and
+swapped in by tools/variants.py into build/k4_variants/, so that the
+public wrapper (with its launch plan) runs it. Also printed: ptxas
+registers and spills per entry, the SASS opcode counts of the TQ=4
+16-byte entry (cuobjdump), and the SM clock and power beside each round.
 
-    python scripts/k4_variants.py
+    python -m adapm_tpu_torch.tools.k4_variants
 """
 import collections
-import ctypes
 import os
 import re
 import subprocess
@@ -24,21 +22,13 @@ import sys
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-from adapm_tpu_torch.ops import kernels as K  # noqa: E402
+from adapm_tpu_torch.ops import kernels as K
+from adapm_tpu_torch.tools.variants import ROOT, build, card, clocks, edit, \
+    source
 
 OUT = os.path.join(ROOT, "build", "k4_variants")
-SRC = open(os.path.join(ROOT, "adapm_tpu_torch", "csrc",
-                        "pool_eval_counts.cu")).read()
+SRC = source("pool_eval_counts.cu")
 CUDA = "/usr/local/cuda/bin"
-
-
-def edit(s, pairs):
-    for a, b in pairs:
-        assert a in s, a
-        s = s.replace(a, b)
-    return s
 
 
 # the ring: 32-column chunks, 4 stages (the plan must follow: see run())
@@ -91,32 +81,6 @@ VARIANTS = {
 }
 
 
-def build():
-    os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for name, (text, _) in VARIANTS.items():
-        src = os.path.join(OUT, f"{name}.cu")
-        with open(src, "w") as fh:
-            fh.write(text)
-        so = os.path.join(OUT, f"lib{name}.so")
-        procs[name] = (subprocess.Popen(
-            [os.path.join(CUDA, "nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
-             "-v", "-o", so, src], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for name, (p, so) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        regs = re.findall(r"kernelILi(\d)ELb(\d)E.*?\n.*?(\d+) bytes spill "
-                          r"stores.*?\n.*?Used (\d+) registers", log)
-        print(f"{name}: ptxas (TQ, vec, spill bytes, registers) {regs}",
-              flush=True)
-        libs[name] = K._bind("pool_eval_counts", ctypes.CDLL(so))
-    return libs
-
-
 def sass_counts(name):
     sass = subprocess.run([os.path.join(CUDA, "cuobjdump"), "-sass",
                            os.path.join(OUT, f"lib{name}.so")],
@@ -127,12 +91,6 @@ def sass_counts(name):
                 r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", fn))
             return sum(ops.values()), ops.most_common(12)
     return None
-
-
-def clocks():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
 
 def cuda_ms(fn, reps=30):
@@ -181,10 +139,9 @@ def run():
     if not torch.cuda.is_available():
         print("k4_variants: needs a CUDA card", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    libs = build()
+    print(card(), flush=True)
+    libs = build("pool_eval_counts",
+                 {name: text for name, (text, _) in VARIANTS.items()}, OUT)
     for name in ("adopted", "unroll16"):
         print(f"{name}: SASS of the TQ=4 16-byte entry (total, top) "
               f"{sass_counts(name)}", flush=True)

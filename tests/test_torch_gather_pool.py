@@ -172,3 +172,36 @@ def test_store_gather_pool_matches_the_jax_store():
     ts.scatter_add(sh[:1], sl[:1], z[:1], np.full(1, OOB, np.int32),
                    vals[:1])
     assert not ts.epochs_unchanged(sh[:5], sl[:5], e)
+
+
+# the DLRM-DCNv2 multi-hot sizes the bag path serves (chip_smoke.py
+# DLRM_HOTS): one bag of 100 members, one of 27, one of 12 a sample
+DLRM_HOTS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1)
+
+
+@pytest.mark.parametrize("pooling", ["sum", "mean"])
+def test_k8_plain_on_bags_of_very_different_lengths(pooling):
+    """The plain version and TorchDevicePort against NumpyRefPort on the
+    bag lengths K8's redesign is built for: 4 samples of the DLRM
+    multi-hot sizes, then a bag of 1,500 members among singletons, an
+    empty bag in the middle, a last bag that runs up to the OOB padding
+    and empty padding bags after it."""
+    rng = np.random.default_rng(17)
+    L = 6
+    sizes = np.concatenate([np.tile(DLRM_HOTS, 4), [1, 1, 1500, 0, 1, 9]])
+    seg = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    m = len(seg)
+    n = 1 << int(np.ceil(np.log2(m)))
+    pools = [rng.normal(size=(S, k, L)).astype(np.float32)
+             for k in (R, C, C)]
+    a = [rng.integers(0, S, n).astype(np.int32),
+         rng.integers(0, R, n).astype(np.int32),
+         rng.integers(0, S, n).astype(np.int32),
+         rng.integers(0, C, n).astype(np.int32), rng.random(n) < 0.25,
+         np.concatenate([seg, np.full(n - m, OOB, np.int32)])]
+    out = rng.normal(size=(len(sizes) + 5, L)).astype(np.float32)
+    ref = NumpyRefPort().gather_pool(*pools, *a, out, pooling=pooling)
+    assert np.array_equal(_bits(_plain(pools, a, out, pooling)), _bits(ref))
+    assert np.array_equal(_bits(_torch_port(pools, a, out, pooling)),
+                          _bits(ref))

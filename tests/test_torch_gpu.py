@@ -758,3 +758,108 @@ def test_gather_pool_through_the_port_and_the_store(cuda):
             assert K.LAUNCHES["gather_pool"] - before == \
                 (1 if st.main.is_cuda else 0)
         assert torch.equal(_bits(got[1]), _bits(got[0]))
+
+
+def _stress_case(rng, L, S):
+    """Bags of very different lengths, as K8's work items see them: one
+    bag of 5,000 members among singletons and a few longer bags, empty
+    bags in the middle (a run of 200 among them), a last bag of 37
+    members that runs up to the bucket's OOB padding, and empty padding
+    bags after it."""
+    R, C = 300, 40
+    sizes = np.ones(3000, np.int64)
+    sizes[1200] = 5000
+    sizes[[7, 300, 301, 2999 - 5]] = [100, 27, 12, 0]
+    sizes[[10, 11, 500, 2000]] = 0
+    sizes[2100:2300] = 0              # empty bags over whole chunks
+    sizes[-1] = 37
+    seg = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    m = len(seg)
+    n = 1 << int(np.ceil(np.log2(m)))            # the store's bucket
+    seg = np.concatenate([seg, np.full(n - m, OOB, np.int32)])
+    main, cache, delta = (torch.randn(S, k, L) for k in (R, C, C))
+    main[0, :3] = -0.0
+    o = _coords(rng, n, S, R)
+    c = _coords(rng, n, S, C)
+    use_c = torch.from_numpy(rng.random(n) < (0.25 if S == 2 else 0.0))
+    nb = 1 << int(np.ceil(np.log2(len(sizes))))
+    out0 = torch.randn(nb, L)
+    out0[:4] = -0.0
+    return (main, cache, delta) + o + c + (use_c,), seg, out0
+
+
+@pytest.mark.parametrize("L", [256, 6])
+@pytest.mark.parametrize("pooling", ["sum", "mean"])
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_gather_pool_bag_length_stress(cuda, L, pooling, S, order):
+    """K8 bitwise its plain version and over two runs where one bag is
+    5,000 members long among singletons (it spans many work items),
+    with empty bags in the middle (one run of 200) and at the end and a
+    last bag that runs up to the OOB padding; owner-served (S=1) and a
+    quarter replica-served (S=2)."""
+    rng = np.random.default_rng(L + 10 * S)
+    args, seg, out0 = _stress_case(rng, L, S)
+    s = torch.from_numpy(seg)
+    a = list(args)
+    if order == "unsorted":
+        perm = torch.from_numpy(rng.permutation(len(seg)))
+        a = [x if x.dim() == 3 else x[perm] for x in a]
+        s = s[perm]
+    ref = K.gather_pool(*a, s, out0.clone(), pooling)
+    got = [K.gather_pool(*[x.to(cuda) for x in a], s.to(cuda),
+                         out0.clone().to(cuda), pooling,
+                         sorted_seg=order == "sorted") for _ in range(2)]
+    assert torch.equal(_bits(got[0]), _bits(ref))
+    assert torch.equal(_bits(got[1]), _bits(got[0]))
+
+
+@pytest.mark.parametrize("L", [256, 6])
+@pytest.mark.parametrize("pooling", ["sum", "mean"])
+def test_gather_pool_items_past_the_first_wave(cuda, L, pooling):
+    """K8 on a batch with more work items than its persistent grid has
+    warps (about 600,000 members in bags of the DLRM-DCNv2 multi-hot
+    sizes, a few empty), where the items past the first wave come from
+    the launch stream's counter: bitwise the plain version over
+    repeated launches (each must leave its counter reset for the next)
+    on the default stream and on a second one, and with two launches
+    running at once on the two streams (each stream has its own
+    counter)."""
+    rng = np.random.default_rng(L)
+    hots = np.array([3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1,
+                     1, 12, 100, 27, 10, 3, 1, 1])
+    sizes = np.tile(hots, 2800)
+    sizes[rng.choice(len(sizes), 100, replace=False)] = 0
+    seg = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    n = 1 << int(np.ceil(np.log2(len(seg))))             # the store's bucket
+    seg = np.concatenate([seg, np.full(n - len(seg), OOB, np.int32)])
+    S, R, C = 2, 5000, 1000
+    main, cache, delta = (torch.randn(S, k, L, device=cuda)
+                          for k in (R, C, C))
+    args = [t.to(cuda) for t in _coords(rng, n, S, R) + _coords(rng, n, S, C)
+            + (torch.from_numpy(rng.random(n) < 0.25),)]
+    s = torch.from_numpy(seg).to(cuda)
+    out0 = torch.randn(1 << int(np.ceil(np.log2(len(sizes)))), L,
+                       device=cuda)
+    ref = K.gather_pool_plain(main, cache, delta, *args, s, out0.clone(),
+                              pooling)
+    here, side = torch.cuda.current_stream(cuda), torch.cuda.Stream(cuda)
+
+    def launch(stream, out):
+        with torch.cuda.stream(stream):
+            K.gather_pool(main, cache, delta, *args, s, out, pooling,
+                          sorted_seg=True)
+        return out
+
+    outs = []
+    for stream in (here, side, here, side):      # one after another
+        out = out0.clone()
+        stream.wait_stream(here)
+        outs.append(launch(stream, out))
+        here.wait_stream(stream)
+    pair = [out0.clone(), out0.clone()]
+    side.wait_stream(here)
+    outs += [launch(here, pair[0]), launch(side, pair[1])]   # at once
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(_bits(got), _bits(ref))
