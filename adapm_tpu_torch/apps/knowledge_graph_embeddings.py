@@ -373,7 +373,9 @@ def run_app(args, device=None) -> dict:
     (default cuda). Returns the result dict of the JAX app, plus
     `epoch_losses` (one mean loss per epoch) and host-clock seconds:
     `gen_s` (dataset), `epoch_s` (each epoch's training, up to its loss
-    on the host) and `eval_s` (each evaluation)."""
+    on the host) and `eval_s` (each evaluation), and `staged_steps`
+    (device-routed steps whose keys were pre-uploaded by the prefetch
+    pipeline's prepare path)."""
     dev = torch.device("cuda" if device is None else device)
     t_gen = time.perf_counter()
     truth_mrr = None
@@ -477,11 +479,13 @@ def run_app(args, device=None) -> dict:
             batches = [mine[idx] for idx in
                        wrap_batches(len(mine), B, rng)]
             handles = {}
+            staged = {}  # bi -> (roles, StagedKeys) pre-uploaded batches
             prepared_hi = -1  # highest batch index already prepared
 
             def triple_roles(t):
                 # the ONE logical->physical role mapping for a triple
-                # batch (prepare and both step paths must agree)
+                # batch (prepare, the staged-miss fallback and both step
+                # paths must agree)
                 return {"s": run.ekey(t[:, 0]), "r": run.rkey(t[:, 1]),
                         "o": run.ekey(t[:, 2])}
 
@@ -498,6 +502,12 @@ def run_app(args, device=None) -> dict:
                 w.intent(ks, fut, fut + 1)
                 if not args.device_routes:
                     handles[bi] = w.prepare_sample(B * N, fut, fut + 1)
+                elif srv.prefetch is not None and K == 1:
+                    # prefetch pipeline on: the batch's key upload rides
+                    # the prepare path (DeviceRoutedRunner.prefetch_keys)
+                    # instead of the dispatch
+                    staged[bi] = (roles, device_runner(w.shard)
+                                  .prefetch_keys(roles))
 
             K = max(1, args.scan_steps) if args.device_routes else 1
             for bi in range(min(max(args.lookahead, K), len(batches))):
@@ -526,8 +536,14 @@ def run_app(args, device=None) -> dict:
                 if bi + args.lookahead < len(batches):
                     prepare(bi + args.lookahead, ahead=args.lookahead)
                 if args.device_routes:
-                    loss = device_runner(w.shard)(
-                        triple_roles(train[idx]), None, lr_epoch)
+                    pre = staged.pop(bi, None)
+                    if pre is not None:  # keys already on the device
+                        roles, stg = pre
+                        loss = device_runner(w.shard)(roles, None,
+                                                      lr_epoch, staged=stg)
+                    else:
+                        loss = device_runner(w.shard)(
+                            triple_roles(train[idx]), None, lr_epoch)
                 else:
                     roles = triple_roles(train[idx])
                     neg = np.asarray(
@@ -601,6 +617,8 @@ def run_app(args, device=None) -> dict:
     # mean entity-row L2 norm: regularization evidence (--l2 must shrink
     # it; tests/test_apps.py test_kge_l2_regularizer_shrinks_norms)
     result["replicas_created"] = int(srv.sync.stats.replicas_created)
+    result["staged_steps"] = sum(r.staged_steps
+                                 for r in dev_runners.values())
     ent = srv.read_main(run.ekey(np.arange(min(run.E, 2048)))).reshape(
         -1, 2 * run.ent_dim)[:, : run.ent_dim]
     result["ent_norm"] = float(np.sqrt((ent * ent).sum(axis=1)).mean())

@@ -182,13 +182,14 @@ class SystemOptions:
     optimistic_routing: bool = True
 
     # -- prefetch pipeline (sys.prefetch.*; core/intent.py
-    #    PrefetchScheduler): consume Worker.intent declarations on a
-    #    background thread — delegated planner rounds, staged device
-    #    table mirrors, and pre-gathered pull buffers — so the training
-    #    thread's per-step critical path is the device dispatch alone.
-    #    Not ported yet (ROADMAP queue A, item 7): default off here, and
-    #    the Server refuses it.
-    prefetch: bool = False
+    #    PrefetchScheduler): consume Worker.intent declarations in
+    #    programs on the executor's `prefetch` stream — delegated planner
+    #    rounds, device table mirrors refreshed in place, and
+    #    pre-gathered pull buffers — so the training thread's per-step
+    #    critical path is the device dispatch alone. Default on, as in
+    #    the JAX package; --sys.prefetch 0 is the kill switch (planner
+    #    rounds then run inline on the training thread).
+    prefetch: bool = True
     # staged pull batches kept per worker (oldest evicted beyond this)
     prefetch_max_batches: int = 4
     # device rows the staging pool may hold per length class (bounds the
@@ -817,7 +818,7 @@ class SystemOptions:
         g.add_argument("--sys.optimistic_routing",
                        dest="sys_optimistic_routing", type=int, default=1)
         g.add_argument("--sys.prefetch", dest="sys_prefetch", type=int,
-                       default=0)
+                       default=1)
         g.add_argument("--sys.prefetch.max_batches",
                        dest="sys_prefetch_max_batches", type=int, default=4)
         g.add_argument("--sys.prefetch.staging_rows",

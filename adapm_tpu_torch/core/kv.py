@@ -18,10 +18,13 @@ This is the JAX package's `core/kv.py` for one process, over torch pools
     host when it is finished;
   - a single coarse lock serializes table and pool mutation.
 
+The intent-driven prefetch pipeline (`prefetch`, core/intent.py; on by
+default, `--sys.prefetch 0` is the kill switch) and the background
+planner (`start_sync_thread`) run as programs on the server's executor.
 The serving plane (`adapm_tpu_torch/serve`) attaches itself as
 `_serve_plane` and reads the kernel cost table (`costs`,
 `--sys.costs.table`). Every other optional plane of the JAX server
-(tiering, prefetch, streaming, workload/decision traces, learned policy,
+(tiering, streaming, workload/decision traces, learned policy,
 checkpoints, fault injection, the multi-process layer) is not ported:
 asking for one raises NotImplementedError naming its ROADMAP item, and
 the corresponding attributes stay None.
@@ -90,7 +93,6 @@ def _fill_flat(out, offs, lens, pos, part) -> None:
 # ROADMAP item that ports each
 _UNPORTED_PLANES = (
     ("tier", "tiered storage (--sys.tier)", "queue A, item 8"),
-    ("prefetch", "the prefetch pipeline (--sys.prefetch)", "queue A, item 7"),
     ("trace_flight", "request-flight tracing", "queue A, item 10"),
     ("crash_dumps", "crash dumps", "queue A, item 10"),
     ("trace_workload", "workload trace capture", "queue A, item 10"),
@@ -190,7 +192,7 @@ class Server:
                                   single_stream=self.opts.exec_single_stream,
                                   retry_policy=self._retry_policy)
         # the planes that are not ported: always None here
-        self.tier = self.prefetch = self.glob = self.net = None
+        self.tier = self.glob = self.net = None
         self.stream = self.wtrace = self.decisions = self.policy = None
         self.ckpt = self.flight = self.fault = None
         self.sampling = None  # set by enable_sampling_support
@@ -263,11 +265,22 @@ class Server:
         self.topology_version = 0
 
         self.sync = SyncManager(self, self.opts)
+        # the background planner's started/stopped token (None = stopped)
+        self._sync_thread = None
+        self._sync_stop = threading.Event()
+        # background rounds that raised (each is logged and retried)
+        self.sync_loop_failures = 0
 
-        from .intent import PlanCache
+        # routing-plan cache + intent-driven prefetch pipeline (the hot
+        # Pull/Push path levers; core/intent.py). Both revalidate against
+        # topology_version, i.e. they depend on the _topology_mutation
+        # discipline above.
+        from .intent import PlanCache, PrefetchScheduler
         self._plan_cache = PlanCache(self.opts.plan_cache_entries,
                                      registry=self.obs) \
             if self.opts.plan_cache_entries > 0 else None
+        self.prefetch = PrefetchScheduler(self, self.opts) \
+            if self.opts.prefetch else None
 
         self._shutdown_done = False
         # native host-routing core (C++ via ctypes; None -> numpy fallback)
@@ -486,6 +499,7 @@ class Server:
               is_set: bool = False, plan=None) -> int:
         """Returns n_remote. `plan` is an optional `_plan_push` result
         revalidated under the lock."""
+        self._prefetch_note(keys)
         if plan is None:
             plan = self._plan_push(keys, vals, shard, is_set=is_set)
         n_remote = 0
@@ -514,6 +528,14 @@ class Server:
             if cache is not None:
                 cache.put(kind, shard, keys, tv, plan)
         return plan
+
+    def _prefetch_note(self, keys: np.ndarray) -> None:
+        """Invalidate staged prefetch buffers that intersect a value
+        write (caller holds the lock; every write path passes through
+        here before a reader could miss the write — see
+        PrefetchScheduler.note_writes)."""
+        if self.prefetch is not None:
+            self.prefetch.note_writes(keys)
 
     def ensure_local(self, keys: np.ndarray, shard: int) -> None:
         """Make process-remote keys locally servable: a no-op in one
@@ -587,6 +609,10 @@ class Server:
             ab = self.ab
             karr = np.ascontiguousarray(keys, dtype=np.int64)
             sarr = np.ascontiguousarray(shards, dtype=np.int32)
+            # a sync refreshes replica bases (and may advance owner rows):
+            # staged pull buffers of these keys are no longer what a
+            # fresh pull would return
+            self._prefetch_note(karr)
             for cid, pos in self._group_by_class(karr):
                 ks, ss = karr[pos], sarr[pos]
                 r_cs = ab.cache_slot[ss, ks].astype(np.int32)
@@ -683,6 +709,83 @@ class Server:
 
     # -- lifecycle -----------------------------------------------------------
 
+    def start_sync_thread(self) -> None:
+        """Run sync rounds in the background (reference SyncManager
+        threads, coloc_kv_server.h:100-105). Optional: tests and apps
+        drive rounds themselves.
+
+        Rounds run as a self-rescheduling program on the executor's
+        `sync` stream (one round per program, resubmitted until
+        stopped). `_sync_thread` is the started/stopped token (None =
+        stopped). A round that raises is logged, counted in
+        `sync_loop_failures` and retried after a capped exponential
+        backoff: the loop never dies of one failure."""
+        if self._sync_thread is not None:
+            return
+        self._sync_stop.clear()
+        state = {"last_report": _time.monotonic(), "last_rounds": 0,
+                 "fail_streak": 0}
+        token = object()
+        self._sync_thread = token
+
+        def tick():
+            from ..utils import alog
+            if self._sync_stop.is_set() or self._sync_thread is not token:
+                return
+            delay = 0.0
+            try:
+                with self._round_lock:
+                    self.sync.run_round()
+                state["fail_streak"] = 0
+                # periodic report (reference SyncManager 10-second
+                # reports, sync_manager.h:482-497)
+                rs = self.opts.sync_report_s
+                now = _time.monotonic()
+                if rs > 0 and now - state["last_report"] >= rs:
+                    dr = self.sync.stats.rounds - state["last_rounds"]
+                    alog(f"[sync] "
+                         f"{dr / (now - state['last_report']):.1f} "
+                         f"rounds/s | " + self.sync.report())
+                    state["last_report"] = now
+                    state["last_rounds"] = self.sync.stats.rounds
+            except Exception as e:  # noqa: BLE001 — the loop outlives
+                # any one round: it reschedules with its own capped
+                # backoff instead of dying with an error nobody waits on
+                state["fail_streak"] += 1
+                self.sync_loop_failures += 1
+                delay = min(2.0, self.opts.fault_backoff_ms * 1e-3 *
+                            (2.0 ** min(state["fail_streak"], 10)))
+                alog(f"[sync] background round failed "
+                     f"(streak {state['fail_streak']}): "
+                     f"{type(e).__name__}: {e} — retrying in "
+                     f"{delay * 1e3:.0f} ms")
+            if not self._sync_stop.is_set() and \
+                    self._sync_thread is token:
+                self.exec.submit("sync", tick, label="sync.round",
+                                 coalesce_key="sync.round", delay=delay)
+
+        self.exec.submit("sync", tick, label="sync.round",
+                         coalesce_key="sync.round")
+
+    def stop_sync_thread(self) -> None:
+        if self._sync_thread is None:
+            return
+        self._sync_stop.set()
+        # drain, not join: at most one more queued round observes the
+        # stop flag and returns. A round that does not drain is wedged
+        # and still reads through the pools — proceeding into executor
+        # close and pool teardown would be a use-after-teardown, so
+        # fail-stop loudly instead
+        if not self.exec.drain("sync", timeout=60):
+            from ..utils import alog
+            alog("[sync] background round failed to drain within 60s "
+                 "of stop — wedged mid-round")
+            raise RuntimeError(
+                "sync round wedged: did not drain within 60s of stop; "
+                "refusing to proceed into pool teardown under a live "
+                "reader")
+        self._sync_thread = None
+
     def _wb_active_ids(self) -> set:
         ids = range(self.max_workers) if self._wb_declared \
             else list(self._workers)
@@ -718,10 +821,16 @@ class Server:
                 s.block()
 
     def drive_rounds(self, n: int = 1) -> None:
-        """One training step's planner-drive slot (inline: the prefetch
-        pipeline that would overlap it is not ported)."""
-        for _ in range(n):
-            self.sync.run_round()
+        """One training step's planner-drive slot (the apps' per-step
+        `sync.run_round` loop): inline when no prefetch pipeline, else
+        delegated to the pipeline's programs on the executor, so planner
+        work overlaps the in-flight device step instead of serializing
+        after it."""
+        if self.prefetch is not None:
+            self.prefetch.pump(n)
+        else:
+            for _ in range(n):
+                self.sync.run_round()
 
     def dead_nodes(self, max_age_s: float = 10.0) -> list:
         """Peer processes whose heartbeat has gone stale. One process,
@@ -753,14 +862,19 @@ class Server:
         return self._degraded_reason
 
     def shutdown(self) -> None:
-        """Idempotent teardown: the serving plane first (its dispatchers
-        read the pools), then the executor, pool quiesce, stats/trace
-        export, registry unhook."""
+        """Idempotent teardown; readers go down before their substrate:
+        the serving plane (its dispatchers read the pools), the prefetch
+        pipeline (staged gathers, delegated rounds), the background
+        planner, then the executor, pool quiesce, stats/trace export,
+        registry unhook."""
         if self._shutdown_done:
             return
         self._shutdown_done = True
         if self._serve_plane is not None:
             self._serve_plane.close()
+        if self.prefetch is not None:
+            self.prefetch.close()
+        self.stop_sync_thread()
         self.exec.close()
         self.block()
         self.sync.close()
@@ -808,6 +922,9 @@ class Server:
                 alog("[stats] " + " ".join(f"{k}={v:.3f}" for k, v in
                                            summ.items() if v == v))
             alog("[stats]", self.sync.report())
+            if self.prefetch is not None:
+                alog("[stats] prefetch: " + " ".join(
+                    f"{k}={v}" for k, v in self.prefetch.report().items()))
         if not self.opts.stats_out:
             return []
         from ..utils.stats import write_stats
@@ -816,13 +933,14 @@ class Server:
 
     def metrics_snapshot(self) -> Dict:
         """The structured telemetry dict: `schema_version`,
-        `metrics_enabled`, and the registry's sections plus `kv`, `exec`,
-        `device`, `serve` and `slo` (the last two `{}` without a serving
-        plane or without an SLO controller). With a plane attached,
-        `serve.readiness` is its `health.readiness()` dict."""
+        `metrics_enabled`, and the registry's sections plus `kv`,
+        `prefetch`, `plan_cache`, `staging`, `exec`, `device`, `serve`
+        and `slo` (`{}` where the subsystem is off). With a plane
+        attached, `serve.readiness` is its `health.readiness()` dict."""
         out: Dict = {"schema_version": 1,
                      "metrics_enabled": bool(self.obs.enabled),
-                     "kv": {}, "exec": {}, "device": {}, "serve": {},
+                     "kv": {}, "prefetch": {}, "plan_cache": {},
+                     "staging": {}, "exec": {}, "device": {}, "serve": {},
                      "slo": {}}
         if not self.obs.enabled:
             return out
@@ -842,6 +960,11 @@ class Server:
                 agg[k] = agg.get(k, 0) + int(v)
         out["kv"].update(agg)
         out["kv"]["locality"] = self.locality_summary()
+        if self.prefetch is not None:
+            out["prefetch"].update(
+                {k: int(v) for k, v in self.prefetch.report().items()})
+        if self._plan_cache is not None:
+            out["plan_cache"].update(self._plan_cache.stats())
         out["exec"].update(self.exec.stats())
         if self.stores:
             out["device"].update(self.stores[0].port.stats())
@@ -957,13 +1080,32 @@ class Worker:
     def pull(self, keys, out: Optional[np.ndarray] = None) -> int:
         """Async pull. Returns ts (use wait) or LOCAL=-1 if every key was
         served from this worker's shard (owned or replicated) — then `out`
-        is already filled when provided."""
+        is already filled when provided.
+
+        Fast path: a batch this worker declared intent for may have been
+        pre-gathered by the prefetch pipeline (core/intent.py); the pull
+        then consumes the staged device buffers — no planning, no server
+        lock, no dispatch. The pipeline enforced validity (topology
+        unchanged since the gather, no intersecting write), so a staged
+        hit is bit-identical to the pull it replaced."""
         return self._instrumented("kv.pull", self._h_pull,
                                   self._pull_op, keys, out)
 
     def _pull_op(self, keys, out: Optional[np.ndarray]) -> int:
         keys = self._keys(keys)
         srv = self.server
+        if srv.prefetch is not None:
+            st = srv.prefetch.take_staged(self, keys)
+            if st is not None:
+                self.stats["pull_ops"] += 1
+                self.stats["pull_params"] += len(keys)
+                self.stats["pull_params_local"] += len(keys) - st.n_remote
+                entry = _WaitEntry(groups=st.groups, out=out, keys=keys)
+                if st.n_remote == 0:
+                    self.stats["pull_ops_local"] += 1
+                    self._finish_pull(keys, entry)
+                    return LOCAL
+                return self._new_ts(entry)
         plan, tv = None, -1
         if srv.opts.optimistic_routing:
             # route outside the lock; revalidate the topology below
@@ -1020,6 +1162,23 @@ class Worker:
         flat buffer or [B, L]. Returns ts or LOCAL."""
         return self._instrumented("kv.push", self._h_push,
                                   self._write_op, keys, vals, False)
+
+    def staggered_push(self, keys, vals, group_size: int = 100_000) -> int:
+        """Push a large key set in groups (reference StaggeredPush,
+        coloc_kv_worker.h:556-580: bounds per-request buffering when
+        pushing e.g. a whole initial model). Returns the last group's
+        ts."""
+        keys = self._keys(keys)
+        vals = np.asarray(vals, dtype=np.float32)
+        flat = vals.ndim == 1
+        if flat:
+            cum = _offsets(self.server.value_lengths[keys])
+        ts = LOCAL
+        for lo in range(0, len(keys), group_size):
+            hi = min(lo + group_size, len(keys))
+            part = vals[cum[lo]:cum[hi]] if flat else vals[lo:hi]
+            ts = self.push(keys[lo:hi], part)
+        return ts
 
     def set(self, keys, vals) -> int:
         """Overwrite values (reference Set: non-additive write)."""
@@ -1084,10 +1243,16 @@ class Worker:
     def intent(self, keys, start: int, end: Optional[int] = None) -> None:
         """Declare future access to `keys` in clock window [start, end]
         (reference Intent, coloc_kv_worker.h:380-408; end defaults to
-        start)."""
+        start). With the prefetch pipeline on, the declaration also
+        queues background staging: a later `pull` of exactly this
+        (unique, sorted) key batch inside the window can be served from
+        a pre-gathered staged buffer."""
         keys = np.unique(self._keys(keys))
         end = start if end is None else end
         self._intent_queue.push(keys, int(start), int(end))
+        srv = self.server
+        if srv.prefetch is not None:
+            srv.prefetch.on_intent(self, keys, int(start), int(end))
 
     def advance_clock(self) -> int:
         self._clock += 1

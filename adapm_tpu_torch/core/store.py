@@ -44,6 +44,50 @@ def pad_bucket(n: int, *arrays_and_fills, minimum: int = 8):
     return [pad_to(np.asarray(a), b, fill) for a, fill in arrays_and_fills]
 
 
+class StagingPool:
+    """Row budget for the prefetch pipeline's staged gather buffers (one
+    per length class; core/intent.py PrefetchScheduler).
+
+    Not a preallocated arena: the gather already writes its rows into a
+    fresh tensor, so copying them into a reserved pool would only add a
+    device-to-device copy. What staging needs is a BOUND — prefetch must
+    not be able to exhaust device memory by racing ahead of the consumer
+    — so the pool accounts rows (the tensors stay owned by the staged
+    entries) and `stage_gather` refuses to gather past the budget.
+    Thread-safe: executor programs acquire, any thread that drops or
+    consumes an entry releases."""
+
+    def __init__(self, max_rows: int):
+        import threading
+        self.max_rows = max_rows
+        self._rows = 0
+        self._hwm = 0  # occupancy high-water mark (staging.rows_hwm)
+        self._lock = threading.Lock()
+
+    def try_acquire(self, rows: int) -> bool:
+        with self._lock:
+            if self._rows + rows > self.max_rows:
+                return False
+            self._rows += rows
+            if self._rows > self._hwm:
+                self._hwm = self._rows
+            return True
+
+    def release(self, rows: int) -> None:
+        with self._lock:
+            self._rows -= rows
+            assert self._rows >= 0, "staging pool released more than held"
+
+    @property
+    def rows_in_use(self) -> int:
+        return self._rows
+
+    @property
+    def rows_hwm(self) -> int:
+        """Highest concurrent row occupancy seen (never resets)."""
+        return self._hwm
+
+
 def _round8(n: int) -> int:
     """Slot counts rounded up to a multiple of 8 — the JAX package's
     layout rule, kept so slot counts (and with them addressbook slots)
@@ -184,6 +228,25 @@ class ShardedStore:
                        minimum=self.bucket_min)
         return self.port.gather_pool(self.main, self.cache, self.delta,
                                      *a, out, pooling=pooling)
+
+    def stage_gather(self, o_shard, o_slot, c_shard, c_slot, use_cache,
+                     pool: StagingPool):
+        """The prefetch pipeline's gather: the same program (K1) and
+        result as `gather` — a staged pull must be bit-identical to the
+        pull it replaces — accounted against `pool`'s row budget.
+        Returns (device rows, accounted row count), or None when the
+        budget is spent (the consumer then pulls the plain way). The
+        caller releases the rows when the entry is consumed or
+        dropped."""
+        rows = bucket_size(len(o_shard), self.bucket_min)
+        if not pool.try_acquire(rows):
+            return None
+        try:
+            return self.gather(o_shard, o_slot, c_shard, c_slot,
+                               use_cache), rows
+        except BaseException:
+            pool.release(rows)
+            raise
 
     def scatter_add(self, o_shard, o_slot, d_shard, d_slot, vals):
         n = len(o_shard)

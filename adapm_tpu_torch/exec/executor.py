@@ -205,6 +205,8 @@ class AsyncExecutor:
         self._t_buckets = [0.0, 0.0, 0.0]
         self._started = 0
         self._finished = 0
+        # programs whose final outcome was an error (after any retries)
+        self._failed = 0
         # ---- metrics (exec.* section, docs/OBSERVABILITY.md) ----
         self._registry = registry
         from ..obs.metrics import Counter, Histogram
@@ -274,6 +276,7 @@ class AsyncExecutor:
             idle, single, over = self._t_buckets
             return {"programs_started": self._started,
                     "programs_finished": self._finished,
+                    "programs_failed": self._failed,
                     "queued": sum(len(s.q) for s in self._streams.values()),
                     "streams": len(self._streams),
                     "workers": len(self._threads),
@@ -592,6 +595,8 @@ class AsyncExecutor:
             with self._cond:
                 self._stream_exit(st)
                 self._finished += 1
+                if error is not None:
+                    self._failed += 1
                 st.busy_since = None
                 st.busy_label = None
                 self._cond.notify_all()

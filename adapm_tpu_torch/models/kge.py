@@ -87,6 +87,17 @@ class KgeLoss:
         self.fused_update = self._complex_update if model == "complex" \
             else None
 
+    @staticmethod
+    def fused_fits(rows) -> bool:
+        """Whether K5 takes these gathered rows: s, r, o [B, 4d] and neg
+        [B, N, 4d]. The loss itself also takes a neg role of other
+        shapes (a [N] batch of negatives is broadcast over the triples,
+        as in the JAX package); those run as autograd + K2."""
+        s, neg = rows["s"], rows["neg"]
+        return (s.dim() == 2 and neg.dim() == 3
+                and neg.shape[0] == s.shape[0]
+                and all(rows[r].shape == s.shape for r in ("r", "o")))
+
     def __call__(self, embs, aux):
         s, r, o, neg = embs["s"], embs["r"], embs["o"], embs["neg"]
         pos = self.score(s, r, o)

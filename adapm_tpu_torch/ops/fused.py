@@ -45,6 +45,13 @@ with placement frozen for the window (make_device_routed_scan). On the
 CPU it is a plain loop over the step; on the card the window is a
 captured CUDA graph, replayed per window (DeviceRoutedRunner.run_scan
 says what it captures and when it captures again).
+
+With the prefetch pipeline on (SystemOptions.prefetch, core/intent.py)
+the runner registers its mirror refresh with the pipeline, which runs it
+after delegated planner rounds, and `prefetch_keys` uploads a future
+step's keys ahead of its dispatch (`StagedKeys`, the `staged=` argument
+of `__call__`). Every fused step notes its writes with the pipeline, so
+staged pull buffers of trained keys are dropped.
 """
 from __future__ import annotations
 
@@ -68,11 +75,17 @@ def _key_dtype(num_keys: int):
 
 
 def _mark_fused_writes(server, shard: int, role_class, role_keys,
-                       skip_roles=()) -> None:
-    """Dirty-delta write tracking for a fused step's host-known roles
-    (caller holds the server lock): resolve each role's keys through the
-    addressbook — the tables the step routes with — and record the
-    scatter in the stores' write epochs."""
+                       skip_roles=(), sampled: bool = False) -> None:
+    """A fused step is a batched Push (caller holds the server lock).
+    Dirty-delta write tracking for its host-known roles: resolve each
+    role's keys through the addressbook — the tables the step routes
+    with — and record the scatter in the stores' write epochs, or the
+    planner would skip shipping the trained replicas. And the prefetch
+    pipeline drops the staged pull buffers the step writes: those of
+    every role's keys, frozen ones too as in the JAX package, or all of
+    them when the step draws negatives on the device (`sampled`)."""
+    if server.prefetch is not None:
+        server.prefetch.note_step_writes(role_keys.values(), sampled)
     ab = server.ab
     for r, keys in role_keys.items():
         if r in skip_roles:
@@ -177,12 +190,14 @@ def _loss_and_updates(loss_fn, rows, role_dim, roles, train_classes, aux,
     of its trainable roles' AdaGrad delta rows; `lr_eps` is (lr, eps) as
     a 2-float tensor on the rows' device. A loss with a fused form runs
     it (`loss_fn.fused_update(rows, slices, lr_eps, aux)`: K5 for
-    ComplEx, K6 for SGNS, K7 for MF); any other as autograd, each role's
+    ComplEx, K6 for SGNS, K7 for MF) where its `fused_fits(rows)`, if it
+    has one, accepts the rows' shapes; any other as autograd, each role's
     embedding half its own leaf (a duplicated key gets one gradient per
     occurrence), then K2 per trainable role."""
     bufs, slices = _update_buffers(rows, train_classes)
     fused_update = getattr(loss_fn, "fused_update", None)
-    if fused_update is not None:
+    fits = getattr(loss_fn, "fused_fits", None)
+    if fused_update is not None and (fits is None or fits(rows)):
         for r in roles:
             _require_row(rows[r], role_dim[r])
         return fused_update(rows, slices, lr_eps, aux), bufs
@@ -261,7 +276,14 @@ def make_fused_adagrad_step(loss_fn: Callable[..., torch.Tensor],
 
 class DeviceRouter:
     """Device mirrors of the Addressbook tables for one worker shard,
-    refreshed lazily on placement changes (Server.topology_version)."""
+    refreshed lazily on placement changes (Server.topology_version).
+
+    A refresh after the first upload copies the tables into the same
+    tensors (stream-ordered after the steps already enqueued, under the
+    dispatch gate), so their addresses never change: a captured
+    run_scan graph reads the mirrors by address and stays valid across
+    refreshes, whether the training thread or the prefetch pipeline
+    ran them."""
 
     def __init__(self, server, shard: int):
         self.server = server
@@ -276,10 +298,16 @@ class DeviceRouter:
         if self._version == srv.topology_version and self.owner is not None:
             return
         ab = srv.ab
-        put = srv.ctx.put_replicated
-        self.owner = put(ab.owner)
-        self.slot = put(ab.slot)
-        self.cache_row = put(ab.cache_slot[self.shard])
+        host = (ab.owner, ab.slot, ab.cache_slot[self.shard])
+        with _GATE:
+            if self.owner is None:
+                put = srv.ctx.put_replicated
+                self.owner, self.slot, self.cache_row = \
+                    (put(np.ascontiguousarray(h)) for h in host)
+            else:
+                for t, h in zip((self.owner, self.slot, self.cache_row),
+                                host):
+                    t.copy_(torch.from_numpy(np.ascontiguousarray(h)))
         self._version = srv.topology_version
 
     def tables(self):
@@ -486,6 +514,70 @@ class _LrEps:
         return self.t
 
 
+class StagedKeys:
+    """A step's key batch pre-staged on the device
+    (DeviceRoutedRunner.prefetch_keys): the host-to-device upload ran at
+    prepare/intent time instead of inside the dispatch. Valid across
+    topology changes — these are raw keys, not routes.
+
+    On the card the keys are copied from the runner's ring of pinned
+    host buffers (_PinnedRing) with `non_blocking=True`, so the upload
+    is queued on the stream and the host does not wait for it (a
+    pageable source would make it synchronous). `dev` maps each role to
+    a view of one joined device tensor, as the step's own upload does.
+    `host` holds the keys prefetch_keys checked: a batch that `matches`
+    them passes the step's checks too."""
+
+    __slots__ = ("host", "dev")
+
+    def __init__(self, host: Dict[str, np.ndarray],
+                 dev: Dict[str, torch.Tensor]):
+        self.host = host
+        self.dev = dev
+
+    def matches(self, role_keys: Dict[str, np.ndarray]) -> bool:
+        """The same roles and the same keys by value (compared in their
+        own dtypes, so no key wraps around into another)."""
+        if set(self.host) != set(role_keys):
+            return False
+        return all(np.array_equal(self.host[r], np.asarray(k))
+                   for r, k in role_keys.items())
+
+
+class _PinnedRing:
+    """Pinned host buffers for StagedKeys' uploads, used in turn. A slot
+    is refilled only after the event recorded behind its last copy has
+    passed, which is long before in practice: the ring is SLOTS uploads
+    deep. Callers hold the dispatch gate."""
+
+    SLOTS = 8
+
+    def __init__(self):
+        self.bufs = [None] * self.SLOTS
+        self.events = [None] * self.SLOTS
+        self.next = 0
+
+    def upload(self, arrs, device) -> torch.Tensor:
+        """The flattened arrays (of one dtype), joined, on `device`."""
+        dtype = torch.from_numpy(arrs[0][:0]).dtype
+        i = self.next
+        self.next = (i + 1) % self.SLOTS
+        if self.events[i] is None:
+            self.events[i] = torch.cuda.Event()
+        else:
+            self.events[i].synchronize()
+        n = sum(a.size for a in arrs)
+        buf = self.bufs[i]
+        if buf is None or buf.numel() < n or buf.dtype != dtype:
+            buf = self.bufs[i] = torch.empty(bucket_size(n), dtype=dtype,
+                                             pin_memory=True)
+        view = buf[:n]
+        np.concatenate([a.reshape(-1) for a in arrs], out=view.numpy())
+        out = view.to(device, non_blocking=True)
+        self.events[i].record()
+        return out
+
+
 class _ScanGraph:
     """One captured run_scan window: the CUDA graph, its static inputs
     (the window's keys, aux) and output (the [K] losses), the addresses
@@ -572,13 +664,26 @@ class DeviceRoutedRunner:
         self._rep_version = -1
         self._has_replicas = True
         self.steps = 0
+        self.staged_steps = 0  # steps whose keys came as StagedKeys
+        self._ring = None      # pinned buffers of prefetch_keys' uploads
+        if server.prefetch is not None:
+            server.prefetch.register_refresher(self._prefetch_refresh)
+
+    def _prefetch_refresh(self) -> None:
+        """Called by the prefetch pipeline (under the server lock) after
+        planner rounds: refresh the device table mirrors (in place), the
+        local sampling index and the replica-presence flag as soon as
+        the topology settles, so the next dispatch finds them fresh."""
+        with _GATE:
+            self.router.refresh()
+            if self.neg_role is not None:
+                self._local_neg_index()
+        self._shard_has_replicas()
 
     def _note_step_writes(self, role_keys) -> None:
-        """The fused step is a batched Push: the stores' dirty-delta
-        tracking must see its scatter, or the planner would skip shipping
-        the trained replicas (caller holds the server lock)."""
         _mark_fused_writes(self.server, self.shard, self.role_class,
-                           role_keys, skip_roles=self.frozen_roles)
+                           role_keys, skip_roles=self.frozen_roles,
+                           sampled=self.neg_role is not None)
 
     def _mark_neg_writes(self) -> None:
         """Write tracking for device-drawn negatives: their rows are not
@@ -651,35 +756,67 @@ class DeviceRoutedRunner:
                     f"role {r}: keys span length classes {np.unique(kc)} "
                     f"but role is mapped to class {self.role_class[r]}")
 
-    def _put_keys(self, role_keys) -> Dict[str, torch.Tensor]:
+    def _put_keys(self, role_keys, pinned: bool = False
+                  ) -> Dict[str, torch.Tensor]:
         """The batch's keys on the device in one copy: role -> a view of
-        one joined key tensor, shaped like the role's keys."""
+        one joined key tensor, shaped like the role's keys. `pinned`
+        copies through the runner's pinned ring without waiting
+        (StagedKeys)."""
         srv = self.server
         kdtype = _key_dtype(srv.num_keys)
         names = sorted(role_keys)
         arrs = [np.asarray(role_keys[r], dtype=kdtype) for r in names]
         if not arrs:
             return {}
-        joined = srv.ctx.put_replicated(
-            np.concatenate([a.reshape(-1) for a in arrs]))
+        dev = srv.ctx.device
+        if pinned and dev.type == "cuda":
+            if self._ring is None:
+                self._ring = _PinnedRing()
+            joined = self._ring.upload(arrs, dev)
+        else:
+            joined = srv.ctx.put_replicated(
+                np.concatenate([a.reshape(-1) for a in arrs]))
         keys, off = {}, 0
         for r, a in zip(names, arrs):
             keys[r] = joined[off:off + a.size].reshape(a.shape)
             off += a.size
         return keys
 
-    def __call__(self, role_keys: Dict[str, np.ndarray], aux, lr: float,
-                 eps: float = 1e-10) -> torch.Tensor:
-        """One training step; returns the loss (a device scalar)."""
-        srv = self.server
+    def prefetch_keys(self, role_keys: Dict[str, np.ndarray]) -> StagedKeys:
+        """Pre-stage a future step's key batch on the device: the upload
+        runs now — on the app's intent/prepare path — instead of inside
+        the next dispatch. Returns the handle for __call__'s `staged`
+        parameter."""
         self._check_batch(role_keys)
+        host = {r: np.array(k) for r, k in role_keys.items()}
+        with _GATE:
+            dev = self._put_keys(host, pinned=True)
+        return StagedKeys(host, dev)
+
+    def __call__(self, role_keys: Dict[str, np.ndarray], aux, lr: float,
+                 eps: float = 1e-10,
+                 staged: Optional[StagedKeys] = None) -> torch.Tensor:
+        """One training step; returns the loss (a device scalar).
+        `staged` is the handle `prefetch_keys` returned for this very
+        batch: its keys are already on the device."""
+        srv = self.server
+        if staged is None:
+            self._check_batch(role_keys)
+        elif not staged.matches(role_keys):
+            raise ValueError(
+                "staged keys differ from the step's batch — pass the "
+                "handle prefetch_keys returned for THIS batch")
         with srv._lock:
             self._note_step_writes(role_keys)
             tables = self.router.tables()
             local_index = self._local_neg_index() \
                 if self.neg_role is not None else None
             self._mark_neg_writes()
-            keys = self._put_keys(role_keys)
+            if staged is not None:
+                keys = staged.dev
+                self.staged_steps += 1
+            else:
+                keys = self._put_keys(role_keys)
             pools = tuple((s.main, s.cache, s.delta) for s in srv.stores)
             fn = self.step_fn if self._shard_has_replicas() \
                 else self._step_fn_norep
@@ -768,7 +905,18 @@ class DeviceRoutedRunner:
         (kernels.LAUNCHES) are restored after it; each replay adds the
         launches recorded at capture to kernels.REPLAYED. Intermediate
         tensors live in the graph's pool; the result is a copy of its
-        static output."""
+        static output.
+
+        The side stream runs concurrently with whatever else is queued
+        on the default stream, so nothing else may be enqueued while it
+        runs: run_scan holds the dispatch gate (and the server lock)
+        from before `side.wait_stream(cur)` until after
+        `cur.wait_stream(side)` and the capture, and every device
+        enqueue of the prefetch pipeline and the background planner
+        takes the gate (core/intent.py PrefetchScheduler). A delegated
+        round or a mirror refresh therefore lands before or after the
+        window, never inside it; refreshes copy in place, so replays
+        keep matching `ptrs`."""
         dev = self._locstat.device
         K = len(next(iter(stacked.values())))
         aux = None if auxes is None else torch.stack(
@@ -865,8 +1013,8 @@ class FusedStepRunner:
         srv = self.server
         with srv._lock:
             routes = self.routes_for(role_keys, shard)
-            # the step is a batched Push: the stores' dirty-delta
-            # tracking must see its scatter
+            # all roles are host-provided here: the written key set is
+            # exact
             _mark_fused_writes(srv, shard, self.role_class, role_keys,
                                skip_roles=self.frozen_roles)
             pools = tuple((s.main, s.cache, s.delta) for s in srv.stores)

@@ -2,11 +2,13 @@
 kernels, holds each against its plain PyTorch version at the main path's
 shapes, drives the device-routed ComplEx KGE training step through the
 parameter manager at full width (eagerly, and as run_scan windows
-replayed from a CUDA graph), checks a small replica run against the
-CPU, runs the KGE application end to end on both routing paths, then
-the word2vec step and application and the matrix-factorization
-application the same way, and serves lookups and embedding-bag reads
-through the serving plane.
+replayed from a CUDA graph), with the prefetch pipeline on (the
+default) and off, checks a small replica run against the CPU, drives
+a pull-driven flow through the pipeline's staged buffers and the
+background planner under concurrent pushes, runs the KGE application
+end to end on both routing paths, then the word2vec step and
+application and the matrix-factorization application the same way,
+and serves lookups and embedding-bag reads through the serving plane.
 
     python3 chip_smoke.py [--json PATH]
     python3 chip_smoke.py --main-path-only   (phase 1 and phase 3's
@@ -15,6 +17,9 @@ through the serving plane.
     python3 chip_smoke.py --kernels K4,K8    (phase 1 and the named
         kernels' parts of phase 2 alone, the same way; K4 and K8 can be
         named)
+    python3 chip_smoke.py --pipeline-only    (phase 1, phase 3 with the
+        pipeline on and off, phases 11 and 12, checked as in the full
+        run)
 
 Phases (any failure raises and exits non-zero):
   1. card name + power limit; build the kernels (nvcc, sm_90a).
@@ -63,8 +68,9 @@ Phases (any failure raises and exits non-zero):
      card could take.
   3. the main path: setup(201,000 keys, 512) on cuda, slab fill, a
      DeviceRoutedRunner for ComplEx with on-device negatives (B=4096,
-     N=32), warmup, then 32 steps of intent -> step -> sync round ->
-     advance_clock; launch counts of every kernel over the main path,
+     N=32), warmup, then 32 steps of intent -> step -> drive_rounds
+     (delegated to the prefetch pipeline) -> advance_clock; launch
+     counts of every kernel over the main path,
      checked per step (one K1, one K5, no K2, one K3: one launch per pool
      class), and the profiler's device operations per step. Then
      run_scan: two servers from one fill, 16 sequential steps on one and
@@ -72,7 +78,20 @@ Phases (any failure raises and exits non-zero):
      captured as a CUDA graph, the second replays it): losses and the
      whole main pool bitwise equal; then 4 windows timed against 32
      eager steps of the same runner calls, one window profiled, and the
-     number of captures.
+     number of captures. Then the pipeline on and off from one fill
+     (seed 11), in turns (on, off, off with keys staged twice, off,
+     on): 3 + 32 eager steps (with it on, each step's keys uploaded as
+     StagedKeys on its intent path, as the app does; with it off, as
+     the turns say), a profiled window of 8 and one more step, then 5
+     K=8 windows, each followed by drive_rounds(8) and its clock ticks:
+     losses and the whole main pool bitwise equal, the same launches
+     every eager step, one capture each; ms/step eager and in windows,
+     the training thread's host time by part of a step (intent, key
+     staging, step call, drive_rounds), the pipeline's passes and their
+     host time on their own thread (timed by the scheduler), device
+     operations per step, the busy share and prefetch.report() after
+     flush(). The runs off with keys staged part StagedKeys' cost and
+     gain from the pipeline's passes.
   4. replica phase: 2 virtual shards, two workers with competing
      intents (the replica step variant, K1's cache+delta form, K3 in the
      sync merge; one K1, one K5 and two K3 per step, main then delta), the same
@@ -84,7 +103,11 @@ Phases (any failure raises and exits non-zero):
      lowrank triples generated on the card, B=4096, N=32, 2 epochs of
      100 device-routed steps as --scan_steps 8 (12 graph windows and a
      4-step tail per epoch), pool-count eval (K4) after each; launch
-     counts of every kernel over the run.
+     counts of every kernel over the run; the same run with
+     --sys.prefetch 0 (the kill switch): epoch losses bitwise equal;
+     then 64 device-routed steps at --scan_steps 1 (keys pre-uploaded
+     as StagedKeys) with the pipeline on and off, profiled: losses
+     bitwise equal, busy share, staged-key steps.
   6. the host-routed app path (--no-device_routes, PullSample
      negatives) at the same width for 10 steps; then test_kge_app's
      small configuration on cuda and on cpu (epoch losses within rtol
@@ -103,14 +126,16 @@ Phases (any failure raises and exits non-zero):
      20,000 sentences over a 100,000-word generator vocabulary, 2
      epochs: loss finite and falling, K6's wrapper and replayed
      launches adding up to the steps, the device busy share and the
-     host seconds; then the host-routed small configuration on cuda and
-     on cpu (epoch losses within rtol 1e-4).
+     host seconds; the same run with --sys.prefetch 0: epoch losses
+     bitwise equal, the same launches; then the host-routed small
+     configuration on cuda and on cpu (epoch losses within rtol 1e-4).
   9. the MF app (apps/matrix_factorization.py) on cuda at rank 128 on a
      MovieLens-1M-sized synthetic matrix (6,040 x 3,706, 1,000,209
      ratings), dsgd, 2 epochs, device routes with --scan_steps 8 and
      host routes: loss falling, K7's launches adding up to the steps;
-     then test_mf_app's configuration on cuda and on cpu on both routing
-     paths (epoch losses within rtol 1e-4).
+     each again with --sys.prefetch 0: epoch losses bitwise equal, the
+     same launches; then test_mf_app's configuration on cuda and on cpu
+     on both routing paths (epoch losses within rtol 1e-4).
  10. the serving plane (adapm_tpu_torch/serve) at full width: (a) flat
      lookups on phase 3's table (201,000 keys of 512 f32): 32 client
      threads of 100 lookups of 64 zipf keys (deadline 1 s), first with
@@ -129,6 +154,28 @@ Phases (any failure raises and exits non-zero):
      p50/p99 of serve.latency_s, the mean coalesced batch, the replica
      hit rate, launches, and a profiled rerun of each segment for the
      device busy share and K1's and K8's device time.
+ 11. a pull-driven flow on phase 3's table with the pipeline on and
+     off: one worker, 64 batches of 4,096 zipf keys, intent (lookahead
+     2) -> pull -> push -> advance_clock, prefetch_pull "auto": every
+     pull bitwise the plain flow's; then a staged batch nothing wrote
+     and its pull (a staged hit, bitwise the plain flow's pull), and
+     the batch staged again, a push to its keys and its pull
+     (invalidated_write counted, bitwise the plain flow's). The
+     staged-hit rate, pull p50/p99 on and off, and the K1 launches
+     staging made (each staging is one).
+ 12. the background planner on phase 4's two-shard setup: two worker
+     threads push integer values under competing intents while
+     start_sync_thread() runs the rounds, then WaitSync -> Barrier ->
+     WaitSync, stop_sync_thread(), quiesce(): every row bitwise the
+     sequential sum and the same run on the cpu; rounds/s.
+Phases 11 and 12 run after phase 4. Every server's background work is
+watched: a prefetch pass or planner round that raised (logged and
+retried, never fatal to its loop), a failed executor program or an
+executor retry fails the run. Phases 6, 8 and 9 keep --sys.prefetch 0
+in their cuda-vs-cpu comparisons at 8 shards (delegated rounds would
+make placement depend on timing); their full-width runs take default
+knobs, the pipeline on, and phases 8 and 9 run each again with
+--sys.prefetch 0: the same epoch losses bitwise, the same launches.
 Every path's launch counts are set to 0 just before it runs and read
 just after; each path must have launched each of its kernels and no
 kernel another path owns (K2, K5, K6, K7, K8).
@@ -173,6 +220,10 @@ REPLICA_STEP_LAUNCHES = {"routed_gather": 1, "complex_step": 1,
                          "adagrad_update": 0, "ordered_scatter_add": 2}
 STEPS, WARMUP = 32, 3
 SCAN_K, SCAN_TIMED = 8, 4             # run_scan window, windows timed
+PROF_STEPS = 8                        # phase 3 (pipeline): profiled steps
+APP_STEPS1 = 64                       # phase 5's --scan_steps 1 runs
+PULL_BATCHES = 64                     # phase 11: pull-driven batches
+PLANNER_RUNS = 300                    # phase 12: pushes per worker thread
 # word2vec at bench.py bench_w2v's width: V words (keys 2w, 2w+1), rows
 # [emb d | adagrad d], B pairs, N alias-drawn negatives per pair
 V_W2V, D_W2V, B_W2V, N_W2V = 100_000, 128, 8192, 5
@@ -1105,11 +1156,12 @@ class StepPath(NamedTuple):
     kernel: str
 
 
-def kge_table(at, dev, seed):
+def kge_table(at, dev, seed, **opts):
     """bench_tpu's table on `dev`: 201,000 keys of [emb 256 | adagrad
-    256], a slab fill (normal x 0.1, accumulators 1e-6)."""
+    256], a slab fill (normal x 0.1, accumulators 1e-6). `opts` are
+    further SystemOptions (the defaults run the prefetch pipeline)."""
     srv = at.setup(E + R, L, opts=at.SystemOptions(
-        cache_slots_per_shard=1, sync_max_per_sec=0), device=dev)
+        cache_slots_per_shard=1, sync_max_per_sec=0, **opts), device=dev)
     w = srv.make_worker(0)
     fill = np.random.default_rng(seed)
     for lo in range(0, E + R, 50_000):
@@ -1121,12 +1173,12 @@ def kge_table(at, dev, seed):
     return srv, w
 
 
-def kge_server(at, dev, seed):
+def kge_server(at, dev, seed, **opts):
     """kge_table and the device-routed ComplEx runner with uniform
     on-device negatives."""
     from adapm_tpu_torch.models import make_kge_loss
     from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
-    srv, w = kge_table(at, dev, seed)
+    srv, w = kge_table(at, dev, seed, **opts)
     roles = ("s", "r", "o", "neg")
     return srv, w, DeviceRoutedRunner(
         srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
@@ -1155,7 +1207,7 @@ def phase_main_path(K, path, seed):
         nxt = (i + 1) % len(batches)
         w.intent(intents[nxt], w.current_clock + 1, w.current_clock + 2)
         loss = runner(batches[i % len(batches)], None, path.lr)
-        srv.sync.run_round()
+        srv.drive_rounds()
         w.advance_clock()
         return loss
 
@@ -1363,11 +1415,408 @@ def phase_replicas(at, K, dev):
     return used
 
 
+def background_faults(srv):
+    """What the background programs of a server hid: prefetch passes that
+    raised, background planner rounds that raised (each logged and
+    retried), executor programs that failed and executor retries."""
+    ex = srv.exec.stats()
+    out = {"prefetch_failures": 0 if srv.prefetch is None
+           else srv.prefetch.failures,
+           "sync_loop_failures": srv.sync_loop_failures,
+           "programs_failed": ex["programs_failed"],
+           "retries": ex["retries"]}
+    return {k: v for k, v in out.items() if v}
+
+
+# background failures of every server shut down during the run; main()
+# fails the run when any is recorded
+BACKGROUND_FAULTS = []
+
+
+def watch_background(at):
+    """Record every server's background failures at its shutdown (apps
+    shut their own servers down inside run_app)."""
+    orig = at.Server.shutdown
+
+    def shutdown(self):
+        out = orig(self)
+        faults = background_faults(self)
+        if faults:
+            BACKGROUND_FAULTS.append(faults)
+        return out
+
+    at.Server.shutdown = shutdown
+
+
+def check_background(srv, what):
+    faults = background_faults(srv)
+    check(not faults, f"{what}: background work failed: {faults}")
+
+
+def pipeline_flow(at, K, dev, seed, prefetch, stage_keys):
+    """Phase 3 (pipeline) on one server: phase 3's table and runner with
+    the prefetch pipeline on (the default) or off (prefetch=False:
+    inline rounds), and with each step's keys pre-uploaded as StagedKeys
+    on its intent path (`stage_keys`, as the app does at --scan_steps 1
+    with the pipeline on) or uploaded in the dispatch. WARMUP + STEPS
+    eager steps of intent -> step ->
+    drive_rounds -> advance_clock, a profiled window of PROF_STEPS more
+    and one step, then
+    SCAN_TIMED run_scan windows of SCAN_K, each followed by its
+    drive_rounds(SCAN_K) and clock ticks, with the next window's intents
+    declared before it."""
+    srv, w, runner = kge_server(at, dev, seed, prefetch=prefetch)
+    rng = np.random.default_rng(seed)
+    batches = kge_batches(rng, 4)
+    windows = [kge_batches(rng, SCAN_K) for _ in range(SCAN_TIMED + 1)]
+    intents = [np.unique(np.concatenate(list(b.values()))) for b in batches]
+    staged = {}
+    # the training thread's host seconds by part of a step
+    parts = {"intent": [], "keys": [], "call": [], "rounds": []}
+
+    def prepare(i):
+        t0 = time.perf_counter()
+        w.intent(intents[i % 4], w.current_clock + 1, w.current_clock + 2)
+        t1 = time.perf_counter()
+        if stage_keys:
+            staged[i] = runner.prefetch_keys(batches[i % 4])
+        return t0, t1, time.perf_counter()
+
+    def step(i):
+        t0, t1, t2 = prepare(i + 1)
+        loss = runner(batches[i % 4], None, 0.1, staged=staged.pop(i, None))
+        t3 = time.perf_counter()
+        srv.drive_rounds()
+        t4 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k].append(dt)
+        w.advance_clock()
+        return loss
+
+    prepare(0)
+    losses = [step(i) for i in range(WARMUP)]
+    torch.cuda.synchronize()
+    per_step = []
+    t0 = time.perf_counter()
+    for i in range(WARMUP, WARMUP + STEPS):
+        before = dict(K.LAUNCHES)
+        losses.append(step(i))
+        per_step.append({k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES})
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    part_ms = {k: float(np.median(v[WARMUP:])) * 1e3
+               for k, v in parts.items()}
+    prof = device_breakdown(lambda j: step(WARMUP + STEPS + j), PROF_STEPS)
+    losses.append(step(WARMUP + STEPS + PROF_STEPS))
+    # the windows: the first captures the graph, the rest replay it
+    t_win = []
+    for wi, win in enumerate(windows):
+        for b in windows[wi + 1] if wi + 1 < len(windows) else ():
+            w.intent(np.unique(np.concatenate(list(b.values()))),
+                     w.current_clock + SCAN_K, w.current_clock + 2 * SCAN_K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(runner.run_scan(win, None, 0.1))
+        srv.drive_rounds(SCAN_K)
+        for _ in range(SCAN_K):
+            w.advance_clock()
+        torch.cuda.synchronize()
+        t_win.append(time.perf_counter() - t0)
+    scan_ms = float(np.mean(t_win[1:])) * 1e3 / SCAN_K
+    report, passes, pass_ms = None, None, None
+    if prefetch:
+        srv.prefetch.flush()
+        report = {k: int(v) for k, v in srv.prefetch.report().items()}
+        # the pipeline's passes, timed by the scheduler around each pass
+        # on its own thread (host wall clock, lock waits included)
+        passes = srv.prefetch.passes
+        pass_ms = srv.prefetch.pass_s * 1e3 / max(1, passes)
+    out = dict(losses=torch.cat([x.reshape(-1) for x in losses]),
+               main=srv.stores[0].main.clone(), eager_ms=eager_ms,
+               part_ms=part_ms, passes=passes, pass_ms=pass_ms,
+               scan_ms=scan_ms,
+               profile=prof,
+               per_step=per_step, captures=runner.graph_captures,
+               staged_steps=runner.staged_steps, report=report,
+               rounds=int(srv.sync.stats.rounds),
+               topology_version=srv.topology_version)
+    check_background(srv, f"phase 3 (pipeline {'on' if prefetch else 'off'})")
+    srv.shutdown()
+    return out
+
+
+def phase_pipeline(at, K, dev):
+    """Phase 3 with the prefetch pipeline on (keys staged) and off from
+    one fill, and off with the keys staged (StagedKeys without the
+    pipeline's passes), in turns (on, off, off with keys staged twice,
+    off, on): every run's losses (eager steps and windows) and whole
+    main pool bitwise the first's (S=1: every key is the worker's own,
+    so delegated rounds move nothing), the same launches every eager
+    step, one graph capture per signature on each."""
+    runs, ref, launches_on = [], None, None
+    want = {**dict.fromkeys(K.LAUNCHES, 0), **STEP_LAUNCHES}
+    turns = [(True, True), (False, False), (False, True), (False, True),
+             (False, False), (True, True)]
+    for prefetch, stage_keys in turns:
+        name = "on" if prefetch else (
+            "off, keys staged" if stage_keys else "off")
+        K.reset_launches()
+        r = pipeline_flow(at, K, dev, 11, prefetch, stage_keys)
+        if launches_on is None:
+            launches_on = dict(K.LAUNCHES)
+        bad = [st for st in r["per_step"] if st != want]
+        check(not bad, f"phase 3 (pipeline {name}): steps launched "
+              f"{bad[:2]}, expected {STEP_LAUNCHES}")
+        check(r["captures"] == 1, f"phase 3 (pipeline {name}): "
+              f"{r['captures']} graph captures for one signature")
+        if ref is None:
+            ref = r["losses"], r["main"]
+        else:
+            check(torch.equal(r["losses"].view(torch.int32),
+                              ref[0].view(torch.int32)),
+                  "phase 3: losses with the pipeline differ from "
+                  "--sys.prefetch 0")
+            check(torch.equal(r["main"].view(torch.int32),
+                              ref[1].view(torch.int32)),
+                  "phase 3: the main pool with the pipeline differs from "
+                  "--sys.prefetch 0 (bitwise)")
+        del r["main"], r["losses"], r["per_step"]
+        if prefetch:
+            check(r["report"]["rounds_driven"] > 0,
+                  "phase 3: the pipeline drove no planner round")
+        check(r["staged_steps"] == stage_keys * (
+            WARMUP + STEPS + PROF_STEPS + 1),
+              f"phase 3 (pipeline {name}): {r['staged_steps']} steps took "
+              "StagedKeys")
+        runs.append((name, r))
+    del ref
+    check_launched(launches_on, "phase 3 (pipeline on)", STEP_KERNELS)
+    return dict(runs=runs, launches_on=launches_on)
+
+
+def report_pipeline(pp, smi):
+    for name, r in pp["runs"]:
+        prof = r["profile"]
+        busy = "not measured" if prof is None else (
+            f"{prof['device_ops_per_step']:.1f} device operations/step, "
+            f"device {prof['device_ms_per_step']:.3f} ms/step, busy "
+            f"{prof['busy_share']:.3f}")
+        pm = r["part_ms"]
+        passes = "" if r["pass_ms"] is None else (
+            f"; {r['passes']} pipeline passes, {r['pass_ms']:.3f} ms "
+            "each on their thread")
+        print(f"phase 3 (pipeline {name}): eager {r['eager_ms']:.3f} "
+              f"ms/step (host medians: intent {pm['intent']:.3f}, key "
+              f"staging {pm['keys']:.3f}, step call {pm['call']:.3f}, "
+              f"drive_rounds {pm['rounds']:.3f} ms{passes}), "
+              f"K={SCAN_K} windows {r['scan_ms']:.3f} ms/step, {busy}, "
+              f"graph captures {r['captures']}, staged-key steps "
+              f"{r['staged_steps']}, planner rounds {r['rounds']}, "
+              f"prefetch.report() {r['report']} [{smi}]", flush=True)
+    print("phase 3 (pipeline): losses and main pool bitwise equal on and "
+          "off; launches per step unchanged", flush=True)
+
+
+def pull_flow(at, K, dev, prefetch):
+    """Phase 11 on one server: phase 3's table, one worker, PULL_BATCHES
+    batches of 4,096 zipf keys (each the unique sorted batch its intent
+    names): intent for batch i + 2 -> pull batch i -> push small deltas
+    to it -> advance_clock, prefetch_pull "auto". Then the
+    read-your-writes check: a batch staged (its intent, flush), a push
+    to its keys, its pull."""
+    srv, w = kge_table(at, dev, 13, prefetch=prefetch,
+                       prefetch_pull="auto")
+    rng = np.random.default_rng(17)
+    bs = [np.unique(skewed_keys(rng, E + R, B))
+          for _ in range(PULL_BATCHES + 3)]
+    deltas = [rng.normal(size=(len(b), L)).astype(np.float32) * 1e-3
+              for b in bs]
+    for i in (0, 1):
+        w.intent(bs[i], w.current_clock + i, w.current_clock + i)
+    pulls, lat = [], []
+    K.reset_launches()
+    for i in range(PULL_BATCHES):
+        w.intent(bs[i + 2], w.current_clock + 2, w.current_clock + 2)
+        t0 = time.perf_counter()
+        got = w.pull_sync(bs[i])
+        lat.append(time.perf_counter() - t0)
+        pulls.append(got)
+        w.wait(w.push(bs[i], deltas[i]))
+        w.advance_clock()
+    report = None
+    if prefetch:
+        srv.prefetch.flush()
+        report = {k: int(v) for k, v in srv.prefetch.report().items()}
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    # a staged batch nothing wrote: its pull must be a staged hit; then
+    # read-your-writes through a staged buffer: the batch staged again,
+    # a push to its keys, its pull. Two clock ticks first, so the flow's
+    # last staged batches expire and x's is the one live
+    x = bs[PULL_BATCHES + 2]
+    for _ in range(2):
+        w.advance_clock()
+
+    def stage():
+        w.intent(x, w.current_clock, w.current_clock + 4)
+        if prefetch:
+            srv.prefetch.flush()
+            check(srv.prefetch.report()["live"] == 1,
+                  "phase 11: the intended batch is not the one staged")
+
+    stage()
+    hits0 = srv.prefetch.stats["hits"] if prefetch else 0
+    before = w.pull_sync(x)
+    if prefetch:
+        check(srv.prefetch.stats["hits"] == hits0 + 1,
+              "phase 11: the pull of a staged batch nothing wrote was "
+              "not a staged hit")
+    stage()
+    inv0 = srv.prefetch.stats["invalidated_write"] if prefetch else 0
+    w.wait(w.push(x, deltas[PULL_BATCHES + 2]))
+    if prefetch:
+        check(srv.prefetch.stats["invalidated_write"] > inv0,
+              "phase 11: a push to staged keys invalidated nothing")
+    after = w.pull_sync(x)
+    out = dict(pulls=pulls, after=after, before=before, lat=lat,
+               launches=launches, report=report,
+               final_report=None if not prefetch else {
+                   k: int(v) for k, v in srv.prefetch.report().items()})
+    check_background(srv, f"phase 11 (pipeline {'on' if prefetch else 'off'})")
+    srv.shutdown()
+    return out
+
+
+def phase_pull_flow(at, K, dev):
+    """Phase 11: the pull-driven flow with the pipeline on and off; every
+    pull bitwise the other flow's, the staged read-your-writes pull
+    bitwise its plain counterpart."""
+    on = pull_flow(at, K, dev, True)
+    off = pull_flow(at, K, dev, False)
+    for i, (a, b) in enumerate(zip(on["pulls"], off["pulls"])):
+        check(np.array_equal(a.view(np.uint32), b.view(np.uint32)),
+              f"phase 11: pull {i} with the pipeline differs from "
+              "--sys.prefetch 0")
+    check(on["final_report"]["hits"] > 0, "phase 11: no staged hit")
+    check(np.array_equal(on["before"].view(np.uint32),
+                         off["before"].view(np.uint32)),
+          "phase 11: the staged hit differs from the plain flow's pull")
+    check(np.array_equal(on["after"].view(np.uint32),
+                         off["after"].view(np.uint32)),
+          "phase 11: the pull after a push to staged keys differs from "
+          "the plain flow's")
+    check(not np.array_equal(off["after"], off["before"]),
+          "phase 11: the read-your-writes push changed nothing")
+    rep = on["report"]
+    hits = rep["hits"]
+    plain_pulls = PULL_BATCHES - hits
+    staging_k1 = on["launches"]["routed_gather"] - plain_pulls
+    # every staging (restages included: each also counts as staged) is
+    # one K1 launch of the one length class
+    check(staging_k1 == rep["staged"],
+          f"phase 11: {staging_k1} K1 launches outside plain pulls, "
+          f"{rep['staged']} stagings")
+    check(off["launches"]["routed_gather"] == PULL_BATCHES,
+          f"phase 11: the plain flow launched K1 "
+          f"{off['launches']['routed_gather']} times in {PULL_BATCHES} "
+          "pulls")
+    for r, name in ((on, "on"), (off, "off")):
+        check_launched(r["launches"], f"phase 11 (pipeline {name})",
+                       ("routed_gather", "ordered_scatter_add"))
+    pct = {name: [float(np.percentile(r["lat"], q)) * 1e3 for q in (50, 99)]
+           for name, r in (("on", on), ("off", off))}
+    return dict(report=rep, hit_rate=hits / PULL_BATCHES, pct_ms=pct,
+                final_report=on["final_report"],
+                staging_k1=staging_k1, launches_on=on["launches"],
+                launches_off=off["launches"])
+
+
+def planner_run(at, dev):
+    """Phase 12 body on `dev`: phase 4's two-shard replica setup, the
+    background planner on (start_sync_thread), two worker threads each
+    pushing PLANNER_RUNS integer-valued updates to zipf keys of a hot set
+    both declare intents for (competing intents: replicas), then
+    WaitSync -> Barrier -> WaitSync, stop_sync_thread(), quiesce().
+    Returns (every main row, the sequential sum, rounds/s, replicas
+    created)."""
+    import threading
+    e, r, d = 512, 16, 8
+    n = e + r
+    srv = at.setup(n, 4 * d, num_shards=2, num_workers=2, device=dev,
+                   opts=at.SystemOptions(sync_max_per_sec=2000.0,
+                                         cache_slots_per_shard=256,
+                                         sync_report_s=0))
+    ws = [srv.make_worker(i) for i in range(2)]
+    init = np.random.default_rng(3).integers(
+        -4, 5, size=(n, 4 * d)).astype(np.float32)
+    ws[0].wait(ws[0].set(np.arange(n), init))
+    hot = np.arange(0, n, 3)
+    sums = [np.zeros((n, 4 * d), np.float64) for _ in ws]
+    errors = []
+
+    def run(w):
+        rng = np.random.default_rng(100 + w.worker_id)
+        try:
+            for i in range(PLANNER_RUNS):
+                if i % 25 == 0:
+                    w.intent(hot, w.current_clock, w.current_clock + 40)
+                k = hot[(len(hot) * rng.random(32) ** 2).astype(np.int64)]
+                v = rng.integers(-3, 4, size=(32, 4 * d)).astype(np.float32)
+                w.push(k, v)
+                np.add.at(sums[w.worker_id], k, v)
+                if i % 8 == 0:
+                    w.wait_all()
+                w.advance_clock()
+            w.wait_all()
+        except Exception as ex:  # noqa: BLE001 - surface to main thread
+            errors.append(f"worker {w.worker_id}: {type(ex).__name__}: {ex}")
+
+    t0 = time.perf_counter()
+    r0 = srv.sync.stats.rounds
+    srv.start_sync_thread()
+    threads = [threading.Thread(target=run, args=(w,)) for w in ws]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), "phase 12: a worker thread hung")
+    check(not errors, f"phase 12: {errors}")
+    srv.wait_sync()
+    srv.barrier()
+    srv.wait_sync()
+    srv.stop_sync_thread()
+    rounds_s = (srv.sync.stats.rounds - r0) / (time.perf_counter() - t0)
+    srv.quiesce()
+    got = srv.read_main(np.arange(n)).reshape(n, 4 * d)
+    want = (init + sums[0] + sums[1]).astype(np.float32)
+    created = int(srv.sync.stats.replicas_created)
+    check_background(srv, f"phase 12 ({dev})")
+    srv.shutdown()
+    return got, want, rounds_s, created
+
+
+def phase_planner(at, K, dev):
+    K.reset_launches()
+    got_g, want, rounds_g, created = planner_run(at, dev)
+    launches = dict(K.LAUNCHES)
+    check(np.array_equal(got_g.view(np.uint32), want.view(np.uint32)),
+          "phase 12: after the background planner and quiesce the main "
+          "rows differ from the sequential sum")
+    check(created > 0, "phase 12: competing intents created no replica")
+    check_launched(launches, "phase 12", ("routed_gather",
+                                          "ordered_scatter_add"))
+    got_c, _, rounds_c, _ = planner_run(at, "cpu")
+    check(np.array_equal(got_g.view(np.uint32), got_c.view(np.uint32)),
+          "phase 12: cuda and cpu differ")
+    return dict(rounds_s=rounds_g, rounds_s_cpu=rounds_c,
+                replicas_created=created, launches=launches)
+
+
 APP_ARGS = ["--model", "complex", "--dim", str(D_MODEL), "--neg_ratio",
             str(N), "--batch_size", str(B), "--synthetic_mode", "lowrank",
             "--synthetic_entities", str(E), "--synthetic_relations", str(R),
-            "--eval_chunk", str(EVAL_CHUNK), "--sys.sync.max_per_sec", "0",
-            "--sys.prefetch", "0"]
+            "--eval_chunk", str(EVAL_CHUNK), "--sys.sync.max_per_sec", "0"]
+OFF = ["--sys.prefetch", "0"]         # the pipeline's kill switch
 # test_apps.py test_kge_app's configuration, on 8 virtual shards
 SMALL_ARGS = ["--model", "complex", "--dim", "8", "--neg_ratio", "2",
               "--synthetic_entities", "60", "--synthetic_relations", "4",
@@ -1450,6 +1899,68 @@ class HostClock:
             setattr(owner, name, fn)
 
 
+class EpochTrace:
+    """The device busy share of one training epoch of an app run: a
+    CUDA-only profiler started at the epoch's first step call (a
+    DeviceRoutedRunner call or run_scan window, after a synchronize) and
+    stopped at its epoch report (its losses are on the host by then),
+    with the host clock over the same span. Setup, generation and eval
+    stay outside the trace."""
+
+    def __init__(self, app, epoch):
+        self.app, self.epoch = app, epoch
+        self.reports, self.prof, self.t0, self.wall = 0, None, None, None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        from adapm_tpu_torch.ops.fused import DeviceRoutedRunner as DR
+        self.saved = [(DR, "__call__", DR.__call__),
+                      (DR, "run_scan", DR.run_scan),
+                      (self.app, "epoch_report", self.app.epoch_report)]
+
+        def start():
+            if self.prof is None and self.reports == self.epoch:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+
+        def step(fn):
+            def wrapped(*a, **kw):
+                start()
+                return fn(*a, **kw)
+            return wrapped
+
+        def report(*a, **kw):
+            if self.prof is not None and self.wall is None:
+                torch.cuda.synchronize()
+                self.wall = time.perf_counter() - self.t0
+                self.prof.__exit__(None, None, None)
+            self.reports += 1
+            return self.saved[2][2](*a, **kw)
+
+        DR.__call__ = step(self.saved[0][2])
+        DR.run_scan = step(self.saved[1][2])
+        self.app.epoch_report = report
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+    def result(self):
+        """{"traced_epoch_s", "device_s", "busy_share"}; None where the
+        trace recorded no device time (not measured)."""
+        if self.wall is None:
+            return dict(traced_epoch_s=None, device_s=None, busy_share=None)
+        dev_s = sum(ev.self_device_time_total
+                    for ev in self.prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    ) / 1e6
+        return dict(traced_epoch_s=self.wall, device_s=dev_s or None,
+                    busy_share=dev_s / self.wall if dev_s else None)
+
+
 def phase_app(K):
     """Phase 5: the app at full width, device routes, 2 epochs."""
     from adapm_tpu_torch.apps import knowledge_graph_embeddings as kge
@@ -1469,7 +1980,7 @@ def phase_app(K):
         (SyncManager, "run_round", "sync round"),
         (kge, "_pool_counts", "eval device counts"),
         (kge, "_filter_correct", "eval filter correction")])
-    with clock:
+    with clock, EpochTrace(kge, epoch=1) as trace:
         res, launches = run_app(kge, K, argv)
     res["host_seconds"] = clock.seconds
     check_app(res, launches, "phase 5", APP_KERNELS)
@@ -1483,6 +1994,54 @@ def phase_app(K):
           f"times and replayed {res['replayed']['complex_step']} times "
           f"in {steps} steps")
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["traced"] = trace.result()
+    # the same run in turns with the kill switch (on above, then off,
+    # off, on), each run's second epoch traced for the busy share: at
+    # S=1 the pipeline moves nothing, so every epoch loss is bitwise the
+    # same
+    turns = [dict(pipeline="on", epoch_s=res["epoch_s"],
+                  eval_s=res["eval_s"], **res["traced"])]
+    for name in ("off", "off", "on"):
+        with EpochTrace(kge, epoch=1) as tr:
+            r, ln = run_app(kge, K, argv + (OFF if name == "off" else []))
+        check_app(r, ln, f"phase 5 (pipeline {name})", APP_KERNELS)
+        check(np.array_equal(np.float64(r["epoch_losses"]),
+                             np.float64(losses)),
+              f"phase 5: epoch losses {r['epoch_losses']} (pipeline "
+              f"{name}) differ from the first run's {losses}")
+        check(ln == launches, f"phase 5: launches {ln} (pipeline {name}), "
+              f"{launches} in the first run")
+        turns.append(dict(pipeline=name, epoch_s=r["epoch_s"],
+                          eval_s=r["eval_s"], **tr.result()))
+    res["turns"] = turns
+    # per-step device routes (--scan_steps 1): the path where the app
+    # pre-uploads each batch's keys as StagedKeys; its one epoch traced
+    # for the busy share, both ways
+    one = APP_ARGS + ["--synthetic_triples", str(APP_STEPS1 * B),
+                      "--epochs", "1", "--eval_every", "0",
+                      "--scan_steps", "1"]
+    res["scan1"] = {}
+    for name, extra in (("on", []), ("off", OFF)):
+        with EpochTrace(kge, epoch=0) as tr:
+            r, ln = run_app(kge, K, one + extra)
+        check(np.isfinite(r["epoch_losses"]).all(),
+              f"phase 5 (--scan_steps 1, pipeline {name}): non-finite loss")
+        check_launched(ln, f"phase 5 (--scan_steps 1, pipeline {name})",
+                       STEP_KERNELS)
+        check(ln["complex_step"] == APP_STEPS1,
+              f"phase 5 (--scan_steps 1): K5 launched "
+              f"{ln['complex_step']} times in {APP_STEPS1} steps")
+        check(r["staged_steps"] == (APP_STEPS1 if name == "on" else 0),
+              f"phase 5 (--scan_steps 1, pipeline {name}): "
+              f"{r['staged_steps']} staged-key steps")
+        res["scan1"][name] = dict(epoch_s=r["epoch_s"],
+                                  epoch_losses=r["epoch_losses"],
+                                  staged_steps=r["staged_steps"],
+                                  **tr.result())
+    check(np.array_equal(np.float64(res["scan1"]["on"]["epoch_losses"]),
+                         np.float64(res["scan1"]["off"]["epoch_losses"])),
+          "phase 5 (--scan_steps 1): losses with the pipeline differ from "
+          "--sys.prefetch 0")
     return res, launches
 
 
@@ -1586,7 +2145,7 @@ W2V_APP_ARGS = ["--dim", str(D_W2V), "--negative", str(N_W2V),
                 "--batch_size", str(B_W2V), "--scan_steps", str(SCAN_K),
                 "--synthetic_vocab", str(V_W2V), "--synthetic_sentences",
                 "20000", "--epochs", "2", "--lr", str(W2V_LR),
-                "--sys.sync.max_per_sec", "0", "--sys.prefetch", "0"]
+                "--sys.sync.max_per_sec", "0"]
 # tests/test_torch_w2v_mf_apps.py's host-routed configuration
 W2V_SMALL_ARGS = ["--synthetic_vocab", "80", "--synthetic_sentences", "120",
                   "--dim", "8", "--window", "3", "--negative", "4",
@@ -1597,7 +2156,7 @@ W2V_SMALL_ARGS = ["--synthetic_vocab", "80", "--synthetic_sentences", "120",
 MF_APP_ARGS = ["--rows", str(MF_ROWS), "--cols", str(MF_COLS), "--nnz",
                str(MF_NNZ), "--rank", str(MF_RANK), "--batch_size",
                str(B_MF), "--algorithm", "dsgd", "--epochs", "2",
-               "--sys.sync.max_per_sec", "0", "--sys.prefetch", "0"]
+               "--sys.sync.max_per_sec", "0"]
 # tests/test_torch_w2v_mf_apps.py's MF configuration (test_mf_app's)
 MF_SMALL_ARGS = ["--rows", "48", "--cols", "32", "--nnz", "600", "--rank",
                  "4", "--epochs", "6", "--batch_size", "16", "--lr", "0.1",
@@ -1605,10 +2164,29 @@ MF_SMALL_ARGS = ["--rows", "48", "--cols", "32", "--nnz", "600", "--rank",
                  "--sys.sync.max_per_sec", "0", "--sys.prefetch", "0"]
 
 
+def same_without_pipeline(app, K, argv, res, launches, what, profile):
+    """The same app run with the kill switch (--sys.prefetch 0): at S=1
+    delegated rounds move nothing, so its epoch losses must be bitwise
+    the default run's and its launches and replays the same. Returns its
+    epoch seconds and (`profile`) its device seconds and busy share."""
+    off, off_launches = run_app(app, K, argv + OFF, profile=profile)
+    check(np.array_equal(np.float64(off["epoch_losses"]),
+                         np.float64(res["epoch_losses"])),
+          f"{what}: epoch losses {off['epoch_losses']} with "
+          f"--sys.prefetch 0 differ from {res['epoch_losses']}")
+    check(off_launches == launches and off["replayed"] == res["replayed"],
+          f"{what}: launches {off_launches}, replayed {off['replayed']} "
+          f"with --sys.prefetch 0; {launches}, {res['replayed']} with the "
+          "pipeline")
+    return {k: off[k] for k in ("epoch_s", "device_s", "busy_share")
+            if k in off}
+
+
 def phase_w2v_app(K):
     """Phase 8: the word2vec app through its entry point on cuda at full
-    width on a synthetic zipf corpus, 2 epochs of --scan_steps 8; then
-    the host-routed small configuration on cuda and on cpu."""
+    width on a synthetic zipf corpus, 2 epochs of --scan_steps 8, with
+    default knobs (the pipeline on) and with --sys.prefetch 0; then the
+    host-routed small configuration on cuda and on cpu."""
     from adapm_tpu_torch.apps import word2vec as w2v
     from adapm_tpu_torch.core.kv import Worker
     from adapm_tpu_torch.core.sync import SyncManager
@@ -1638,6 +2216,8 @@ def phase_w2v_app(K):
     check(k6 == steps, f"phase 8: K6 launched {launches['sgns_step']} "
           f"times and replayed {res['replayed']['sgns_step']} times in "
           f"{steps} steps")
+    res["off"] = same_without_pipeline(w2v, K, argv, res, launches,
+                                       "phase 8", True)
     with open(corpus) as f:
         res["vocab"] = len({w for line in f for w in line.split()})
     small_g, host_launches = run_app(w2v, K, W2V_SMALL_ARGS + [
@@ -1656,8 +2236,9 @@ def phase_w2v_app(K):
 def phase_mf_app(K):
     """Phase 9: the MF app on cuda at rank 128 (a MovieLens-1M-sized
     synthetic matrix, dsgd) on both routing paths, K7 launches adding
-    up to the steps; then test_mf_app's configuration (8 virtual shards)
-    on cuda and on cpu, both routing paths."""
+    up to the steps, each with default knobs (the pipeline on) and with
+    --sys.prefetch 0; then test_mf_app's configuration (8 virtual
+    shards) on cuda and on cpu, both routing paths."""
     from adapm_tpu_torch.apps import matrix_factorization as mf
     out = {}
     for routes, extra in (("device", ["--scan_steps", str(SCAN_K)]),
@@ -1674,6 +2255,9 @@ def phase_mf_app(K):
               f"{what}: K7 launched {launches['mf_step']} times and "
               f"replayed {res['replayed']['mf_step']} times in "
               f"{sum(res['steps'])} steps")
+        res["off"] = same_without_pipeline(mf, K, MF_APP_ARGS + extra, res,
+                                           launches, what,
+                                           routes == "device")
         out[routes] = dict(res=res, launches=launches)
     for routes in ("device", "host"):
         argv = MF_SMALL_ARGS + (["--no-device_routes"]
@@ -2185,9 +2769,13 @@ def report_w2v_app(app):
           f"steps {a['steps']}, losses {a['epoch_losses']}, "
           f"captures {a['graph_captures']}, device {a['device_s']} s, "
           f"busy share {a['busy_share']}, launches {app['launches']}, "
-          f"replayed {a['replayed']} (K6 {steps} = steps); host-routed "
-          f"small config losses cuda {app['small_cuda']} vs cpu "
-          f"{app['small_cpu']}", flush=True)
+          f"replayed {a['replayed']} (K6 {steps} = steps); with "
+          f"--sys.prefetch 0: epochs "
+          f"{[round(t, 3) for t in a['off']['epoch_s']]} s, device "
+          f"{a['off']['device_s']} s, busy share "
+          f"{a['off']['busy_share']}, losses and launches the same; "
+          f"host-routed small config losses cuda {app['small_cuda']} vs "
+          f"cpu {app['small_cpu']}", flush=True)
     print("phase 8: host seconds inside: " + "; ".join(
         f"{k} {v:.3f}" for k, v in a["host_seconds"].items()), flush=True)
 
@@ -2196,17 +2784,68 @@ def report_mf(mfr):
     """Phase 9's lines."""
     for routes in ("device", "host"):
         r = mfr[routes]["res"]
-        busy = "" if "busy_share" not in r else (
-            f", device {r['device_s']} s, busy share {r['busy_share']}")
+        busy, off_busy = ("", "") if "busy_share" not in r else (
+            f", device {r['device_s']} s, busy share {r['busy_share']}",
+            f", device {r['off']['device_s']} s, busy share "
+            f"{r['off']['busy_share']}")
         print(f"phase 9: MF app ({routes} routes): epochs "
               f"{[round(t, 3) for t in r['epoch_s']]} s, steps {r['steps']}"
               f", losses {r['epoch_losses']}, captures "
               f"{r['graph_captures']}{busy}, launches "
-              f"{mfr[routes]['launches']}, replayed {r['replayed']}",
-              flush=True)
+              f"{mfr[routes]['launches']}, replayed {r['replayed']}; with "
+              f"--sys.prefetch 0: epochs "
+              f"{[round(t, 3) for t in r['off']['epoch_s']]} s{off_busy}, "
+              "losses and launches the same", flush=True)
     print(f"phase 9: MF small config cuda vs cpu: device routes "
           f"{mfr['small_device']}, host routes {mfr['small_host']}",
           flush=True)
+
+
+def report_app_pipeline(app, smi):
+    """Phase 5's pipeline lines: the full-width app in turns with the
+    pipeline on (the run above) and off, and the --scan_steps 1 runs."""
+    for t in app["turns"]:
+        print(f"phase 5 (pipeline {t['pipeline']}): epochs "
+              f"{[round(x, 3) for x in t['epoch_s']]} s, evals "
+              f"{[round(x, 3) for x in t['eval_s']]} s; traced epoch 1: "
+              f"{t['traced_epoch_s']} s, device {t['device_s']} s, busy "
+              f"share {t['busy_share']} [{smi}]", flush=True)
+    print("phase 5 (pipeline): epoch losses bitwise equal in every turn",
+          flush=True)
+    for name in ("on", "off"):
+        r = app["scan1"][name]
+        print(f"phase 5 (--scan_steps 1, pipeline {name}): {APP_STEPS1} "
+              f"steps, epoch {r['epoch_s'][0]:.3f} s "
+              f"({APP_STEPS1 * B / r['epoch_s'][0]:.0f} triples/s), traced "
+              f"{r['traced_epoch_s']} s, device {r['device_s']} s, busy "
+              f"share {r['busy_share']}, staged-key steps "
+              f"{r['staged_steps']}, loss {r['epoch_losses']} [{smi}]",
+              flush=True)
+
+
+def report_pull_flow(pf, smi):
+    p = pf["pct_ms"]
+    print(f"phase 11: pull-driven flow, {PULL_BATCHES} batches of {B} zipf "
+          f"keys (lookahead 2, prefetch_pull auto): staged-hit rate "
+          f"{pf['hit_rate']:.3f}; pull p50/p99 {p['on'][0]:.3f} / "
+          f"{p['on'][1]:.3f} ms on, {p['off'][0]:.3f} / {p['off'][1]:.3f} "
+          f"ms off; K1 launches by staging {pf['staging_k1']} (flow "
+          f"launches on {pf['launches_on']}, off {pf['launches_off']}); "
+          f"prefetch.report() {pf['report']}; then a staged batch nothing "
+          f"wrote pulled as a staged hit, and the batch staged again, "
+          f"pushed to and pulled (prefetch.report() at the end "
+          f"{pf['final_report']}); every pull bitwise the plain flow's, "
+          f"the staged hit and the pull after the push too [{smi}]",
+          flush=True)
+
+
+def report_planner(pl, smi):
+    print(f"phase 12: background planner (S=2, two worker threads x "
+          f"{PLANNER_RUNS} integer pushes under competing intents): "
+          f"{pl['rounds_s']:.1f} rounds/s on cuda ({pl['rounds_s_cpu']:.1f} "
+          f"on cpu), {pl['replicas_created']} replicas created, launches "
+          f"{pl['launches']}; every row bitwise the sequential sum and the "
+          f"cpu run; no background round failed [{smi}]", flush=True)
 
 
 def drive_path(K, path, kernels, seed):
@@ -2234,6 +2873,7 @@ def main(argv):
         return 2
     import adapm_tpu_torch as at
     from adapm_tpu_torch.ops import kernels as K
+    watch_background(at)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2269,12 +2909,27 @@ def main(argv):
         report_main_path(phase_main_path(K, kge_path, 0), dict(K.LAUNCHES),
                          kge_path)
         return 0
+    if "--pipeline-only" in argv:
+        # the prefetch pipeline's and the background planner's phases
+        # alone (3 on and off, 11, 12), checked as in the full run
+        report_pipeline(phase_pipeline(at, K, dev), smi)
+        report_pull_flow(phase_pull_flow(at, K, dev), smi)
+        report_planner(phase_planner(at, K, dev), smi)
+        check(not BACKGROUND_FAULTS, f"background work failed: "
+              f"{BACKGROUND_FAULTS}")
+        return 0
     rec = phase_kernels(K, dev, rng)
     report_kernels(rec)
     mp, step_launches, sc = drive_path(K, kge_path, STEP_KERNELS, 0)
+    pp = phase_pipeline(at, K, dev)
+    report_pipeline(pp, smi)
     used = phase_replicas(at, K, dev)
     print(f"phase 4: replica phase launches {used} (per replica step "
           f"{REPLICA_STEP_LAUNCHES}); cuda and cpu agree", flush=True)
+    pf = phase_pull_flow(at, K, dev)
+    report_pull_flow(pf, smi)
+    pl = phase_planner(at, K, dev)
+    report_planner(pl, smi)
     app, app_launches = phase_app(K)
     tps = [100 * B / t for t in app["epoch_s"]]
     print(f"phase 5: app: generation {app['gen_s']:.2f} s, epochs "
@@ -2289,6 +2944,7 @@ def main(argv):
           f"{app['peak_mem_gib']:.2f} GiB", flush=True)
     print("phase 5: host seconds inside: " + "; ".join(
         f"{k} {v:.3f}" for k, v in app["host_seconds"].items()), flush=True)
+    report_app_pipeline(app, smi)
     hr = phase_host_routes(K)
     f = hr["full"]
     print(f"phase 6: host routes: generation {f['gen_s']:.2f} s, epoch "
@@ -2343,7 +2999,13 @@ def main(argv):
                  mf_host_routes=mfr["host"]["launches"],
                  serve_flat=serve_flat["seg1"]["launches"],
                  serve_flat_replica=serve_flat["seg2"]["launches"],
-                 serve_bags=serve_bags["launches"])
+                 serve_bags=serve_bags["launches"],
+                 pipeline_step=pp["launches_on"],
+                 pull_flow=pf["launches_on"],
+                 pull_flow_staging={k: pf["staging_k1"] if
+                                    k == "routed_gather" else 0
+                                    for k in K.LAUNCHES},
+                 planner=pl["launches"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
     # whose standalone launches it keeps, in the word2vec and MF app runs
@@ -2384,8 +3046,11 @@ def main(argv):
                        "app": app, "host_routes": hr, "build_s": build_s,
                        "w2v_step": st, "w2v_scan": sc7, "w2v_app": w2v_app,
                        "mf_app": mfr, "serve_flat": serve_flat,
-                       "serve_bags": serve_bags}, fh, indent=1,
+                       "serve_bags": serve_bags, "pipeline": pp,
+                       "pull_flow": pf, "planner": pl}, fh, indent=1,
                       default=str)
+    check(not BACKGROUND_FAULTS, f"background work failed: "
+          f"{BACKGROUND_FAULTS}")
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s; "
           f"profiler traces retaken {TRACE_RETAKES}", flush=True)
     print(smi)

@@ -47,6 +47,7 @@ def _servers(tech="all"):
     t = adapm_tpu_torch.Server(
         E + R, 4 * d, ctx=make_context(S, "cpu"), num_workers=2,
         opts=adapm_tpu_torch.SystemOptions(
+            prefetch=False,
             techniques=adapm_tpu_torch.MgmtTechniques(tech), **opts))
     wj = [j.make_worker(i) for i in range(2)]
     wt = [t.make_worker(i) for i in range(2)]

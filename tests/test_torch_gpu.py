@@ -9,7 +9,11 @@ within the near-tie rule on random data, K5 within rtol 1e-5 / atol 1e-6
 over two runs, its epilogue bitwise K2; K6 and K7 the same way — plus
 a small fused step on cuda against the same step on cpu, and run_scan's
 CUDA graph against sequential steps, bitwise (ComplEx, a K2 loss with
-aux, SGNS with alias-drawn negatives, MF with its ratings as aux).
+aux, SGNS with alias-drawn negatives, MF with its ratings as aux); and
+the prefetch pipeline and the background planner on the card: a staged
+pull bitwise the plain pull, one graph capture across windows while
+delegated rounds relocate keys, the planner converging to the exact
+sum under concurrent pushes.
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -476,8 +480,10 @@ def test_run_scan_graph_matches_sequential_bitwise(cuda, loss):
     losses, pools and locality, and the sequential steps' launches equal
     the windows' eager and replayed ones. The lr changes at the second
     window (K5 and K2 read it from the device: no new capture) and the
-    routing tables are replaced before the fourth (a capture holds their
-    address: captured again, in place of the old graph)."""
+    owner table is replaced by a new tensor before the fourth (a capture
+    holds its address: captured again, in place of the old graph; a
+    refresh copies into the same tensors, as
+    test_graph_captured_once_with_pipeline_relocating holds)."""
     import adapm_tpu_torch as at
     from adapm_tpu_torch.models import make_kge_loss
     from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
@@ -508,7 +514,7 @@ def test_run_scan_graph_matches_sequential_bitwise(cuda, loss):
         losses = []
         for i in range(0, 16, 4):
             if i == 12:
-                run.router._version = None      # new table tensors
+                run.router.owner = run.router.owner.clone()  # new address
             if mode == "sequential":
                 losses += [run(batches[j], auxes[j] if loss == "aux"
                                else None, lrs[j]) for j in range(i, i + 4)]
@@ -863,3 +869,195 @@ def test_gather_pool_items_past_the_first_wave(cuda, L, pooling):
     torch.cuda.synchronize()
     for got in outs:
         assert torch.equal(_bits(got), _bits(ref))
+
+
+# -- the prefetch pipeline and the background planner on the card ----------
+
+
+def test_staged_pull_bitwise_plain_pull(cuda):
+    """A pull served from a buffer the prefetch pipeline staged on the
+    card (K1 on an executor thread) is bitwise the plain pull, and a
+    push between staging and pull is seen."""
+    import adapm_tpu_torch as at
+    rng = np.random.default_rng(0)
+    vals = rng.normal(size=(400, 64)).astype(np.float32)
+    reads = []
+    for prefetch in (True, False):
+        srv = at.setup(400, 64, num_shards=2, device=cuda,
+                       opts=at.SystemOptions(sync_max_per_sec=0,
+                                             prefetch=prefetch,
+                                             prefetch_pull="always"))
+        w = srv.make_worker(0)
+        w.wait(w.set(np.arange(400), vals))
+        keys = np.unique(rng.integers(0, 400, 150)) if not reads else \
+            reads[0][0]
+        w.intent(keys, w.current_clock, w.current_clock + 10)
+        if prefetch:
+            srv.prefetch.flush()
+            assert srv.prefetch.report()["live"] == 1
+        first = w.pull_sync(keys)
+        w.intent(keys, w.current_clock, w.current_clock + 10)
+        if prefetch:
+            srv.prefetch.flush()
+        w.wait(w.push(keys[::3], np.ones((len(keys[::3]), 64), np.float32)))
+        second = w.pull_sync(keys)
+        if prefetch:
+            assert srv.prefetch.stats["hits"] >= 1
+            assert srv.prefetch.stats["invalidated_write"] >= 1
+            assert srv.prefetch.failures == 0
+        reads.append((keys, first, second))
+        srv.shutdown()
+    (_, a1, a2), (_, b1, b2) = reads
+    assert np.array_equal(a1.view(np.uint32), b1.view(np.uint32))
+    assert np.array_equal(a2.view(np.uint32), b2.view(np.uint32))
+    assert not np.array_equal(a1, a2)
+
+
+def test_graph_captured_once_with_pipeline_relocating(cuda):
+    """run_scan windows with the pipeline on while delegated rounds
+    relocate keys between windows: the router mirrors refresh in place,
+    so one capture serves every window; losses and the main pool are
+    bitwise those of the same calls with inline rounds."""
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    roles = ("s", "r", "o", "neg")
+    out = []
+    for prefetch in (True, False):
+        rng = np.random.default_rng(1)
+        srv = at.setup(300, 32, num_shards=2, num_workers=2, device=cuda,
+                       opts=at.SystemOptions(
+                           sync_max_per_sec=0, prefetch=prefetch,
+                           techniques=at.MgmtTechniques.RELOCATION_ONLY))
+        w = srv.make_worker(0)
+        vals = rng.normal(size=(300, 32)).astype(np.float32) * 0.1
+        vals[:, 16:] = 1e-6
+        w.wait(w.set(np.arange(300), vals))
+        run = DeviceRoutedRunner(
+            srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
+            role_dim=dict.fromkeys(roles, 16), shard=0)
+        losses, v0 = [], srv.topology_version
+        for win in range(4):
+            batches = [{"s": rng.integers(0, 280, 32),
+                        "r": rng.integers(280, 300, 32),
+                        "o": rng.integers(0, 280, 32),
+                        "neg": rng.integers(0, 280, (32, 3))}
+                       for _ in range(4)]
+            losses.append(run.run_scan(batches, None, 0.1))
+            # 8 keys of shard 1 the next window moves to the worker's
+            # shard (within its free main slots: no move demoted to a
+            # replica)
+            w.intent(np.arange(win * 16 + 1, win * 16 + 17, 2),
+                     w.current_clock, w.current_clock + 100)
+            srv.drive_rounds(4)
+            if prefetch:
+                srv.prefetch.flush()
+            for _ in range(4):
+                w.advance_clock()
+        assert srv.topology_version > v0, "no relocation happened"
+        assert not run._shard_has_replicas(), "a move became a replica"
+        assert run.graph_captures == 1, run.graph_captures
+        if prefetch:
+            assert srv.prefetch.stats["rounds_driven"] >= 4
+            assert srv.prefetch.failures == 0
+        out.append((torch.cat(losses).cpu(), srv.stores[0].main.cpu()))
+        srv.shutdown()
+    (l1, m1), (l2, m2) = out
+    assert torch.equal(_bits(l1), _bits(l2))
+    assert torch.equal(_bits(m1), _bits(m2))
+
+
+def test_background_planner_converges_on_card(cuda):
+    """Two worker threads push integer values under competing intents
+    while start_sync_thread runs the rounds on the card: after
+    stop_sync_thread and quiesce every row is the sequential sum,
+    bitwise, and no background round failed."""
+    import threading
+
+    import adapm_tpu_torch as at
+    n, L = 200, 16
+    srv = at.setup(n, L, num_shards=2, num_workers=2, device=cuda,
+                   opts=at.SystemOptions(sync_max_per_sec=1000.0,
+                                         cache_slots_per_shard=128,
+                                         sync_report_s=0))
+    ws = [srv.make_worker(i) for i in range(2)]
+    init = np.random.default_rng(2).integers(-3, 4, (n, L)).astype(np.float32)
+    ws[0].wait(ws[0].set(np.arange(n), init))
+    hot = np.arange(0, n, 2)
+    sums = [np.zeros((n, L)) for _ in ws]
+
+    def run(w):
+        rng = np.random.default_rng(10 + w.worker_id)
+        for i in range(150):
+            if i % 20 == 0:
+                w.intent(hot, w.current_clock, w.current_clock + 30)
+            k = rng.choice(hot, 16)
+            v = rng.integers(-2, 3, (16, L)).astype(np.float32)
+            w.push(k, v)
+            np.add.at(sums[w.worker_id], k, v)
+            w.advance_clock()
+        w.wait_all()
+
+    srv.start_sync_thread()
+    ts = [threading.Thread(target=run, args=(w,)) for w in ws]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    srv.wait_sync()
+    srv.stop_sync_thread()
+    srv.quiesce()
+    got = srv.read_main(np.arange(n)).reshape(n, L)
+    want = (init + sums[0] + sums[1]).astype(np.float32)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert srv.sync.stats.rounds > 0 and srv.sync.stats.replicas_created > 0
+    assert srv.sync_loop_failures == 0
+    assert srv.exec.stats()["programs_failed"] == 0
+    srv.shutdown()
+
+
+def test_staged_keys_ring_bitwise_plain_upload(cuda):
+    """Steps whose keys came through prefetch_keys' pinned ring, staged
+    three steps ahead, over more uploads than the ring has slots and with
+    a batch size that grows midway (each slot's buffer is replaced): the
+    losses and the main pool are bitwise those of the same steps with
+    keys uploaded in the dispatch; a batch that is not the staged one is
+    refused."""
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner, _PinnedRing
+    roles = ("s", "r", "o", "neg")
+    rng = np.random.default_rng(4)
+    vals = rng.normal(size=(300, 32)).astype(np.float32) * 0.1
+    vals[:, 16:] = 1e-6
+    n_steps = 2 * _PinnedRing.SLOTS + 4
+    batches = [{"s": rng.integers(0, 280, n), "r": rng.integers(280, 300, n),
+                "o": rng.integers(0, 280, n),
+                "neg": rng.integers(0, 280, (n, 3))}
+               for n in [32] * 10 + [96] * (n_steps - 10)]
+    out = []
+    for staging in (True, False):
+        srv = at.setup(300, 32, device=cuda,
+                       opts=at.SystemOptions(sync_max_per_sec=0))
+        w = srv.make_worker(0)
+        w.wait(w.set(np.arange(300), vals))
+        run = DeviceRoutedRunner(
+            srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
+            role_dim=dict.fromkeys(roles, 16), shard=0)
+        staged = {i: run.prefetch_keys(batches[i]) for i in range(3)} \
+            if staging else {}
+        losses = []
+        for i, b in enumerate(batches):
+            if staging and i + 3 < n_steps:
+                staged[i + 3] = run.prefetch_keys(batches[i + 3])
+            losses.append(run(b, None, 0.1, staged=staged.pop(i, None)))
+        if staging:
+            assert run.staged_steps == n_steps
+            nxt = run.prefetch_keys(batches[0])
+            with pytest.raises(ValueError):
+                run(batches[1], None, 0.1, staged=nxt)
+        out.append((torch.stack(losses).cpu(), srv.stores[0].main.cpu()))
+        srv.shutdown()
+    (l1, m1), (l2, m2) = out
+    assert torch.equal(_bits(l1), _bits(l2))
+    assert torch.equal(_bits(m1), _bits(m2))

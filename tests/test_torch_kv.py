@@ -40,7 +40,8 @@ class Twin:
         self.t = adapm_tpu_torch.Server(
             num_keys, vlen, ctx=make_context(shards, "cpu"),
             num_workers=num_workers,
-            opts=adapm_tpu_torch.SystemOptions(techniques=tt, **opts))
+            opts=adapm_tpu_torch.SystemOptions(prefetch=False,
+                                               techniques=tt, **opts))
         self.wj, self.wt = [], []
 
     def workers(self, n):
@@ -294,8 +295,7 @@ def test_locality_future_intent_not_acted_early():
 
 
 def test_unported_planes_raise_naming_roadmap_item():
-    for kw, item in (({"prefetch": True}, "item 7"),
-                     ({"tier": True}, "item 8"),
+    for kw, item in (({"tier": True}, "item 8"),
                      ({"sync_compress": "fp16"}, "B8")):
         with pytest.raises(NotImplementedError, match=item):
             adapm_tpu_torch.Server(

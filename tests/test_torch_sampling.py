@@ -24,9 +24,7 @@ def mesh():
 def _server(pkg, ctx, scheme, with_replacement):
     opts = pkg.SystemOptions(sampling_scheme=scheme,
                              sampling_with_replacement=with_replacement,
-                             sync_max_per_sec=0)
-    if pkg is adapm_tpu:
-        opts.prefetch = False
+                             sync_max_per_sec=0, prefetch=False)
     s = pkg.Server(NK, 2, opts=opts, ctx=ctx, num_workers=4)
     ws = [s.make_worker(i) for i in range(4)]
     # values = key id, so sampled pulls are checkable

@@ -412,7 +412,8 @@ def test_jax_trained_state_carries_over_and_trains_alike(loss):
                                                       **opts))
     t = adapm_tpu_torch.Server(keys, 2 * d, ctx=make_context(S, "cpu"),
                                num_workers=2,
-                               opts=adapm_tpu_torch.SystemOptions(**opts))
+                               opts=adapm_tpu_torch.SystemOptions(
+                                   prefetch=False, **opts))
     wj = [j.make_worker(i) for i in range(2)]
     wt = [t.make_worker(i) for i in range(2)]
     rng = np.random.default_rng(6)
