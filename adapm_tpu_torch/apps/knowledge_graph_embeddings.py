@@ -619,6 +619,15 @@ def run_app(args, device=None) -> dict:
     result["replicas_created"] = int(srv.sync.stats.replicas_created)
     result["staged_steps"] = sum(r.staged_steps
                                  for r in dev_runners.values())
+    if srv.tier is not None:
+        # the tier section's gauges and counters, and the fullest shard's
+        # hot rows (each shard holds at most --sys.tier.hot_rows)
+        snap = srv.metrics_snapshot()["tier"]
+        result["tier"] = {k: v for k, v in snap.items()
+                          if not isinstance(v, dict)}
+        result["tier"]["hot_rows_per_shard_max"] = max(
+            st.res.hot_count(s) for st in srv.stores
+            for s in range(st.res.num_shards))
     ent = srv.read_main(run.ekey(np.arange(min(run.E, 2048)))).reshape(
         -1, 2 * run.ent_dim)[:, : run.ent_dim]
     result["ent_norm"] = float(np.sqrt((ent * ent).sum(axis=1)).mean())

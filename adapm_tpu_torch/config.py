@@ -13,8 +13,7 @@ from typing import Optional
 
 from .base import MgmtTechniques
 
-# wire/at-rest formats the knobs below accept (the JAX package's
-# tier/quant.py tables; this package implements only fp32 / "off")
+# wire/at-rest formats the knobs below accept (tier/quant.py's tables)
 COLD_DTYPES = ("fp32", "fp16", "int8")
 SYNC_COMPRESS_MODES = ("off", "fp16", "int8")
 

@@ -21,13 +21,16 @@ This is the JAX package's `core/kv.py` for one process, over torch pools
 The intent-driven prefetch pipeline (`prefetch`, core/intent.py; on by
 default, `--sys.prefetch 0` is the kill switch) and the background
 planner (`start_sync_thread`) run as programs on the server's executor.
-The serving plane (`adapm_tpu_torch/serve`) attaches itself as
-`_serve_plane` and reads the kernel cost table (`costs`,
-`--sys.costs.table`). Every other optional plane of the JAX server
-(tiering, streaming, workload/decision traces, learned policy,
-checkpoints, fault injection, the multi-process layer) is not ported:
-asking for one raises NotImplementedError naming its ROADMAP item, and
-the corresponding attributes stay None.
+Tiered storage (`tier`, adapm_tpu_torch/tier; --sys.tier) keeps a
+capacity-bounded hot pool per class on the device and the full table in
+a host cold store; compressed sync rounds (--sys.sync.compress) ship
+quantized deltas with error feedback. The serving plane
+(`adapm_tpu_torch/serve`) attaches itself as `_serve_plane` and reads
+the kernel cost table (`costs`, `--sys.costs.table`). Every other
+optional plane of the JAX server (streaming, workload/decision traces,
+learned policy, checkpoints, fault injection, the multi-process layer)
+is not ported: asking for one raises NotImplementedError naming its
+ROADMAP item, and the corresponding attributes stay None.
 """
 from __future__ import annotations
 
@@ -92,7 +95,6 @@ def _fill_flat(out, offs, lens, pos, part) -> None:
 # SystemOptions knobs of planes this package does not have yet, with the
 # ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("tier", "tiered storage (--sys.tier)", "queue A, item 8"),
     ("trace_flight", "request-flight tracing", "queue A, item 10"),
     ("crash_dumps", "crash dumps", "queue A, item 10"),
     ("trace_workload", "workload trace capture", "queue A, item 10"),
@@ -150,9 +152,6 @@ class Server:
             if getattr(self.opts, knob):
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP {item})")
-        if self.opts.sync_compress != "off":
-            raise NotImplementedError("compressed sync rounds are not "
-                                      "ported yet (ROADMAP queue B, B8)")
         self.ctx = ctx or make_context()
         self.num_keys = int(num_keys)
         self.dtype = dtype
@@ -214,7 +213,11 @@ class Server:
                          over_alloc=self.opts.main_over_alloc,
                          cache_slots_per_shard=self.opts.
                          cache_slots_per_shard,
-                         bucket_min=self.opts.remote_bucket_min)
+                         bucket_min=self.opts.remote_bucket_min,
+                         tier_hot_rows=(self.opts.tier_hot_rows
+                                        if self.opts.tier else 0),
+                         tier_cold_dtype=(self.opts.tier_cold_dtype
+                                          if self.opts.tier else "fp32"))
             for cid, L in enumerate(self.class_lengths)]
         if self.obs.enabled and self.stores:
             _port = self.stores[0].port
@@ -265,6 +268,14 @@ class Server:
         self.topology_version = 0
 
         self.sync = SyncManager(self, self.opts)
+        # tiered storage (adapm_tpu_torch/tier): device-hot / host-cold
+        # main-row residency with intent-driven promotion; None when
+        # --sys.tier is off (the stores are then plain device pools)
+        if self.opts.tier:
+            self.opts.validate_serve()  # tier knob ranges (hand-built
+            # SystemOptions skip parse-time validation)
+            from ..tier.residency import TierManager
+            self.tier = TierManager(self, self.opts)
         # the background planner's started/stopped token (None = stopped)
         self._sync_thread = None
         self._sync_stop = threading.Event()
@@ -601,10 +612,17 @@ class Server:
         return out
 
     def _sync_replicas(self, keys: np.ndarray, shards: np.ndarray,
-                       threshold: float = 0.0) -> None:
+                       threshold: float = 0.0,
+                       compress: bool = False) -> None:
         """Sync replicas given parallel (key, holder-shard) arrays;
         threshold > 0 leaves small-delta replicas out of the round
-        (--sys.sync.threshold). Under the lock: revalidation + enqueue."""
+        (--sys.sync.threshold). compress=True ships the deltas in the
+        --sys.sync.compress format with the residual parked in the delta
+        row; ONLY the periodic rounds pass it. Drop and quiesce flushes
+        stay exact: a dropped replica's delta row is freed, so a
+        compressed flush there would lose its parked residual. Under the
+        lock: revalidation + enqueue."""
+        mode = self.opts.sync_compress if compress else "off"
         with self._lock:
             ab = self.ab
             karr = np.ascontiguousarray(keys, dtype=np.int64)
@@ -626,7 +644,8 @@ class Server:
                     if not ok.any():
                         continue
                 self.stores[cid].sync_replicas(ss, r_cs, o_sh, o_sl,
-                                               threshold=threshold)
+                                               threshold=threshold,
+                                               compress=mode)
 
     def _drop_replicas(self, keys: np.ndarray,
                        shards: np.ndarray) -> None:
@@ -864,9 +883,9 @@ class Server:
     def shutdown(self) -> None:
         """Idempotent teardown; readers go down before their substrate:
         the serving plane (its dispatchers read the pools), the prefetch
-        pipeline (staged gathers, delegated rounds), the background
-        planner, then the executor, pool quiesce, stats/trace export,
-        registry unhook."""
+        pipeline (staged gathers, delegated rounds), the tier maintenance
+        worker (demotion readbacks), the background planner, then the
+        executor, pool quiesce, stats/trace export, registry unhook."""
         if self._shutdown_done:
             return
         self._shutdown_done = True
@@ -874,6 +893,8 @@ class Server:
             self._serve_plane.close()
         if self.prefetch is not None:
             self.prefetch.close()
+        if self.tier is not None:
+            self.tier.close()
         self.stop_sync_thread()
         self.exec.close()
         self.block()
@@ -925,6 +946,9 @@ class Server:
             if self.prefetch is not None:
                 alog("[stats] prefetch: " + " ".join(
                     f"{k}={v}" for k, v in self.prefetch.report().items()))
+            if self.tier is not None:
+                alog("[stats] tier: " + " ".join(
+                    f"{k}={v}" for k, v in self.tier.report().items()))
         if not self.opts.stats_out:
             return []
         from ..utils.stats import write_stats
@@ -934,14 +958,20 @@ class Server:
     def metrics_snapshot(self) -> Dict:
         """The structured telemetry dict: `schema_version`,
         `metrics_enabled`, and the registry's sections plus `kv`,
-        `prefetch`, `plan_cache`, `staging`, `exec`, `device`, `serve`
-        and `slo` (`{}` where the subsystem is off). With a plane
-        attached, `serve.readiness` is its `health.readiness()` dict."""
+        `prefetch`, `plan_cache`, `staging`, `sync`, `exec`, `device`,
+        `serve`, `slo`, `tier` and `episode` (`{}` where the subsystem is
+        off). `tier` holds the residency gauges and counters (hit rate,
+        promotions, demotions, hot rows used and capacity, cold bytes per
+        row, the error-feedback residual map); `sync` the compression
+        plane's `bytes_per_round`, `bytes_shipped`, `bytes_full_equiv`
+        and `ef_residual_norm`; `episode` the EpisodicRunner's counters
+        and prep/commit histograms. With a plane attached,
+        `serve.readiness` is its `health.readiness()` dict."""
         out: Dict = {"schema_version": 1,
                      "metrics_enabled": bool(self.obs.enabled),
                      "kv": {}, "prefetch": {}, "plan_cache": {},
-                     "staging": {}, "exec": {}, "device": {}, "serve": {},
-                     "slo": {}}
+                     "staging": {}, "sync": {}, "exec": {}, "device": {},
+                     "serve": {}, "slo": {}, "tier": {}, "episode": {}}
         if not self.obs.enabled:
             return out
         plane = self._serve_plane
@@ -995,10 +1025,15 @@ class Server:
         with self._round_lock:
             self.sync.quiesce()
 
+    # tiered batches at least this large read through _read_owned_bulk
+    _BULK_READ_MIN = 65536
+
     def read_main(self, keys) -> np.ndarray:
         """Current authoritative main-copy values (flat concat)."""
         keys = np.asarray(keys, dtype=np.int64)
         with self._lock:
+            if self.tier is not None and len(keys) >= self._BULK_READ_MIN:
+                return self._read_owned_bulk(keys)
             groups = []
             for cid, pos in self._group_by_class(keys):
                 ks = keys[pos]
@@ -1010,6 +1045,22 @@ class Server:
                     np.zeros(n, bool))
                 groups.append((cid, pos, self.value_lengths[ks], vals, n))
         return self._assemble_flat(keys, groups)
+
+    def _read_owned_bulk(self, keys: np.ndarray) -> np.ndarray:
+        """Checkpoint/eval/export-scale read of a tiered server: only the
+        REQUESTED rows (the cold store's fancy index and one gather of
+        the hot ones) — a whole-table copy would double host memory at
+        the sizes tiering exists for."""
+        from ..tier.coldpath import read_main_rows_bulk
+        lens = self.value_lengths[keys]
+        offs = _offsets(lens)
+        out = np.empty(offs[-1], dtype=np.float32)
+        for cid, pos in self._group_by_class(keys):
+            ks = keys[pos]
+            rows = read_main_rows_bulk(self.stores[cid], self.ab.owner[ks],
+                                       self.ab.slot[ks])
+            _fill_flat(out, offs, lens, pos, rows.ravel())
+        return out
 
     def _assemble_flat(self, keys: np.ndarray, groups) -> np.ndarray:
         lens = self.value_lengths[keys]

@@ -14,6 +14,15 @@ through the DevicePort (device/torchport.py), which updates the pools in
 place. Index batches are padded to power-of-two buckets with OOB
 entries, exactly as in the JAX package, so both packages run the same
 programs on the same padded inputs.
+
+With `tier_hot_rows > 0` the store is TIERED (adapm_tpu_torch/tier):
+the device main pool holds that many rows per shard, the authoritative
+table lives in the host cold store `coldq` (tier/quant.py QuantCold, in
+--sys.tier.cold_dtype format), and `res` (tier/residency.py Residency)
+maps slots to hot rows. Every index-level op keeps taking (shard, SLOT)
+coordinates; the tiered branches (tier/coldpath.py) translate them to
+hot rows at dispatch time, so routing and the addressbook never see the
+tier.
 """
 from __future__ import annotations
 
@@ -102,11 +111,8 @@ class ShardedStore:
     def __init__(self, num_keys_in_class: int, value_length: int, ctx,
                  dtype=torch.float32, over_alloc: float = 1.25,
                  cache_slots_per_shard: int = 0, bucket_min: int = 8,
-                 tier_hot_rows: int = 0, port=None):
-        if tier_hot_rows > 0:
-            raise NotImplementedError(
-                "tiered storage (--sys.tier) is not ported yet (ROADMAP "
-                "queue A, item 8)")
+                 tier_hot_rows: int = 0, tier_cold_dtype: str = "fp32",
+                 port=None):
         self.value_length = value_length
         self.ctx = ctx
         self.dtype = dtype
@@ -118,9 +124,27 @@ class ShardedStore:
                                       math.ceil(per_shard * over_alloc)))
         self.cache_slots = _round8(max(1, cache_slots_per_shard or
                                        per_shard))
+        # tiered residency (module docstring): the cold store's residual
+        # capacity scales with the hot pool (the rows that cycle through
+        # promote/demote are the ones that park remainders)
+        self.res = None
+        self.coldq = None
+        self.tier_hot_hits = 0   # owner-served gather entries, hot
+        self.tier_cold_hits = 0  # owner-served gather entries, cold
+        self.tier_hist = None    # cold-serve latency (TierManager)
+        dev_main_slots = self.main_slots
+        if tier_hot_rows > 0:
+            from ..tier.quant import QuantCold
+            from ..tier.residency import Residency
+            dev_main_slots = _round8(
+                min(self.main_slots, max(8, tier_hot_rows)))
+            self.res = Residency(S, self.main_slots, dev_main_slots)
+            self.coldq = QuantCold(
+                S, self.main_slots, value_length, mode=tier_cold_dtype,
+                resid_cap=min(65536, max(1024, 4 * dev_main_slots)))
         dev = ctx.device
         self.main = self.port.alloc_pool(
-            (S, self.main_slots, value_length), dtype, dev)
+            (S, dev_main_slots, value_length), dtype, dev)
         self.cache = self.port.alloc_pool(
             (S, self.cache_slots, value_length), dtype, dev)
         self.delta = self.port.alloc_pool(
@@ -141,10 +165,17 @@ class ShardedStore:
         self.main_epoch = np.zeros((S, self.main_slots), dtype=np.int64)
         self.repl_epoch = np.zeros((S, self.cache_slots), dtype=np.int64)
         self.delta_dirty = np.zeros((S, self.cache_slots), dtype=bool)
-        # wire accounting of sync rounds (full-width f32 rows; the
-        # compressed formats are not ported)
+        # wire accounting of sync rounds: bytes shipped in the
+        # --sys.sync.compress format vs full-width f32 for the same rows
+        # (sync.bytes_* gauges). With a threshold the ship/hold decision
+        # is on the device, so these count the CONSIDERED rows.
         self.sync_bytes_shipped = 0
         self.sync_bytes_full = 0
+        # max-abs residual parked by the last compressed round: a device
+        # scalar read lazily (ef_residual_norm), and the tiered
+        # cold-owner rounds' host value
+        self._ef_resid_dev = None
+        self._ef_resid_host = 0.0
         self.gathers = 0
 
     def _next_epoch(self) -> int:
@@ -204,6 +235,10 @@ class ShardedStore:
     def gather(self, o_shard, o_slot, c_shard, c_slot, use_cache):
         n = len(o_shard)
         self.gathers += 1
+        if self.res is not None:
+            from ..tier import coldpath
+            return coldpath.gather_tiered(self, o_shard, o_slot,
+                                          c_shard, c_slot, use_cache)
         a = pad_bucket(n, (o_shard, 0), (o_slot, OOB), (c_shard, 0),
                        (c_slot, OOB), (use_cache, False),
                        minimum=self.bucket_min)
@@ -222,6 +257,11 @@ class ShardedStore:
         nb = bucket_size(max(int(nbags), 1), self.bucket_min)
         out = torch.zeros((nb, self.value_length), dtype=self.dtype,
                           device=self.main.device)
+        if self.res is not None:
+            from ..tier import coldpath
+            return coldpath.gather_pool_tiered(
+                self, o_shard, o_slot, c_shard, c_slot, use_cache, seg,
+                out, pooling)
         a = pad_bucket(n, (o_shard, 0), (o_slot, OOB), (c_shard, 0),
                        (c_slot, OOB), (use_cache, False),
                        (np.asarray(seg, dtype=np.int32), OOB),
@@ -258,6 +298,11 @@ class ShardedStore:
         if md.any():
             self.delta_dirty[np.asarray(d_shard)[md],
                              np.asarray(d_slot)[md]] = True
+        if self.res is not None:
+            from ..tier import coldpath
+            coldpath.scatter_add_tiered(self, o_shard, o_slot,
+                                        d_shard, d_slot, vals)
+            return
         a = pad_bucket(n, (o_shard, 0), (o_slot, OOB), (d_shard, 0),
                        (d_slot, OOB), minimum=self.bucket_min)
         v = self._vals_bucket(vals, a[0].shape[0])
@@ -276,6 +321,11 @@ class ShardedStore:
             cs, cl = np.asarray(c_shard)[mc], np.asarray(c_slot)[mc]
             self.repl_epoch[cs, cl] = e
             self.delta_dirty[cs, cl] = False
+        if self.res is not None:
+            from ..tier import coldpath
+            coldpath.set_rows_tiered(self, o_shard, o_slot, vals,
+                                     c_shard, c_slot)
+            return
         a = pad_bucket(n, (o_shard, 0), (o_slot, OOB), (c_shard, 0),
                        (c_slot, OOB), minimum=self.bucket_min)
         v = self._vals_bucket(vals, a[0].shape[0])
@@ -287,6 +337,11 @@ class ShardedStore:
         n = len(o_shard)
         self.repl_epoch[c_shard, c_slot] = self.main_epoch[o_shard, o_slot]
         self.delta_dirty[c_shard, c_slot] = False
+        if self.res is not None:
+            from ..tier import coldpath
+            coldpath.replica_create_tiered(self, o_shard, o_slot,
+                                           c_shard, c_slot)
+            return
         a = pad_bucket(n, (o_shard, 0), (o_slot, OOB), (c_shard, 0),
                        (c_slot, OOB), minimum=self.bucket_min)
         self.cache, self.delta = self.port.replica_create(
@@ -295,7 +350,9 @@ class ShardedStore:
     def sync_replicas(self, r_shard, r_cslot, o_shard, o_slot,
                       threshold: float = 0.0, compress: str = "off"):
         n = len(r_shard)
-        self.sync_bytes_shipped += n * 4 * self.value_length
+        from ..tier.quant import wire_bytes_per_row
+        self.sync_bytes_shipped += n * wire_bytes_per_row(
+            compress, self.value_length)
         self.sync_bytes_full += n * 4 * self.value_length
         if threshold <= 0.0:
             r_sh, r_cs = np.asarray(r_shard), np.asarray(r_cslot)
@@ -306,11 +363,32 @@ class ShardedStore:
                 self.main_epoch[o_sh[dd], o_sl[dd]] = self._next_epoch()
             self.repl_epoch[r_sh, r_cs] = self.main_epoch[o_sh, o_sl]
             self.delta_dirty[r_sh, r_cs] = False
+        # threshold > 0: the ship/hold decision is made on the device,
+        # so the tracking is left alone (replicas stay dirty)
+        if self.res is not None:
+            from ..tier import coldpath
+            coldpath.sync_replicas_tiered(self, r_shard, r_cslot,
+                                          o_shard, o_slot,
+                                          threshold=threshold,
+                                          compress=compress)
+            return
         a = pad_bucket(n, (r_shard, 0), (r_cslot, OOB), (o_shard, 0),
                        (o_slot, OOB), minimum=self.bucket_min)
-        self.main, self.cache, self.delta = self.port.sync_replicas(
+        out = self.port.sync_replicas(
             self.main, self.cache, self.delta, *a, threshold=threshold,
             compress=compress)
+        if compress != "off":
+            self.main, self.cache, self.delta, self._ef_resid_dev = out
+        else:
+            self.main, self.cache, self.delta = out
+
+    def ef_residual_norm(self) -> float:
+        """Max-abs residual parked by the most recent compressed sync
+        round (device and tiered host rounds). Reading the device
+        scalar waits for its round: snapshot time only."""
+        dev = 0.0 if self._ef_resid_dev is None else \
+            float(self._ef_resid_dev)
+        return max(dev, self._ef_resid_host)
 
     def relocate_rows(self, old_shard, old_slot, new_shard, new_slot,
                       rc_shard, rc_slot):
@@ -323,6 +401,12 @@ class ShardedStore:
         if mr.any():
             self.delta_dirty[np.asarray(rc_shard)[mr],
                              np.asarray(rc_slot)[mr]] = False
+        if self.res is not None:
+            from ..tier import coldpath
+            coldpath.relocate_tiered(self, old_shard, old_slot,
+                                     new_shard, new_slot,
+                                     rc_shard, rc_slot)
+            return
         a = pad_bucket(n, (old_shard, 0), (old_slot, OOB), (new_shard, 0),
                        (new_slot, OOB), (rc_shard, 0), (rc_slot, OOB),
                        minimum=self.bucket_min)
@@ -330,16 +414,45 @@ class ShardedStore:
             self.main, self.delta, *a)
 
     def read_rows(self, which: str, sh, sl) -> np.ndarray:
-        """Host readback of pool rows (non-destructive)."""
+        """Host readback of pool rows (non-destructive). Slot-indexed for
+        "main" — tier-aware: hot rows from the device, cold rows from the
+        cold store."""
+        if which == "main" and self.res is not None:
+            from ..tier import coldpath
+            return coldpath.read_main_rows_tiered(self, sh, sl)
         n = len(sh)
         a = pad_bucket(n, (sh, 0), (sl, OOB), minimum=self.bucket_min)
         arr = {"main": self.main, "cache": self.cache,
                "delta": self.delta}[which]
         return self.port.read_rows_at(arr, *a)[:n].cpu().numpy()
 
+    def read_hot_rows_at(self, sh: np.ndarray, row: np.ndarray) -> np.ndarray:
+        """Host readback of hot-pool rows by DEVICE ROW (the demotion and
+        relocation readback of a tiered store; non-destructive)."""
+        n = len(sh)
+        a = pad_bucket(n, (sh, 0), (row, OOB), minimum=self.bucket_min)
+        return self.port.read_rows_at(self.main, *a)[:n].cpu().numpy()
+
     def main_host(self) -> np.ndarray:
-        """The full main table [S, main_slots, L] on the host."""
-        return self.main.cpu().numpy()
+        """The full authoritative main table [S, main_slots, L] on the
+        host: one copy of the pool untiered, the cold store overlaid with
+        the hot rows tiered."""
+        if self.res is None:
+            return self.main.cpu().numpy()
+        from ..tier import coldpath
+        return coldpath.main_full_host(self)
+
+    def install_main_full(self, arr: np.ndarray) -> None:
+        """Install a full main table [S, main_slots, L] (a loaded state):
+        untiered into the pool, in place; tiered, it becomes the cold
+        store and residency resets (everything cold, promoted again on
+        access and intent)."""
+        if self.res is None:
+            self.main.copy_(torch.from_numpy(
+                np.ascontiguousarray(arr, dtype=np.float32)))
+            return
+        from ..tier import coldpath
+        coldpath.install_main_full(self, arr)
 
     def block(self) -> None:
         if self.main.device.type == "cuda":

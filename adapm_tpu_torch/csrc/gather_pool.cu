@@ -60,10 +60,28 @@
 //   whose span holds the run's end, but for the chunks of kChunk bags
 //   that lie wholly inside it, which are items of their own (the
 //   bucket's padding bags would otherwise fall to one warp).
+//
+// K10 gather_pool_cold, the same kernel with the cold source of a tiered
+// store as a template parameter (kCold: quant.cuh's wire mode, 0 for
+// K8), replaces jaxport.py _gather_pool_cold, _gather_pool_cold_fp16 and
+// _gather_pool_cold_int8 (jaxport.py:269, :341, :354): a member with
+// use_cold (and not use_c) reads its row from the staged [n, L] wire
+// buffer of the batch instead of the hot pool, dequantized as quant.cuh
+// does (tier/quant.py's dequantize_rows, bit for bit). The
+// source-resolution step points such a member at its staging row (a
+// code at or past kColdBase) and, for int8, keeps its scale beside the
+// code; the ring carries the wire bytes (16, 8 or 4 a lane per four
+// columns), and the fold decodes them. The batch-order fold and the
+// mean's division are K8's. With kCold = 0 every cold branch is
+// discarded at compile time: K8's instantiation does exactly K8's work
+// (its register allocation and schedule moved a little; its time did
+// not, PERF.md).
 #include <cuda_runtime.h>
 
 #include <mutex>
+#include <type_traits>
 
+#include "quant.cuh"
 #include "routed_read.cuh"
 
 namespace {
@@ -77,6 +95,7 @@ constexpr int kSpan = 64;    // seg positions per work item
 constexpr int kDepth = 4;    // members in flight per lane (the ring)
 constexpr int kChunk = 64;   // bags per zeroing item (mean pooling)
 constexpr int kSlots = 64;   // streams with a work counter of their own
+constexpr long long kColdBase = 1LL << 62;   // codes of cold members
 
 // per stream slot: the next item past the first wave, and the warps done
 __device__ unsigned long long g_next[kSlots];
@@ -109,16 +128,39 @@ __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// raw wire bytes of a cold member (8: four halves, 4: four int8)
+__device__ __forceinline__ void cp_async_bytes8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_bytes4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// K10's int8 scales of a batch of resolved members (empty otherwise)
+template <int kCold>
+struct ColdSmem {};
+template <>
+struct ColdSmem<adapm::kWireI8> {
+  float scale[2][32];
+};
+
 // One warp's shared memory: the ring (per stage and lane: the member's
 // main or cache value, its delta value, the bag's starting value) and
 // two batches of resolved members.
-template <typename T>
-struct WarpSmem {
+template <typename T, int kCold>
+struct WarpSmem : ColdSmem<kCold> {
   T ring[kDepth][3][32];
   long long code[2][32];   // row offset >= 0: main; -1: a zero row;
                            // <= -2: cache+delta at offset -2 - code
@@ -135,20 +177,34 @@ struct Args {
   int nbags, shards, slots, c_shards, c_slots, W, mean, slices;
   long long span_items, items;   // the span items, then (mean) chunks
   int slot;   // the stream's counter, or -1: every item by stride
+  // K10: the staged wire rows, their int8 scales and the cold members
+  const void* cold;
+  const float* cold_scale;
+  const unsigned char* use_cold;
+  int L;
 };
 
-// A member's coordinates as loaded (two batches ahead of its fold).
+// A member's coordinates as loaded (two batches ahead of its fold); K10
+// adds the cold flag and the member's index (its staging row).
 struct Raw {
   int seg, o_sh, o_sl, c_sh, c_sl;
   unsigned char use_c;
 };
+struct ColdRaw : Raw {
+  unsigned char use_cold;
+  long long m;
+};
+template <int kCold>
+using RawOf = std::conditional_t<kCold != 0, ColdRaw, Raw>;
 
 __device__ __forceinline__ int clamp_bag(int s, int nbags) {
   return s < 0 ? -1 : (s >= nbags ? nbags : s);
 }
 
-__device__ __forceinline__ Raw load_raw(const Args& a, long long j) {
-  Raw r{a.nbags, 0, 0, 0, 0, 0};
+template <int kCold>
+__device__ __forceinline__ RawOf<kCold> load_raw(const Args& a, long long j) {
+  RawOf<kCold> r{};
+  r.seg = a.nbags;
   if (j < a.n) {
     const long long m = a.perm != nullptr ? __ldg(a.perm + j) : j;
     r.seg = __ldg(a.seg + j);
@@ -157,8 +213,54 @@ __device__ __forceinline__ Raw load_raw(const Args& a, long long j) {
     r.o_sl = __ldg(a.o_sl + m);
     r.c_sh = __ldg(a.c_sh + m);
     r.c_sl = __ldg(a.c_sl + m);
+    if constexpr (kCold != 0) {
+      r.use_cold = __ldg(a.use_cold + m);
+      r.m = m;
+    }
   }
   return r;
+}
+
+// K10: start the copy of cold member m's wire bytes for column c into
+// its ring slot. Halves and int8 of a 4-byte element path are read and
+// widened here (cp.async copies 4 bytes at least); they are exact.
+template <typename T, int kCold>
+__device__ __forceinline__ void cold_issue(T* dst, const Args& a,
+                                           long long m, int c) {
+  if constexpr (kCold == adapm::kWireF32) {
+    cp_async(dst, reinterpret_cast<const T*>(a.cold) + m * a.W + c);
+  } else if constexpr (sizeof(T) == 16) {
+    if constexpr (kCold == adapm::kWireF16)
+      cp_async_bytes8(dst, reinterpret_cast<const __half*>(a.cold) +
+                               m * a.L + 4 * c);
+    else
+      cp_async_bytes4(dst, reinterpret_cast<const signed char*>(a.cold) +
+                               m * a.L + 4 * c);
+  } else if constexpr (kCold == adapm::kWireF16) {
+    *reinterpret_cast<float*>(dst) = __half2float(
+        reinterpret_cast<const __half*>(a.cold)[m * a.L + c]);
+  } else {
+    *reinterpret_cast<float*>(dst) =
+        (float)reinterpret_cast<const signed char*>(a.cold)[m * a.L + c];
+  }
+}
+
+// K10: a cold member's value from its ring slot
+template <typename T, int kCold>
+__device__ __forceinline__ T cold_value(const T& slot, float s) {
+  if constexpr (kCold == adapm::kWireF32) {
+    return slot;
+  } else if constexpr (sizeof(T) == 16) {
+    if constexpr (kCold == adapm::kWireF16)
+      return adapm::decode_f16x4(*reinterpret_cast<const uint2*>(&slot));
+    else
+      return adapm::decode_i8x4(*reinterpret_cast<const unsigned*>(&slot),
+                                s);
+  } else if constexpr (kCold == adapm::kWireF16) {
+    return slot;
+  } else {
+    return __fmul_rn(*reinterpret_cast<const float*>(&slot), s);
+  }
 }
 
 // First position in the non-decreasing seg[0, n) whose value is >= v,
@@ -189,13 +291,14 @@ __device__ __forceinline__ long long take(int slot, int lane) {
   return (long long)__shfl_sync(~0u, v, 0);
 }
 
-template <typename T>
+template <typename T, int kCold>
 __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
     const T* __restrict__ main_pool, const T* __restrict__ cache,
     const T* __restrict__ delta, T* __restrict__ out, Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  WarpSmem<T>& sm = reinterpret_cast<WarpSmem<T>*>(smem_raw)[wid];
+  WarpSmem<T, kCold>& sm =
+      reinterpret_cast<WarpSmem<T, kCold>*>(smem_raw)[wid];
   const long long nwarps = (long long)gridDim.x * kWarps;
   for (long long item = (long long)blockIdx.x * kWarps + wid;
        item < a.items;
@@ -258,7 +361,7 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
     int carry = -1;                      // clamped seg of the last member
     bool ended = false;
     // resolve the batch of members [base, base + 32) from `r` into buf
-    auto resolve = [&](long long base, const Raw& r, int buf) {
+    auto resolve = [&](long long base, const RawOf<kCold>& r, int buf) {
       const long long j = base + lane;
       const int q = j < a.n ? clamp_bag(r.seg, a.nbags) : a.nbags;
       int p = __shfl_up_sync(~0u, q, 1);
@@ -269,9 +372,15 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
                          (j >= s1 || q < 0 || q >= a.nbags));
       const unsigned stops = __ballot_sync(~0u, stop);
       const bool past = stops && lane >= __ffs(stops) - 1;
-      bool from_c = false;
+      bool from_c = false, cold = false;
       long long code = -1;
-      if (!past) {
+      if constexpr (kCold != 0) {
+        cold = !past && !r.use_c && r.use_cold;
+        if (cold) code = kColdBase + r.m;
+        if constexpr (kCold == adapm::kWireI8)
+          sm.scale[buf][lane] = cold ? __ldg(a.cold_scale + r.m) : 0.f;
+      }
+      if (!cold && !past) {
         const long long src = routed_source<true>(
             &r.o_sh, &r.o_sl, &r.c_sh, &r.c_sl, &r.use_c, 0, a.shards,
             a.slots, a.c_shards, a.c_slots, a.W, &from_c);
@@ -288,7 +397,11 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
       const int bag = sm.bag[buf][i];
       if (bag >= 0 && col) {
         const long long code = sm.code[buf][i];
-        if (code >= 0) {
+        bool cold = false;
+        if constexpr (kCold != 0) cold = code >= kColdBase;
+        if (cold) {
+          cold_issue<T, kCold>(&sm.ring[st][0][lane], a, code - kColdBase, c);
+        } else if (code >= 0) {
           cp_async(&sm.ring[st][0][lane], main_pool + code + c);
         } else if (code <= -2) {
           cp_async(&sm.ring[st][0][lane], cache + (-2 - code) + c);
@@ -299,8 +412,8 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
       }
       cp_commit();                        // one group per member, always
     };
-    Raw next = load_raw(a, start + 32 + lane);
-    resolve(start, load_raw(a, start + lane), 0);
+    RawOf<kCold> next = load_raw<kCold>(a, start + 32 + lane);
+    resolve(start, load_raw<kCold>(a, start + lane), 0);
     __syncwarp();
 #pragma unroll
     for (int d = 0; d < kDepth; ++d) issue(0, d, d);
@@ -318,7 +431,7 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
     for (long long base = start;; base += 32) {
       const int buf = (int)(((base - start) >> 5) & 1);
       resolve(base + 32, next, buf ^ 1);
-      if (!ended) next = load_raw(a, base + 64 + lane);
+      if (!ended) next = load_raw<kCold>(a, base + 64 + lane);
       __syncwarp();
       bool done = false;
       for (int i = 0; i < 32; ++i, ++j) {
@@ -336,8 +449,13 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
           acc = sm.ring[st][2][lane];
         }
         // routed_value: the main read as loaded, cache+delta as one
-        // rounded add, +0 for a zero row
-        const T v = code == -1 ? zero<T>()
+        // rounded add, +0 for a zero row (K10: a cold member decoded)
+        bool cold = false;
+        float cs = 0.f;
+        if constexpr (kCold != 0) cold = code >= kColdBase;
+        if constexpr (kCold == adapm::kWireI8) cs = sm.scale[buf][i];
+        const T v = cold ? cold_value<T, kCold>(sm.ring[st][0][lane], cs)
+                    : code == -1 ? zero<T>()
                     : code >= 0 ? sm.ring[st][0][lane]
                                 : add_rn(sm.ring[st][0][lane],
                                          sm.ring[st][1][lane]);
@@ -373,23 +491,23 @@ int stream_slot(cudaStream_t stream) {
   return used++;
 }
 
-template <typename T>
+template <typename T, int kCold>
 int launch(const T* main_pool, const T* cache, const T* delta, T* out,
            Args a, cudaStream_t stream) {
   // the persistent grid: as many CTAs as fit on the card at once
   static int grid_cap = 0;
-  const int smem = kWarps * (int)sizeof(WarpSmem<T>);
+  const int smem = kWarps * (int)sizeof(WarpSmem<T, kCold>);
   if (grid_cap == 0) {
     cudaError_t e = cudaFuncSetAttribute(
-        gather_pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        gather_pool_kernel<T, kCold>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     int dev = 0, sms = 0, per_sm = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gather_pool_kernel<T>, kWarps * 32, smem);
+        &per_sm, gather_pool_kernel<T, kCold>, kWarps * 32, smem);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     grid_cap = sms * per_sm;
@@ -397,9 +515,35 @@ int launch(const T* main_pool, const T* cache, const T* delta, T* out,
   const long long want = (a.items + kWarps - 1) / kWarps;
   const unsigned blocks = (unsigned)(want < grid_cap ? want : grid_cap);
   a.slot = a.items > (long long)blocks * kWarps ? stream_slot(stream) : -1;
-  gather_pool_kernel<T><<<blocks, kWarps * 32, smem, stream>>>(
+  gather_pool_kernel<T, kCold><<<blocks, kWarps * 32, smem, stream>>>(
       main_pool, cache, delta, out, a);
   return (int)cudaGetLastError();
+}
+
+template <int kCold>
+int launch_vec(int vec, const float* main_pool, const float* cache,
+               const float* delta, float* out, const Args& a,
+               cudaStream_t stream) {
+  if (vec)
+    return launch<float4, kCold>(reinterpret_cast<const float4*>(main_pool),
+                                 reinterpret_cast<const float4*>(cache),
+                                 reinterpret_cast<const float4*>(delta),
+                                 reinterpret_cast<float4*>(out), a, stream);
+  return launch<float, kCold>(main_pool, cache, delta, out, a, stream);
+}
+
+Args make_args(const int* o_sh, const int* o_sl, const int* c_sh,
+               const int* c_sl, const unsigned char* use_c, const int* seg,
+               const long long* perm, long long n, int nbags, int shards,
+               int slots, int c_shards, int c_slots, int L, int W,
+               int mean) {
+  Args a{o_sh,  o_sl,   c_sh,     c_sl,    use_c, seg, perm, n, nbags,
+         shards, slots, c_shards, c_slots, W,     mean, (W + 31) / 32, 0,
+         0,      -1,    nullptr,  nullptr, nullptr, L};
+  a.span_items = (n / kSpan + 1) * a.slices;
+  a.items = a.span_items +
+            (mean ? (nbags + kChunk - 1) / kChunk * (long long)a.slices : 0);
+  return a;
 }
 
 }  // namespace
@@ -419,16 +563,43 @@ extern "C" int adapm_gather_pool(
     return (int)cudaErrorInvalidValue;
   if (nbags <= 0) return 0;
   const int W = vec ? L / 4 : L;
-  Args a{o_sh,  o_sl,   c_sh,     c_sl,    use_c, seg, perm, n, nbags,
-         shards, slots, c_shards, c_slots, W,     mean, (W + 31) / 32, 0,
-         0,      -1};
-  a.span_items = (n / kSpan + 1) * a.slices;
-  a.items = a.span_items +
-            (mean ? (nbags + kChunk - 1) / kChunk * (long long)a.slices : 0);
-  if (vec)
-    return launch<float4>(reinterpret_cast<const float4*>(main_pool),
-                          reinterpret_cast<const float4*>(cache),
-                          reinterpret_cast<const float4*>(delta),
-                          reinterpret_cast<float4*>(out), a, stream);
-  return launch<float>(main_pool, cache, delta, out, a, stream);
+  const Args a = make_args(o_sh, o_sl, c_sh, c_sl, use_c, seg, perm, n,
+                           nbags, shards, slots, c_shards, c_slots, L, W,
+                           mean);
+  return launch_vec<0>(vec, main_pool, cache, delta, out, a, stream);
+}
+
+// K10: adapm_gather_pool with cold members. cold is the batch's staged
+// [n, L] wire buffer (indexed by member, as the coordinates are) in
+// `wire` format (1 f32, 2 f16, 3 int8 with cold_scale [n] f32), use_cold
+// [n] marks the members read from it. vec also needs cold aligned.
+extern "C" int adapm_gather_pool_cold(
+    const float* main_pool, const float* cache, const float* delta,
+    const int* o_sh, const int* o_sl, const int* c_sh, const int* c_sl,
+    const unsigned char* use_c, const void* cold, const float* cold_scale,
+    const unsigned char* use_cold, const int* seg, const long long* perm,
+    long long n, float* out, int nbags, int shards, int slots, int c_shards,
+    int c_slots, int L, int mean, int wire, int vec, cudaStream_t stream) {
+  if (cache == nullptr || delta == nullptr || use_cold == nullptr ||
+      (wire == adapm::kWireI8 && cold_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (nbags <= 0) return 0;
+  const int W = vec ? L / 4 : L;
+  Args a = make_args(o_sh, o_sl, c_sh, c_sl, use_c, seg, perm, n, nbags,
+                     shards, slots, c_shards, c_slots, L, W, mean);
+  a.cold = cold;
+  a.cold_scale = cold_scale;
+  a.use_cold = use_cold;
+  switch (wire) {
+    case adapm::kWireF32:
+      return launch_vec<adapm::kWireF32>(vec, main_pool, cache, delta, out,
+                                         a, stream);
+    case adapm::kWireF16:
+      return launch_vec<adapm::kWireF16>(vec, main_pool, cache, delta, out,
+                                         a, stream);
+    case adapm::kWireI8:
+      return launch_vec<adapm::kWireI8>(vec, main_pool, cache, delta, out,
+                                        a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

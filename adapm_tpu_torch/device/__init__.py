@@ -7,9 +7,11 @@
                    (ops/kernels.py).
     context.py   — DeviceContext: one device holding S virtual shards
                    (replaces the JAX package's device mesh).
+    episode.py   — episodic execution: EpisodicRunner, plan_episodes.
 """
 from __future__ import annotations
 
 from .context import DeviceContext, make_context  # noqa: F401
 from .port import DevicePort, default_port, set_default_port  # noqa: F401
-from .torchport import OOB, TorchDevicePort  # noqa: F401
+from .episode import EpisodicRunner, plan_episodes  # noqa: F401
+from .torchport import F16_MAX, OOB, TorchDevicePort  # noqa: F401

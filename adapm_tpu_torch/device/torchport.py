@@ -13,7 +13,14 @@ package's `device/jaxport.py`, with the same semantics, bit for bit:
     row the LAST wins (`refport._drop_set`), resolved before the write;
   - copies are clones and choices are selects, so -0.0 survives;
   - a bag read (K8 `gather_pool`) folds its member rows into their
-    bags in batch order, as the scatter-adds do.
+    bags in batch order, as the scatter-adds do;
+  - a tiered store's cold rows arrive staged beside the batch in their
+    wire format (tier/quant.py: fp32, fp16, int8 with a per-row scale)
+    and are dequantized inside the read (K9 `gather_cold`, K10
+    `gather_pool_cold`) or the promotion upload (K11
+    `write_main_rows`), bit for bit as the host twins dequantize;
+  - a compressed sync round quantizes the replica deltas with K12
+    `sync_compress` and parks the residual in the delta row.
 
 Pools are UPDATED IN PLACE and returned: where JAX donates a buffer and
 returns its replacement, this port writes into the caller's tensor, and
@@ -21,7 +28,10 @@ every program reads all its inputs before its first write (relocate,
 sync), so in-place order cannot change a result.
 
 Index arguments arrive as padded int32 numpy arrays (or tensors) and
-are staged onto the pool's device here.
+are staged onto the pool's device here. On the card, the wire rows, scales
+and masks of a cold read or a promotion are copied through a ring of
+pinned host buffers per dtype (ops/fused.py _PinnedRing), so the copy
+is queued without the host waiting on it.
 """
 from __future__ import annotations
 
@@ -29,7 +39,10 @@ import numpy as np
 import torch
 
 from ..exec import dispatch_gate
-from ..ops.kernels import gather_pool, ordered_scatter_add, routed_gather
+from ..ops.kernels import (F16_MAX, WIRE_DTYPES,  # noqa: F401 (F16_MAX)
+                           gather_cold, gather_pool, gather_pool_cold,
+                           ordered_scatter_add, routed_gather, set_winners,
+                           sync_compress, write_main_rows)
 from .port import DevicePort
 
 _GATE = dispatch_gate()
@@ -37,6 +50,7 @@ _GATE = dispatch_gate()
 # out-of-range slot index for padding / masked entries: dropped by
 # scatters, zero-filled by gathers (the JAX package's sentinel)
 OOB = np.int32(2**31 - 2)
+
 
 
 def _idx(x, device) -> torch.Tensor:
@@ -67,14 +81,8 @@ def drop_set(pool: torch.Tensor, sh: torch.Tensor, sl: torch.Tensor,
     batch order wins (deduplicated here: an indexed write with duplicate
     indices has no defined winner on CUDA)."""
     S, R, L = pool.shape
-    sh, sl = sh.long(), sl.long()
-    ok = (sh >= 0) & (sh < S) & (sl >= 0) & (sl < R)
-    flat = torch.where(ok, sh * R + sl, torch.full_like(sh, -1))
-    sf, order = torch.sort(flat, stable=True)
-    last = torch.ones_like(sf, dtype=torch.bool)
-    last[:-1] = sf[:-1] != sf[1:]
-    keep = order[last & (sf >= 0)]
-    pool.view(S * R, L)[flat[keep]] = vals[keep]
+    tgt, keep = set_winners(pool, sh, sl)
+    pool.view(S * R, L)[tgt] = vals[keep]
 
 
 def _non_decreasing(seg) -> bool:
@@ -90,6 +98,13 @@ def _non_decreasing(seg) -> bool:
     return bool((seg[1:] >= seg[:-1]).all())
 
 
+def _count(mask) -> int:
+    """True entries of a host mask (a numpy array or a tensor)."""
+    if isinstance(mask, torch.Tensor):
+        return int(mask.count_nonzero())
+    return int(np.count_nonzero(np.asarray(mask)))
+
+
 def fill_gather(pool: torch.Tensor, sh: torch.Tensor,
                 sl: torch.Tensor) -> torch.Tensor:
     """`pool.at[sh, sl].get(mode="fill", fill_value=0)` (K1, main-only)."""
@@ -100,12 +115,16 @@ class TorchDevicePort(DevicePort):
     """The PyTorch DevicePort (module docstring)."""
 
     name = "torch"
+    # pinned staging buffers per dtype of wire rows: a cold read's
+    # buffer is the padded batch of rows, so the ring stays short
+    WIRE_SLOTS = 4
 
     def __init__(self):
         # lock-free liveness-grade counters (a racing increment may be
         # lost); they feed the `device` snapshot section
         self.programs = 0
         self.wire_ingest_rows = 0
+        self._rings = {}   # numpy dtype -> pinned staging ring (_stage)
 
     def stats(self) -> dict:
         return {"backend": self.name,
@@ -159,14 +178,13 @@ class TorchDevicePort(DevicePort):
     def sync_replicas(self, main, cache, delta, r_shard, r_cslot,
                       o_shard, o_slot, threshold: float = 0.0,
                       compress: str = "off"):
-        if compress != "off":
-            raise NotImplementedError(
-                "compressed sync rounds (--sys.sync.compress) are not "
-                "ported yet (ROADMAP queue B, B8)")
         self.programs += 1
         d = main.device
         r_sh, r_cs = _idx(r_shard, d), _idx(r_cslot, d)
         o_sh, o_sl = _idx(o_shard, d), _idx(o_slot, d)
+        if compress != "off":
+            return self._sync_compressed(main, cache, delta, r_sh, r_cs,
+                                         o_sh, o_sl, threshold, compress)
         with _GATE:
             # extract -> merge into owners (ordered) -> re-gather the
             # fresh owner rows -> refresh bases, clear deltas
@@ -182,6 +200,27 @@ class TorchDevicePort(DevicePort):
             drop_set(cache, r_sh, r_cs, fresh)
             drop_set(delta, r_sh, r_cs, torch.zeros_like(fresh))
         return main, cache, delta
+
+    @staticmethod
+    def _sync_compressed(main, cache, delta, r_sh, r_cs, o_sh, o_sl,
+                         threshold, mode):
+        """A compressed round in the order of the JAX program
+        (_sync_replicas_compressed): K12 quantizes the deltas and parks
+        the residuals, K3 merges the shipped rows into the owners (held
+        rows' coordinates OOB), K1 re-gathers the fresh owner rows, and
+        the sets install them as bases and the new deltas. Returns the
+        pools and the max-abs parked residual (a device scalar)."""
+        with _GATE:
+            shipped, new_delta, ship, norm = sync_compress(
+                delta, r_sh, r_cs, mode, threshold)
+            oob = torch.full_like(r_cs, int(OOB))
+            rs = torch.where(ship, r_cs, oob)
+            osl = torch.where(ship, o_sl, oob)
+            ordered_scatter_add(main, o_sh, osl, shipped)
+            fresh = fill_gather(main, o_sh, osl)
+            drop_set(cache, r_sh, rs, fresh)
+            drop_set(delta, r_sh, r_cs, new_delta)
+        return main, cache, delta, norm
 
     def read_rows_at(self, arr, sh, sl):
         self.programs += 1
@@ -234,15 +273,23 @@ class TorchDevicePort(DevicePort):
                                  dtype=arr.dtype, device=d))
         return arr
 
+    @staticmethod
+    def _pool_out(out, main) -> torch.Tensor:
+        """A bag read's `out`, as a contiguous f32 tensor on the pools'
+        device (copied there unless it already is one)."""
+        if isinstance(out, torch.Tensor) and out.device == main.device \
+                and out.dtype == main.dtype and out.is_contiguous():
+            return out
+        return torch.tensor(np.asarray(out), dtype=main.dtype,
+                            device=main.device)
+
     def gather_pool(self, main, cache, delta, o_shard, o_slot, c_shard,
                     c_slot, use_cache, seg, out, pooling="sum"):
         """K8. `out` is consumed: a f32 tensor on the pools' device is
         pooled into in place; anything else is copied there first."""
         self.programs += 1
         d = main.device
-        if not (isinstance(out, torch.Tensor) and out.device == d
-                and out.dtype == main.dtype and out.is_contiguous()):
-            out = torch.tensor(np.asarray(out), dtype=main.dtype, device=d)
+        out = self._pool_out(out, main)
         with _GATE:
             return gather_pool(main, cache, delta, _idx(o_shard, d),
                                _idx(o_slot, d), _idx(c_shard, d),
@@ -250,16 +297,128 @@ class TorchDevicePort(DevicePort):
                                _idx(seg, d), out, pooling,
                                sorted_seg=_non_decreasing(seg))
 
-    # -- not ported yet: tiered cold path, wire ingest -----------------------
+    # -- tiered cold path + wire ingest --------------------------------------
 
-    def _cold(self, *args, **kwargs):
-        raise NotImplementedError("the tiered cold path and wire ingest "
-                                  "are not ported yet (ROADMAP queue B, "
-                                  "B8; queue A, item 8)")
+    def _stage(self, x, device, dtype) -> torch.Tensor:
+        """A host array of wire rows, scales or a mask on `device` (call
+        under the gate). On the card it is copied through the pinned
+        ring of its dtype, queued on the stream."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=dtype).contiguous()
+        a = np.ascontiguousarray(x)
+        if device.type != "cuda":
+            return torch.as_tensor(a).to(dtype)
+        a = a.astype(torch.empty(0, dtype=dtype).numpy().dtype, copy=False)
+        from ..ops.fused import _PinnedRing
+        ring = self._rings.get(a.dtype)
+        if ring is None:
+            ring = self._rings[a.dtype] = _PinnedRing(self.WIRE_SLOTS)
+        return ring.upload([a], device).view(a.shape)
 
-    gather_cold = gather_cold_wire = gather_pool_cold = _cold
-    gather_pool_cold_wire = write_main_rows = write_main_rows_wire = _cold
-    install_cache_rows = _cold
+    def _cold_rows(self, mode, cold, scale, use_cold, device):
+        wire = self._stage(cold, device, WIRE_DTYPES[mode])
+        sc = None if mode != "int8" else \
+            self._stage(scale, device, torch.float32)
+        return wire, sc, self._stage(use_cold, device, torch.bool)
+
+    def _cold_read(self, mode, main, cache, delta, o_shard, o_row,
+                   c_shard, c_slot, use_cache, cold, scale, use_cold):
+        d = main.device
+        with _GATE:
+            q, sc, uc = self._cold_rows(mode, cold, scale, use_cold, d)
+            return gather_cold(main, cache, delta, _idx(o_shard, d),
+                               _idx(o_row, d), _idx(c_shard, d),
+                               _idx(c_slot, d), _mask(use_cache, d), mode,
+                               q, sc, uc)
+
+    def _cold_pool(self, mode, main, cache, delta, o_shard, o_row,
+                   c_shard, c_slot, use_cache, cold, scale, use_cold, seg,
+                   out, pooling):
+        d = main.device
+        out = self._pool_out(out, main)
+        with _GATE:
+            q, sc, uc = self._cold_rows(mode, cold, scale, use_cold, d)
+            return gather_pool_cold(
+                main, cache, delta, _idx(o_shard, d), _idx(o_row, d),
+                _idx(c_shard, d), _idx(c_slot, d), _mask(use_cache, d),
+                mode, q, sc, uc, _idx(seg, d), out, pooling,
+                sorted_seg=_non_decreasing(seg))
+
+    def gather_cold(self, main, cache, delta, o_shard, o_row, c_shard,
+                    c_slot, use_cache, cold_vals, use_cold):
+        """K9 with f32 cold rows."""
+        self.programs += 1
+        return self._cold_read("fp32", main, cache, delta, o_shard, o_row,
+                               c_shard, c_slot, use_cache, cold_vals, None,
+                               use_cold)
+
+    def gather_cold_wire(self, mode: str, main, cache, delta, o_shard,
+                         o_row, c_shard, c_slot, use_cache, cold_q,
+                         cold_scale, use_cold):
+        """K9 with fp16 or int8 wire rows, dequantized in the read."""
+        self.programs += 1
+        # real wire rows only: the padded bucket would inflate the count
+        self.wire_ingest_rows += _count(use_cold)
+        return self._cold_read(mode, main, cache, delta, o_shard, o_row,
+                               c_shard, c_slot, use_cache, cold_q,
+                               cold_scale, use_cold)
+
+    def gather_pool_cold(self, main, cache, delta, o_shard, o_row,
+                         c_shard, c_slot, use_cache, cold_vals,
+                         use_cold, seg, out, pooling="sum"):
+        """K10 with f32 cold rows."""
+        self.programs += 1
+        return self._cold_pool("fp32", main, cache, delta, o_shard, o_row,
+                               c_shard, c_slot, use_cache, cold_vals, None,
+                               use_cold, seg, out, pooling)
+
+    def gather_pool_cold_wire(self, mode: str, main, cache, delta,
+                              o_shard, o_row, c_shard, c_slot,
+                              use_cache, cold_q, cold_scale, use_cold,
+                              seg, out, pooling="sum"):
+        """K10 with fp16 or int8 wire rows."""
+        self.programs += 1
+        self.wire_ingest_rows += _count(use_cold)
+        return self._cold_pool(mode, main, cache, delta, o_shard, o_row,
+                               c_shard, c_slot, use_cache, cold_q,
+                               cold_scale, use_cold, seg, out, pooling)
+
+    def write_main_rows(self, main, sh, row, vals):
+        """K11 with f32 rows: the promotion upload (and its exact fixup
+        rows). Updates `main` in place, never reallocating it."""
+        self.programs += 1
+        return self._write_rows("fp32", main, sh, row, vals, None)
+
+    def write_main_rows_wire(self, mode: str, main, sh, row, qvals,
+                             scales=None):
+        """K11 with fp16 or int8 rows, dequantized in the write."""
+        self.programs += 1
+        # real wire rows only (padding rows carry OOB and drop)
+        self.wire_ingest_rows += _count(np.asarray(row) != OOB)
+        return self._write_rows(mode, main, sh, row, qvals, scales)
+
+    def _write_rows(self, mode, main, sh, row, q, scale):
+        d = main.device
+        with _GATE:
+            wire = self._stage(q, d, WIRE_DTYPES[mode])
+            sc = None if mode != "int8" else \
+                self._stage(scale, d, torch.float32)
+            return write_main_rows(main, _idx(sh, d), _idx(row, d), mode,
+                                   wire, sc)
+
+    def install_cache_rows(self, cache, delta, c_shard, c_slot, vals,
+                           resid=None):
+        """Set replica bases to `vals` and their deltas to `resid` (zeros
+        when None): the cold-owner sync refresh (tier/coldpath.py)."""
+        self.programs += 1
+        d = cache.device
+        v = _vals(vals, cache)
+        r = torch.zeros_like(v) if resid is None else _vals(resid, delta)
+        c_sh, c_sl = _idx(c_shard, d), _idx(c_slot, d)
+        with _GATE:
+            drop_set(cache, c_sh, c_sl, v)
+            drop_set(delta, c_sh, c_sl, r)
+        return cache, delta
 
     # -- buffer allocation / transfer ----------------------------------------
 

@@ -30,6 +30,14 @@ Metrics (`exec.*`, schema_version 5; docs/OBSERVABILITY.md): per-stream
 queue-depth gauges, an enqueue->dispatch latency histogram, program
 counters, and the overlap_fraction gauge (fraction of busy wall time
 where >= 2 streams were simultaneously active).
+
+The server's producers and their streams: the training thread's own
+dispatch (`main`, tracked), the prefetch pipeline (`prefetch`), the
+background planner (`sync`), the tier maintenance worker (`tier`, its
+promotion commits on `tier_commit`: tier/promote.py), EpisodicRunner's
+prep (`episode`, tracked on the caller's thread) and commits
+(`episode_commit`: device/episode.py) and the serving plane's
+refreshes (`serve_refresh`); overlap_fraction counts every one of them.
 """
 from __future__ import annotations
 

@@ -21,10 +21,10 @@ Variants probed by `calibrate_store`:
   - `gather_hostpool`— K1's flat gather + `pool_bags_host` on the host
                        (the same bits, the reduction on the host).
 
-(The JAX package also probes its Pallas block gather, `pallas_gather`,
-and the tiered cold wire, and sizes episodic prep windows from the
-table; the port's gather kernel is K1, timed as `gather`, and tiering
-and episodes are not ported.)
+The table also sizes episodic prep windows (`suggest_episode_batches`,
+device/episode.py). (The JAX package also probes its Pallas block
+gather, `pallas_gather`, and the tiered cold wire; the port's gather
+kernel is K1, timed as `gather`.)
 
 Dispatch-time consult: `prefer_fused(L, n, dtype, pooling)` compares
 the measured fused vs host-pool entries at the nearest calibrated
@@ -47,6 +47,11 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 
 COSTS_SCHEMA_VERSION = 1
+
+# prep-window budget for `suggest_episode_batches`: one episode's host
+# prep should stage about this much measured gather work — windows
+# scale down on slow/wide classes and up on fast/narrow ones
+_PREP_BUDGET_US = 4000.0
 
 
 def dtype_name(store) -> str:
@@ -155,6 +160,28 @@ class KernelCostTable:
         if fused is None or host is None:
             return None
         return fused <= host
+
+    def suggest_episode_batches(self, default: int,
+                                lengths: Iterable[int],
+                                dtype: str = "float32") -> int:
+        """Size the episodic prep window from the measured per-class
+        `gather` costs: one episode's prep should stage about
+        `_PREP_BUDGET_US` of gather work, so slow/wide classes get
+        shorter windows (prep must not outrun the overlapped commit)
+        and fast/narrow ones longer, clamped to [1, 4*default]. With
+        no relevant entries the `default` is returned untouched."""
+        worst = 0.0
+        for L in lengths:
+            b = self._nearest_bucket("gather", int(L), 512, dtype, "sum")
+            if b is None:
+                continue
+            c = self.cost_us("gather", int(L), b, dtype, "sum")
+            if c is not None:
+                worst = max(worst, c)
+        if worst <= 0.0:
+            return int(default)
+        return int(np.clip(round(_PREP_BUDGET_US / worst), 1,
+                           4 * max(1, int(default))))
 
     # -- persistence ---------------------------------------------------------
 

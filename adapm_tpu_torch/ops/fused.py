@@ -134,6 +134,27 @@ def build_routes(server, keys: np.ndarray, shard: int,
     server.ensure_local(keys, shard)
     o_sh, o_sl, c_sh, c_sl, use_c, n_remote, _ = server._route(keys, shard)
     g_sl = np.where(use_c, OOB, o_sl).astype(np.int32)
+    if server.tier is not None:
+        # tiered storage: the step indexes the DEVICE hot pool, so every
+        # owner-served key must be hot before dispatch. The runners pin
+        # their whole batch as one union first (pin_step_keys); the
+        # forced ensure here only runs for rows still cold (direct
+        # build_routes callers that skipped the union pin)
+        cid = expect_class if expect_class is not None else \
+            int(server.ab.key_class[keys.ravel()[0]])
+        res = server.stores[cid].res
+        slot_flat = g_sl.ravel()            # slots; OOB where replica-served
+        o_flat = np.asarray(o_sh).ravel()
+        m = slot_flat != OOB
+        row = slot_flat.copy()
+        row[m] = res.dev_row[o_flat[m], slot_flat[m]]
+        if (row[m] < 0).any():
+            server.tier.ensure_hot(cid, o_flat[m], slot_flat[m],
+                                   pin_end=server.tier.step_pin_end(),
+                                   force=True)
+            row[m] = res.dev_row[o_flat[m], slot_flat[m]]
+        g_sl = np.where(row < 0, OOB, row).reshape(
+            g_sl.shape).astype(np.int32)
     put = server.ctx.put_replicated
     return Routes(put(o_sh), put(g_sl), put(c_sh), put(c_sl), put(use_c),
                   n_remote)
@@ -276,7 +297,11 @@ def make_fused_adagrad_step(loss_fn: Callable[..., torch.Tensor],
 
 class DeviceRouter:
     """Device mirrors of the Addressbook tables for one worker shard,
-    refreshed lazily on placement changes (Server.topology_version).
+    refreshed lazily on placement changes: keyed on (topology_version,
+    the tier's residency epoch). On a tiered server the slot mirror
+    carries hot-pool ROWS (TierManager.compose_slot_table; OOB while
+    cold) — the step indexes the device hot pool, and the runners pin
+    their batches hot before reading the mirror.
 
     A refresh after the first upload copies the tables into the same
     tensors (stream-ordered after the steps already enqueued, under the
@@ -295,10 +320,14 @@ class DeviceRouter:
 
     def refresh(self):
         srv = self.server
-        if self._version == srv.topology_version and self.owner is not None:
+        ver = (srv.topology_version,
+               srv.tier.epoch if srv.tier is not None else -1)
+        if self._version == ver and self.owner is not None:
             return
         ab = srv.ab
-        host = (ab.owner, ab.slot, ab.cache_slot[self.shard])
+        slot = ab.slot if srv.tier is None else \
+            srv.tier.compose_slot_table()
+        host = (ab.owner, slot, ab.cache_slot[self.shard])
         with _GATE:
             if self.owner is None:
                 put = srv.ctx.put_replicated
@@ -308,7 +337,7 @@ class DeviceRouter:
                 for t, h in zip((self.owner, self.slot, self.cache_row),
                                 host):
                     t.copy_(torch.from_numpy(np.ascontiguousarray(h)))
-        self._version = srv.topology_version
+        self._version = ver
 
     def tables(self):
         self.refresh()
@@ -552,16 +581,16 @@ class _PinnedRing:
 
     SLOTS = 8
 
-    def __init__(self):
-        self.bufs = [None] * self.SLOTS
-        self.events = [None] * self.SLOTS
+    def __init__(self, slots: int = SLOTS):
+        self.bufs = [None] * slots
+        self.events = [None] * slots
         self.next = 0
 
     def upload(self, arrs, device) -> torch.Tensor:
         """The flattened arrays (of one dtype), joined, on `device`."""
         dtype = torch.from_numpy(arrs[0][:0]).dtype
         i = self.next
-        self.next = (i + 1) % self.SLOTS
+        self.next = (i + 1) % len(self.bufs)
         if self.events[i] is None:
             self.events[i] = torch.cuda.Event()
         else:
@@ -646,7 +675,7 @@ class DeviceRoutedRunner:
                     f"neg_population spans length classes {np.unique(kc)} "
                     f"but role {neg_role} is class {role_class[neg_role]}")
         self._local_index = None
-        self._li_version = -1
+        self._li_version = None
         self._locstat = torch.zeros(4, dtype=torch.int64, device=dev)
         self._lr_eps = _LrEps(dev)
         server._locality_sources.append(self.locality_counts)
@@ -716,28 +745,67 @@ class DeviceRoutedRunner:
     def _local_neg_index(self):
         """(padded index tensor, valid count) of locally-resident keys of
         the population, padded to a power-of-two capacity with the dtype
-        max; rebuilt when the topology changes."""
+        max; rebuilt when the topology or the residency changes. On a
+        tiered server the population is restricted to hot-owned or
+        replicated keys: device-drawn negatives read and scatter main
+        rows in the step, which only works for device-resident rows."""
         srv = self.server
-        if self._li_version == srv.topology_version and \
-                self._local_index is not None:
+        li_ver = (srv.topology_version,
+                  srv.tier.epoch if srv.tier is not None else -1)
+        if self._li_version == li_ver and self._local_index is not None:
             return self._local_index
         ab = srv.ab
         pop = self._neg_population if self._neg_population is not None \
             else np.arange(srv.num_keys, dtype=np.int64)
         from ..base import NO_SLOT
-        local = (ab.owner[pop] == self.shard) | (
-            ab.cache_slot[self.shard, pop] != NO_SLOT)
+        replicated = ab.cache_slot[self.shard, pop] != NO_SLOT
+        if srv.tier is None:
+            local = (ab.owner[pop] == self.shard) | replicated
+        else:
+            res = srv.stores[self.role_class[self.neg_role]].res
+            o_sh, o_sl = ab.owner[pop], ab.slot[pop]
+            local = replicated.copy()
+            m = (o_sh == self.shard) & (o_sl >= 0)
+            if m.any():
+                local[m] |= res.dev_row[o_sh[m], o_sl[m]] >= 0
         idx = pop[local]
         self._li_fallback = len(idx) == 0
-        if len(idx) == 0:
+        if len(idx) == 0 and srv.tier is not None:
+            # the untiered fallback (the full population) would draw cold
+            # keys, whose mirror rows are OOB: promote a bounded slice of
+            # the population and draw from its device-resident part
+            idx = self._tiered_neg_fallback(pop)
+        elif len(idx) == 0:
             idx = pop  # nothing local: draw from the full population
         kdt = _key_dtype(srv.num_keys)
         padded = np.full(bucket_size(len(idx), minimum=64),
                          np.iinfo(kdt).max, dtype=kdt)
         padded[: len(idx)] = idx
         self._local_index = (srv.ctx.put_replicated(padded), len(idx))
-        self._li_version = srv.topology_version
+        self._li_version = li_ver
         return self._local_index
+
+    def _tiered_neg_fallback(self, pop: np.ndarray) -> np.ndarray:
+        """The device-resident keys of the population after promoting its
+        first 4,096 (wherever they are owned); raises if none is."""
+        srv = self.server
+        ab = srv.ab
+        cid = self.role_class[self.neg_role]
+        res = srv.stores[cid].res
+        take = pop[:4096]
+        srv.tier.ensure_hot(cid, ab.owner[take], ab.slot[take])
+        o_sh, o_sl = ab.owner[pop], ab.slot[pop]
+        ok = o_sl >= 0
+        resident = np.zeros(len(pop), dtype=bool)
+        resident[ok] = res.dev_row[o_sh[ok], o_sl[ok]] >= 0
+        idx = pop[resident]
+        if len(idx) == 0:
+            raise RuntimeError(
+                "tiered negative sampling: no device-resident key in the "
+                "population and promotion could not produce one (hot pool "
+                "full of pinned rows?) — raise --sys.tier.hot_rows or "
+                "signal intent on the sampling population")
+        return idx
 
     def _check_batch(self, role_keys: Dict[str, np.ndarray]) -> None:
         srv = self.server
@@ -807,6 +875,12 @@ class DeviceRoutedRunner:
                 "staged keys differ from the step's batch — pass the "
                 "handle prefetch_keys returned for THIS batch")
         with srv._lock:
+            if srv.tier is not None:
+                # the step reads main rows through the hot pool: promote
+                # and pin the batch before the route mirror is read
+                # (ensure_hot bumps the residency epoch, which
+                # router.tables() below picks up)
+                srv.tier.pin_step_keys(self.role_class, role_keys)
             self._note_step_writes(role_keys)
             tables = self.router.tables()
             local_index = self._local_neg_index() \
@@ -863,6 +937,13 @@ class DeviceRoutedRunner:
         if auxes is not None and len(auxes) != K:
             raise ValueError("run_scan: one aux per batch")
         with srv._lock:
+            if srv.tier is not None:
+                # the mirror is read once for the window, so all its rows
+                # must be hot at once: pin the UNION (per-batch pins would
+                # let a later batch's forced eviction take an earlier one's)
+                srv.tier.pin_step_keys(self.role_class, {
+                    r: np.concatenate([np.asarray(b[r], np.int64).ravel()
+                                       for b in batches]) for r in roles})
             for b in batches:
                 self._note_step_writes(b)
             tables = self.router.tables()
@@ -1012,6 +1093,15 @@ class FusedStepRunner:
         """One training step; returns the loss (a device scalar)."""
         srv = self.server
         with srv._lock:
+            if srv.tier is not None:
+                # pin the whole batch hot as ONE union before any role's
+                # routes are translated: a later role's forced eviction
+                # must never take an earlier role's translated rows.
+                # Localize first: pin_step_keys skips slot < 0 entries
+                for k in role_keys.values():
+                    srv.ensure_local(np.asarray(k, dtype=np.int64).ravel(),
+                                     shard)
+                srv.tier.pin_step_keys(self.role_class, role_keys)
             routes = self.routes_for(role_keys, shard)
             # all roles are host-provided here: the written key set is
             # exact

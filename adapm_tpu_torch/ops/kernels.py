@@ -19,6 +19,22 @@ PyTorch version.
     K8 gather_pool          csrc/gather_pool.cu     (XLA: jaxport._gather_pool,
                                                      the serving plane's fused
                                                      embedding-bag read)
+    K9 gather_cold          csrc/gather_cold.cu     (XLA: jaxport._gather_cold,
+                                                     _gather_cold_fp16/_int8:
+                                                     a tiered store's read)
+    K10 gather_pool_cold    csrc/gather_pool.cu     (XLA: jaxport.
+                                                     _gather_pool_cold*: K8
+                                                     with cold members)
+    K11 write_main_rows     csrc/write_main_rows.cu (XLA: jaxport.
+                                                     _write_main_rows*: the
+                                                     promotion upload)
+    K12 sync_compress       csrc/sync_compress.cu   (XLA: the wire transform
+                                                     of jaxport.
+                                                     _sync_replicas_compressed)
+
+K9-K12 read and write the wire formats of tier/quant.py (fp32, fp16,
+int8 with a per-row f32 scale) bit for bit as its host twins do
+(csrc/quant.cuh).
 
 K1 and K3 also take an ordered list of coordinate segments, one per
 role of a pool class (`routed_gather_segments`,
@@ -60,7 +76,10 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
             "complex_step": "complex_step.cu",
             "sgns_step": "sgns_step.cu",
             "mf_step": "mf_step.cu",
-            "gather_pool": "gather_pool.cu"}
+            "gather_pool": "gather_pool.cu",
+            "gather_cold": "gather_cold.cu",
+            "write_main_rows": "write_main_rows.cu",
+            "sync_compress": "sync_compress.cu"}
 
 # launches per kernel since the last reset_launches(), counted by the
 # wrappers (chip_smoke.py reads them to show the main path went through
@@ -68,7 +87,9 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
 LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
                             "ordered_scatter_add": 0, "pool_eval_counts": 0,
                             "complex_step": 0, "sgns_step": 0, "mf_step": 0,
-                            "gather_pool": 0}
+                            "gather_pool": 0, "gather_cold": 0,
+                            "gather_pool_cold": 0, "write_main_rows": 0,
+                            "sync_compress": 0}
 # launches made by replays of captured CUDA graphs (ops/fused.py
 # run_scan): each replay adds the launches recorded at its capture. No
 # wrapper runs then, so LAUNCHES does not count them.
@@ -186,6 +207,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "gather_pool":
         lib.adapm_gather_pool.restype = I
         lib.adapm_gather_pool.argtypes = [P] * 10 + [LL, P] + [I] * 8 + [P]
+        lib.adapm_gather_pool_cold.restype = I
+        lib.adapm_gather_pool_cold.argtypes = [P] * 13 + [LL, P] + [I] * 9 \
+            + [P]
+    elif name == "gather_cold":
+        lib.adapm_gather_cold.restype = I
+        lib.adapm_gather_cold.argtypes = [P] * 11 + [LL, P] + [I] * 7 + [P]
+    elif name == "write_main_rows":
+        lib.adapm_write_main_rows.restype = I
+        lib.adapm_write_main_rows.argtypes = [P] * 6 + [LL, I, I, I, P]
+    elif name == "sync_compress":
+        lib.adapm_sync_compress.restype = I
+        lib.adapm_sync_compress.argtypes = [P] * 3 + [LL, I, I, I, F] + \
+            [P] * 4 + [I, I, P]
     elif name == "ordered_scatter":
         lib.adapm_flat_targets.restype = I
         lib.adapm_flat_targets.argtypes = [P, P, P, I, P, I, I, P]
@@ -604,6 +638,11 @@ def gather_pool_plain(main, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c,
     it."""
     rows = routed_gather_plain(main, cache, delta, o_sh, o_sl, c_sh, c_sl,
                                use_c)
+    return _pool_rows_plain(rows, seg, out, pooling)
+
+
+def _pool_rows_plain(rows, seg, out, pooling: str) -> torch.Tensor:
+    """K8's and K10's plain pooling of read member rows into `out`."""
     nb = out.shape[0]
     pool = out.view(1, nb, -1)
     sf, perm = torch.sort(_flat_targets_plain(pool, torch.zeros_like(seg),
@@ -638,31 +677,12 @@ def gather_pool(main, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c, seg,
         return gather_pool_plain(main, cache, delta, o_sh, o_sl, c_sh, c_sl,
                                  use_c, seg, out, pooling)
     S, R, L = main.shape
-    for t in (main, cache, delta):
-        _require(t.dtype == torch.float32 and t.dim() == 3
-                 and t.is_contiguous() and t.shape[-1] == L,
-                 "gather_pool: pools must be contiguous f32 [S, slots, L]")
-    _require(cache.shape == delta.shape,
-             "gather_pool: cache and delta shapes differ")
-    n = seg.numel()
-    for t in (o_sh, o_sl, c_sh, c_sl, seg):
-        _require(t.dtype == torch.int32 and t.dim() == 1 and t.numel() == n
-                 and t.is_contiguous(),
-                 "gather_pool: coordinates and seg must be contiguous int32 "
-                 "[n]")
-    _require(use_c.dtype == torch.bool and use_c.numel() == n
-             and use_c.is_contiguous(),
-             "gather_pool: use_c must be contiguous bool [n]")
-    _require(out.dtype == torch.float32 and out.dim() == 2
-             and out.shape[1] == L and out.is_contiguous(),
-             "gather_pool: out must be contiguous f32 [nbags, L]")
-    nb = out.shape[0]
+    _check_pool_args("gather_pool", main, cache, delta, o_sh, o_sl, c_sh,
+                     c_sl, use_c, seg, out)
+    n, nb = seg.numel(), out.shape[0]
     if nb == 0:
         return out
-    perm = None
-    if not sorted_seg and n:
-        seg, perm = ordered_scatter_order(out.view(1, nb, L),
-                                          [(torch.zeros_like(seg), seg)])
+    seg, perm = _bag_order(out, seg, sorted_seg)
     vec = int(L % 4 == 0 and _aligned16(main, cache, delta, out))
     rc = _lib("gather_pool").adapm_gather_pool(
         _ptr(main), _ptr(cache), _ptr(delta), _ptr(o_sh), _ptr(o_sl),
@@ -672,6 +692,290 @@ def gather_pool(main, cache, delta, o_sh, o_sl, c_sh, c_sl, use_c, seg,
     LAUNCHES["gather_pool"] += 1
     _check(rc, "gather_pool")
     return out
+
+
+def _check_pool_args(what, main, cache, delta, o_sh, o_sl, c_sh, c_sl,
+                     use_c, seg, out) -> None:
+    L = main.shape[-1]
+    for t in (main, cache, delta):
+        _require(t.dtype == torch.float32 and t.dim() == 3
+                 and t.is_contiguous() and t.shape[-1] == L,
+                 f"{what}: pools must be contiguous f32 [S, slots, L]")
+    _require(cache.shape == delta.shape,
+             f"{what}: cache and delta shapes differ")
+    n = seg.numel()
+    for t in (o_sh, o_sl, c_sh, c_sl, seg):
+        _require(t.dtype == torch.int32 and t.dim() == 1 and t.numel() == n
+                 and t.is_contiguous(),
+                 f"{what}: coordinates and seg must be contiguous int32 [n]")
+    _require(use_c.dtype == torch.bool and use_c.numel() == n
+             and use_c.is_contiguous(),
+             f"{what}: use_c must be contiguous bool [n]")
+    _require(out.dtype == torch.float32 and out.dim() == 2
+             and out.shape[1] == L and out.is_contiguous(),
+             f"{what}: out must be contiguous f32 [nbags, L]")
+
+
+def _bag_order(out, seg, sorted_seg: bool):
+    """K8's member order: (seg, None) when seg is non-decreasing, else
+    K3's stable ordering of the members by bag and its permutation."""
+    if sorted_seg or seg.numel() == 0:
+        return seg, None
+    nb, L = out.shape
+    return ordered_scatter_order(out.view(1, nb, L),
+                                 [(torch.zeros_like(seg), seg)])
+
+
+# ---------------------------------------------------------------------------
+# The wire formats (tier/quant.py) and K9-K12
+# ---------------------------------------------------------------------------
+
+# quant.cuh's wire modes; the wire rows' dtypes
+WIRE_MODES = {"fp32": 1, "fp16": 2, "int8": 3}
+WIRE_DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
+               "int8": torch.int8}
+# largest finite fp16 value: the wire formats clip to it before any f16
+# cast (tier/quant.py F16_MAX, csrc/quant.cuh kF16Max)
+F16_MAX = 65504.0
+
+
+def dequantize_plain(mode: str, q: torch.Tensor,
+                     scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """f32 rows of wire rows `q` ([n, L]): tier/quant.py dequantize_rows
+    in torch ops (the f16 convert is exact; int8 is one f32 multiply)."""
+    if mode == "fp32":
+        return q
+    if mode == "fp16":
+        return q.to(torch.float32)
+    return q.to(torch.float32) * scale[:, None]
+
+
+def _check_wire(what: str, mode: str, q, scale, n: int, L: int) -> None:
+    _require(mode in WIRE_MODES, f"{what}: unknown wire mode {mode!r}")
+    _require(q.dtype == WIRE_DTYPES[mode] and tuple(q.shape) == (n, L)
+             and q.is_contiguous(),
+             f"{what}: {mode} rows must be contiguous "
+             f"{WIRE_DTYPES[mode]} [n, L]")
+    if mode == "int8":
+        _require(scale is not None and scale.dtype == torch.float32
+                 and scale.numel() == n and scale.is_contiguous(),
+                 f"{what}: int8 rows need a contiguous f32 scale [n]")
+
+
+def gather_cold_plain(main, cache, delta, o_sh, o_row, c_sh, c_sl, use_c,
+                      mode, cold, scale, use_cold) -> torch.Tensor:
+    """The plain version of K9 (any device): K1's plain read with each
+    use_cold entry's main row replaced by its dequantized wire row (a
+    select), and cache+delta over both where use_c."""
+    m = _fill_gather_plain(main, o_sh, o_row)
+    m = torch.where(use_cold[:, None], dequantize_plain(mode, cold, scale),
+                    m)
+    c = _fill_gather_plain(cache, c_sh, c_sl) + \
+        _fill_gather_plain(delta, c_sh, c_sl)
+    return torch.where(use_c[:, None], c, m)
+
+
+def gather_cold(main, cache, delta, o_sh, o_row, c_sh, c_sl, use_c, mode,
+                cold, scale, use_cold) -> torch.Tensor:
+    """K9: out[i] = use_c[i] ? fill(cache+delta)[c_sh, c_sl]
+    : use_cold[i] ? deq(cold[i]) : fill(main)[o_sh, o_row]. Pools
+    [S, rows, L] f32, coordinates [n] int32, masks [n] bool, cold [n, L]
+    in `mode` (fp32, fp16, int8 with scale [n] f32, else scale None).
+    Returns a new [n, L]."""
+    if not _on_cuda(main, cache, delta, o_sh, o_row, c_sh, c_sl, use_c,
+                    cold, scale, use_cold):
+        return gather_cold_plain(main, cache, delta, o_sh, o_row, c_sh,
+                                 c_sl, use_c, mode, cold, scale, use_cold)
+    S, R, L = main.shape
+    n = o_sh.numel()
+    for t in (main, cache, delta):
+        _require(t.dtype == torch.float32 and t.dim() == 3
+                 and t.is_contiguous() and t.shape[-1] == L,
+                 "gather_cold: pools must be contiguous f32 [S, rows, L]")
+    for t in (o_sh, o_row, c_sh, c_sl):
+        _require(t.dtype == torch.int32 and t.numel() == n
+                 and t.is_contiguous(),
+                 "gather_cold: coordinates must be contiguous int32 [n]")
+    for t in (use_c, use_cold):
+        _require(t.dtype == torch.bool and t.numel() == n
+                 and t.is_contiguous(),
+                 "gather_cold: masks must be contiguous bool [n]")
+    _check_wire("gather_cold", mode, cold, scale, n, L)
+    out = torch.empty((n, L), dtype=torch.float32, device=main.device)
+    if n == 0:
+        return out
+    vec = int(L % 4 == 0 and _aligned16(main, cache, delta, out, cold))
+    rc = _lib("gather_cold").adapm_gather_cold(
+        _ptr(main), _ptr(cache), _ptr(delta), _ptr(o_sh), _ptr(o_row),
+        _ptr(c_sh), _ptr(c_sl), _ptr(use_c), _ptr(cold), _ptr(scale),
+        _ptr(use_cold), n, _ptr(out), S, R, cache.shape[0], cache.shape[1],
+        L, WIRE_MODES[mode], vec, _stream())
+    LAUNCHES["gather_cold"] += 1
+    _check(rc, "gather_cold")
+    return out
+
+
+def gather_pool_cold_plain(main, cache, delta, o_sh, o_row, c_sh, c_sl,
+                           use_c, mode, cold, scale, use_cold, seg, out,
+                           pooling: str = "sum") -> torch.Tensor:
+    """The plain version of K10 (any device): K9's plain read pooled as
+    K8's plain version pools."""
+    rows = gather_cold_plain(main, cache, delta, o_sh, o_row, c_sh, c_sl,
+                             use_c, mode, cold, scale, use_cold)
+    return _pool_rows_plain(rows, seg, out, pooling)
+
+
+def gather_pool_cold(main, cache, delta, o_sh, o_row, c_sh, c_sl, use_c,
+                     mode, cold, scale, use_cold, seg, out: torch.Tensor,
+                     pooling: str = "sum",
+                     sorted_seg: bool = False) -> torch.Tensor:
+    """K10: K8's fused bag read (gather_pool) where each member's row is
+    K9's: a use_cold member reads its dequantized row of the staged
+    [n, L] wire buffer `cold`. In place into `out`; returns it."""
+    _require(pooling in ("sum", "mean"),
+             f"gather_pool_cold: pooling must be 'sum' or 'mean' (got "
+             f"{pooling!r})")
+    if not _on_cuda(main, cache, delta, o_sh, o_row, c_sh, c_sl, use_c,
+                    cold, scale, use_cold, seg, out):
+        return gather_pool_cold_plain(main, cache, delta, o_sh, o_row, c_sh,
+                                      c_sl, use_c, mode, cold, scale,
+                                      use_cold, seg, out, pooling)
+    S, R, L = main.shape
+    _check_pool_args("gather_pool_cold", main, cache, delta, o_sh, o_row,
+                     c_sh, c_sl, use_c, seg, out)
+    n, nb = seg.numel(), out.shape[0]
+    _require(use_cold.dtype == torch.bool and use_cold.numel() == n
+             and use_cold.is_contiguous(),
+             "gather_pool_cold: use_cold must be contiguous bool [n]")
+    _check_wire("gather_pool_cold", mode, cold, scale, n, L)
+    if nb == 0:
+        return out
+    seg, perm = _bag_order(out, seg, sorted_seg)
+    vec = int(L % 4 == 0 and _aligned16(main, cache, delta, out, cold))
+    rc = _lib("gather_pool").adapm_gather_pool_cold(
+        _ptr(main), _ptr(cache), _ptr(delta), _ptr(o_sh), _ptr(o_row),
+        _ptr(c_sh), _ptr(c_sl), _ptr(use_c), _ptr(cold), _ptr(scale),
+        _ptr(use_cold), _ptr(seg), _ptr(perm), n, _ptr(out), nb, S, R,
+        cache.shape[0], cache.shape[1], L, int(pooling == "mean"),
+        WIRE_MODES[mode], vec, _stream())
+    LAUNCHES["gather_pool_cold"] += 1
+    _check(rc, "gather_pool_cold")
+    return out
+
+
+def _set_order(pool: torch.Tensor, sh: torch.Tensor, sl: torch.Tensor):
+    """A drop-mode set's entries by target: (flat target rows, sorted;
+    the entry at each sorted position; whether it wins) — out-of-range
+    entries (target -1) never win and, of several entries naming one
+    row, the last in batch order does (one stable sort)."""
+    S, R, _ = pool.shape
+    sh, sl = sh.long(), sl.long()
+    ok = (sh >= 0) & (sh < S) & (sl >= 0) & (sl < R)
+    flat = torch.where(ok, sh * R + sl, torch.full_like(sh, -1))
+    sf, order = torch.sort(flat, stable=True)
+    last = torch.ones_like(sf, dtype=torch.bool)
+    last[:-1] = sf[:-1] != sf[1:]
+    return sf, order, last & (sf >= 0)
+
+
+def set_winners(pool: torch.Tensor, sh: torch.Tensor, sl: torch.Tensor):
+    """The rows a drop-mode set writes: (flat target rows, entry index)
+    of each winning entry. An indexed write with duplicate indices has
+    no defined winner on CUDA, so every set resolves its winners first."""
+    sf, order, win = _set_order(pool, sh, sl)
+    return sf[win], order[win]
+
+
+def write_main_rows_plain(main, sh, row, mode, q, scale) -> torch.Tensor:
+    """The plain version of K11 (any device): dequantize, then the
+    drop-mode set (last wins). In place; returns `main`."""
+    S, R, L = main.shape
+    tgt, keep = set_winners(main, sh, row)
+    main.view(S * R, L)[tgt] = dequantize_plain(mode, q, scale)[keep]
+    return main
+
+
+def write_main_rows(main, sh, row, mode, q, scale=None) -> torch.Tensor:
+    """K11: main.at[sh, row].set(deq(q), mode="drop") in place, q [b, L]
+    in `mode` (int8 with scale [b] f32). Returns `main`."""
+    if not _on_cuda(main, sh, row, q, scale):
+        return write_main_rows_plain(main, sh, row, mode, q, scale)
+    S, R, L = main.shape
+    _require(main.dtype == torch.float32 and main.is_contiguous(),
+             "write_main_rows: the pool must be contiguous f32")
+    _require(sh.numel() == row.numel() == q.shape[0],
+             "write_main_rows: one coordinate pair per wire row")
+    _check_wire("write_main_rows", mode, q, scale, q.shape[0], L)
+    m = q.shape[0]
+    if m == 0:
+        return main
+    # the winners as a mask over the sorted entries: no data-dependent
+    # size, so nothing here waits for the card
+    tgt, src, win = _set_order(main, sh, row)
+    vec = int(L % 4 == 0 and _aligned16(main, q))
+    rc = _lib("write_main_rows").adapm_write_main_rows(
+        _ptr(main), _ptr(tgt), _ptr(src), _ptr(win), _ptr(q), _ptr(scale),
+        m, L, WIRE_MODES[mode], vec, _stream())
+    LAUNCHES["write_main_rows"] += 1
+    _check(rc, "write_main_rows")
+    return main
+
+
+def sync_compress_plain(delta, r_sh, r_cs, mode: str, threshold: float):
+    """The plain version of K12 (any device): the wire transform of one
+    compressed sync round, tier/quant.py compress_delta in torch ops.
+    Divisors are tensors (a division by a Python number may run as a
+    multiplication by its reciprocal on the card)."""
+    d = _fill_gather_plain(delta, r_sh, r_cs)
+    mx = d.abs().amax(dim=1) if d.shape[0] else d.new_zeros(0)
+    ship = mx >= torch.full_like(mx, threshold)
+    if mode == "fp16":
+        shipped = torch.clamp(d, -F16_MAX, F16_MAX).to(torch.float16).to(
+            torch.float32)
+    else:
+        s = torch.clamp(mx / torch.full_like(mx, 127.0), 0.0, F16_MAX).to(
+            torch.float16).to(torch.float32)
+        safe = torch.where(s > 0, s, torch.ones_like(s))
+        q = torch.clamp(torch.round(d / safe[:, None]), -127.0, 127.0)
+        shipped = q.to(torch.int8).to(torch.float32) * s[:, None]
+    resid = d - shipped
+    new_delta = torch.where(ship[:, None], resid, d)
+    norm = torch.where(ship[:, None], resid.abs(), torch.zeros_like(resid))
+    norm = norm.amax() if norm.numel() else d.new_zeros(())
+    return shipped, new_delta, ship, norm
+
+
+def sync_compress(delta, r_sh, r_cs, mode: str, threshold: float):
+    """K12: the wire transform of a compressed sync round over replica
+    rows (r_sh, r_cs) of the [S, slots, L] f32 delta pool. Returns
+    (shipped [n, L], new delta rows [n, L], ship [n] bool, the max-abs
+    parked residual as a 0-dim f32 tensor); see csrc/sync_compress.cu."""
+    _require(mode in ("fp16", "int8"),
+             f"sync_compress: mode must be 'fp16' or 'int8' (got {mode!r})")
+    if not _on_cuda(delta, r_sh, r_cs):
+        return sync_compress_plain(delta, r_sh, r_cs, mode, threshold)
+    S, R, L = delta.shape
+    n = r_sh.numel()
+    _require(delta.dtype == torch.float32 and delta.is_contiguous(),
+             "sync_compress: the delta pool must be contiguous f32")
+    for t in (r_sh, r_cs):
+        _require(t.dtype == torch.int32 and t.numel() == n
+                 and t.is_contiguous(),
+                 "sync_compress: coordinates must be contiguous int32 [n]")
+    dev = delta.device
+    shipped = torch.empty((n, L), dtype=torch.float32, device=dev)
+    new_delta = torch.empty((n, L), dtype=torch.float32, device=dev)
+    ship = torch.empty(n, dtype=torch.bool, device=dev)
+    bits = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n:
+        vec = int(L % 4 == 0 and _aligned16(delta, shipped, new_delta))
+        rc = _lib("sync_compress").adapm_sync_compress(
+            _ptr(delta), _ptr(r_sh), _ptr(r_cs), n, S, R, L,
+            float(threshold), _ptr(shipped), _ptr(new_delta), _ptr(ship),
+            _ptr(bits), WIRE_MODES[mode], vec, _stream())
+        LAUNCHES["sync_compress"] += 1
+        _check(rc, "sync_compress")
+    return shipped, new_delta, ship, bits.view(torch.float32)[0]
 
 
 # ---------------------------------------------------------------------------

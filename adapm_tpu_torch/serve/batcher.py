@@ -21,10 +21,12 @@ streams (`serve`, `serve.1`, ...), one per admission lane. A drain
      scatters the union result back to each request.
 
 Bag reads (`BagLookupRequest`) coalesce apart: their union is pooled by
-K8 `gather_pool` (one launch per length class and pooling), by the host
-over a replica snapshot, or by the host over a flat union gather
-(`--sys.serve.bags 0`, or a measured cost table that prefers it), with
-the same bits on every path (serve/bags.py).
+K8 `gather_pool` (one launch per length class and pooling; on a tiered
+store whose batch holds cold members, K10 `gather_pool_cold` through
+tier/coldpath.py gather_pool_tiered), by the host over a replica
+snapshot, or by the host over a flat union gather (`--sys.serve.bags 0`,
+or a measured cost table that prefers it), with the same bits on every
+path (serve/bags.py).
 
 Consistency: the locked path's plan is computed outside the lock
 against a `topology_version` snapshot and revalidated under the lock,
@@ -33,10 +35,11 @@ enqueued under the lock, so every key of a batch is read from one pool
 state. A serve lookup is therefore bit-identical to a plain
 `Worker.pull` of the same keys at the same point in dispatch order.
 
-The planes this package does not have (request-flight tracing, tiering,
-the learned policy, decision telemetry, fault injection) are None on the
-port's Server; each use stays behind an `is not None` guard, as in the
-JAX package.
+Tiering feeds back through `tier.note_serve` (scores and promotion of
+the looked-up cold keys). The planes this package does not have
+(request-flight tracing, the learned policy, decision telemetry, fault
+injection) are None on the port's Server; each use stays behind an
+`is not None` guard, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -1,0 +1,461 @@
+"""Per-row residency of the tiered parameter store: the port of the JAX
+package's `tier/residency.py`.
+
+The tiering plane splits each server's owned keys (main rows) between a
+capacity-bounded DEVICE-HOT pool and a HOST-COLD store (the hot/cold
+split of DLRM-scale embedding systems — "Dissecting Embedding Bag
+Performance in DLRM Inference" — and GraphVite's hybrid host/accelerator
+residency, PAPERS.md). Replica cache/delta rows stay device-resident:
+only MAIN rows tier.
+
+`Residency` is one length class's host-side map:
+
+    dev_row[S, main_slots]  slot -> device row in the hot pool (-1 = cold)
+    row_slot[S, hot_rows]   reverse map (device row -> slot, -1 = free)
+    score[S, main_slots]    clock/frequency access score (periodically
+                            halved — a decayed-counter CLOCK variant)
+    pin_until[S, main_slots] intent-liveness pin: rows pinned hot while
+                            any Intent window covering them is active
+
+The replacement signal FUSES frequency with the explicit `Intent`
+windows the PM already collects (the paper's lookahead advantage over
+frequency-only caches): a pinned row is never a demotion victim while
+its window is live, regardless of score.
+
+Locking discipline (the residency-epoch contract, docs/MEMORY.md):
+every mutation of `dev_row`/`row_slot` — promotion, demotion, slot
+release — happens under the SERVER lock and bumps `epoch`. Every store
+op that consults residency (all of core/store.py's tiered dispatches)
+also runs under the server lock, so a dispatched program can never see
+a torn map. Plans computed OUTSIDE the lock (the demotion worker's
+victim scans, the fused runners' composed slot mirrors) carry the epoch
+they were computed under and revalidate it under the lock before
+acting — the `topology_version` discipline, applied to residency.
+
+Score bumps and pin writes are advisory (racy int writes are at worst a
+slightly-wrong replacement decision, never a wrong value) and may run
+lock-free.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..core.addressbook import SlotAllocator
+
+# pin sentinel: no pin
+NO_PIN = np.int64(-1)
+
+
+class Residency:
+    """Host-side residency map for one ShardedStore (see module doc)."""
+
+    def __init__(self, num_shards: int, main_slots: int, hot_rows: int):
+        self.num_shards = num_shards
+        self.main_slots = main_slots
+        self.hot_rows = hot_rows
+        self.dev_row = np.full((num_shards, main_slots), -1, dtype=np.int32)
+        self.row_slot = np.full((num_shards, hot_rows), -1, dtype=np.int32)
+        self.alloc = SlotAllocator(num_shards, hot_rows)
+        self.score = np.zeros((num_shards, main_slots), dtype=np.int64)
+        self.pin_until = np.full((num_shards, main_slots), NO_PIN,
+                                 dtype=np.int64)
+        # bumped on every promote/demote/release batch (under the server
+        # lock); consumers revalidate like topology_version
+        self.epoch = 0
+        # cold-miss promotion wants, appended by the serve/gather paths
+        # and drained by the maintenance worker: [(shards, slots)]
+        self.want: List[Tuple[np.ndarray, np.ndarray]] = []
+        # wakes the maintenance worker; bound by TierManager to
+        # PromotionEngine.kick so the MISS path (gather/scatter on cold
+        # rows) drains its promotion wants even in pure pull/push
+        # workloads that never signal intent or serve lookups
+        self.kick = lambda: None
+
+    def hot_count(self, shard: int) -> int:
+        return self.hot_rows - self.alloc.num_free(shard)
+
+    def touch(self, shards: np.ndarray, slots: np.ndarray) -> None:
+        """Bump access scores (advisory; may run lock-free)."""
+        np.add.at(self.score, (shards, slots), 1)
+
+    def decay(self) -> None:
+        """Halve all scores (the CLOCK hand sweep, amortized)."""
+        self.score >>= 1
+
+    def pin(self, shards: np.ndarray, slots: np.ndarray, end: int) -> None:
+        """Pin rows hot until clock `end` (advisory write)."""
+        np.maximum.at(self.pin_until, (shards, slots), np.int64(end))
+
+    def pinned_mask(self, shard: int, slots: np.ndarray,
+                    min_clock: int) -> np.ndarray:
+        """True where the row's pin window is still active."""
+        return self.pin_until[shard, slots] >= min_clock
+
+    def reset(self) -> None:
+        """Everything cold (checkpoint restore): drop all mappings, pins
+        and scores; keys re-promote lazily on access/intent."""
+        self.dev_row.fill(-1)
+        self.row_slot.fill(-1)
+        self.alloc = SlotAllocator(self.num_shards, self.hot_rows)
+        self.score.fill(0)
+        self.pin_until.fill(NO_PIN)
+        self.want.clear()
+        self.epoch += 1
+
+    def request_promote(self, shards: np.ndarray,
+                        slots: np.ndarray) -> None:
+        """Queue cold rows for background promotion (the miss path and
+        the serving plane call this; the maintenance worker drains it
+        under the server lock, revalidating coordinates there). Bounded:
+        a producer outrunning the worker keeps only a fresh window. One
+        reference to the list: the worker swaps `want` for a fresh one
+        while producers run."""
+        want = self.want
+        want.append((np.asarray(shards, dtype=np.int32).copy(),
+                     np.asarray(slots, dtype=np.int32).copy()))
+        if len(want) > 64:
+            del want[: len(want) - 64]
+
+
+class TierManager:
+    """Server-level coordinator of the tiering plane: owns the
+    maintenance worker (tier/promote.py), the intent-pin and
+    serve-feedback entry points, the residency-composed device slot
+    mirror, and the `tier.*` metrics section."""
+
+    def __init__(self, server, opts):
+        from .promote import PromotionEngine
+        self.server = server
+        self.opts = opts
+        for st in server.stores:
+            assert st.res is not None, \
+                "TierManager requires tier-enabled stores"
+        self.engine = PromotionEngine(server, opts, self)
+        # composed key->device-row mirror cache (ops/fused.py
+        # DeviceRouter): rebuilt when topology_version or the residency
+        # epoch moves
+        self._slot_mirror = None
+        self._slot_mirror_key = None
+        self._mirror_lock = threading.Lock()
+        reg = server.obs
+        self.c_promotions = reg.counter("tier.promotions")
+        self.c_demotions = reg.counter("tier.demotions")
+        self.c_serve_cold = reg.counter("tier.serve_cold_keys")
+        self.h_cold_serve = reg.histogram("tier.cold_serve_s")
+        if reg.enabled:
+            reg.gauge("tier.epoch", fn=lambda: self.epoch)
+            reg.gauge("tier.hot_hits",
+                      fn=lambda: sum(st.tier_hot_hits
+                                     for st in server.stores))
+            reg.gauge("tier.cold_hits",
+                      fn=lambda: sum(st.tier_cold_hits
+                                     for st in server.stores))
+            reg.gauge("tier.hot_hit_rate", fn=self.hot_hit_rate)
+            reg.gauge("tier.hot_rows_used",
+                      fn=lambda: sum(st.res.hot_count(s)
+                                     for st in server.stores
+                                     for s in range(st.res.num_shards)))
+            reg.gauge("tier.hot_rows_capacity",
+                      fn=lambda: sum(st.res.hot_rows * st.res.num_shards
+                                     for st in server.stores))
+            # compression plane: actual host bytes per cold row — dense store + scale column + parked EF
+            # residuals, averaged over classes weighted by rows — plus
+            # the residual-map health pair (rows parked / evicted at
+            # the cap; evictions inject bounded error, never silent)
+            reg.gauge("tier.cold_bytes_per_row",
+                      fn=lambda: self.cold_bytes_per_row())
+            reg.gauge("tier.ef_resid_rows",
+                      fn=lambda: sum(st.coldq.resid_rows()
+                                     for st in server.stores))
+            reg.gauge("tier.ef_evicted",
+                      fn=lambda: sum(st.coldq.ef_evicted
+                                     for st in server.stores))
+        # the cold-serve latency histogram is observed from inside the
+        # store's gather path — hand the stores the handle; the wake
+        # hook lets the miss path kick the maintenance worker
+        for st in server.stores:
+            st.tier_hist = self.h_cold_serve
+            # late-bound on purpose: tests that must not run the worker
+            # thread replace engine.kick on the instance
+            st.res.kick = lambda e=self.engine: e.kick()
+
+    # -- epoch ---------------------------------------------------------------
+
+    @property
+    def epoch(self) -> int:
+        """Server-wide residency epoch (sum over class stores): bumped —
+        under the server lock — by every promotion/demotion/release
+        batch. In-flight residency-dependent plans revalidate against
+        it, exactly like topology_version."""
+        return sum(st.res.epoch for st in self.server.stores)
+
+    def cold_bytes_per_row(self) -> float:
+        """Host bytes one cold-tier row actually costs (fp32 = 4L; the
+        quantized modes' savings INCLUDING scale columns and parked
+        residuals — the honest number the bench compress phase and
+        docs/MEMORY.md quote)."""
+        total_bytes = sum(st.coldq.nbytes() for st in self.server.stores)
+        total_rows = sum(st.coldq.num_shards * st.coldq.main_slots
+                         for st in self.server.stores)
+        return total_bytes / total_rows if total_rows else 0.0
+
+    def hot_hit_rate(self) -> float:
+        """Fraction of owner-served gather entries served from the
+        device-hot pool (cumulative)."""
+        hot = sum(st.tier_hot_hits for st in self.server.stores)
+        cold = sum(st.tier_cold_hits for st in self.server.stores)
+        return hot / (hot + cold) if (hot + cold) else 1.0
+
+    # -- intent / serve feedback --------------------------------------------
+
+    def note_intent(self, keys: np.ndarray, end: int) -> None:
+        """Pin the owner rows of `keys` hot for the intent window and
+        queue their promotion (called from the planner's intent drain —
+        the same hook point the PrefetchScheduler rides,
+        core/sync.py drain_intents). Advisory pin writes; the promotion
+        itself happens in the maintenance worker under the server lock.
+        Gated by --sys.tier.pin_intent."""
+        if not self.opts.tier_pin_intent or len(keys) == 0:
+            return
+        srv = self.server
+        ab = srv.ab
+        keys = np.asarray(keys, dtype=np.int64).ravel()
+        for cid, pos in srv._group_by_class(keys):
+            ks = keys[pos]
+            o_sh = ab.owner[ks]
+            o_sl = ab.slot[ks]
+            m = o_sl >= 0  # process-local owners only
+            if not m.any():
+                continue
+            res = srv.stores[cid].res
+            res.pin(o_sh[m], o_sl[m], int(end))
+            cold = res.dev_row[o_sh[m], o_sl[m]] < 0
+            if cold.any():
+                res.request_promote(o_sh[m][cold], o_sl[m][cold])
+        self.engine.kick()
+
+    def note_serve(self, keys: np.ndarray) -> None:
+        """Serving-plane feedback (serve/batcher.py consults residency
+        before planning): bump scores for the looked-up keys and queue
+        promotion of the cold ones, so the hot set adapts to serve load
+        as well as training intent. Advisory — runs without the server
+        lock; the worker revalidates coordinates."""
+        srv = self.server
+        ab = srv.ab
+        keys = np.asarray(keys, dtype=np.int64).ravel()
+        kicked = False
+        for cid, pos in srv._group_by_class(keys):
+            ks = keys[pos]
+            o_sh = ab.owner[ks]
+            o_sl = ab.slot[ks]
+            m = o_sl >= 0
+            if not m.any():
+                continue
+            res = srv.stores[cid].res
+            res.touch(o_sh[m], o_sl[m])
+            cold = res.dev_row[o_sh[m], o_sl[m]] < 0
+            if cold.any():
+                self.c_serve_cold.inc(int(cold.sum()))
+                res.request_promote(o_sh[m][cold], o_sl[m][cold])
+                kicked = True
+        if kicked:
+            self.engine.kick()
+
+    def export_serve_scores(self) -> np.ndarray:
+        """Per-KEY residency access scores (serve/replica.py
+        seeds its hot-row selection from these fused with its own
+        `note_serve`-style load counters). Locally-owned keys map to
+        their owner row's decayed CLOCK score; process-remote keys read
+        0. Advisory host read — scores are racy by design (module
+        docstring), and a slightly stale score only shifts the
+        selection, never a served value. O(num_keys); refresh-frequency
+        only."""
+        srv = self.server
+        ab = srv.ab
+        out = np.zeros(srv.num_keys, dtype=np.int64)
+        single = len(srv.stores) == 1
+        for cid, st in enumerate(srv.stores):
+            owned = ab.owner >= 0
+            if not single:
+                owned = owned & (ab.key_class == cid)
+            k = np.nonzero(owned)[0]
+            if len(k):
+                out[k] = st.res.score[ab.owner[k], ab.slot[k]]
+        return out
+
+    # -- synchronous promotion (fused runners; caller holds server lock) ----
+
+    def pin_step_keys(self, role_class: Dict[str, int],
+                      role_keys: Dict[str, np.ndarray]) -> None:
+        """Make a fused step's host-known key batch device-hot and pin
+        it for a short clock window (ops/fused.py runners call this
+        under the server lock before building their pools snapshot): the
+        step program reads main rows through the composed slot mirror,
+        so a cold row would read as zeros — promotion here is a
+        CORRECTNESS requirement for the fused path, not a heuristic."""
+        srv = self.server
+        end = self.step_pin_end()
+        # union the roles per length class BEFORE ensuring: forced
+        # eviction protects the batch being promoted, and ensuring the
+        # roles one at a time would let a later role's eviction
+        # victimize an earlier role's just-pinned rows
+        by_cid: Dict[int, list] = {}
+        for r, keys in role_keys.items():
+            k = np.asarray(keys, dtype=np.int64).ravel()
+            if len(k):
+                by_cid.setdefault(role_class[r], []).append(k)
+        for cid, parts in by_cid.items():
+            k = np.concatenate(parts)
+            self.ensure_hot(cid, srv.ab.owner[k], srv.ab.slot[k],
+                            pin_end=end, force=True)
+
+    def step_pin_end(self) -> int:
+        """Pin horizon for a fused step's key batch: a couple of clocks
+        past the fastest active worker — long enough that the demotion
+        worker cannot thrash a step's rows between consecutive steps,
+        short enough that a retired batch unpins by itself."""
+        from ..base import WORKER_FINISHED
+        clocks = self.server._clocks
+        act = clocks[clocks != WORKER_FINISHED]
+        return (int(act.max()) if len(act) else 0) + 2
+
+    def ensure_hot(self, cid: int, shards: np.ndarray, slots: np.ndarray,
+                   pin_end: Optional[int] = None,
+                   force: bool = False) -> int:
+        """Promote any cold rows among (shards, slots) of class `cid`,
+        demoting low-score unpinned victims when the hot pool is full
+        (caller holds the server lock). `force=True` (fused steps, whose
+        programs index the hot pool directly) may also evict pinned
+        victims and raises if the batch itself cannot fit. Entries with
+        slot < 0 (process-remote keys) are skipped. Returns rows
+        promoted."""
+        from .promote import ensure_hot_rows
+        res = self.server.stores[cid].res
+        shards = np.asarray(shards, dtype=np.int32).ravel()
+        slots = np.asarray(slots, dtype=np.int32).ravel()
+        m = slots >= 0
+        shards, slots = shards[m], slots[m]
+        if len(slots) == 0:
+            return 0
+        if pin_end is not None:
+            res.pin(shards, slots, pin_end)
+        n = ensure_hot_rows(self.server, self.server.stores[cid],
+                            shards, slots,
+                            min_clock=self._min_active_clock(),
+                            force=force)
+        if n:
+            self.c_promotions.inc(n)
+        return n
+
+    # -- test/tooling helpers (resolve keys -> coords, take the lock) --------
+
+    def promote_keys(self, keys: np.ndarray) -> int:
+        """Promote `keys`' owner rows (blocking; takes the server lock).
+        Test/tooling surface — production promotion is intent/miss
+        driven through the worker."""
+        srv = self.server
+        keys = np.asarray(keys, dtype=np.int64).ravel()
+        n = 0
+        with srv._lock:
+            for cid, pos in srv._group_by_class(keys):
+                ks = keys[pos]
+                n += self.ensure_hot(cid, srv.ab.owner[ks],
+                                     srv.ab.slot[ks])
+        return n
+
+    def demote_keys(self, keys: np.ndarray) -> int:
+        """Demote `keys`' owner rows to the cold store (blocking; takes
+        the server lock). Pinned rows demote too — this is the explicit
+        tooling surface, not the worker's pin-respecting policy."""
+        from .promote import demote_rows
+        srv = self.server
+        keys = np.asarray(keys, dtype=np.int64).ravel()
+        n = 0
+        with srv._lock:
+            for cid, pos in srv._group_by_class(keys):
+                ks = keys[pos]
+                o_sl = srv.ab.slot[ks]
+                o_sh = srv.ab.owner[ks]
+                m = o_sl >= 0
+                for s in np.unique(o_sh[m]):
+                    sm = m & (o_sh == s)
+                    n += demote_rows(srv.stores[cid], int(s),
+                                     np.unique(o_sl[sm]).astype(np.int32))
+        if n:
+            self.c_demotions.inc(n)
+        return n
+
+    def _min_active_clock(self) -> int:
+        """Min clock over active workers — the pin-expiry horizon (a pin
+        whose end clock is behind every active worker can never matter
+        again)."""
+        from ..base import WORKER_FINISHED
+        clocks = self.server._clocks
+        act = clocks[clocks != WORKER_FINISHED]
+        return int(act.min()) if len(act) else 0
+
+    # -- composed device slot mirror (ops/fused.py DeviceRouter) -------------
+
+    def compose_slot_table(self) -> np.ndarray:
+        """key -> DEVICE ROW table for the device-routed fused step:
+        `ab.slot` with each locally-owned key's slot replaced by its hot
+        row, and OOB while cold (as in the JAX package, where a negative
+        index would wrap): an unpinned cold read fills zeros and a cold
+        scatter drops — detectable, never corrupting; runners pin their
+        batches hot so neither happens. Cached per (topology_version, residency
+        epoch); shared by every runner so N runners pay one O(num_keys)
+        composition per residency change, not N."""
+        from ..core.store import OOB
+        srv = self.server
+        key = (srv.topology_version, self.epoch)
+        with self._mirror_lock:
+            if self._slot_mirror_key == key and \
+                    self._slot_mirror is not None:
+                return self._slot_mirror
+            ab = srv.ab
+            eff = ab.slot.astype(np.int32).copy()
+            single = len(srv.stores) == 1
+            for cid, st in enumerate(srv.stores):
+                owned = ab.owner >= 0
+                if not single:
+                    owned = owned & (ab.key_class == cid)
+                k = np.nonzero(owned)[0]
+                if len(k):
+                    rows = st.res.dev_row[ab.owner[k], ab.slot[k]]
+                    eff[k] = np.where(rows >= 0, rows, OOB)
+            self._slot_mirror = eff
+            self._slot_mirror_key = key
+            return eff
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def maintain(self) -> None:
+        """One synchronous maintenance pass (drain promotion wants,
+        pressure-demote, decay) — what the background worker runs;
+        exposed for tests and the residency check script so adaptation
+        is deterministic without thread timing."""
+        self.engine.run_once()
+
+    def reset_residency(self) -> None:
+        """Everything cold (checkpoint restore path; caller holds the
+        server lock)."""
+        for st in self.server.stores:
+            st.res.reset()
+        with self._mirror_lock:
+            self._slot_mirror = None
+            self._slot_mirror_key = None
+
+    def close(self) -> None:
+        """Stop the maintenance worker (idempotent; Server.shutdown
+        closes the tier plane after the prefetch pipeline and before the
+        background planner — the demotion worker reads through the
+        pools, so it must be down before they are)."""
+        self.engine.close()
+
+    def report(self) -> Dict[str, float]:
+        return {"hot_hit_rate": round(self.hot_hit_rate(), 4),
+                "promotions": int(self.c_promotions.snap()),
+                "demotions": int(self.c_demotions.snap())}

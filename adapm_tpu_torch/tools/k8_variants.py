@@ -35,7 +35,8 @@ LOOP = ("  for (long long item = (long long)blockIdx.x * kWarps + wid;\n"
         "       item < a.items;\n"
         "       item = a.slot >= 0 ? nwarps + take(a.slot, lane) : item + "
         "nwarps) {\n")
-KERNEL = "template <typename T>\n__global__ void __launch_bounds__"
+KERNEL = ("template <typename T, int kCold>\n"
+          "__global__ void __launch_bounds__")
 SLOT = ("  a.slot = a.items > (long long)blocks * kWarps ? "
         "stream_slot(stream) : -1;\n")
 # a span is long when its last bag starts in it and runs at least kLong

@@ -8,15 +8,16 @@ a pull-driven flow through the pipeline's staged buffers and the
 background planner under concurrent pushes, runs the KGE application
 end to end on both routing paths, then the word2vec step and
 application and the matrix-factorization application the same way,
-and serves lookups and embedding-bag reads through the serving plane.
+serves lookups and embedding-bag reads through the serving plane, and
+runs the tiered store, compressed sync rounds and episodic execution.
 
     python3 chip_smoke.py [--json PATH]
     python3 chip_smoke.py --main-path-only   (phase 1 and phase 3's
         step alone: copied into an earlier tree of the port, it times
         that tree's step the same way)
     python3 chip_smoke.py --kernels K4,K8    (phase 1 and the named
-        kernels' parts of phase 2 alone, the same way; K4 and K8 can be
-        named)
+        kernels' parts of phase 2 alone, the same way; K4 and K8-K12 can
+        be named)
     python3 chip_smoke.py --pipeline-only    (phase 1, phase 3 with the
         pipeline on and off, phases 11 and 12, checked as in the full
         run)
@@ -62,7 +63,20 @@ Phases (any failure raises and exits non-zero):
      rows; and, as a diagnosis, the same members re-planned into bags
      of equal length (8-9 members at the path's batch), beside K8's
      times before its redesign (prior_ms: quoted from PERF.md, not
-     measured in the run, and kept out of the kernels line). CUDA-event
+     measured in the run, and kept out of the kernels line). The tiered
+     store's kernels, each bitwise its plain version and over two runs:
+     K9 gather_cold on one tiered KGE step's pull (143,360 entries of
+     512 f32, a third cold, the rest hot rows of a 65,536-row pool) in
+     fp32, fp16 and int8 wire rows, beside index_select + torch.where
+     over pre-dequantized cold rows; K10 gather_pool_cold at phase 10's
+     two bag batches over the DLRM table with 1,048,576 hot rows and
+     int8 cold rows (each table's lowest keys hot), sum and mean, the
+     cold member share printed, beside embedding_bag over the hot pool
+     joined with the pre-dequantized cold rows; K11 write_main_rows on
+     16,384 promoted rows of 512 f32 in each format, beside index_copy_
+     of pre-dequantized rows; K12 sync_compress on 65,536 replica rows
+     of 512 f32, half below the threshold, fp16 and int8 (its four
+     outputs; no library call computes it). CUDA-event
      times (the median and the min-max spread of 20 launches) of
      kernel, plain version and one library call, and the least time the
      card could take.
@@ -79,8 +93,9 @@ Phases (any failure raises and exits non-zero):
      whole main pool bitwise equal; then 4 windows timed against 32
      eager steps of the same runner calls, one window profiled, and the
      number of captures. Then the pipeline on and off from one fill
-     (seed 11), in turns (on, off, off with keys staged twice, off,
-     on): 3 + 32 eager steps (with it on, each step's keys uploaded as
+     (seed 11), in turns (on, off, off with keys staged; three turns,
+     cut from six to keep the run's time with phase 13): 3 + 32 eager
+     steps (with it on, each step's keys uploaded as
      StagedKeys on its intent path, as the app does; with it off, as
      the turns say), a profiled window of 8 and one more step, then 5
      K=8 windows, each followed by drive_rounds(8) and its clock ticks:
@@ -104,7 +119,8 @@ Phases (any failure raises and exits non-zero):
      100 device-routed steps as --scan_steps 8 (12 graph windows and a
      4-step tail per epoch), pool-count eval (K4) after each; launch
      counts of every kernel over the run; the same run with
-     --sys.prefetch 0 (the kill switch): epoch losses bitwise equal;
+     --sys.prefetch 0 (the kill switch; once, cut from three turns to
+     keep the run's time with phase 13): epoch losses bitwise equal;
      then 64 device-routed steps at --scan_steps 1 (keys pre-uploaded
      as StagedKeys) with the pipeline on and off, profiled: losses
      bitwise equal, busy share, staged-key steps.
@@ -168,10 +184,35 @@ Phases (any failure raises and exits non-zero):
      start_sync_thread() runs the rounds, then WaitSync -> Barrier ->
      WaitSync, stop_sync_thread(), quiesce(): every row bitwise the
      sequential sum and the same run on the cpu; rounds/s.
-Phases 11 and 12 run after phase 4. Every server's background work is
-watched: a prefetch pass or planner round that raised (logged and
-retried, never fatal to its loop), a failed executor program or an
-executor retry fails the run. Phases 6, 8 and 9 keep --sys.prefetch 0
+ 13. tiering and compression at full width: (a) the KGE app of phase 5
+     with --sys.tier 1 --sys.tier.hot_rows 65536, once with fp32 and
+     once with int8 cold rows: loss finite and falling, at most 65,536
+     hot rows a shard, promotions, K4 after each epoch, K9 and K11
+     launched, the tier section reported; (b) test_tier.py's storm on
+     phase 3's table (values on an int8 grid) tiered at 65,536 hot rows
+     beside an untiered shadow on the card, 24 ops of pushes with
+     duplicates, sets, promotions, demotions, sync rounds and clock
+     ticks, a pull of 16,384 zipf keys after each and the whole table
+     after quiesce: bitwise with fp32 cold rows, within two grid steps
+     (tier/quant.py grid_step) with int8; (c) phase 10 (b)'s sum
+     segment on the DLRM table tiered (1,048,576 hot rows, int8 cold
+     rows, values on the int8 grid): every reply bitwise
+     pool_bags_host over Worker.pull, K8 or K10 once per fused batch
+     (K10 where the batch holds a cold member), samples/s and p50/p99
+     beside phase 10's untiered sum segment; (d) phase 12's background
+     planner with --sys.sync.compress fp16 and int8: after quiesce()
+     every row the sequential sum (bitwise in fp16, whose grid holds
+     the integer deltas; within rtol / atol 1e-6 in int8, as
+     test_quant.py holds it), K12 launched, the bytes shipped against
+     full width and phase 12's; (e) EpisodicRunner over (a)'s tiered
+     step (16 steps, episodes of 8, the negatives' 8,192-key
+     population intent-pinned hot) against the same steps run
+     sequentially: losses and the whole main table bitwise.
+Phases 11 and 12 run after phase 4, phase 13 after phase 10. Every
+server's background work is
+watched: a prefetch pass, planner round or tier maintenance pass that
+raised (logged and retried, never fatal to its loop), a failed
+executor program or an executor retry fails the run. Phases 6, 8 and 9 keep --sys.prefetch 0
 in their cuda-vs-cpu comparisons at 8 shards (delegated rounds would
 make placement depend on timing); their full-width runs take default
 knobs, the pipeline on, and phases 8 and 9 run each again with
@@ -242,7 +283,9 @@ W2V_STEP_LAUNCHES = {"routed_gather": 1, "sgns_step": 1,
                      "adagrad_update": 0, "ordered_scatter_add": 1}
 # kernels that belong to one path: a path launches its own and none of
 # the others' (the model math, and K8, the bag read of phase 10)
-OWNED_KERNELS = MODEL_KERNELS + ("gather_pool",)
+OWNED_KERNELS = MODEL_KERNELS + ("gather_pool", "gather_cold",
+                                 "gather_pool_cold", "write_main_rows",
+                                 "sync_compress")
 # the bag-serving shape of the MLPerf Training DLRM-DCNv2 reference
 # (recommendation_v2/torchrec_dcn, Criteo 1TB multi-hot): 26 sparse
 # features of embedding dim 128 with these cardinalities and multi-hot
@@ -263,6 +306,13 @@ K8_REQUESTS = 64              # one coalesced batch (--sys.serve.max_batch)
 K8_PRIOR_MS = {8: 0.0547, 64: 0.2341}
 BAG_CLIENTS, BAG_REQUESTS = 8, 50        # phase 10 (b): clients x requests
 SERVE_CLIENTS, SERVE_LOOKUPS = 32, 100   # phase 10 (a): clients x lookups
+# phase 13 and K9-K12's phase-2 shapes: the tiered KGE table's hot rows
+# per shard, the tiered DLRM table's, rows a promotion batch uploads,
+# replica rows a compressed round takes, the full-width storm's ops, and
+# EpisodicRunner's steps and episode length
+TIER_HOT, TIER_BAG_HOT = 65_536, 1_048_576
+TIER_PROMOTED, TIER_SYNC_ROWS = 16_384, 65_536
+TIER_STORM_OPS, EPISODE_STEPS, EPISODE_B = 24, 16, 8
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM
 F32_FLOPS = 67e12                     # H100 SXM, outside the tensor cores
 
@@ -302,12 +352,13 @@ def kernel_ms(fn, kernel, reps=20, warmup=3, between=None):
     the host's launch gap as well; the trace measures the kernel alone.
     `between()` runs before each call (e.g. an L2 flush). A trace that
     lost a launch's record (seen once in about 150 traces of one
-    process) is taken again, up to twice; TRACE_RETAKES counts those
-    retakes by kernel, and the run prints it."""
+    process, and for K7's 9 µs launches three traces in a row) is taken
+    again, up to four times; TRACE_RETAKES counts those retakes by
+    kernel, and the run prints it."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    for _ in range(3):
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -549,6 +600,12 @@ def phase_kernels(K, dev, rng):
     torch.cuda.empty_cache()
     rec["gather_pool"] = phase_k8(K, dev, rng)
     torch.cuda.empty_cache()
+    for name, run in (("gather_cold", phase_k9),
+                      ("gather_pool_cold", phase_k10),
+                      ("write_main_rows", phase_k11),
+                      ("sync_compress", phase_k12)):
+        rec[name] = run(K, dev, rng)
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -1416,12 +1473,15 @@ def phase_replicas(at, K, dev):
 
 
 def background_faults(srv):
-    """What the background programs of a server hid: prefetch passes that
-    raised, background planner rounds that raised (each logged and
-    retried), executor programs that failed and executor retries."""
+    """What the background programs of a server hid: prefetch passes,
+    tier maintenance passes and background planner rounds that raised
+    (each logged and retried), executor programs that failed and
+    executor retries."""
     ex = srv.exec.stats()
     out = {"prefetch_failures": 0 if srv.prefetch is None
            else srv.prefetch.failures,
+           "tier_failures": 0 if srv.tier is None
+           else srv.tier.engine.failures,
            "sync_loop_failures": srv.sync_loop_failures,
            "programs_failed": ex["programs_failed"],
            "retries": ex["retries"]}
@@ -1548,15 +1608,14 @@ def pipeline_flow(at, K, dev, seed, prefetch, stage_keys):
 def phase_pipeline(at, K, dev):
     """Phase 3 with the prefetch pipeline on (keys staged) and off from
     one fill, and off with the keys staged (StagedKeys without the
-    pipeline's passes), in turns (on, off, off with keys staged twice,
-    off, on): every run's losses (eager steps and windows) and whole
+    pipeline's passes), in turns (on, off, off with keys staged): every
+    run's losses (eager steps and windows) and whole
     main pool bitwise the first's (S=1: every key is the worker's own,
     so delegated rounds move nothing), the same launches every eager
     step, one graph capture per signature on each."""
     runs, ref, launches_on = [], None, None
     want = {**dict.fromkeys(K.LAUNCHES, 0), **STEP_LAUNCHES}
-    turns = [(True, True), (False, False), (False, True), (False, True),
-             (False, False), (True, True)]
+    turns = [(True, True), (False, False), (False, True)]
     for prefetch, stage_keys in turns:
         name = "on" if prefetch else (
             "off, keys staged" if stage_keys else "off")
@@ -1731,21 +1790,23 @@ def phase_pull_flow(at, K, dev):
                 launches_off=off["launches"])
 
 
-def planner_run(at, dev):
+def planner_run(at, dev, compress="off"):
     """Phase 12 body on `dev`: phase 4's two-shard replica setup, the
     background planner on (start_sync_thread), two worker threads each
     pushing PLANNER_RUNS integer-valued updates to zipf keys of a hot set
     both declare intents for (competing intents: replicas), then
     WaitSync -> Barrier -> WaitSync, stop_sync_thread(), quiesce().
     Returns (every main row, the sequential sum, rounds/s, replicas
-    created)."""
+    created, the sync section's wire bytes). `compress` is
+    --sys.sync.compress."""
     import threading
     e, r, d = 512, 16, 8
     n = e + r
     srv = at.setup(n, 4 * d, num_shards=2, num_workers=2, device=dev,
                    opts=at.SystemOptions(sync_max_per_sec=2000.0,
                                          cache_slots_per_shard=256,
-                                         sync_report_s=0))
+                                         sync_report_s=0,
+                                         sync_compress=compress))
     ws = [srv.make_worker(i) for i in range(2)]
     init = np.random.default_rng(3).integers(
         -4, 5, size=(n, 4 * d)).astype(np.float32)
@@ -1790,14 +1851,18 @@ def planner_run(at, dev):
     got = srv.read_main(np.arange(n)).reshape(n, 4 * d)
     want = (init + sums[0] + sums[1]).astype(np.float32)
     created = int(srv.sync.stats.replicas_created)
+    sync = srv.metrics_snapshot()["sync"]
+    nbytes = {k: sync[k] for k in ("bytes_shipped", "bytes_full_equiv",
+                                   "bytes_per_round", "ef_residual_norm")}
+    nbytes["rounds"] = int(srv.sync.stats.rounds)
     check_background(srv, f"phase 12 ({dev})")
     srv.shutdown()
-    return got, want, rounds_s, created
+    return got, want, rounds_s, created, nbytes
 
 
 def phase_planner(at, K, dev):
     K.reset_launches()
-    got_g, want, rounds_g, created = planner_run(at, dev)
+    got_g, want, rounds_g, created, nbytes = planner_run(at, dev)
     launches = dict(K.LAUNCHES)
     check(np.array_equal(got_g.view(np.uint32), want.view(np.uint32)),
           "phase 12: after the background planner and quiesce the main "
@@ -1805,11 +1870,11 @@ def phase_planner(at, K, dev):
     check(created > 0, "phase 12: competing intents created no replica")
     check_launched(launches, "phase 12", ("routed_gather",
                                           "ordered_scatter_add"))
-    got_c, _, rounds_c, _ = planner_run(at, "cpu")
+    got_c, _, rounds_c, _, _ = planner_run(at, "cpu")
     check(np.array_equal(got_g.view(np.uint32), got_c.view(np.uint32)),
           "phase 12: cuda and cpu differ")
     return dict(rounds_s=rounds_g, rounds_s_cpu=rounds_c,
-                replicas_created=created, launches=launches)
+                replicas_created=created, launches=launches, **nbytes)
 
 
 APP_ARGS = ["--model", "complex", "--dim", str(D_MODEL), "--neg_ratio",
@@ -1859,15 +1924,16 @@ def check_app(res, launches, what, kernels):
     check_launched(launches, what, kernels)
 
 
-def check_launched(launches, what, kernels):
+def check_launched(launches, what, kernels, allowed=()):
     """Each of the path's kernels launched, and no kernel another path
-    owns: K2 (the RESCAL path's) not on a ComplEx, SGNS or MF path, K5
-    only on ComplEx paths, K6 only on word2vec's, K7 only on MF's, K8
-    only on the bag-serving path."""
+    owns but those `allowed` (launched or not): K2 (the RESCAL path's)
+    not on a ComplEx, SGNS or MF path, K5 only on ComplEx paths, K6 only
+    on word2vec's, K7 only on MF's, K8 only on the bag-serving paths,
+    K9-K11 only on tiered paths, K12 only on compressed sync rounds."""
     missing = [k for k in kernels if launches[k] == 0]
     check(not missing, f"{what}: kernels never launched: {missing}")
     other = {k: launches[k] for k in OWNED_KERNELS
-             if k not in kernels and launches[k]}
+             if k not in kernels and k not in allowed and launches[k]}
     check(not other, f"{what}: other paths' kernels launched: {other}")
 
 
@@ -1995,13 +2061,13 @@ def phase_app(K):
           f"in {steps} steps")
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     res["traced"] = trace.result()
-    # the same run in turns with the kill switch (on above, then off,
-    # off, on), each run's second epoch traced for the busy share: at
-    # S=1 the pipeline moves nothing, so every epoch loss is bitwise the
-    # same
+    # the same run with the kill switch (on above, then off; one turn,
+    # cut from three to keep the run's time with phase 13), its second
+    # epoch traced for the busy share: at S=1 the pipeline moves
+    # nothing, so every epoch loss is bitwise the same
     turns = [dict(pipeline="on", epoch_s=res["epoch_s"],
                   eval_s=res["eval_s"], **res["traced"])]
-    for name in ("off", "off", "on"):
+    for name in ("off",):
         with EpochTrace(kge, epoch=1) as tr:
             r, ln = run_app(kge, K, argv + (OFF if name == "off" else []))
         check_app(r, ln, f"phase 5 (pipeline {name})", APP_KERNELS)
@@ -2604,6 +2670,658 @@ def report_serve(flat, bags, smi):
           f"bitwise the sum segment's | {smi}", flush=True)
 
 
+WIRE_BYTES = {"fp32": lambda n: 4 * n, "fp16": lambda n: 2 * n,
+              "int8": lambda n: n + 4}   # per row of n f32 (int8: + scale)
+
+
+def grid_rows(rng, n, width, step=2.0 ** -7):
+    """Rows exactly on an int8 grid (integers q*step, |q| <= 127, one
+    element of each row at +-127, step a power of two): every cold
+    format stores them exactly, so no residual parks and a row reads the
+    same bits hot or cold."""
+    q = rng.integers(-126, 127, size=(n, width)).astype(np.float32)
+    q[:, 0] = np.where(rng.random(n) < 0.5, -127.0, 127.0)
+    return q * np.float32(step)
+
+
+def wire_of(mode, rows, dev):
+    """(wire rows, scale or None, dequantized rows) on `dev` for f32
+    `rows` in cold format `mode` (the port's tier/quant.py)."""
+    from adapm_tpu_torch.tier.quant import dequantize_rows, quantize_rows
+    q, s = quantize_rows(mode, rows)
+    deq = dequantize_rows(mode, q, s)
+    t = lambda a: None if a is None else torch.as_tensor(a, device=dev)  # noqa
+    return t(q), t(s), t(deq)
+
+
+def bitwise(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def phase_k9(K, dev, rng):
+    """Phase 2, K9: one tiered KGE step's pull (ROWS entries of L f32, a
+    third of them cold, the rest hot rows of a 65,536-row pool) in each
+    wire format: bitwise its plain version and over two runs, timed
+    beside index_select + torch.where over pre-dequantized cold rows."""
+    H = TIER_HOT
+    main = torch.randn((1, H, L), device=dev)
+    main[0, :4] = -0.0
+    cache = torch.randn((1, 8, L), device=dev)
+    delta = torch.randn((1, 8, L), device=dev)
+    cold = rng.random(ROWS) < 1 / 3
+    rows = skewed_keys(rng, H, ROWS).astype(np.int32)
+    rows[cold] = 2**31 - 2
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    o_sh = t(np.zeros(ROWS, np.int32))
+    o_row, use_cold = t(rows), t(cold)
+    c_sl = t(np.full(ROWS, 2**31 - 2, np.int32))
+    use_c = t(np.zeros(ROWS, bool))
+    vals = np.zeros((ROWS, L), np.float32)
+    cold_rows = rng.standard_normal((int(cold.sum()), L), np.float32)
+    cold_rows[:, ::7] = -0.0
+    vals[cold] = cold_rows
+    hot_idx = t(np.where(cold, 0, rows).astype(np.int64))
+    mflat = main.view(-1, L)
+    n_cold, n_hot = int(cold.sum()), len(np.unique(rows[~cold]))
+    out = {}
+    for mode in ("fp32", "fp16", "int8"):
+        q, s, deq = wire_of(mode, vals, dev)
+        args = (main, cache, delta, o_sh, o_row, o_sh, c_sl, use_c, mode, q,
+                s, use_cold)
+        got = [K.gather_cold(*args) for _ in range(2)]
+        ref = K.gather_cold_plain(*args)
+        check(bitwise(got[0], got[1]) and bitwise(got[0], ref),
+              f"K9 ({mode}) differs from its plain version or between "
+              "two runs")
+        nbytes = (n_hot * L * 4 + WIRE_BYTES[mode](L) * n_cold
+                  + ROWS * (4 + 4 + 1 + 1) + ROWS * L * 4)
+        out[mode] = timed(
+            cuda_ms(lambda: K.gather_cold(*args)),
+            cuda_ms(lambda: K.gather_cold_plain(*args)),
+            cuda_ms(lambda: torch.where(use_cold[:, None], deq,
+                                        mflat.index_select(0, hot_idx))),
+            max_abs_err=float((got[0] - ref).abs().max()),
+            bound=bound(nbytes, n_cold * L if mode == "int8" else 0),
+            cold_entries=n_cold, entries=ROWS)
+    return dict(out["int8"], modes=out)
+
+
+def dlrm_hot_rows(caps, offs):
+    """The hot set of phase 2's K10 table: in each table the same share
+    of its lowest keys (its most requested under the zipf skew), as many
+    as TIER_BAG_HOT rows in all. Returns key -> hot row (-1 when cold)."""
+    nkeys = int(caps.sum())
+    share = TIER_BAG_HOT / nkeys
+    row = np.full(nkeys, -1, np.int64)
+    nxt = 0
+    for cap, off in zip(caps, offs):
+        k = min(int(np.ceil(cap * share)), TIER_BAG_HOT - nxt)
+        row[off:off + k] = np.arange(nxt, nxt + k)
+        nxt += k
+    return row
+
+
+def phase_k10(K, dev, rng):
+    """Phase 2, K10: phase 10's two bag batches (BAG_CLIENTS and
+    K8_REQUESTS requests) over the DLRM table tiered: TIER_BAG_HOT hot
+    rows, the rest int8 cold rows staged per member, sum and mean,
+    bitwise its plain version and over two runs; timed in the trace
+    beside embedding_bag over the hot pool joined with the pre-dequantized
+    cold rows."""
+    from adapm_tpu_torch.core.store import OOB, bucket_size, pad_bucket
+    caps, offs = dlrm_table()
+    hot_row = dlrm_hot_rows(caps, offs)
+    H = TIER_BAG_HOT
+    main = torch.randn((1, H, L_DLRM), device=dev) * 0.01
+    cache = torch.zeros((1, 8, L_DLRM), device=dev)
+    delta = torch.zeros((1, 8, L_DLRM), device=dev)
+    recs = {}
+    for nreq in (BAG_CLIENTS, K8_REQUESTS):
+        keys, seg, nbags = k8_batch(rng, nreq, caps, offs)
+        n = len(keys)
+        nb = bucket_size(nbags)
+        hr = hot_row[keys]
+        cold = hr < 0
+        z = np.zeros(n, np.int32)
+        o_row = np.where(cold, OOB, hr).astype(np.int32)
+        a = [torch.as_tensor(x, device=dev) for x in pad_bucket(
+            n, (z, 0), (o_row, OOB), (z, 0), (np.full(n, OOB, np.int32), OOB),
+            (z > 0, False), (cold, False), (seg, OOB))]
+        o_sh, o_r, c_sh, c_sl, use_c, use_cold, seg_t = a
+        b = o_sh.numel()
+        vals = np.zeros((b, L_DLRM), np.float32)
+        vals[:n][cold] = grid_rows(rng, int(cold.sum()), L_DLRM, 2.0 ** -12)
+        q, s, deq = wire_of("int8", vals, dev)
+        args = (main, cache, delta, o_sh, o_r, c_sh, c_sl, use_c, "int8", q,
+                s, use_cold, seg_t)
+        errs = {}
+        for pooling in ("sum", "mean"):
+            outs = [K.gather_pool_cold(*args, torch.zeros(
+                (nb, L_DLRM), device=dev), pooling, sorted_seg=True)
+                for _ in range(2)]
+            ref = K.gather_pool_cold_plain(
+                *args, torch.zeros((nb, L_DLRM), device=dev), pooling)
+            check(bitwise(outs[0], outs[1]) and bitwise(outs[0], ref),
+                  f"K10 ({nreq} requests, {pooling}) differs from its "
+                  "plain version or between two runs")
+            errs[pooling] = float((outs[0] - ref).abs().max())
+        out = torch.zeros((nb, L_DLRM), device=dev)
+        trace, _ = kernel_ms(lambda: K.gather_pool_cold(
+            *args, out, "sum", sorted_seg=True), "gather_pool_kernel")
+        joined = torch.cat([main.view(-1, L_DLRM), deq])
+        idx = torch.as_tensor(np.where(cold, H + np.arange(n), hr),
+                              device=dev)
+        starts = torch.as_tensor(np.searchsorted(seg, np.arange(nbags)),
+                                 device=dev)
+        library = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            idx, joined, starts, mode="sum"))
+        n_cold = int(cold.sum())
+        nbytes = (len(np.unique(hr[~cold])) * L_DLRM * 4
+                  + n_cold * (L_DLRM + 4) + n * 18 + 2 * nbags * L_DLRM * 4)
+        recs[nreq] = timed(
+            trace, cuda_ms(lambda: K.gather_pool_cold_plain(*args, out, "sum"),
+                           reps=5, warmup=1), library,
+            max_abs_err=max(errs.values()), bound=bound(nbytes, n * L_DLRM),
+            requests=nreq, members=n, bags=nbags, cold_members=n_cold,
+            cold_share=n_cold / n)
+        del joined
+    return dict(recs[BAG_CLIENTS], full_batch=recs[K8_REQUESTS])
+
+
+def phase_k11(K, dev, rng):
+    """Phase 2, K11: 16,384 promoted rows of L f32 into a 65,536-row hot
+    pool in each wire format, bitwise its plain version and over two
+    runs, timed beside index_copy_ of the pre-dequantized rows."""
+    n = TIER_PROMOTED
+    pool = torch.randn((1, TIER_HOT, L), device=dev)
+    rows = rng.permutation(TIER_HOT)[:n].astype(np.int32)
+    sh = torch.zeros(n, dtype=torch.int32, device=dev)
+    row = torch.as_tensor(rows, device=dev)
+    row64 = row.long()
+    vals = rng.standard_normal((n, L), np.float32)
+    out = {}
+    for mode in ("fp32", "fp16", "int8"):
+        q, s, deq = wire_of(mode, vals, dev)
+        got = [K.write_main_rows(pool.clone(), sh, row, mode, q, s)
+               for _ in range(2)]
+        ref = K.write_main_rows_plain(pool.clone(), sh, row, mode, q, s)
+        check(bitwise(got[0], got[1]) and bitwise(got[0], ref),
+              f"K11 ({mode}) differs from its plain version or between two "
+              "runs")
+        scratch = pool.clone()
+        flat = scratch.view(-1, L)
+        out[mode] = timed(
+            cuda_ms(lambda: K.write_main_rows(scratch, sh, row, mode, q, s)),
+            cuda_ms(lambda: K.write_main_rows_plain(scratch, sh, row, mode,
+                                                    q, s)),
+            cuda_ms(lambda: flat.index_copy_(0, row64, deq)),
+            max_abs_err=float((got[0] - ref).abs().max()),
+            bound=bound(WIRE_BYTES[mode](L) * n + n * L * 4 + n * 8,
+                        n * L if mode == "int8" else 0), rows=n)
+    return dict(out["int8"], modes=out)
+
+
+def phase_k12(K, dev, rng):
+    """Phase 2, K12: 65,536 replica rows of L f32, half of them below the
+    threshold, fp16 and int8: its four outputs bitwise its plain version
+    and over two runs. No single library call computes this."""
+    n = TIER_SYNC_ROWS
+    delta = torch.as_tensor(rng.standard_normal((1, n, L), np.float32),
+                            device=dev)
+    delta[0, n // 2:] *= 1e-3
+    delta[0, :4, ::5] = -0.0
+    r_sh = torch.zeros(n, dtype=torch.int32, device=dev)
+    r_cs = torch.as_tensor(rng.permutation(n).astype(np.int32), device=dev)
+    thr = 0.5
+    out = {}
+    for mode in ("fp16", "int8"):
+        got = [K.sync_compress(delta, r_sh, r_cs, mode, thr)
+               for _ in range(2)]
+        ref = K.sync_compress_plain(delta, r_sh, r_cs, mode, thr)
+        for i, name in enumerate(("shipped", "new delta", "ship",
+                                  "residual norm")):
+            a, b, c = got[0][i], got[1][i], ref[i]
+            same = torch.equal(a, b) and torch.equal(a, c) if i == 2 else \
+                bitwise(a.reshape(-1), b.reshape(-1)) and \
+                bitwise(a.reshape(-1), c.reshape(-1))
+            check(same, f"K12 ({mode}) {name} differs from its plain "
+                  "version or between two runs")
+        shipped = int(got[0][2].sum())
+        out[mode] = timed(
+            cuda_ms(lambda: K.sync_compress(delta, r_sh, r_cs, mode, thr)),
+            cuda_ms(lambda: K.sync_compress_plain(delta, r_sh, r_cs, mode,
+                                                  thr)), None,
+            max_abs_err=float((got[0][1] - ref[1]).abs().max()),
+            bound=bound(n * L * 4 * 3 + n * 9, n * L * 4),
+            rows=n, shipped_rows=shipped)
+    return dict(out["int8"], modes=out)
+
+
+def report_tier_kernels(rec, names=("gather_cold", "gather_pool_cold",
+                                     "write_main_rows", "sync_compress")):
+    """Phase 2's lines of K9-K12 (those of `names`)."""
+    for name, what in (("gather_cold", f"K9 at {ROWS} entries of {L} f32, "
+                                       "a third cold"),
+                       ("write_main_rows", f"K11 at {TIER_PROMOTED} "
+                                           f"promoted rows of {L} f32"),
+                       ("sync_compress", f"K12 at {TIER_SYNC_ROWS} replica "
+                                         f"rows of {L} f32, half held")):
+        if name not in names:
+            continue
+        for mode, r in rec[name]["modes"].items():
+            print(f"phase 2: {what}, {mode}: {fmt_t(r, 'ms')} ms (bound "
+                  f"{r['bound'][0]:.4f} ms, {r['bound'][1]}, share "
+                  f"{r['bound'][0] / r['ms']:.3f}), plain "
+                  f"{fmt_t(r, 'plain_ms')} ms, library "
+                  f"{fmt_t(r, 'library_ms')} ms; bitwise its plain version "
+                  "and over two runs", flush=True)
+    if "gather_pool_cold" not in names:
+        return
+    k10 = rec["gather_pool_cold"]
+    for r in (k10, k10["full_batch"]):
+        print(f"phase 2: K10 at a bag batch of {r['requests']} requests "
+              f"({r['members']} members, {r['bags']} bags, L={L_DLRM}) "
+              f"over {TIER_BAG_HOT} hot rows and int8 cold rows (cold "
+              f"member share {r['cold_share']:.3f}): kernel "
+              f"{fmt_t(r, 'ms')} ms in the trace (bound {r['bound'][0]:.4f}"
+              f" ms, share {r['bound'][0] / r['ms']:.3f}), plain "
+              f"{fmt_t(r, 'plain_ms')} ms, embedding_bag over pre-"
+              f"dequantized rows {fmt_t(r, 'library_ms')} ms; sum and mean "
+              "bitwise its plain version and over two runs", flush=True)
+
+
+class TierCapture:
+    """Records every TierManager built while active (the app builds its
+    server inside run_app)."""
+
+    def __enter__(self):
+        from adapm_tpu_torch.tier import residency
+        self.mod, self.made = residency, []
+        self.orig = residency.TierManager.__init__
+
+        def init(tm, *a, **kw):
+            self.orig(tm, *a, **kw)
+            self.made.append(tm)
+        residency.TierManager.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.TierManager.__init__ = self.orig
+
+
+TIER_APP_KERNELS = APP_KERNELS + ("gather_cold", "write_main_rows")
+
+
+def phase_tier_app(K):
+    """Phase 13 (a): the KGE app tiered at full width, fp32 and int8 cold
+    rows."""
+    from adapm_tpu_torch.apps import knowledge_graph_embeddings as kge
+    argv = APP_ARGS + ["--synthetic_triples", str(100 * B), "--epochs", "2",
+                       "--eval_every", "1", "--eval_triples", "100",
+                       "--scan_steps", str(SCAN_K), "--sys.tier", "1",
+                       "--sys.tier.hot_rows", str(TIER_HOT)]
+    out = {}
+    for mode in ("fp32", "int8"):
+        with TierCapture() as cap:
+            res, launches = run_app(kge, K, argv + ["--sys.tier.cold_dtype",
+                                                    mode])
+        what = f"phase 13 (a, {mode})"
+        check_app(res, launches, what, TIER_APP_KERNELS)
+        losses = res["epoch_losses"]
+        check(losses[1] < losses[0], f"{what}: loss did not fall: {losses}")
+        check(len(res["eval_s"]) >= 2, f"{what}: {len(res['eval_s'])} evals")
+        t = res["tier"]
+        check(t["hot_rows_per_shard_max"] <= TIER_HOT,
+              f"{what}: {t['hot_rows_per_shard_max']} hot rows in a shard")
+        check(t["promotions"] > 0, f"{what}: no promotion")
+        check(len(cap.made) == 1 and
+              cap.made[0].engine.failures == 0,
+              f"{what}: tier maintenance passes failed")
+        out[mode] = dict(epoch_s=res["epoch_s"], eval_s=res["eval_s"],
+                         gen_s=res["gen_s"], epoch_losses=losses,
+                         mrr=res["mrr"], tier=t, launches=launches,
+                         replayed=res["replayed"])
+    return out
+
+
+def tier_table(at, dev, mode, seed, tier=True):
+    """Phase 3's table (E + R keys of L f32) with values on an int8 grid
+    (the AdaGrad half non-negative), tiered with TIER_HOT hot rows and
+    `mode` cold rows, or not."""
+    opts = dict(tier=True, tier_hot_rows=TIER_HOT, tier_cold_dtype=mode) \
+        if tier else {}
+    srv = at.setup(E + R, L, opts=at.SystemOptions(
+        cache_slots_per_shard=1, sync_max_per_sec=0, **opts), device=dev)
+    w = srv.make_worker(0)
+    fill = np.random.default_rng(seed)
+    for lo in range(0, E + R, 50_000):
+        hi = min(lo + 50_000, E + R)
+        vals = grid_rows(fill, hi - lo, L)
+        vals[:, L // 2:] = np.abs(vals[:, L // 2:])   # AdaGrad's sums >= 0
+        w.set(np.arange(lo, hi), vals)
+    srv.block()
+    return srv, w
+
+
+def phase_tier_storm(at, K, dev):
+    """Phase 13 (b): test_tier.py's storm at full width on phase 3's
+    table: a tiered server (TIER_HOT hot rows) beside an untiered shadow
+    on the card, TIER_STORM_OPS ops of pushes with duplicates, sets,
+    pulls, promotions, demotions and sync rounds. fp32 cold rows: every
+    read bitwise the shadow's; int8: within two grid steps
+    (tier/quant.py grid_step)."""
+    from adapm_tpu_torch.tier.quant import grid_step
+    n = E + R
+    out = {}
+    for mode in ("fp32", "int8"):
+        K.reset_launches()
+        srv, w = tier_table(at, dev, mode, 21)
+        ref, wr = tier_table(at, dev, mode, 21, tier=False)
+        rng = np.random.default_rng(22)
+
+        def agree(a, b, what):
+            a, b = a.reshape(-1, L), b.reshape(-1, L)
+            if mode == "fp32":
+                ok = np.array_equal(a.view(np.uint32), b.view(np.uint32))
+            else:
+                ok = (np.abs(a - b).max(axis=1)
+                      <= 2 * grid_step("int8", b) + 1e-6).all()
+            check(ok, f"phase 13 (b, {mode}): {what} differs from the "
+                  "untiered shadow beyond the contract")
+
+        t0 = time.perf_counter()
+        m = min(16384, n // 4)      # keys a promotion, demotion, pull
+        for step in range(TIER_STORM_OPS):
+            op = step % 6
+            if op == 0:
+                ks = skewed_keys(rng, n, m // 2)      # heavy duplicates
+                v = rng.standard_normal((m // 2, L), np.float32) * 0.01
+                w.push(ks, v)
+                wr.push(ks, v)
+            elif op == 1:
+                ks = rng.choice(n, m // 4, replace=False)
+                v = grid_rows(rng, m // 4, L)
+                w.set(ks, v)
+                wr.set(ks, v)
+            elif op == 2:
+                srv.tier.promote_keys(skewed_keys(rng, n, m))
+            elif op == 3:
+                srv.tier.demote_keys(rng.choice(n, m, replace=False))
+                srv.tier.maintain()
+            elif op == 4:
+                srv.sync.run_round(force_intents=True, all_channels=True)
+                ref.sync.run_round(force_intents=True, all_channels=True)
+            else:
+                w.advance_clock()
+                wr.advance_clock()
+            pk = skewed_keys(rng, n, m)
+            agree(w.pull_sync(pk), wr.pull_sync(pk), f"op {step} pull")
+        srv.quiesce()
+        ref.quiesce()
+        agree(srv.read_main(np.arange(n)), ref.read_main(np.arange(n)),
+              "the whole table after quiesce")
+        storm_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        check_launched(launches, f"phase 13 (b, {mode})",
+                       ("gather_cold", "write_main_rows"))
+        rep = srv.tier.report()
+        check(srv.tier.engine.failures == 0,
+              f"phase 13 (b, {mode}): tier maintenance passes failed")
+        out[mode] = dict(storm_s=storm_s, launches=launches, tier=rep,
+                         ef_evicted=int(srv.stores[0].coldq.ef_evicted))
+        check_background(srv, f"phase 13 (b, {mode})")
+        srv.shutdown()
+        ref.shutdown()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tier_bags(at, K, dev, untiered):
+    """Phase 13 (c): phase 10 (b)'s bag path on the DLRM table tiered
+    (TIER_BAG_HOT hot rows, int8 cold rows, values on the int8 grid so a
+    row reads the same bits hot or cold): the sum segment, every reply
+    bitwise pool_bags_host over Worker.pull, K8 or K10 launched once per
+    fused batch (K10 where the batch holds a cold member), samples/s
+    and p50/p99 beside phase 10's untiered sum segment."""
+    from adapm_tpu_torch.serve import ServePlane
+    from adapm_tpu_torch.serve.bags import pool_bags_host
+    caps, offs = dlrm_table()
+    nkeys = int(caps.sum())
+    t0 = time.perf_counter()
+    srv = at.setup(nkeys, L_DLRM, opts=at.SystemOptions(
+        cache_slots_per_shard=1, sync_max_per_sec=0, tier=True,
+        tier_hot_rows=TIER_BAG_HOT, tier_cold_dtype="int8"), device=dev)
+    w = srv.make_worker(0)
+    fill = np.random.default_rng(4)
+    for lo in range(0, nkeys, 1 << 20):
+        hi = min(lo + (1 << 20), nkeys)
+        w.set(np.arange(lo, hi), grid_rows(fill, hi - lo, L_DLRM, 2.0 ** -12))
+    srv.block()
+    fill_s = time.perf_counter() - t0
+    reqs = []
+    for ci in range(BAG_CLIENTS):
+        rng = np.random.default_rng(200 + ci)
+        reqs.append([dlrm_request(rng, caps, offs)
+                     for _ in range(BAG_REQUESTS)])
+    plane = ServePlane(srv)
+    st = srv.stores[0]
+    hot0, cold0 = st.tier_hot_hits, st.tier_cold_hits
+    K.reset_launches()
+    seg = serve_segment(srv, plane, reqs, lambda sess, r: sess.lookup_bags(
+        r[0], r[1], pooling="sum", deadline_ms=10_000))
+    launches = dict(K.LAUNCHES)
+    fused = seg["counts"]["bag_fused_total"]
+    check(launches["gather_pool"] + launches["gather_pool_cold"] == fused,
+          f"phase 13 (c): K8 {launches['gather_pool']} + K10 "
+          f"{launches['gather_pool_cold']} launches for {fused} fused "
+          "batches")
+    # K8 serves the batches without a cold member, K11 the promotions the
+    # lookups' feedback asks for
+    check_launched(launches, "phase 13 (c)", ("gather_pool_cold",),
+                   allowed=("gather_pool", "write_main_rows"))
+    hot, cold = st.tier_hot_hits - hot0, st.tier_cold_hits - cold0
+    plane.close()
+    for ci, rs in enumerate(reqs):
+        for i, (tables, bags) in enumerate(rs):
+            rows = w.pull_sync(np.concatenate(tables))
+            lo = 0
+            for t, (ks, bg) in enumerate(zip(tables, bags)):
+                mine = rows[lo:lo + len(ks)]
+                lo += len(ks)
+                seg_ix = np.repeat(np.arange(len(bg) - 1),
+                                   np.diff(bg)).astype(np.int32)
+                ref = pool_bags_host(mine, seg_ix, len(bg) - 1, "sum")
+                check(np.array_equal(seg["replies"][ci][i][t].view(np.uint32),
+                                     ref.view(np.uint32)),
+                      f"phase 13 (c): request {ci}/{i} table {t} differs "
+                      "from pool_bags_host over Worker.pull")
+    tier = srv.tier.report()
+    check(srv.tier.engine.failures == 0,
+          "phase 13 (c): tier maintenance passes failed")
+    check_background(srv, "phase 13 (c)")
+    srv.shutdown()
+    seg.pop("replies")
+    seg["samples_per_s"] = seg["per_s"] * DLRM_SAMPLES
+    return dict(fill_s=fill_s, segment=seg, launches=launches, tier=tier,
+                cold_member_share=cold / max(hot + cold, 1),
+                untiered=dict(samples_per_s=untiered["samples_per_s"],
+                              p50_ms=untiered["p50_ms"],
+                              p99_ms=untiered["p99_ms"]))
+
+
+def phase_tier_planner(at, K, dev, off):
+    """Phase 13 (d): phase 12's background planner with --sys.sync.compress
+    fp16 and int8: after quiesce() every row is the sequential sum —
+    bitwise in fp16 (the integer deltas are on its grid); in int8 within
+    the f32 rounding of the merges: a shipped int8 delta is off the
+    integer grid, so each round's merge into the owner row may round
+    once, by at most half an ulp, and the exact flush at quiesce cannot
+    undo that (rounds x one ulp of the row's largest magnitude, twice
+    the final one) — with K12 launched; bytes per round against `off`
+    (phase 12)."""
+    out = {}
+    for mode in ("fp16", "int8"):
+        K.reset_launches()
+        got, want, rounds_s, created, nbytes = planner_run(
+            at, dev, compress=mode)
+        launches = dict(K.LAUNCHES)
+        tol = nbytes["rounds"] * np.spacing(
+            2 * np.abs(want).max(axis=1, keepdims=True))
+        if mode == "fp16":
+            ok = np.array_equal(got.view(np.uint32), want.view(np.uint32))
+        else:
+            ok = bool((np.abs(got - want) <= tol).all())
+        check(ok, f"phase 13 (d, {mode}): after quiesce the main rows "
+              "differ from the sequential sum")
+        check_launched(launches, f"phase 13 (d, {mode})",
+                       ("sync_compress", "ordered_scatter_add"))
+        out[mode] = dict(rounds_s=rounds_s, replicas_created=created,
+                         launches=launches, **nbytes,
+                         max_abs_diff=float(np.abs(got - want).max()),
+                         max_tol=float(tol.max()))
+    out["off"] = off
+    return out
+
+
+def phase_episodic(at, K, dev):
+    """Phase 13 (e): EpisodicRunner over (a)'s tiered step (phase 3's
+    table, fp32 cold rows, TIER_HOT hot rows), EPISODE_B batches an
+    episode, against the same step run sequentially on a server filled
+    alike: every loss and the whole main table bitwise. The negatives'
+    population (the 8,192 most requested entities) is intent-pinned hot
+    on both servers first, so the hot-restricted draw is the same in
+    both runs. The clocks stand still inside a run, so every step's and
+    every prepared episode's pins stay live, and a step that needs more
+    hot rows than the unpinned ones evicts pinned rows, lowest access
+    score first: the population is pulled a few times first (scores up)
+    so that those victims are earlier steps' rows and never its own
+    (checked: a population row leaving the hot pool fails the phase)."""
+    from adapm_tpu_torch.base import CLOCK_MAX
+    from adapm_tpu_torch.device import EpisodicRunner
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    pop = np.arange(min(8192, E // 8))
+    roles = ("s", "r", "o", "neg")
+    runs = []
+    for episodic in (True, False):
+        srv, w = tier_table(at, dev, "fp32", 31)
+        w.intent(pop, 0, CLOCK_MAX)
+        srv.wait_sync()
+        srv.tier.promote_keys(pop)
+        for _ in range(4):
+            w.pull_sync(pop)
+        runner = DeviceRoutedRunner(
+            srv, make_kge_loss("complex"), role_class=dict.fromkeys(roles, 0),
+            role_dim=dict.fromkeys(roles, L // 2), neg_role="neg",
+            neg_shape=(B, N), neg_population=pop, seed=0)
+        batches = kge_batches(np.random.default_rng(32), EPISODE_STEPS)
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if episodic:
+            er = EpisodicRunner(runner, episode_batches=EPISODE_B)
+            losses = er.run(batches, lr=0.1)
+        else:
+            losses = [runner(b, None, 0.1) for b in batches]
+        losses = [float(x) for x in losses]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = srv.stores[0]
+        check(bool((st.res.dev_row[srv.ab.owner[pop],
+                                   srv.ab.slot[pop]] >= 0).all()),
+              f"phase 13 (e): the negatives' population left the hot pool "
+              f"({'episodic' if episodic else 'sequential'} run)")
+        launches = dict(K.LAUNCHES)
+        table = srv.read_main(np.arange(E + R))
+        snap = srv.metrics_snapshot()
+        runs.append(dict(losses=losses, wall_s=wall, launches=launches,
+                         table=table, episode={k: v for k, v in
+                                               snap["episode"].items()
+                                               if not isinstance(v, dict)},
+                         overlap=snap["exec"].get("overlap_fraction")))
+        check(srv.tier.engine.failures == 0,
+              "phase 13 (e): tier maintenance passes failed")
+        check_background(srv, "phase 13 (e)")
+        srv.shutdown()
+        torch.cuda.empty_cache()
+    e, s = runs
+    check(np.array_equal(np.float32(e["losses"]), np.float32(s["losses"])),
+          "phase 13 (e): episodic losses differ from the sequential run's")
+    check(np.array_equal(e["table"].view(np.uint32),
+                         s["table"].view(np.uint32)),
+          "phase 13 (e): the main table differs from the sequential run's")
+    check(e["episode"].get("episodes_total") == EPISODE_STEPS // EPISODE_B,
+          f"phase 13 (e): {e['episode']}")
+    check_launched(e["launches"], "phase 13 (e)",
+                   STEP_KERNELS + ("write_main_rows",))
+    for r in runs:
+        r.pop("table")
+    return dict(episodic=e, sequential=s)
+
+
+def report_tier_app(app, smi):
+    """Phase 13's lines (a part each), with the card's nvidia-smi line."""
+    for mode, r in app.items():
+        t = r["tier"]
+        print(f"phase 13 (a, {mode} cold rows): app epochs "
+              f"{[round(x, 3) for x in r['epoch_s']]} s, evals "
+              f"{[round(x, 3) for x in r['eval_s']]} s, losses "
+              f"{r['epoch_losses']}, MRR {r['mrr']:.4g}; hot rows max "
+              f"{t['hot_rows_per_shard_max']} of {TIER_HOT}, promotions "
+              f"{t['promotions']}, demotions {t['demotions']}, hot hit rate "
+              f"{t['hot_hit_rate']:.4f}, cold bytes/row "
+              f"{t['cold_bytes_per_row']:.1f}, residual rows "
+              f"{t['ef_resid_rows']} (evicted {t['ef_evicted']}); launches "
+              f"{r['launches']}, replayed {r['replayed']} [{smi}]",
+              flush=True)
+
+
+def report_tier_storm(storm, smi):
+    for mode, r in storm.items():
+        print(f"phase 13 (b, {mode}): storm of {TIER_STORM_OPS} ops over "
+              f"{E + R} keys in {r['storm_s']:.2f} s, reads "
+              f"{'bitwise' if mode == 'fp32' else 'within two grid steps'}"
+              f" the untiered shadow; tier {r['tier']}, residuals evicted "
+              f"{r['ef_evicted']}; launches {r['launches']} [{smi}]",
+              flush=True)
+
+
+def report_tier_bags(bags, smi):
+    s, u = bags["segment"], bags["untiered"]
+    print(f"phase 13 (c): tiered bag path (int8, {TIER_BAG_HOT} hot rows, "
+          f"fill {bags['fill_s']:.1f} s): {s['samples_per_s']:.0f} samples/s"
+          f", p50/p99 {s['p50_ms']:.2f} / {s['p99_ms']:.2f} ms, mean batch "
+          f"{s['mean_batch']:.2f}, cold member share "
+          f"{bags['cold_member_share']:.3f}; untiered (phase 10 sum) "
+          f"{u['samples_per_s']:.0f} samples/s, {u['p50_ms']:.2f} / "
+          f"{u['p99_ms']:.2f} ms; launches {bags['launches']}; tier "
+          f"{bags['tier']} [{smi}]", flush=True)
+
+
+def report_tier_planner(planner, smi):
+    for mode in ("fp16", "int8"):
+        r, o = planner[mode], planner["off"]
+        print(f"phase 13 (d, {mode}): planner {r['rounds_s']:.1f} rounds/s, "
+              f"bytes shipped {r['bytes_shipped']} of "
+              f"{r['bytes_full_equiv']} full-width ({r['bytes_shipped'] / max(r['bytes_full_equiv'], 1):.3f}); "
+              f"off: {o['bytes_shipped']} bytes; last round "
+              f"{r['bytes_per_round']} bytes; residual norm "
+              f"{r['ef_residual_norm']:.3g}; max |diff| to the sum "
+              f"{r['max_abs_diff']:.3g} (bound {r['max_tol']:.3g}, "
+              f"{r['rounds']} rounds); launches {r['launches']} [{smi}]",
+              flush=True)
+
+
+def report_episodic(epi, smi):
+    e, q = epi["episodic"], epi["sequential"]
+    print(f"phase 13 (e): EpisodicRunner, {EPISODE_STEPS} steps in episodes "
+          f"of {EPISODE_B}: losses and the main table bitwise the "
+          f"sequential run; {e['wall_s']:.3f} s against {q['wall_s']:.3f} "
+          f"s; episode {e['episode']}; exec overlap {e['overlap']}; "
+          f"launches {e['launches']} [{smi}]", flush=True)
+
+
 def fmt_t(r, key):
     v = r[key]
     if v is None:
@@ -2640,6 +3358,7 @@ def report_kernels(rec):
           f"{ROLE_SPLIT} bitwise; deterministic over two runs", flush=True)
     report_k4(rec["pool_eval_counts"])
     report_k8(rec["gather_pool"])
+    report_tier_kernels(rec)
     k5 = rec["complex_step"]
     print(f"phase 2: K5 at B={B}, N={N}, d={D_MODEL}: {fmt_t(k5, 'ms')} ms "
           f"(bound {k5['bound'][0]:.4f} ms, share "
@@ -2889,6 +3608,12 @@ def main(argv):
         # against the contract's other phases: copied into an earlier
         # tree of the port, it times that tree's kernels the same way
         parts = {"K4": (phase_k4, report_k4), "K8": (phase_k8, report_k8)}
+        for nm, key, run in (("K9", "gather_cold", phase_k9),
+                             ("K10", "gather_pool_cold", phase_k10),
+                             ("K11", "write_main_rows", phase_k11),
+                             ("K12", "sync_compress", phase_k12)):
+            parts[nm] = (run, lambda r, key=key: report_tier_kernels(
+                {key: r}, (key,)))
         names = argv[argv.index("--kernels") + 1].split(",")
         check(names and all(nm in parts for nm in names),
               f"--kernels takes a comma-separated list of {sorted(parts)}")
@@ -2966,6 +3691,18 @@ def main(argv):
     serve_flat = phase_serve_flat(at, K, dev)
     serve_bags = phase_serve_bags(at, K, dev)
     report_serve(serve_flat, serve_bags, smi)
+    tier_app = phase_tier_app(K)
+    report_tier_app(tier_app, smi)
+    storm = phase_tier_storm(at, K, dev)
+    report_tier_storm(storm, smi)
+    tier_bags = phase_tier_bags(at, K, dev, serve_bags["segments"]["sum"])
+    report_tier_bags(tier_bags, smi)
+    tier_pl = phase_tier_planner(at, K, dev, {
+        k: pl[k] for k in ("bytes_shipped", "bytes_full_equiv",
+                           "bytes_per_round", "rounds_s")})
+    report_tier_planner(tier_pl, smi)
+    epi = phase_episodic(at, K, dev)
+    report_episodic(epi, smi)
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
                "adagrad_update": ("adapm_tpu_torch/csrc/adagrad.cu",
@@ -2983,7 +3720,16 @@ def main(argv):
                "mf_step": ("adapm_tpu_torch/csrc/mf_step.cu",
                            "adapm_tpu/ops/fused.py:370"),
                "gather_pool": ("adapm_tpu_torch/csrc/gather_pool.cu",
-                               "adapm_tpu/device/jaxport.py:79")}
+                               "adapm_tpu/device/jaxport.py:79"),
+               "gather_cold": ("adapm_tpu_torch/csrc/gather_cold.cu",
+                               "adapm_tpu/device/jaxport.py:256"),
+               "gather_pool_cold": ("adapm_tpu_torch/csrc/gather_pool.cu",
+                                    "adapm_tpu/device/jaxport.py:269"),
+               "write_main_rows": ("adapm_tpu_torch/csrc/"
+                                   "write_main_rows.cu",
+                                   "adapm_tpu/device/jaxport.py:368"),
+               "sync_compress": ("adapm_tpu_torch/csrc/sync_compress.cu",
+                                 "adapm_tpu/device/jaxport.py:140")}
     paths = dict(step=step_launches, scan=sc["launches"],
                  scan_replayed=sc["replayed"], replica=used,
                  app=app_launches, app_replayed=app["replayed"],
@@ -3005,15 +3751,28 @@ def main(argv):
                  pull_flow_staging={k: pf["staging_k1"] if
                                     k == "routed_gather" else 0
                                     for k in K.LAUNCHES},
-                 planner=pl["launches"])
+                 planner=pl["launches"],
+                 tier_app=tier_app["int8"]["launches"],
+                 tier_app_replayed=tier_app["int8"]["replayed"],
+                 tier_app_fp32=tier_app["fp32"]["launches"],
+                 tier_storm=storm["fp32"]["launches"],
+                 tier_storm_int8=storm["int8"]["launches"],
+                 tier_bags=tier_bags["launches"],
+                 tier_planner=tier_pl["int8"]["launches"],
+                 tier_planner_fp16=tier_pl["fp16"]["launches"],
+                 episodic=epi["episodic"]["launches"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
     # whose standalone launches it keeps, in the word2vec and MF app runs
     # (phases 8 and 9, device routes) for K6 and K7, in phase 10's bag
-    # segments for K8; the launches of replayed graphs stand apart under
-    # *_replayed
+    # segments for K8, in phase 13's tiered int8 app run (a) for K9 and
+    # K11, its tiered bag segment (c) for K10 and its int8 compressed
+    # planner run (d) for K12; the launches of replayed graphs stand
+    # apart under *_replayed
     home = {"adagrad_update": "rescal", "sgns_step": "w2v_app",
-            "mf_step": "mf_app", "gather_pool": "serve_bags"}
+            "mf_step": "mf_app", "gather_pool": "serve_bags",
+            "gather_cold": "tier_app", "gather_pool_cold": "tier_bags",
+            "write_main_rows": "tier_app", "sync_compress": "tier_planner"}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=paths[home.get(n, "app")][n],
@@ -3047,7 +3806,10 @@ def main(argv):
                        "w2v_step": st, "w2v_scan": sc7, "w2v_app": w2v_app,
                        "mf_app": mfr, "serve_flat": serve_flat,
                        "serve_bags": serve_bags, "pipeline": pp,
-                       "pull_flow": pf, "planner": pl}, fh, indent=1,
+                       "pull_flow": pf, "planner": pl, "tier_app": tier_app,
+                       "tier_storm": storm, "tier_bags": tier_bags,
+                       "tier_planner": tier_pl, "episodic": epi}, fh,
+                      indent=1,
                       default=str)
     check(not BACKGROUND_FAULTS, f"background work failed: "
           f"{BACKGROUND_FAULTS}")

@@ -9,18 +9,18 @@ that run on it, held to tests/test_exec.py's scenarios.
    AsyncExecutor and on the port's, which must behave alike.
 
 2. The enqueue-order property test: a randomized interleaving of the
-   producers (writes, prefetch intents with pumped planner rounds,
-   served lookups, sync rounds, relocations) driven identically through
+   producers (writes, prefetch intents with pumped planner rounds, tier
+   promotion/demotion churn with maintenance kicks, served lookups,
+   sync rounds, relocations) driven identically through tiered servers:
    an overlapped port server and a `--sys.exec.single_stream` port
    server, and through the JAX package's overlapped server: every read
    (whole-table `read_main`, duplicate-heavy pulls, served lookups)
    must be bitwise the same on all three at every step and after
-   quiesce. A single-stream server with the background planner and a
-   serving plane shuts down promptly.
+   quiesce. A single-stream tiered server with the background planner,
+   a serving plane and tier maintenance shuts down promptly.
 
-Left out, with the planes they need: the tier-maintenance producer of
-both server scenarios (tiered storage, ROADMAP A8) and the lock-order
-sentinel of the property test (A12).
+Left out, with the plane it needs: the lock-order sentinel of the
+property test (ROADMAP A12).
 """
 import threading
 import time
@@ -251,21 +251,22 @@ def test_dispatch_gate_is_reentrant_process_wide(gate):
 def _port_server(single_stream: bool):
     opts = adapm_tpu_torch.SystemOptions(
         sync_max_per_sec=0, prefetch=True, prefetch_pull="off",
-        exec_single_stream=single_stream)
+        tier=True, tier_hot_rows=16, exec_single_stream=single_stream)
     return adapm_tpu_torch.setup(E, L, opts=opts, num_shards=8,
                                  device="cpu")
 
 
 def _jax_server():
     opts = adapm_tpu.SystemOptions(sync_max_per_sec=0, prefetch=True,
-                                   prefetch_pull="off")
+                                   prefetch_pull="off", tier=True,
+                                   tier_hot_rows=16)
     return adapm_tpu.setup(E, L, opts=opts)
 
 
 def test_single_stream_server_shutdown_with_sync_and_serve():
-    """A single-stream port server running the background planner AND a
-    serving plane shuts down promptly (each drain targets its own
-    stream)."""
+    """A single-stream tiered port server running the background planner,
+    a serving plane AND tier maintenance shuts down promptly (each drain
+    targets its own stream)."""
     from adapm_tpu_torch.serve import ServePlane
     rng = np.random.default_rng(0)
     srv = _port_server(True)
@@ -274,6 +275,7 @@ def test_single_stream_server_shutdown_with_sync_and_serve():
     plane = ServePlane(srv)
     sess = plane.session()
     srv.start_sync_thread()
+    srv.tier.engine.kick()
     assert np.asarray(sess.lookup(np.arange(8))).shape == (8, L)
     t0 = time.monotonic()
     srv.shutdown()
@@ -313,7 +315,7 @@ def test_enqueue_order_property_producers_match_jax():
                 b, dtype=np.float32).view(np.uint32)), what
 
     for step in range(40):
-        op = int(rng.integers(0, 5))
+        op = int(rng.integers(0, 6))
         if op == 0:      # writes
             ks = rng.integers(0, E, 24)
             v = rng.normal(size=(24, L)).astype(np.float32)
@@ -331,6 +333,12 @@ def test_enqueue_order_property_producers_match_jax():
             ks = rng.integers(0, E, 20)
             same([s.lookup(ks) for s in sessions],
                  f"step {step}: served lookup diverged")
+        elif op == 5:    # tier maintenance: churn + a kick of the worker
+            ks = rng.choice(E, 24, replace=False)
+            for s in servers:
+                s.tier.promote_keys(ks)
+                s.tier.demote_keys(ks[:12])
+                s.tier.engine.kick()
         elif op == 3:    # sync rounds
             for s in servers:
                 s.sync.run_round(force_intents=True, all_channels=True)
@@ -355,6 +363,7 @@ def test_enqueue_order_property_producers_match_jax():
     assert ref.exec.single_stream and not srv.exec.single_stream
     assert srv.prefetch.stats["rounds_driven"] > 0
     assert srv.prefetch.failures == 0 and ref.prefetch.failures == 0
+    assert srv.tier.engine.failures == 0 and ref.tier.engine.failures == 0
     for p in planes:
         p.close()
     for s in servers:

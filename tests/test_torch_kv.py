@@ -295,8 +295,8 @@ def test_locality_future_intent_not_acted_early():
 
 
 def test_unported_planes_raise_naming_roadmap_item():
-    for kw, item in (({"tier": True}, "item 8"),
-                     ({"sync_compress": "fp16"}, "B8")):
+    for kw, item in (({"trace_flight": True}, "item 10"),
+                     ({"stream_batch": 8}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             adapm_tpu_torch.Server(
                 8, 2, ctx=make_context(2, "cpu"),

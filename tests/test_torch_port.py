@@ -111,15 +111,80 @@ def test_torch_port_matches_numpy_ref_port_bitwise_every_op(seed):
 
 
 def test_unported_port_methods_name_their_roadmap_item():
+    """The port methods still unported name their ROADMAP item; the
+    tiered cold path and wire ingest (B8) now run, bitwise
+    NumpyRefPort's, in every wire format."""
     tp = TorchDevicePort()
-    with pytest.raises(NotImplementedError, match="B8"):
-        tp.gather_cold()
     with pytest.raises(NotImplementedError, match="B10"):
         tp.compile_collective(None, None, None, None)
     with pytest.raises(NotImplementedError,
                        match="DeviceRoutedRunner.run_scan"):
         tp.compile(None)
-    pools = [torch.zeros(S, k, L) for k in (R, C, C)]
-    z = np.zeros(1, np.int32)
-    with pytest.raises(NotImplementedError, match="B8"):
-        tp.sync_replicas(*pools, z, z, z, z, compress="fp16")
+    from adapm_tpu.tier.quant import quantize_rows
+    ref = NumpyRefPort()
+    rng = np.random.default_rng(3)
+    n = 16
+    pools = [rng.normal(size=(S, k, L)).astype(np.float32)
+             for k in (R, C, C)]
+    o_sh, o_row = _coords(rng, n, R)
+    c_sh, c_sl = _coords(rng, n, C)
+    use_c = rng.random(n) < 0.3
+    use_cold = (rng.random(n) < 0.5) & ~use_c
+    seg = np.sort(rng.integers(0, 6, n)).astype(np.int32)
+    out = np.zeros((8, L), np.float32)
+    co = (o_sh, o_row, c_sh, c_sl, use_c)
+
+    def same(a, b):
+        a = [a] if not isinstance(a, tuple) else a
+        b = [b] if not isinstance(b, tuple) else b
+        for x, y in zip(a, b):
+            assert np.array_equal(np.asarray(x).view(np.uint32),
+                                  np.asarray(y).view(np.uint32))
+
+    tpools = lambda: [torch.from_numpy(p.copy()) for p in pools]  # noqa
+    vals = _vals(rng, n)
+    same(ref.gather_cold(*pools, *co, vals, use_cold),
+         tp.gather_cold(*tpools(), *co, vals, use_cold))
+    same(ref.gather_pool_cold(*pools, *co, vals, use_cold, seg, out),
+         tp.gather_pool_cold(*tpools(), *co, vals, use_cold, seg, out))
+    same(ref.write_main_rows(pools[0].copy(), o_sh, o_row, vals),
+         tp.write_main_rows(tpools()[0], o_sh, o_row, vals))
+    same(ref.install_cache_rows(pools[1].copy(), pools[2].copy(), c_sh,
+                                c_sl, vals, resid=vals * 0.5),
+         tp.install_cache_rows(*tpools()[1:], c_sh, c_sl, vals,
+                               resid=vals * 0.5))
+    for mode in ("fp16", "int8"):
+        q, sc = quantize_rows(mode, vals)
+        same(ref.gather_cold_wire(mode, *pools, *co, q, sc, use_cold),
+             tp.gather_cold_wire(mode, *tpools(), *co, q, sc, use_cold))
+        same(ref.gather_pool_cold_wire(mode, *pools, *co, q, sc, use_cold,
+                                       seg, out, pooling="mean"),
+             tp.gather_pool_cold_wire(mode, *tpools(), *co, q, sc,
+                                      use_cold, seg, out, pooling="mean"))
+        same(ref.write_main_rows_wire(mode, pools[0].copy(), o_sh, o_row,
+                                      q, sc),
+             tp.write_main_rows_wire(mode, tpools()[0], o_sh, o_row, q,
+                                     sc))
+        same(ref.sync_replicas(*[p.copy() for p in pools], c_sh, c_sl,
+                               o_sh, o_row, threshold=0.5, compress=mode),
+             tp.sync_replicas(*tpools(), c_sh, c_sl, o_sh, o_row,
+                              threshold=0.5, compress=mode))
+    assert tp.wire_ingest_rows == ref.wire_ingest_rows > 0
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """A grep of every source of the port and of chip_smoke.py: no
+    import of jax (or jaxlib) and none of the JAX package `adapm_tpu`
+    (tier/quant.py included: the port keeps its own copy)."""
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|adapm_tpu)\b(?!_torch)",
+                     re.M)
+    files = [os.path.join(root, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(root, "adapm_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    hits = [(f, m.group(0).strip()) for f in files
+            for m in bad.finditer(open(f).read())]
+    assert not hits, hits

@@ -406,8 +406,20 @@ def test_serve_default_deadline_from_opts(ctx):
 
 def test_replica_storm_bit_identical(ctx):
     """The acceptance storm extended to the replica path (the JAX test's
-    untiered case; the tiered one waits on ROADMAP queue A, item 8):
-    randomized push/set/relocate/sync/replica-churn with the read-only
+    untiered case; test_replica_storm_bit_identical_tiered is the tiered
+    one)."""
+    _replica_storm(ctx, tiered=False)
+
+
+def test_replica_storm_bit_identical_tiered(ctx):
+    """The JAX test's tiered case: 8 hot rows a shard force a live cold
+    path under the storm, with promotion/demotion churn as op 6."""
+    _replica_storm(ctx, tiered=True)
+
+
+def _replica_storm(ctx, tiered: bool):
+    """Randomized push/set/relocate/sync/replica-churn (+ tier
+    promote/demote when tiered) with the read-only
     snapshot refreshed mid-storm — every lookup bit-identical to
     `Worker.pull` of the same
     keys, including snapshot-stale fallbacks (a bumped write epoch or a
@@ -418,6 +430,9 @@ def test_replica_storm_bit_identical(ctx):
     opts = SystemOptions(sync_max_per_sec=0, cache_slots_per_shard=64,
                          serve_replica_rows=48,
                          serve_replica_refresh_ms=1.0)
+    if tiered:
+        opts.tier = True
+        opts.tier_hot_rows = 8   # a live cold path under the storm
     s = make_server(ctx, opts=opts)
     w0 = s.make_worker(0)   # shard 0 — the serve plane's shard
     w1 = s.make_worker(1)   # shard 1 — a second writer + replica holder
@@ -441,7 +456,7 @@ def test_replica_storm_bit_identical(ctx):
     assert s.obs.find("serve.replica_stale_fallbacks_total").value >= 1
     rng = np.random.default_rng(7)
     for step in range(50):
-        op = rng.integers(0, 7)   # 6: the tiered churn, a no-op here
+        op = rng.integers(0, 7)   # 6: the tiered churn
         kset = np.unique(rng.integers(0, NK, rng.integers(1, 9)))
         if op == 0:
             w0.push(kset, rng.normal(size=(len(kset), VL))
@@ -463,6 +478,9 @@ def test_replica_storm_bit_identical(ctx):
         elif op == 5:
             with s._round_lock:
                 s.sync.run_round(all_channels=True)
+        elif s.tier is not None:  # promotion/demotion churn (tiered)
+            s.tier.demote_keys(kset)
+            s.tier.promote_keys(kset[: len(kset) // 2 + 1])
         if step % 6 == 0:
             rep.refresh_now()   # mid-storm snapshot rebuilds
         for batch in (np.concatenate([rng.integers(0, NK, 6),
