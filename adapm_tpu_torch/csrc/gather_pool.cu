@@ -73,9 +73,18 @@
 // code; the ring carries the wire bytes (16, 8 or 4 a lane per four
 // columns), and the fold decodes them. The batch-order fold and the
 // mean's division are K8's. With kCold = 0 every cold branch is
-// discarded at compile time: K8's instantiation does exactly K8's work
-// (its register allocation and schedule moved a little; its time did
-// not, PERF.md).
+// discarded at compile time: K8's instantiation is K8's own code.
+//
+// K10's fold is its own (if constexpr on kCold). At the bag path's
+// batch of 8 requests neither bytes nor the ring's depth set its pace
+// (tools/k10_variants.py: int8 or fp32 wire rows and all-hot members
+// run alike, a deeper ring does not help, dropping the row copies saves
+// a third); the fold's per-member shared-memory traffic does. So a
+// resolved member is one 16-byte record (ColdMeta: code, bag with its
+// first-member flag, scale), read once at the member's issue and held
+// in registers until its fold, with the member's ring stage fixed at
+// compile time; per member the fold reads one record and one ring
+// value.
 #include <cuda_runtime.h>
 
 #include <mutex>
@@ -148,25 +157,35 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// K10's int8 scales of a batch of resolved members (empty otherwise)
-template <int kCold>
-struct ColdSmem {};
-template <>
-struct ColdSmem<adapm::kWireI8> {
-  float scale[2][32];
-};
-
 // One warp's shared memory: the ring (per stage and lane: the member's
 // main or cache value, its delta value, the bag's starting value) and
 // two batches of resolved members.
 template <typename T, int kCold>
-struct WarpSmem : ColdSmem<kCold> {
+struct WarpSmem {
   T ring[kDepth][3][32];
   long long code[2][32];   // row offset >= 0: main; -1: a zero row;
                            // <= -2: cache+delta at offset -2 - code
   int bag[2][32];          // the member's bag, -1 past the stream
   unsigned char first[2][32];   // the member starts its bag
 };
+
+// K10: a resolved member as one 16-byte record: K8's code (or a cold
+// member's code, kColdBase + its staging row), its bag (-1 past the
+// stream; + kFirst where the member starts its bag), its int8 scale
+constexpr int kFirst = 1 << 30;
+struct alignas(16) ColdMeta {
+  long long code;
+  int bag;
+  float scale;
+};
+template <typename T>
+struct ColdWarpSmem {
+  T ring[kDepth][3][32];
+  ColdMeta meta[2][32];
+};
+template <typename T, int kCold>
+using SmemOf =
+    std::conditional_t<kCold != 0, ColdWarpSmem<T>, WarpSmem<T, kCold>>;
 
 struct Args {
   const int *o_sh, *o_sl, *c_sh, *c_sl;
@@ -297,8 +316,7 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
     const T* __restrict__ delta, T* __restrict__ out, Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  WarpSmem<T, kCold>& sm =
-      reinterpret_cast<WarpSmem<T, kCold>*>(smem_raw)[wid];
+  SmemOf<T, kCold>& sm = reinterpret_cast<SmemOf<T, kCold>*>(smem_raw)[wid];
   const long long nwarps = (long long)gridDim.x * kWarps;
   for (long long item = (long long)blockIdx.x * kWarps + wid;
        item < a.items;
@@ -374,11 +392,12 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
       const bool past = stops && lane >= __ffs(stops) - 1;
       bool from_c = false, cold = false;
       long long code = -1;
+      float scale = 0.f;
       if constexpr (kCold != 0) {
         cold = !past && !r.use_c && r.use_cold;
         if (cold) code = kColdBase + r.m;
         if constexpr (kCold == adapm::kWireI8)
-          sm.scale[buf][lane] = cold ? __ldg(a.cold_scale + r.m) : 0.f;
+          scale = cold ? __ldg(a.cold_scale + r.m) : 0.f;
       }
       if (!cold && !past) {
         const long long src = routed_source<true>(
@@ -386,86 +405,156 @@ __global__ void __launch_bounds__(kWarps * 32) gather_pool_kernel(
             a.slots, a.c_shards, a.c_slots, a.W, &from_c);
         code = src < 0 ? -1 : (from_c ? -2 - src : src);
       }
-      sm.code[buf][lane] = code;
-      sm.bag[buf][lane] = past ? -1 : q;
-      sm.first[buf][lane] = change;
+      if constexpr (kCold != 0) {
+        sm.meta[buf][lane] =
+            ColdMeta{code, past ? -1 : q + (change ? kFirst : 0), scale};
+      } else {
+        sm.code[buf][lane] = code;
+        sm.bag[buf][lane] = past ? -1 : q;
+        sm.first[buf][lane] = change;
+      }
       carry = __shfl_sync(~0u, q, 31);
       ended = ended || stops != 0;
-    };
-    // issue the loads of member (buf, i) into ring stage st
-    auto issue = [&](int buf, int i, int st) {
-      const int bag = sm.bag[buf][i];
-      if (bag >= 0 && col) {
-        const long long code = sm.code[buf][i];
-        bool cold = false;
-        if constexpr (kCold != 0) cold = code >= kColdBase;
-        if (cold) {
-          cold_issue<T, kCold>(&sm.ring[st][0][lane], a, code - kColdBase, c);
-        } else if (code >= 0) {
-          cp_async(&sm.ring[st][0][lane], main_pool + code + c);
-        } else if (code <= -2) {
-          cp_async(&sm.ring[st][0][lane], cache + (-2 - code) + c);
-          cp_async(&sm.ring[st][1][lane], delta + (-2 - code) + c);
-        }
-        if (sm.first[buf][i])
-          cp_async(&sm.ring[st][2][lane], out + (long long)bag * a.W + c);
-      }
-      cp_commit();                        // one group per member, always
     };
     RawOf<kCold> next = load_raw<kCold>(a, start + 32 + lane);
     resolve(start, load_raw<kCold>(a, start + lane), 0);
     __syncwarp();
-#pragma unroll
-    for (int d = 0; d < kDepth; ++d) issue(0, d, d);
     T acc = zero<T>();
     int cur = -1;                         // the bag being folded
     long long cur_lo = 0;                 // its first position
     long long j = start;
-    int st = 0;                           // member j's ring stage
     auto flush = [&]() {                  // bag cur ends before j
       if (cur >= 0 && col) {
         const T v = a.mean ? div_rn(acc, (float)(j - cur_lo)) : acc;
         __stcs(out + (long long)cur * a.W + c, v);
       }
     };
-    for (long long base = start;; base += 32) {
-      const int buf = (int)(((base - start) >> 5) & 1);
-      resolve(base + 32, next, buf ^ 1);
-      if (!ended) next = load_raw<kCold>(a, base + 64 + lane);
-      __syncwarp();
-      bool done = false;
-      for (int i = 0; i < 32; ++i, ++j) {
-        const int bag = sm.bag[buf][i];
-        if (bag < 0) {
-          done = true;
-          break;
+    if constexpr (kCold != 0) {
+      // K10: a member's resolved record is read from shared memory once,
+      // at its issue, and held in registers until its fold (slot d, the
+      // member's position mod kDepth, which is also its ring stage: both
+      // fixed at compile time); the next record's read comes before the
+      // wait. Per member: one shared read of a record, one of its value,
+      // one copy issued.
+      static_assert(32 % kDepth == 0, "a batch holds whole ring rounds");
+      auto issue = [&](const ColdMeta& m, int st) {
+        if (m.bag >= 0 && col) {
+          if (m.code >= kColdBase)
+            cold_issue<T, kCold>(&sm.ring[st][0][lane], a,
+                                 m.code - kColdBase, c);
+          else if (m.code >= 0)
+            cp_async(&sm.ring[st][0][lane], main_pool + m.code + c);
+          else if (m.code <= -2) {
+            cp_async(&sm.ring[st][0][lane], cache + (-2 - m.code) + c);
+            cp_async(&sm.ring[st][1][lane], delta + (-2 - m.code) + c);
+          }
+          if (m.bag >= kFirst)
+            cp_async(&sm.ring[st][2][lane],
+                     out + (long long)(m.bag - kFirst) * a.W + c);
         }
-        cp_wait<kDepth - 1>();            // member j's group has landed
-        const long long code = sm.code[buf][i];
-        if (sm.first[buf][i]) {
-          flush();
-          cur = bag;
-          cur_lo = j;
-          acc = sm.ring[st][2][lane];
-        }
-        // routed_value: the main read as loaded, cache+delta as one
-        // rounded add, +0 for a zero row (K10: a cold member decoded)
-        bool cold = false;
-        float cs = 0.f;
-        if constexpr (kCold != 0) cold = code >= kColdBase;
-        if constexpr (kCold == adapm::kWireI8) cs = sm.scale[buf][i];
-        const T v = cold ? cold_value<T, kCold>(sm.ring[st][0][lane], cs)
-                    : code == -1 ? zero<T>()
-                    : code >= 0 ? sm.ring[st][0][lane]
-                                : add_rn(sm.ring[st][0][lane],
-                                         sm.ring[st][1][lane]);
-        acc = add_rn(acc, v);
-        const int k = i + kDepth;         // the member kDepth ahead
-        issue(k < 32 ? buf : buf ^ 1, k & 31, st);
-        st = st + 1 == kDepth ? 0 : st + 1;
+        cp_commit();                      // one group per member, always
+      };
+      // routed_value of member m at ring stage d (a cold member decoded)
+      auto value = [&](const ColdMeta& m, int d) {
+        return m.code >= kColdBase
+                   ? cold_value<T, kCold>(sm.ring[d][0][lane], m.scale)
+               : m.code == -1 ? zero<T>()
+               : m.code >= 0  ? sm.ring[d][0][lane]
+                              : add_rn(sm.ring[d][0][lane],
+                                       sm.ring[d][1][lane]);
+      };
+      ColdMeta held[kDepth];
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        held[d] = sm.meta[0][d];
+        issue(held[d], d);
       }
-      if (done) break;
-      __syncwarp();                       // buf is rewritten next round
+      for (long long base = start;; base += 32) {
+        const int buf = (int)(((base - start) >> 5) & 1);
+        resolve(base + 32, next, buf ^ 1);
+        if (!ended) next = load_raw<kCold>(a, base + 64 + lane);
+        __syncwarp();
+        bool done = false;
+        for (int i0 = 0; i0 < 32 && !done; i0 += kDepth) {
+#pragma unroll
+          for (int d = 0; d < kDepth; ++d) {
+            const int k = i0 + d + kDepth;  // the member kDepth ahead
+            const ColdMeta next_m = sm.meta[k < 32 ? buf : buf ^ 1][k & 31];
+            const ColdMeta m = held[d];   // member j's
+            if (m.bag < 0) {
+              done = true;
+              break;
+            }
+            cp_wait<kDepth - 1>();        // member j's group has landed
+            if (m.bag >= kFirst) {
+              flush();
+              cur = m.bag - kFirst;
+              cur_lo = j;
+              acc = sm.ring[d][2][lane];
+            }
+            acc = add_rn(acc, value(m, d));
+            issue(next_m, d);
+            held[d] = next_m;
+            ++j;
+          }
+        }
+        if (done) break;
+        __syncwarp();                     // buf is rewritten next round
+      }
+    } else {
+      // issue the loads of member (buf, i) into ring stage st
+      auto issue = [&](int buf, int i, int st) {
+        const int bag = sm.bag[buf][i];
+        if (bag >= 0 && col) {
+          const long long code = sm.code[buf][i];
+          if (code >= 0) {
+            cp_async(&sm.ring[st][0][lane], main_pool + code + c);
+          } else if (code <= -2) {
+            cp_async(&sm.ring[st][0][lane], cache + (-2 - code) + c);
+            cp_async(&sm.ring[st][1][lane], delta + (-2 - code) + c);
+          }
+          if (sm.first[buf][i])
+            cp_async(&sm.ring[st][2][lane], out + (long long)bag * a.W + c);
+        }
+        cp_commit();                      // one group per member, always
+      };
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) issue(0, d, d);
+      int st = 0;                         // member j's ring stage
+      for (long long base = start;; base += 32) {
+        const int buf = (int)(((base - start) >> 5) & 1);
+        resolve(base + 32, next, buf ^ 1);
+        if (!ended) next = load_raw<kCold>(a, base + 64 + lane);
+        __syncwarp();
+        bool done = false;
+        for (int i = 0; i < 32; ++i, ++j) {
+          const int bag = sm.bag[buf][i];
+          if (bag < 0) {
+            done = true;
+            break;
+          }
+          cp_wait<kDepth - 1>();        // member j's group has landed
+          const long long code = sm.code[buf][i];
+          if (sm.first[buf][i]) {
+            flush();
+            cur = bag;
+            cur_lo = j;
+            acc = sm.ring[st][2][lane];
+          }
+          // routed_value: the main read as loaded, cache+delta as one
+          // rounded add, +0 for a zero row
+          const T v = code == -1 ? zero<T>()
+                      : code >= 0 ? sm.ring[st][0][lane]
+                                  : add_rn(sm.ring[st][0][lane],
+                                           sm.ring[st][1][lane]);
+          acc = add_rn(acc, v);
+          const int k = i + kDepth;     // the member kDepth ahead
+          issue(k < 32 ? buf : buf ^ 1, k & 31, st);
+          st = st + 1 == kDepth ? 0 : st + 1;
+        }
+        if (done) break;
+        __syncwarp();                     // buf is rewritten next round
+      }
     }
     flush();
     cp_wait<0>();
@@ -496,7 +585,7 @@ int launch(const T* main_pool, const T* cache, const T* delta, T* out,
            Args a, cudaStream_t stream) {
   // the persistent grid: as many CTAs as fit on the card at once
   static int grid_cap = 0;
-  const int smem = kWarps * (int)sizeof(WarpSmem<T, kCold>);
+  const int smem = kWarps * (int)sizeof(SmemOf<T, kCold>);
   if (grid_cap == 0) {
     cudaError_t e = cudaFuncSetAttribute(
         gather_pool_kernel<T, kCold>,
@@ -581,7 +670,7 @@ extern "C" int adapm_gather_pool_cold(
     long long n, float* out, int nbags, int shards, int slots, int c_shards,
     int c_slots, int L, int mean, int wire, int vec, cudaStream_t stream) {
   if (cache == nullptr || delta == nullptr || use_cold == nullptr ||
-      (wire == adapm::kWireI8 && cold_scale == nullptr))
+      (wire == adapm::kWireI8 && cold_scale == nullptr) || nbags >= kFirst)
     return (int)cudaErrorInvalidValue;
   if (nbags <= 0) return 0;
   const int W = vec ? L / 4 : L;

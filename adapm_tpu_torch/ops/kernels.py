@@ -215,7 +215,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_gather_cold.argtypes = [P] * 11 + [LL, P] + [I] * 7 + [P]
     elif name == "write_main_rows":
         lib.adapm_write_main_rows.restype = I
-        lib.adapm_write_main_rows.argtypes = [P] * 6 + [LL, I, I, I, P]
+        lib.adapm_write_main_rows.argtypes = [P] * 6 + [I] * 6 + [P]
     elif name == "sync_compress":
         lib.adapm_sync_compress.restype = I
         lib.adapm_sync_compress.argtypes = [P] * 3 + [LL, I, I, I, F] + \
@@ -863,26 +863,20 @@ def gather_pool_cold(main, cache, delta, o_sh, o_row, c_sh, c_sl, use_c,
     return out
 
 
-def _set_order(pool: torch.Tensor, sh: torch.Tensor, sl: torch.Tensor):
-    """A drop-mode set's entries by target: (flat target rows, sorted;
-    the entry at each sorted position; whether it wins) — out-of-range
-    entries (target -1) never win and, of several entries naming one
-    row, the last in batch order does (one stable sort)."""
+def set_winners(pool: torch.Tensor, sh: torch.Tensor, sl: torch.Tensor):
+    """The rows a drop-mode set writes: (flat target rows, entry index)
+    of each winning entry — out-of-range entries never win and, of
+    several entries naming one row, the last in batch order does (one
+    stable sort). An indexed write with duplicate indices has no defined
+    winner on CUDA, so every set resolves its winners first."""
     S, R, _ = pool.shape
     sh, sl = sh.long(), sl.long()
     ok = (sh >= 0) & (sh < S) & (sl >= 0) & (sl < R)
     flat = torch.where(ok, sh * R + sl, torch.full_like(sh, -1))
     sf, order = torch.sort(flat, stable=True)
-    last = torch.ones_like(sf, dtype=torch.bool)
-    last[:-1] = sf[:-1] != sf[1:]
-    return sf, order, last & (sf >= 0)
-
-
-def set_winners(pool: torch.Tensor, sh: torch.Tensor, sl: torch.Tensor):
-    """The rows a drop-mode set writes: (flat target rows, entry index)
-    of each winning entry. An indexed write with duplicate indices has
-    no defined winner on CUDA, so every set resolves its winners first."""
-    sf, order, win = _set_order(pool, sh, sl)
+    win = torch.ones_like(sf, dtype=torch.bool)
+    win[:-1] = sf[:-1] != sf[1:]
+    win &= sf >= 0
     return sf[win], order[win]
 
 
@@ -895,28 +889,56 @@ def write_main_rows_plain(main, sh, row, mode, q, scale) -> torch.Tensor:
     return main
 
 
+# K11's claim scratch: one int32 word per pool row, all -1 between
+# calls, by (device, stream, rows). Calls on one stream run in order and
+# each leaves it all -1, so pools of one size share it there.
+_claims: Dict[tuple, torch.Tensor] = {}
+_claims_lock = threading.Lock()
+
+
+def _claim_scratch(main: torch.Tensor, stream) -> torch.Tensor:
+    rows = main.shape[0] * main.shape[1]
+    key = (main.device, stream.cuda_stream, rows)
+    claim = _claims.get(key)
+    if claim is None:
+        with _claims_lock:
+            claim = _claims.get(key)
+            if claim is None:
+                claim = _claims[key] = torch.full(
+                    (rows,), -1, dtype=torch.int32, device=main.device)
+    return claim
+
+
 def write_main_rows(main, sh, row, mode, q, scale=None) -> torch.Tensor:
     """K11: main.at[sh, row].set(deq(q), mode="drop") in place, q [b, L]
-    in `mode` (int8 with scale [b] f32). Returns `main`."""
+    in `mode` (int8 with scale [b] f32), sh and row int32. One call is
+    two launches, the claim and the write (csrc/write_main_rows.cu),
+    counted as one. Returns `main`."""
     if not _on_cuda(main, sh, row, q, scale):
         return write_main_rows_plain(main, sh, row, mode, q, scale)
     S, R, L = main.shape
     _require(main.dtype == torch.float32 and main.is_contiguous(),
              "write_main_rows: the pool must be contiguous f32")
+    _require(sh.dtype == row.dtype == torch.int32 and sh.is_contiguous()
+             and row.is_contiguous(),
+             "write_main_rows: sh and row must be contiguous int32")
     _require(sh.numel() == row.numel() == q.shape[0],
              "write_main_rows: one coordinate pair per wire row")
     _check_wire("write_main_rows", mode, q, scale, q.shape[0], L)
     m = q.shape[0]
     if m == 0:
         return main
-    # the winners as a mask over the sorted entries: no data-dependent
-    # size, so nothing here waits for the card
-    tgt, src, win = _set_order(main, sh, row)
+    _require(m <= 2**30, "write_main_rows: at most 2**30 rows a call")
+    stream = torch.cuda.current_stream(main.device)
+    claim = _claim_scratch(main, stream)
     vec = int(L % 4 == 0 and _aligned16(main, q))
     rc = _lib("write_main_rows").adapm_write_main_rows(
-        _ptr(main), _ptr(tgt), _ptr(src), _ptr(win), _ptr(q), _ptr(scale),
-        m, L, WIRE_MODES[mode], vec, _stream())
+        _ptr(main), _ptr(claim), _ptr(sh), _ptr(row), _ptr(q), _ptr(scale),
+        m, S, R, L, WIRE_MODES[mode], vec, stream.cuda_stream)
     LAUNCHES["write_main_rows"] += 1
+    if rc != 0:
+        # a write that never ran leaves the scratch claimed
+        _claims.pop((main.device, stream.cuda_stream, S * R), None)
     _check(rc, "write_main_rows")
     return main
 

@@ -72,9 +72,15 @@ Phases (any failure raises and exits non-zero):
      two bag batches over the DLRM table with 1,048,576 hot rows and
      int8 cold rows (each table's lowest keys hot), sum and mean, the
      cold member share printed, beside embedding_bag over the hot pool
-     joined with the pre-dequantized cold rows; K11 write_main_rows on
-     16,384 promoted rows of 512 f32 in each format, beside index_copy_
-     of pre-dequantized rows; K12 sync_compress on 65,536 replica rows
+     joined with the pre-dequantized cold rows, and both instantiations'
+     ptxas; K11 write_main_rows, 16,384 entries of 512 f32 into a
+     65,536-row pool in each format, on promotion's distinct rows and on
+     a batch where a quarter of the entries repeat an earlier target and
+     some drop (sh >= S, a negative row, OOB padding), its claim scratch
+     all -1 after each call and one call's device records its two
+     kernels alone, timed as the device time of all a call launches
+     beside index_copy_ of the winners' pre-dequantized rows; K12
+     sync_compress on 65,536 replica rows
      of 512 f32, half below the threshold, fp16 and int8 (its four
      outputs; no library call computes it). CUDA-event
      times (the median and the min-max spread of 20 launches) of
@@ -358,7 +364,7 @@ def kernel_ms(fn, kernel, reps=20, warmup=3, between=None):
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    for _ in range(5):
+    for attempt in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -371,11 +377,15 @@ def kernel_ms(fn, kernel, reps=20, warmup=3, between=None):
                if e.device_type == torch.autograd.DeviceType.CUDA]
         total = sum(e.self_device_time_total for e in evs) / 1e3 / reps
         if kernel is None:
-            return None, total
-        mine = np.array([e.self_device_time_total for e in evs
-                         if kernel in e.name]) / 1e3
-        if len(mine) == reps:
-            break
+            # calls that launch the same work leave a whole number of
+            # records a call, or the trace lost some
+            if (evs and len(evs) % reps == 0) or attempt == 4:
+                return None, total
+        else:
+            mine = np.array([e.self_device_time_total for e in evs
+                             if kernel in e.name]) / 1e3
+            if len(mine) == reps:
+                break
         TRACE_RETAKES[kernel] = TRACE_RETAKES.get(kernel, 0) + 1
     check(len(mine) == reps, f"the trace holds {len(mine)} launches of "
           f"{kernel}, expected {reps}")
@@ -2829,37 +2839,116 @@ def phase_k10(K, dev, rng):
     return dict(recs[BAG_CLIENTS], full_batch=recs[K8_REQUESTS])
 
 
-def phase_k11(K, dev, rng):
-    """Phase 2, K11: 16,384 promoted rows of L f32 into a 65,536-row hot
-    pool in each wire format, bitwise its plain version and over two
-    runs, timed beside index_copy_ of the pre-dequantized rows."""
+def k11_batches(rng):
+    """Phase 2's two K11 batches of TIER_PROMOTED entries into a
+    TIER_HOT-row pool (S=1), as (name, sh, row): promotion's own shape
+    (distinct rows), and the contract's hard cases: a quarter of the
+    entries repeat an earlier entry's target (a repeat of a repeat names
+    it a third time or more), entries with sh >= S or a negative row,
+    and a tail of OOB bucket padding."""
+    from adapm_tpu_torch.core.store import OOB
     n = TIER_PROMOTED
+    distinct = rng.permutation(TIER_HOT)[:n].astype(np.int32)
+    row = distinct.copy()
+    rep = np.sort(rng.choice(np.arange(1, n), n // 4, replace=False))
+    for i in rep:
+        row[i] = row[rng.integers(0, i)]
+    sh = np.zeros(n, np.int32)
+    odd = rng.choice(n, 128, replace=False)
+    sh[odd[:64]] = 1
+    row[odd[64:]] = -3
+    row[-n // 16:] = OOB
+    return [("distinct", np.zeros(n, np.int32), distinct), ("duplicates", sh,
+                                                            row)]
+
+
+def one_call_kernels(fn):
+    """The names of the device records of one call of fn() (after a
+    warm-up call), from the profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, traces=3):
+    """The device ms per call of everything fn() runs, from `traces`
+    profiler traces of 20 calls each: (median, min, max) of the traces'
+    per-call means."""
+    t = [kernel_ms(fn, None)[1] for _ in range(traces)]
+    return float(np.median(t)), float(min(t)), float(max(t))
+
+
+def phase_k11(K, dev, rng):
+    """Phase 2, K11: TIER_PROMOTED rows of L f32 into a TIER_HOT-row hot
+    pool in each wire format, for each of k11_batches' batches: bitwise
+    its plain version and over two runs, its claim scratch all -1 after
+    every call; timed by the device time of all a call launches (the
+    profiler trace) and between CUDA events, beside index_copy_ of the
+    winners' pre-dequantized rows."""
     pool = torch.randn((1, TIER_HOT, L), device=dev)
-    rows = rng.permutation(TIER_HOT)[:n].astype(np.int32)
-    sh = torch.zeros(n, dtype=torch.int32, device=dev)
-    row = torch.as_tensor(rows, device=dev)
-    row64 = row.long()
-    vals = rng.standard_normal((n, L), np.float32)
-    out = {}
-    for mode in ("fp32", "fp16", "int8"):
-        q, s, deq = wire_of(mode, vals, dev)
-        got = [K.write_main_rows(pool.clone(), sh, row, mode, q, s)
-               for _ in range(2)]
-        ref = K.write_main_rows_plain(pool.clone(), sh, row, mode, q, s)
-        check(bitwise(got[0], got[1]) and bitwise(got[0], ref),
-              f"K11 ({mode}) differs from its plain version or between two "
-              "runs")
-        scratch = pool.clone()
-        flat = scratch.view(-1, L)
-        out[mode] = timed(
-            cuda_ms(lambda: K.write_main_rows(scratch, sh, row, mode, q, s)),
-            cuda_ms(lambda: K.write_main_rows_plain(scratch, sh, row, mode,
-                                                    q, s)),
-            cuda_ms(lambda: flat.index_copy_(0, row64, deq)),
-            max_abs_err=float((got[0] - ref).abs().max()),
-            bound=bound(WIRE_BYTES[mode](L) * n + n * L * 4 + n * 8,
-                        n * L if mode == "int8" else 0), rows=n)
-    return dict(out["int8"], modes=out)
+    pool[0, :4] = -0.0
+    vals = rng.standard_normal((TIER_PROMOTED, L), np.float32)
+    vals[:64, ::3] = -0.0
+    claims = getattr(K, "_claims", None)   # None in a tree before them
+    batches = {}
+    call_kernels = None
+    for name, sh_np, row_np in k11_batches(rng):
+        sh, row = (torch.as_tensor(a, device=dev) for a in (sh_np, row_np))
+        tgt, keep = K.set_winners(pool, sh, row)   # the winners, in order
+        winners = int(tgt.numel())
+        out = {}
+        for mode in ("fp32", "fp16", "int8"):
+            q, s, deq = wire_of(mode, vals, dev)
+            got = []
+            for _ in range(2):
+                got.append(K.write_main_rows(pool.clone(), sh, row, mode, q,
+                                             s))
+                check(claims is None or all(bool((c == -1).all())
+                                            for c in claims.values()),
+                      f"K11 ({name}, {mode}) left its claim scratch set")
+            ref = K.write_main_rows_plain(pool.clone(), sh, row, mode, q, s)
+            check(bitwise(got[0], got[1]) and bitwise(got[0], ref),
+                  f"K11 ({name}, {mode}) differs from its plain version or "
+                  "between two runs")
+            scratch = pool.clone()
+            flat = scratch.view(-1, L)
+            dw = deq[keep]
+
+            def k11(scratch=scratch, sh=sh, row=row, mode=mode, q=q, s=s):
+                K.write_main_rows(scratch, sh, row, mode, q, s)
+
+            def library(flat=flat, tgt=tgt, dw=dw):
+                flat.index_copy_(0, tgt, dw)
+
+            if claims is not None and call_kernels is None:
+                call_kernels = one_call_kernels(k11)
+                check(len(call_kernels) == 2 and all(
+                    "claim_kernel" in k or "write_rows_kernel" in k
+                    for k in call_kernels),
+                      f"K11: one call ran {call_kernels}, not its claim "
+                      "and write kernels alone")
+            out[mode] = timed(
+                device_ms(k11),
+                cuda_ms(lambda: K.write_main_rows_plain(scratch, sh, row,
+                                                        mode, q, s)),
+                device_ms(library),
+                max_abs_err=float((got[0] - ref).abs().max()),
+                event_ms=cuda_ms(k11), library_event_ms=cuda_ms(library),
+                write_ms=kernel_ms(k11, "write_rows_kernel")[0],
+                bound=bound(WIRE_BYTES[mode](L) * winners
+                            + winners * L * 4 + len(row_np) * 8,
+                            winners * L if mode == "int8" else 0),
+                rows=len(row_np), winners=winners)
+            del got, ref, scratch, flat, dw
+        batches[name] = dict(out["int8"], modes=out)
+    return dict(batches["distinct"], duplicates=batches["duplicates"],
+                call_kernels=call_kernels)
 
 
 def phase_k12(K, dev, rng):
@@ -2903,8 +2992,6 @@ def report_tier_kernels(rec, names=("gather_cold", "gather_pool_cold",
     """Phase 2's lines of K9-K12 (those of `names`)."""
     for name, what in (("gather_cold", f"K9 at {ROWS} entries of {L} f32, "
                                        "a third cold"),
-                       ("write_main_rows", f"K11 at {TIER_PROMOTED} "
-                                           f"promoted rows of {L} f32"),
                        ("sync_compress", f"K12 at {TIER_SYNC_ROWS} replica "
                                          f"rows of {L} f32, half held")):
         if name not in names:
@@ -2916,6 +3003,25 @@ def report_tier_kernels(rec, names=("gather_cold", "gather_pool_cold",
                   f"{fmt_t(r, 'plain_ms')} ms, library "
                   f"{fmt_t(r, 'library_ms')} ms; bitwise its plain version "
                   "and over two runs", flush=True)
+    if "write_main_rows" in names:
+        k11 = rec["write_main_rows"]
+        print(f"phase 2: K11, the device records of one call: "
+              f"{k11['call_kernels']}", flush=True)
+        for batch, b in (("distinct", k11), ("duplicates", k11["duplicates"])):
+            for mode, r in b["modes"].items():
+                print(f"phase 2: K11 at {r['rows']} entries ({batch}, "
+                      f"{r['winners']} winners) of {L} f32 into {TIER_HOT} "
+                      f"rows, {mode}: {fmt_t(r, 'ms')} ms of device time a "
+                      f"call (trace; the write kernel alone "
+                      f"{fmt_s(*r['write_ms'])}), {fmt_s(*r['event_ms'])} ms "
+                      f"between CUDA events (bound {r['bound'][0]:.4f} ms, "
+                      f"{r['bound'][1]}, share "
+                      f"{r['bound'][0] / r['ms']:.3f}); plain "
+                      f"{fmt_t(r, 'plain_ms')} ms; index_copy_ of the "
+                      f"winners {fmt_t(r, 'library_ms')} ms of device time, "
+                      f"{fmt_s(*r['library_event_ms'])} between events; "
+                      "bitwise its plain version and over two runs, the "
+                      "claim scratch all -1 after each call", flush=True)
     if "gather_pool_cold" not in names:
         return
     k10 = rec["gather_pool_cold"]
@@ -2929,6 +3035,8 @@ def report_tier_kernels(rec, names=("gather_cold", "gather_pool_cold",
               f"{fmt_t(r, 'plain_ms')} ms, embedding_bag over pre-"
               f"dequantized rows {fmt_t(r, 'library_ms')} ms; sum and mean "
               "bitwise its plain version and over two runs", flush=True)
+    print(f"phase 2: gather_pool.cu ptxas, K8's and K10's instantiations "
+          f"{ptxas_summary('gather_pool')}", flush=True)
 
 
 class TierCapture:

@@ -13,7 +13,8 @@ aux, SGNS with alias-drawn negatives, MF with its ratings as aux); and
 the prefetch pipeline and the background planner on the card: a staged
 pull bitwise the plain pull, one graph capture across windows while
 delegated rounds relocate keys, the planner converging to the exact
-sum under concurrent pushes.
+sum under concurrent pushes; K10 on long bags with cold members and
+K11's last-wins and drop cases, bitwise their plain versions.
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -357,6 +358,9 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
         K.pool_eval_counts(pool, idx.int(), idx.int(), idx.view(1, 3), 3,
                            q, q, q[:, 0].contiguous(), idx.int()[:2],
                            idx.int()[:2])
+    with pytest.raises(ValueError):                       # int64 coords
+        K.write_main_rows(pool, idx, idx, "fp32",
+                          torch.zeros(3, 8, device=cuda))
 
 
 def test_small_fused_steps_cuda_match_cpu(cuda):
@@ -869,6 +873,88 @@ def test_gather_pool_items_past_the_first_wave(cuda, L, pooling):
     torch.cuda.synchronize()
     for got in outs:
         assert torch.equal(_bits(got), _bits(ref))
+
+
+def _wire(mode, rows):
+    """(wire rows, scale or None) of f32 `rows` in a cold format."""
+    from adapm_tpu_torch.tier.quant import quantize_rows
+    q, sc = quantize_rows(mode, rows.numpy())
+    return torch.from_numpy(q), None if sc is None else torch.from_numpy(sc)
+
+
+@pytest.mark.parametrize("L", [256, 6, 600])
+@pytest.mark.parametrize("pooling", ["sum", "mean"])
+@pytest.mark.parametrize("mode", ["fp32", "fp16", "int8"])
+def test_gather_pool_cold_long_bags(cuda, L, pooling, mode):
+    """K10 bitwise its plain version and over two runs on K8's stress
+    batch (a 5,000-member bag among singletons, empty bags, OOB
+    padding), half of the members cold (wire rows staged per member)
+    and a quarter of the rest replica-served."""
+    rng = np.random.default_rng(L + len(mode))
+    args, seg, out0 = _stress_case(rng, L, 2)
+    n = len(seg)
+    use_cold = torch.from_numpy(rng.random(n) < 0.5) & ~args[-1]
+    q, sc = _wire(mode, torch.randn(n, L))
+    a = list(args[:-1]) + [args[-1], mode, q, sc, use_cold,
+                           torch.from_numpy(seg)]
+    ref = K.gather_pool_cold(*a, out0.clone(), pooling)
+    dev = [x.to(cuda) if isinstance(x, torch.Tensor) else x for x in a]
+    got = [K.gather_pool_cold(*dev, out0.clone().to(cuda), pooling,
+                              sorted_seg=True) for _ in range(2)]
+    assert torch.equal(_bits(got[0]), _bits(ref))
+    assert torch.equal(_bits(got[1]), _bits(got[0]))
+
+
+def _k11_batches(rng, S, R):
+    """(name, sh, row) of K11's hard cases: many entries naming few
+    rows (a row named up to ~10 times), OOB padding, negative rows,
+    sh >= S; all out of range; one entry; distinct rows (promotion)."""
+    n = 2000
+    sh = rng.integers(0, S, n).astype(np.int32)
+    row = rng.integers(0, R // 2, n).astype(np.int32)
+    u = rng.random(n)
+    row[u < 0.05] = -1 - rng.integers(0, R, int((u < 0.05).sum()))
+    sh[(u >= 0.05) & (u < 0.1)] = S
+    row[-100:] = OOB
+    return [("duplicates", sh, row),
+            ("all_oob", np.zeros(40, np.int32), np.full(40, OOB, np.int32)),
+            ("single", np.array([S - 1], np.int32),
+             np.array([R - 1], np.int32)),
+            ("distinct", np.zeros(R // 2, np.int32),
+             rng.permutation(R)[:R // 2].astype(np.int32))]
+
+
+@pytest.mark.parametrize("L", [512, 7])
+@pytest.mark.parametrize("mode", ["fp32", "fp16", "int8"])
+def test_write_main_rows_last_wins_and_drops(cuda, L, mode):
+    """K11 bitwise its plain version (the last entry naming a row wins,
+    out-of-range entries drop, -0.0 survives) and over two runs, on the
+    default stream and on a second one; its claim scratch is all -1
+    after every call."""
+    rng = np.random.default_rng(L)
+    S, R = 2, 300
+    main = torch.randn(S, R, L)
+    main[0, :3] = -0.0
+    side = torch.cuda.Stream(cuda)
+    for name, sh, row in _k11_batches(rng, S, R):
+        vals = torch.randn(len(sh), L)
+        vals[::3, ::2] = -0.0
+        q, sc = _wire(mode, vals)
+        a = (torch.from_numpy(sh), torch.from_numpy(row), mode, q, sc)
+        ref = K.write_main_rows(main.clone(), *a)
+        dev = [x.to(cuda) if isinstance(x, torch.Tensor) else x for x in a]
+        for stream in (torch.cuda.current_stream(cuda), side, None):
+            if stream is None:
+                got = K.write_main_rows(main.clone().to(cuda), *dev)
+            else:
+                stream.wait_stream(torch.cuda.current_stream(cuda))
+                with torch.cuda.stream(stream):
+                    got = K.write_main_rows(main.clone().to(cuda), *dev)
+                torch.cuda.current_stream(cuda).wait_stream(stream)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(ref)), name
+            for claim in K._claims.values():
+                assert bool((claim == -1).all()), name
 
 
 # -- the prefetch pipeline and the background planner on the card ----------
