@@ -96,6 +96,9 @@ class KgeRun:
         self._pool_eval_chunk = 0
         self._pool_eval_keys = None  # staged padded entity-key tiles
         self._pool_eval_router = None
+        # a tiered server's slot mirror, clamped as the JAX eval reads it
+        self._pool_eval_clamped = None
+        self._pool_eval_clamped_ver = None
         self.runner = FusedStepRunner(
             self.srv, make_kge_loss(args.model, args.self_adv_temp, args.l2),
             role_class={"s": self.ent_class, "r": self.rel_class,
@@ -284,6 +287,8 @@ def _pool_counts(run: KgeRun, s, r, o, ties: bool = False):
         pools = (srv.stores[run.ent_class].main,) if shared else \
             (srv.stores[run.ent_class].main,
              srv.stores[run.rel_class].main)
+        if srv.tier is not None:
+            tables = _clamped_tier_tables(run, tables)
         out = run._pool_eval(
             *pools, tables, run._pool_eval_keys, run.E,
             keys(run.ekey(s)), keys(run.rkey(r)), keys(run.ekey(o)),
@@ -293,6 +298,26 @@ def _pool_counts(run: KgeRun, s, r, o, ties: bool = False):
             g_s.cpu().numpy().astype(np.int64), true_sc.cpu().numpy())
     return host + tuple(t.cpu().numpy().astype(np.int64)
                         for t in out[3:])
+
+
+def _clamped_tier_tables(run: KgeRun, tables):
+    """The eval's routing tables on a tiered server, as the JAX package's
+    eval program reads them. Its tiered slot mirror maps a cold key to
+    OOB, and an XLA gather CLAMPS an out-of-range index: a cold key (a
+    cold candidate, or a cold s/r/o of the triple) reads the last row of
+    its owner shard's hot pool, not a zero row. K4 reads OOB as a zero
+    row (the data plane's fill rule), so the slot mirror handed to it is
+    clamped here the same way. Cached per routing version."""
+    router = run._pool_eval_router
+    if run._pool_eval_clamped_ver != router._version:
+        srv = run.srv
+        slot = srv.tier.compose_slot_table()
+        last = np.array([st.main.shape[1] - 1 for st in srv.stores],
+                        dtype=np.int64)[srv.ab.key_class]
+        clamped = np.minimum(slot.astype(np.int64), last).astype(np.int32)
+        run._pool_eval_clamped = srv.ctx.put_replicated(clamped)
+        run._pool_eval_clamped_ver = router._version
+    return tables[0], run._pool_eval_clamped, tables[2]
 
 
 def _evaluate_pool(run: KgeRun, triples: np.ndarray, batch: int):

@@ -287,9 +287,8 @@ class SystemOptions:
     trace_spans_out: Optional[str] = None
     # faulthandler crash dumps with a per-rank file (+ last-open-span
     # breadcrumb when trace_spans is on, + the executor flight-recorder
-    # ring file). Not ported yet (ROADMAP queue A, item 10): default
-    # off here, and the Server refuses it.
-    crash_dumps: bool = False
+    # ring file) — attributes a native hard abort. Default on.
+    crash_dumps: bool = True
     # request-flight tracing (obs/flight.py, docs/OBSERVABILITY.md):
     # per-request trace ids minted at ServeSession.lookup /
     # Worker.pull|push, carried through admission -> batch -> executor
@@ -734,6 +733,10 @@ class SystemOptions:
                     "shadow mode scores the TRAINED policy against "
                     "the live heuristic and is meaningless without "
                     "an artifact")
+        if self.fault_spec:
+            from .fault.inject import parse_fault_spec
+            parse_fault_spec(self.fault_spec)  # raises ValueError on a
+            # malformed entry or a probability outside [0, 1]
         if self.fault_seed < 0:
             raise ValueError(
                 f"--sys.fault.seed must be >= 0 (got {self.fault_seed})")
@@ -860,7 +863,7 @@ class SystemOptions:
         g.add_argument("--sys.trace.spans_out",
                        dest="sys_trace_spans_out", default=None)
         g.add_argument("--sys.crash_dumps", dest="sys_crash_dumps",
-                       type=int, default=0)
+                       type=int, default=1)
         g.add_argument("--sys.trace.flight", dest="sys_trace_flight",
                        type=int, default=0)
         g.add_argument("--sys.trace.flight_out",

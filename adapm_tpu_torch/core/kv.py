@@ -26,11 +26,16 @@ capacity-bounded hot pool per class on the device and the full table in
 a host cold store; compressed sync rounds (--sys.sync.compress) ship
 quantized deltas with error feedback. The serving plane
 (`adapm_tpu_torch/serve`) attaches itself as `_serve_plane` and reads
-the kernel cost table (`costs`, `--sys.costs.table`). Every other
-optional plane of the JAX server (streaming, workload/decision traces,
-learned policy, checkpoints, fault injection, the multi-process layer)
-is not ported: asking for one raises NotImplementedError naming its
-ROADMAP item, and the corresponding attributes stay None.
+the kernel cost table (`costs`, `--sys.costs.table`). The fault plane
+(`fault`, --sys.fault.spec), periodic checkpoint chains (`ckpt`,
+--sys.checkpoint.every/path; fault/ckpt.py), request-flight tracing
+(`flight`, --sys.trace.flight), crash dumps with the executor flight
+recorder (--sys.crash_dumps, on by default) and the periodic metrics
+reporter (--sys.metrics.report) are built as the JAX server builds them.
+Every other optional plane of the JAX server (streaming, workload and
+decision traces, learned policy, the multi-process layer) is not ported:
+asking for one raises NotImplementedError naming its ROADMAP item, and
+the corresponding attributes stay None.
 """
 from __future__ import annotations
 
@@ -95,13 +100,9 @@ def _fill_flat(out, offs, lens, pos, part) -> None:
 # SystemOptions knobs of planes this package does not have yet, with the
 # ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("trace_flight", "request-flight tracing", "queue A, item 10"),
-    ("crash_dumps", "crash dumps", "queue A, item 10"),
     ("trace_workload", "workload trace capture", "queue A, item 10"),
     ("trace_decisions", "decision telemetry", "queue A, item 10"),
     ("policy_file", "the learned policy plane", "queue A, item 10"),
-    ("fault_spec", "fault injection", "queue A, item 10"),
-    ("ckpt_every_s", "periodic checkpoints", "queue A, item 10"),
     ("stream_batch", "the streaming plane", "queue A, item 11"),
     ("stream_freshness_slo_ms", "the streaming plane", "queue A, item 11"),
     ("collective_sync", "the collective exchange", "queue B, B10"),
@@ -175,11 +176,50 @@ class Server:
         self.obs = _obs_metrics.MetricsRegistry(enabled=self.opts.metrics)
         _obs_metrics.set_global_registry(self.obs)
         self.spans = None
+        # crash dumps (obs/crash.py; default on): faulthandler into a
+        # per-rank file, the span breadcrumb, the flight-recorder ring
+        self.crash_dump_path = None
+        bc_path = ring_path = None
+        if self.opts.crash_dumps:
+            from ..obs.crash import enable_crash_dumps
+            try:
+                self.crash_dump_path, bc_path, ring_path = \
+                    enable_crash_dumps(self.pid, self.opts.stats_out)
+            except OSError:  # unwritable dump dir must not block startup
+                bc_path = ring_path = None
         if self.opts.trace_spans:
             from ..obs.spans import SpanTracer
             self.spans = SpanTracer(
-                rank=self.pid, max_events=self.opts.trace_spans_max_events,
+                rank=self.pid, breadcrumb_path=bc_path,
+                max_events=self.opts.trace_spans_max_events,
                 registry=self.obs)
+        # request-flight tracing (obs/flight.py; default off: None, one
+        # `is None` check per site, zero flight.* registry names)
+        self.flight = None
+        if self.opts.trace_flight:
+            from ..obs.flight import FlightTracer
+            self.flight = FlightTracer(
+                registry=self.obs, rank=self.pid,
+                freshness_bound=self.opts.flight_freshness_samples)
+        # the executor flight-recorder ring rides --sys.crash_dumps: per
+        # PROGRAM, never on the per-op hot path
+        self.flight_recorder = None
+        if self.opts.crash_dumps:
+            from ..obs.flight import FlightRecorder
+            self.flight_recorder = FlightRecorder(path=ring_path)
+        # the fault-injection plane (fault/inject.py): None unless
+        # --sys.fault.spec names points
+        self.fault = None
+        if self.opts.fault_spec:
+            from ..fault.inject import FaultPlane
+            self.fault = FaultPlane(self.opts.fault_spec,
+                                    seed=self.opts.fault_seed,
+                                    registry=self.obs)
+        # the last checkpoint-chain restore's wall time (fault/ckpt.py
+        # restore_chain) and the stream cursor a chain carried (the
+        # streaming plane itself is ROADMAP queue A, item 11)
+        self._last_recovery_s: Optional[float] = None
+        self._restored_stream_cursor: Optional[int] = None
         from ..fault.policy import RetryPolicy
         self._retry_policy = RetryPolicy(
             max_retries=self.opts.fault_retries,
@@ -189,11 +229,12 @@ class Server:
         self.exec = AsyncExecutor(registry=self.obs,
                                   workers=self.opts.exec_workers,
                                   single_stream=self.opts.exec_single_stream,
-                                  retry_policy=self._retry_policy)
+                                  recorder=self.flight_recorder,
+                                  retry_policy=self._retry_policy,
+                                  fault=self.fault)
         # the planes that are not ported: always None here
         self.tier = self.glob = self.net = None
         self.stream = self.wtrace = self.decisions = self.policy = None
-        self.ckpt = self.flight = self.fault = None
         self.sampling = None  # set by enable_sampling_support
         # the serving plane attaches itself here (serve.ServePlane), so
         # metrics_snapshot folds its readiness in and shutdown closes it
@@ -311,6 +352,31 @@ class Server:
             owners = self.ab.owner[traced]
             for s in np.unique(owners):
                 self.tracer.record(traced[owners == s], ALLOC, int(s))
+
+        # periodic incremental checkpoints (fault/ckpt.py): with
+        # --sys.checkpoint.every N + --sys.checkpoint.path D, a
+        # self-rescheduling `ckpt`-stream program appends a dirty-slot
+        # delta (base first) every N seconds. None when off.
+        self.ckpt = None
+        if self.opts.ckpt_every_s > 0:
+            if not self.opts.ckpt_path:
+                raise ValueError(
+                    "--sys.checkpoint.every requires "
+                    "--sys.checkpoint.path (chain directory)")
+            from ..fault.ckpt import IncrementalCheckpointer
+            self.ckpt = IncrementalCheckpointer(self, self.opts.ckpt_path)
+            self.ckpt.start_periodic(self.opts.ckpt_every_s)
+
+        # periodic metrics reporter (--sys.metrics.report N). The import
+        # is inside the gate: with --sys.metrics 0 the reporter module
+        # never loads (tests assert this).
+        self._reporter = None
+        if self.opts.metrics and self.opts.metrics_report_s > 0:
+            from ..obs.reporter import Reporter
+            self._reporter = Reporter(self.obs,
+                                      self.opts.metrics_report_s,
+                                      rank=self.pid)
+            self._reporter.start()
 
     # -- topology-mutation discipline ----------------------------------------
 
@@ -753,6 +819,10 @@ class Server:
                 return
             delay = 0.0
             try:
+                if self.fault is not None:
+                    # injection point: fires BEFORE the round does any
+                    # work, so a retried tick re-runs cleanly
+                    self.fault.fire("sync.round")
                 with self._round_lock:
                     self.sync.run_round()
                 state["fail_streak"] = 0
@@ -774,6 +844,8 @@ class Server:
                 self.sync_loop_failures += 1
                 delay = min(2.0, self.opts.fault_backoff_ms * 1e-3 *
                             (2.0 ** min(state["fail_streak"], 10)))
+                if self.fault is not None:
+                    self.fault.c_loop_retries.inc()
                 alog(f"[sync] background round failed "
                      f"(streak {state['fail_streak']}): "
                      f"{type(e).__name__}: {e} — retrying in "
@@ -882,27 +954,38 @@ class Server:
 
     def shutdown(self) -> None:
         """Idempotent teardown; readers go down before their substrate:
-        the serving plane (its dispatchers read the pools), the prefetch
-        pipeline (staged gathers, delegated rounds), the tier maintenance
-        worker (demotion readbacks), the background planner, then the
-        executor, pool quiesce, stats/trace export, registry unhook."""
+        the serving plane (its dispatchers read the pools), the metrics
+        reporter, the prefetch pipeline (staged gathers, delegated
+        rounds), the tier maintenance worker (demotion readbacks), the
+        periodic checkpointer (an in-flight save reads the pools: its
+        `ckpt` stream drains here), the background planner, then the
+        executor, pool quiesce, stats/trace/flight export, registry
+        unhook."""
         if self._shutdown_done:
             return
         self._shutdown_done = True
         if self._serve_plane is not None:
             self._serve_plane.close()
+        if self._reporter is not None:
+            self._reporter.stop()
+            self._reporter = None
         if self.prefetch is not None:
             self.prefetch.close()
         if self.tier is not None:
             self.tier.close()
+        if self.ckpt is not None:
+            self.ckpt.close()
         self.stop_sync_thread()
         self.exec.close()
         self.block()
         self.sync.close()
         self.write_stats()
         self.write_trace()
+        self.write_flight_trace()
         if self.spans is not None:
             self.spans.close()
+        if self.flight_recorder is not None:
+            self.flight_recorder.close()
         from ..obs import metrics as _obs_metrics
         _obs_metrics.clear_global_registry(self.obs)
 
@@ -955,23 +1038,34 @@ class Server:
         return write_stats(self.opts.stats_out, self.pid, self.tracer,
                            self.locality)
 
+    # snapshot sections present (possibly empty) in every
+    # metrics_snapshot(): the schema-stability contract tests pin
+    _SNAPSHOT_SECTIONS = ("kv", "prefetch", "plan_cache", "staging",
+                          "sync", "exec", "device", "serve", "slo",
+                          "tier", "episode", "flight", "fault", "ckpt")
+
     def metrics_snapshot(self) -> Dict:
         """The structured telemetry dict: `schema_version`,
-        `metrics_enabled`, and the registry's sections plus `kv`,
-        `prefetch`, `plan_cache`, `staging`, `sync`, `exec`, `device`,
-        `serve`, `slo`, `tier` and `episode` (`{}` where the subsystem is
-        off). `tier` holds the residency gauges and counters (hit rate,
-        promotions, demotions, hot rows used and capacity, cold bytes per
-        row, the error-feedback residual map); `sync` the compression
-        plane's `bytes_per_round`, `bytes_shipped`, `bytes_full_equiv`
-        and `ef_residual_norm`; `episode` the EpisodicRunner's counters
-        and prep/commit histograms. With a plane attached,
+        `metrics_enabled`, and the registry's sections plus every name
+        in `_SNAPSHOT_SECTIONS` (`{}` where the subsystem is off).
+        Schema 2 added `flight` (the tracer's stats and breakdown
+        histograms with --sys.trace.flight; the flight recorder's
+        summary as `recorder` with --sys.crash_dumps), `fault` (the
+        injection plane's points and the executor's retries, with
+        --sys.fault.spec) and `ckpt` (the checkpointer's saves and
+        bytes; `recovery_s` after a chain restore), and
+        `kv.local_answer_frac`. `tier` holds the residency gauges and
+        counters (hit rate, promotions, demotions, hot rows used and
+        capacity, cold bytes per row, the error-feedback residual map);
+        `sync` the compression plane's `bytes_per_round`,
+        `bytes_shipped`, `bytes_full_equiv` and `ef_residual_norm`;
+        `episode` the EpisodicRunner's counters and prep/commit
+        histograms. With a plane attached,
         `serve.readiness` is its `health.readiness()` dict."""
-        out: Dict = {"schema_version": 1,
-                     "metrics_enabled": bool(self.obs.enabled),
-                     "kv": {}, "prefetch": {}, "plan_cache": {},
-                     "staging": {}, "sync": {}, "exec": {}, "device": {},
-                     "serve": {}, "slo": {}, "tier": {}, "episode": {}}
+        out: Dict = {"schema_version": 2,
+                     "metrics_enabled": bool(self.obs.enabled)}
+        for sec in self._SNAPSHOT_SECTIONS:
+            out[sec] = {}
         if not self.obs.enabled:
             return out
         plane = self._serve_plane
@@ -989,6 +1083,9 @@ class Server:
             for k, v in w.stats.items():
                 agg[k] = agg.get(k, 0) + int(v)
         out["kv"].update(agg)
+        po = agg.get("pull_ops", 0)
+        out["kv"]["local_answer_frac"] = \
+            (agg.get("pull_ops_local", 0) / po) if po else None
         out["kv"]["locality"] = self.locality_summary()
         if self.prefetch is not None:
             out["prefetch"].update(
@@ -1000,6 +1097,18 @@ class Server:
             out["device"].update(self.stores[0].port.stats())
         if plane is not None and plane.slo is not None:
             out["slo"].update(plane.slo.report())
+        if self.flight is not None:
+            out["flight"].update(self.flight.stats())
+        if self.flight_recorder is not None:
+            out["flight"]["recorder"] = self.flight_recorder.summary()
+        # fault/ckpt: populated only while the respective plane exists
+        if self.fault is not None:
+            out["fault"].update(self.fault.stats())
+            out["fault"].update(self.exec.fault_stats())
+        if self.ckpt is not None:
+            out["ckpt"].update(self.ckpt.stats())
+        if self._last_recovery_s is not None:
+            out["ckpt"]["recovery_s"] = self._last_recovery_s
         if serve_ready is not None:
             out["serve"]["readiness"] = serve_ready
         return out
@@ -1013,6 +1122,17 @@ class Server:
         path = self.opts.trace_spans_out or os.path.join(
             self.opts.stats_out or ".", f"spans.{self.pid}.trace.json")
         return self.spans.export(path)
+
+    def write_flight_trace(self) -> Optional[str]:
+        """Export the request-flight trace (Perfetto flow-event JSON)
+        when --sys.trace.flight is on; returns the path. Called by
+        shutdown; callable earlier for a mid-run export."""
+        if self.flight is None:
+            return None
+        import os
+        path = self.opts.trace_flight_out or os.path.join(
+            self.opts.stats_out or ".", f"flight.{self.pid}.trace.json")
+        return self.flight.export(path)
 
     def wait_sync(self) -> None:
         """Act on all signalled intents and complete a full sync round
@@ -1105,10 +1225,11 @@ class Worker:
         return self._ts
 
     def _instrumented(self, name: str, h, impl, *args):
-        """Latency histogram + span bracket for a worker op; a plain call
-        when both are off."""
+        """Latency histogram + span + flight bracket for a worker op; a
+        plain call when all three are off."""
         sp = self.server.spans
-        if h is None and sp is None:
+        fl = self.server.flight
+        if h is None and sp is None and fl is None:
             return impl(*args)
         t0 = _time.perf_counter()
         tok = sp.begin(name) if sp is not None else None
@@ -1119,6 +1240,10 @@ class Worker:
                 h.observe(_time.perf_counter() - t0)
             if tok is not None:
                 sp.end(name, tok)
+            if fl is not None:
+                # a plain Worker op is a single-segment flight: one
+                # minted id, one slice on the caller's thread
+                fl.record_op(name, t0)
 
     def _cached_push_routes(self, keys: np.ndarray, tv: int, is_set: bool):
         srv = self.server
@@ -1240,6 +1365,13 @@ class Worker:
         keys = self._keys(keys)
         vals = np.asarray(vals, dtype=np.float32)
         srv = self.server
+        probe = None
+        fl = srv.flight
+        if fl is not None and not is_set:
+            # event-to-servable freshness probe (sampled): push wall
+            # time -> first serve read of the key; marked visible under
+            # the lock once the scatter is enqueued
+            probe = fl.freshness.note_push(keys)
         plan, tv = None, -1
         if srv.opts.optimistic_routing:
             tv = srv.topology_version
@@ -1251,6 +1383,8 @@ class Worker:
                 plan = None
             n_remote = srv._push(keys, vals, self.shard, is_set=is_set,
                                  plan=plan)
+            if probe is not None:
+                fl.freshness.push_visible(probe)
         if not is_set:
             self.stats["push_ops"] += 1
             self.stats["push_params"] += len(keys)

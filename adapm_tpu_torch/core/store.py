@@ -438,9 +438,17 @@ class ShardedStore:
         host: one copy of the pool untiered, the cold store overlaid with
         the hot rows tiered."""
         if self.res is None:
-            return self.main.cpu().numpy()
+            # an owned copy: on the CPU `.cpu()` is the pool itself
+            return self.main.to("cpu", copy=True).numpy()
         from ..tier import coldpath
         return coldpath.main_full_host(self)
+
+    @property
+    def main_shape_full(self):
+        """Shape of the authoritative main table (checkpoint geometry —
+        the same whether or not the store is tiered, so checkpoints
+        restore across tier configurations)."""
+        return (self.ctx.num_shards, self.main_slots, self.value_length)
 
     def install_main_full(self, arr: np.ndarray) -> None:
         """Install a full main table [S, main_slots, L] (a loaded state):
@@ -453,6 +461,18 @@ class ShardedStore:
             return
         from ..tier import coldpath
         coldpath.install_main_full(self, arr)
+
+    def install_replica_pools(self, cache: np.ndarray,
+                              delta: np.ndarray) -> None:
+        """Install the cache and delta pools [S, cache_slots, L] (a
+        loaded state), in place: a tensor captured before the install
+        (a CUDA graph's pool argument) keeps reading the live pools."""
+        for pool, arr in ((self.cache, cache), (self.delta, delta)):
+            assert arr.shape == tuple(pool.shape), (
+                f"pool geometry mismatch: {arr.shape} vs "
+                f"{tuple(pool.shape)}")
+            pool.copy_(torch.from_numpy(
+                np.ascontiguousarray(arr, dtype=np.float32)))
 
     def block(self) -> None:
         if self.main.device.type == "cuda":

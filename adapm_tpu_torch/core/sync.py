@@ -251,8 +251,18 @@ class SyncManager:
                           fn=lambda n=name: getattr(self.stats, n))
             reg.gauge("sync.keys_shipped",
                       fn=lambda: self.stats.keys_synced)
+            # table occupancy + dirty fraction, per channel and total —
+            # host arrays only, no device readback (best-effort reads,
+            # without the server lock, at snapshot time)
             reg.gauge("sync.replicas_live",
                       fn=lambda: sum(len(t) for t in self.replicas))
+            reg.gauge("sync.dirty_fraction",
+                      fn=lambda: self._dirty_fraction(None))
+            for c in range(self.num_channels):
+                reg.gauge(f"sync.replicas_live.c{c}",
+                          fn=lambda c=c: len(self.replicas[c]))
+                reg.gauge(f"sync.dirty_fraction.c{c}",
+                          fn=lambda c=c: self._dirty_fraction(c))
             # compression plane: wire bytes the most recent round shipped
             # (--sys.sync.compress format), cumulative shipped vs
             # full-width-f32 bytes, and the max-abs residual parked by
@@ -269,6 +279,9 @@ class SyncManager:
                       fn=lambda: max((st.ef_residual_norm()
                                       for st in server.stores),
                                      default=0.0))
+        # per-channel (monotonic, dirty, live) memo for the
+        # dirty_fraction gauges (_dirty_counts)
+        self._df_cache: dict = {}
         # per-channel min-active-clock at the channel's last sync round
         # (-1 = never synced yet); feeds _h_staleness
         self._chan_last_clock = np.full(self.num_channels, -1,
@@ -344,6 +357,35 @@ class SyncManager:
         self._replica_row.fill(-1)
         self.replicas = [ReplicaTable(S, K, row_lookup=self._replica_row)
                          for _ in range(self.num_channels)]
+
+
+    def _dirty_counts(self, channel: int) -> Tuple[int, int]:
+        """(dirty, live) for one channel, memoized briefly: one
+        metrics_snapshot() evaluates the total gauge AND every
+        per-channel gauge, and without the memo each full-table pass
+        would run twice per snapshot."""
+        now = time.monotonic()
+        ent = self._df_cache.get(channel)
+        if ent is not None and now - ent[0] < 0.25:
+            return ent[1], ent[2]
+        t = self.replicas[channel]
+        dirty = total = 0
+        if len(t):
+            keys, shards = t.snapshot()
+            total = len(keys)
+            if total:
+                dirty = int(self.server._dirty_replica_mask(
+                    keys, shards).sum())
+        self._df_cache[channel] = (now, dirty, total)
+        return dirty, total
+
+    def _dirty_fraction(self, channel: Optional[int]) -> float:
+        """Fraction of live replicas with unshipped writes (channel, or
+        all channels for None). Best-effort lock-free gauge read."""
+        chans = range(self.num_channels) if channel is None else (channel,)
+        counts = [self._dirty_counts(c) for c in chans]
+        total = sum(t for _, t in counts)
+        return sum(d for d, _ in counts) / total if total else 0.0
 
     def _register(self, shard: int, keys: np.ndarray,
                   end: int) -> Tuple[np.ndarray, np.ndarray]:

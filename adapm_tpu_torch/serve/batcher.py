@@ -36,10 +36,11 @@ state. A serve lookup is therefore bit-identical to a plain
 `Worker.pull` of the same keys at the same point in dispatch order.
 
 Tiering feeds back through `tier.note_serve` (scores and promotion of
-the looked-up cold keys). The planes this package does not have
-(request-flight tracing, the learned policy, decision telemetry, fault
-injection) are None on the port's Server; each use stays behind an
-`is not None` guard, as in the JAX package.
+the looked-up cold keys). Request-flight tracing (`srv.flight`) records
+each coalesced batch, and the fault plane (`srv.fault`) fires
+`serve.drain`; the planes this package does not have (the learned
+policy, decision telemetry) are None on the port's Server. Each use
+stays behind an `is not None` guard, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -328,6 +329,10 @@ class LookupBatcher:
         lens_u = srv.value_lengths[union]
         offs_u = _offsets(lens_u)
         self.c_keys_unique.inc(len(union))
+        # the flight's t_done: taken after `_lookup_union`'s host
+        # readback (`_assemble_flat`'s .cpu() waits for the gathers on
+        # the card), never at a launch's return, so the device slice
+        # t_enqueued -> t_done holds the card's work
         now = time.perf_counter()
         if fl is not None:
             fl.record_serve_batch(
@@ -438,7 +443,7 @@ class LookupBatcher:
                 self.c_bag_hostpool.inc()
                 pooled = self._pool_from_flat(flat, union, groups)
             t_cutoff = t_enqueued
-        now = time.perf_counter()
+        now = time.perf_counter()   # after the pooled rows' readback
         if fl is not None:
             fl.record_serve_batch(
                 [r.trace for r in reqs if r.trace is not None],

@@ -20,6 +20,7 @@ dispatched (the topology_version discipline applied to residency).
 """
 from __future__ import annotations
 
+import threading
 from functools import partial
 
 import numpy as np
@@ -282,6 +283,7 @@ class PromotionEngine:
         self.server = server
         self.opts = opts
         self.manager = manager
+        self._run_lock = threading.Lock()
         self._stop = False
         self._passes = 0
         self.failures = 0
@@ -328,7 +330,16 @@ class PromotionEngine:
     def run_once(self) -> int:
         """One maintenance pass (see class doc). Safe to call from any
         thread; takes the server lock internally per batch. Returns the
-        number of rows moved (0 = the pass was a no-op)."""
+        number of rows moved (0 = the pass was a no-op).
+
+        Passes are serialized (`_run_lock`): a synchronous pass
+        (`TierManager.maintain`) waits for a background pass in flight,
+        so on return every want queued before the call has been
+        committed — by that pass or by this one."""
+        with self._run_lock:
+            return self._run_once()
+
+    def _run_once(self) -> int:
         srv = self.server
         mgr = self.manager
         moved = 0
@@ -348,18 +359,10 @@ class PromotionEngine:
             # batch (the whole drained set IS processed this pass; a
             # capped-and-dropped remainder would silently starve
             # intent-pinned promotions behind access-driven noise).
-            # Capture the list OBJECT, then rebind: a lock-free
-            # request_promote racing the swap lands its append either in
-            # the captured list (processed now) or the fresh one
-            # (processed next pass). Then ONE snapshot of the captured
-            # list feeds both coordinate arrays: a producer still
-            # holding it may append (or trim) between two walks of the
-            # live list, which would pair shards with another request's
-            # slots. An append after the snapshot is dropped — a want is
-            # advisory, and the miss path asks again on the next access.
-            captured = res.want
-            res.want = []
-            wants = list(captured)
+            # `take_wants` swaps the list under the residency's want
+            # lock: a want appended concurrently lands in this drain or
+            # the next, never in neither.
+            wants = res.take_wants()
             if wants:
                 sh = np.concatenate([w[0] for w in wants]).astype(np.int64)
                 sl = np.concatenate([w[1] for w in wants]).astype(np.int64)
@@ -433,6 +436,13 @@ class PromotionEngine:
         revalidation -> program enqueue (the lock-narrowing rule —
         dispatch itself is async under the gate)."""
         srv = self.server
+        if srv.fault is not None:
+            # injection point: fires BEFORE the commit takes the lock or
+            # moves any row, so a retried commit (the executor policy on
+            # `tier_commit`, or _pass's own backoff retry when inline)
+            # re-runs cleanly; the wanted rows stay cold until a commit
+            # succeeds — slower, never wrong
+            srv.fault.fire("tier.promote")
         with srv._lock:
             n = ensure_hot_rows(srv, st, sh, sl, min_clock=min_clock)
         if n:

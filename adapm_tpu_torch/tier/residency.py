@@ -65,9 +65,12 @@ class Residency:
         # bumped on every promote/demote/release batch (under the server
         # lock); consumers revalidate like topology_version
         self.epoch = 0
-        # cold-miss promotion wants, appended by the serve/gather paths
-        # and drained by the maintenance worker: [(shards, slots)]
+        # cold-miss and intent promotion wants, appended by the
+        # serve/gather/intent paths and drained by the maintenance
+        # worker: [(shards, slots)]; appends and the drain's swap hold
+        # `_want_lock`, so no want is lost between them
         self.want: List[Tuple[np.ndarray, np.ndarray]] = []
+        self._want_lock = threading.Lock()
         # wakes the maintenance worker; bound by TierManager to
         # PromotionEngine.kick so the MISS path (gather/scatter on cold
         # rows) drains its promotion wants even in pure pull/push
@@ -102,7 +105,8 @@ class Residency:
         self.alloc = SlotAllocator(self.num_shards, self.hot_rows)
         self.score.fill(0)
         self.pin_until.fill(NO_PIN)
-        self.want.clear()
+        with self._want_lock:
+            self.want = []
         self.epoch += 1
 
     def request_promote(self, shards: np.ndarray,
@@ -110,14 +114,21 @@ class Residency:
         """Queue cold rows for background promotion (the miss path and
         the serving plane call this; the maintenance worker drains it
         under the server lock, revalidating coordinates there). Bounded:
-        a producer outrunning the worker keeps only a fresh window. One
-        reference to the list: the worker swaps `want` for a fresh one
-        while producers run."""
-        want = self.want
-        want.append((np.asarray(shards, dtype=np.int32).copy(),
-                     np.asarray(slots, dtype=np.int32).copy()))
-        if len(want) > 64:
-            del want[: len(want) - 64]
+        a producer outrunning the worker keeps only a fresh window."""
+        ent = (np.asarray(shards, dtype=np.int32).copy(),
+               np.asarray(slots, dtype=np.int32).copy())
+        with self._want_lock:
+            self.want.append(ent)
+            if len(self.want) > 64:
+                del self.want[: len(self.want) - 64]
+
+    def take_wants(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Drain the promotion wants (the maintenance pass): every want
+        appended before this call is in the returned list, every later
+        one in the next drain — none is lost to the swap."""
+        with self._want_lock:
+            wants, self.want = self.want, []
+        return wants
 
 
 class TierManager:

@@ -94,7 +94,7 @@ def _install_tier(st, t) -> None:
     res.alloc = SlotAllocator(res.num_shards, res.hot_rows)
     for s in range(res.num_shards):
         res.alloc.set_used(s, np.nonzero(res.row_slot[s] >= 0)[0])
-    res.want.clear()
+    res.take_wants()
     res.epoch += 1
     q = np.asarray(t["q"])
     if q.shape != cold.q.shape or q.dtype != cold.q.dtype:

@@ -14,7 +14,10 @@ the prefetch pipeline and the background planner on the card: a staged
 pull bitwise the plain pull, one graph capture across windows while
 delegated rounds relocate keys, the planner converging to the exact
 sum under concurrent pushes; K10 on long bags with cold members and
-K11's last-wins and drop cases, bitwise their plain versions.
+K11's last-wins and drop cases, bitwise their plain versions; an
+incremental checkpoint chain saved on the card restored bitwise into a
+fresh server on the card and into one on the CPU, and a flight-traced
+lookup whose device slice is above zero.
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -1147,3 +1150,79 @@ def test_staged_keys_ring_bitwise_plain_upload(cuda):
     (l1, m1), (l2, m2) = out
     assert torch.equal(_bits(l1), _bits(l2))
     assert torch.equal(_bits(m1), _bits(m2))
+
+
+def test_checkpoint_chain_round_trip_on_card(cuda, tmp_path):
+    """A base + two deltas saved from a server on the card (replicas
+    with unshipped deltas included) restore bitwise into a fresh server
+    on the card and into one on the CPU; the delta links' main rows are
+    read back through K1."""
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.base import CLOCK_MAX
+    from adapm_tpu_torch.fault import IncrementalCheckpointer, restore_chain
+    E, L = 512, 64
+
+    def mk(dev):
+        return at.setup(E, L, num_shards=2, device=dev,
+                        opts=at.SystemOptions(sync_max_per_sec=0,
+                                              cache_slots_per_shard=64))
+
+    rng = np.random.default_rng(6)
+    srv = mk(cuda)
+    w0, w1 = srv.make_worker(0), srv.make_worker(1)
+    w0.set(np.arange(E), rng.normal(size=(E, L)).astype(np.float32))
+    ck = IncrementalCheckpointer(srv, str(tmp_path / "chain"))
+    ck.save()
+    w0.push(rng.integers(0, E, 200),
+            rng.normal(size=(200, L)).astype(np.float32))
+    n0 = K.LAUNCHES["routed_gather"]
+    d1 = ck.save()
+    assert d1["kind"] == "delta" and d1["slots"] > 0
+    assert K.LAUNCHES["routed_gather"] > n0
+    shared = np.arange(0, 64)
+    w0.intent(shared, 0, CLOCK_MAX)
+    w1.intent(shared, 0, CLOCK_MAX)
+    srv.wait_sync()
+    w0.push(shared, np.full((64, L), 0.5, np.float32))
+    srv.block()
+    ck.save()
+    want_main = srv.read_main(np.arange(E))
+    want_pull = w0.pull_sync(np.arange(E))
+    srv.shutdown()
+    for dev in (cuda, "cpu"):
+        dst = mk(dev)
+        w = dst.make_worker(0)
+        assert restore_chain(dst, str(tmp_path / "chain")) > 0
+        assert np.array_equal(dst.read_main(np.arange(E)), want_main)
+        assert np.array_equal(w.pull_sync(np.arange(E)), want_pull)
+        dst.shutdown()
+
+
+def test_flight_device_slice_after_readback(cuda, tmp_path):
+    """A traced lookup on the card: the device slice ends after the
+    synchronizing readback, so `flight.device_s` is above zero and no
+    longer than its program slice."""
+    import json
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.serve import ServePlane
+    E, L = 100_000, 512
+    srv = at.setup(E, L, device=cuda, opts=at.SystemOptions(
+        sync_max_per_sec=0, trace_flight=True, stats_out=str(tmp_path)))
+    w = srv.make_worker(0)
+    w.set(np.arange(E), np.ones((E, L), np.float32))
+    with ServePlane(srv) as plane:
+        sess = plane.session()
+        for _ in range(4):
+            sess.lookup(np.arange(0, E, 7))
+    snap = srv.metrics_snapshot()["flight"]["device_s"]
+    assert snap["count"] == 4 and snap["sum"] > 0
+    doc = json.load(open(srv.write_flight_trace()))
+    srv.shutdown()
+    dev = [e for e in doc["traceEvents"]
+           if e.get("ph") == "X" and e["name"] == "flight.device"]
+    prog = [e for e in doc["traceEvents"]
+            if e.get("ph") == "X" and e["name"] == "flight.program"]
+    assert len(dev) == len(prog) == 4
+    for d, p in zip(dev, prog):
+        assert d["dur"] > 0
+        assert d["dur"] <= p["dur"] + 1e-3

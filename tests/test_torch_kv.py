@@ -295,9 +295,28 @@ def test_locality_future_intent_not_acted_early():
 
 
 def test_unported_planes_raise_naming_roadmap_item():
-    for kw, item in (({"trace_flight": True}, "item 10"),
+    for kw, item in (({"trace_decisions": "x.dtrace"}, "item 10"),
                      ({"stream_batch": 8}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             adapm_tpu_torch.Server(
                 8, 2, ctx=make_context(2, "cpu"),
                 opts=adapm_tpu_torch.SystemOptions(**kw))
+
+
+def test_ported_planes_build(tmp_path):
+    """The fault plane, periodic checkpoints, flight tracing, crash
+    dumps and the metrics reporter build on the port's Server (each was
+    refused before it was ported) and go down with it."""
+    opts = adapm_tpu_torch.SystemOptions(
+        sync_max_per_sec=0, fault_spec="sync.round=0.5", fault_seed=1,
+        ckpt_every_s=60.0, ckpt_path=str(tmp_path / "chain"),
+        trace_flight=True, crash_dumps=True, metrics_report_s=30.0,
+        stats_out=str(tmp_path))
+    srv = adapm_tpu_torch.Server(8, 2, ctx=make_context(2, "cpu"),
+                                 opts=opts)
+    assert srv.fault is not None and srv.ckpt is not None
+    assert srv.flight is not None and srv.flight_recorder is not None
+    assert srv.crash_dump_path is not None and srv._reporter is not None
+    srv.shutdown()
+    assert srv._reporter is None
+    assert (tmp_path / "flight.0.trace.json").exists()

@@ -9,11 +9,11 @@ seeds. Each keeps the JAX test's own checks, run on each package, and
 returns what it read; the reads are compared bitwise across packages.
 The device-routed negatives scenario holds tiered to untiered bitwise
 within each package (the packages' negative draws come from different
-generators). Left out: the lock-order sentinel of the storm
-(`--sys.lint.lockorder`, ROADMAP A12) and the checkpoint cases
-(`test_checkpoint_roundtrip_across_tiers`,
-`test_untiered_checkpoint_restores_into_tiered`, ROADMAP A10); the
-shutdown case runs without the periodic checkpointer.
+generators). The two checkpoint cases (`test_checkpoint_roundtrip_across_
+tiers`, `test_untiered_checkpoint_restores_into_tiered`) run on both
+packages too. Left out: the lock-order sentinel of the storm
+(`--sys.lint.lockorder`, ROADMAP A12); the shutdown case runs without
+the periodic checkpointer.
 """
 import threading
 
@@ -43,6 +43,10 @@ class Pkg:
         self.DeviceRoutedRunner = ops.DeviceRoutedRunner
         self.ServePlane = __import__(f"{mod.__name__}.serve",
                                      fromlist=["x"]).ServePlane
+        ck = __import__(f"{mod.__name__}.utils.checkpoint",
+                        fromlist=["x"])
+        self.save_server = ck.save_server
+        self.restore_server = ck.restore_server
 
     def setup(self, num_keys, vlen, opts):
         if self.is_jax:
@@ -472,3 +476,135 @@ def test_jax_tiered_state_loads_into_the_port():
                     [_read_all(t), wt.pull_sync(ks)])
     j.shutdown()
     t.shutdown()
+
+
+# -- checkpoints across tier configurations -----------------------------------
+
+
+def sc_checkpoint_roundtrip_across_tiers(P, tmp, restore_tier):
+    """test_tier.py's case: a tiered server with mixed residency and
+    replicas carrying unshipped deltas saves; the checkpoint restores
+    bitwise into a tiered (everything cold) or an untiered server, and
+    both keep syncing and taking writes bitwise."""
+    rng = np.random.default_rng(0)
+    srv = P.mk(True, hot_rows=16)
+    w = srv.make_worker(0)
+    w.set(np.arange(E), rng.normal(size=(E, L)).astype(np.float32))
+    srv.tier.promote_keys(np.arange(0, 128))
+    rem = np.arange(E)[srv.ab.owner[np.arange(E)] != w.shard][:32]
+    w.intent(rem, 0, P.CLOCK_MAX)
+    srv.sync.run_round(force_intents=True, all_channels=True)
+    w.push(rem, rng.normal(size=(len(rem), L)).astype(np.float32))
+    path = str(tmp / "ck.npz")
+    P.save_server(srv, path)
+    before = _read_all(srv)
+    srv2 = P.mk(restore_tier, hot_rows=16)
+    P.restore_server(srv2, path)
+    if restore_tier:
+        # residency reset cleanly: everything cold (checked before the
+        # first read, whose cold misses kick the maintenance worker)
+        for st in srv2.stores:
+            assert (st.res.dev_row < 0).all()
+            assert (st.res.row_slot < 0).all()
+            assert st.res.alloc.num_free(0) == st.res.hot_rows
+    reads = [before, _read_all(srv2)]
+    assert np.array_equal(reads[-1], before)
+    if restore_tier:
+        srv2.tier.promote_keys(np.arange(0, 64))
+        assert np.array_equal(_read_all(srv2), before)
+    w2 = srv2.make_worker(0)
+    srv2.sync.run_round(force_intents=True, all_channels=True)
+    srv.sync.run_round(force_intents=True, all_channels=True)
+    before = _read_all(srv)
+    assert np.array_equal(_read_all(srv2), before)
+    ks = np.arange(0, 16)
+    v = rng.normal(size=(16, L)).astype(np.float32)
+    w2.push(ks, v)
+    srv2.quiesce()
+    expect = before.reshape(E, L).copy()
+    expect[ks] += v
+    got = _read_all(srv2)
+    assert np.array_equal(got.reshape(E, L), expect)
+    srv.shutdown()
+    srv2.shutdown()
+    return reads + [before, got]
+
+
+def sc_untiered_checkpoint_restores_into_tiered(P, tmp):
+    rng = np.random.default_rng(0)
+    src = P.mk(False)
+    w = src.make_worker(0)
+    w.set(np.arange(E), rng.normal(size=(E, L)).astype(np.float32))
+    path = str(tmp / "ck.npz")
+    P.save_server(src, path)
+    before = _read_all(src)
+    dst = P.mk(True, hot_rows=16)
+    P.restore_server(dst, path)
+    got = _read_all(dst)
+    assert np.array_equal(got, before)
+    src.shutdown()
+    dst.shutdown()
+    return [before, got]
+
+
+def _both_tmp(tmp_path, scenario, *args):
+    out = []
+    for P in (JAX, PORT):
+        d = tmp_path / ("jax" if P.is_jax else "port")
+        d.mkdir()
+        out.append(scenario(P, d, *args))
+    return out
+
+
+@pytest.mark.parametrize("restore_tier", [True, False])
+def test_checkpoint_roundtrip_across_tiers(tmp_path, restore_tier):
+    a, b = _both_tmp(tmp_path, sc_checkpoint_roundtrip_across_tiers,
+                     restore_tier)
+    _same_reads(a, b)
+
+
+def test_untiered_checkpoint_restores_into_tiered(tmp_path):
+    a, b = _both_tmp(tmp_path, sc_untiered_checkpoint_restores_into_tiered)
+    _same_reads(a, b)
+
+
+def test_promotion_wants_never_lost_under_concurrent_drain():
+    """The port's want queue: producers append while a drain swaps the
+    list (the maintenance pass); every want appended lands in exactly
+    one drain. 8 producers of 8 wants each stay under the queue's
+    64-entry window, so none is trimmed; the switch interval is cut so
+    the threads interleave inside the append and the swap."""
+    import sys
+    import time
+    from adapm_tpu_torch.tier.residency import Residency
+    res = Residency(2, 64, 16)
+    taken, stop = [], threading.Event()
+
+    def produce(p):
+        for i in range(8):
+            res.request_promote(np.array([p % 2]), np.array([8 * p + i]))
+
+    def drain():
+        while not stop.is_set():
+            taken.extend(res.take_wants())
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        d = threading.Thread(target=drain)
+        d.start()
+        ps = [threading.Thread(target=produce, args=(p,)) for p in range(8)]
+        for t in ps:
+            t.start()
+        for t in ps:
+            t.join(timeout=30)
+        time.sleep(0.01)
+        stop.set()
+        d.join(timeout=30)
+    finally:
+        sys.setswitchinterval(old)
+    assert not d.is_alive() and not any(t.is_alive() for t in ps)
+    taken.extend(res.take_wants())
+    got = sorted(int(sl[0]) for _, sl in taken)
+    assert got == list(range(64)), "a promotion want was lost or doubled"
+    assert all(len(sh) == len(sl) == 1 for sh, sl in taken)
