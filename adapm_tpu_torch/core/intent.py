@@ -638,6 +638,11 @@ class PrefetchScheduler:
                 for pool, rows in acquired:
                     pool.release(rows)
                 if isinstance(e, _StagingAbort):
+                    dc = srv.decisions
+                    if dc is not None:
+                        # decision telemetry: staging skipped on pool
+                        # pressure
+                        dc.record_prefetch("skip", len(keys), self.stats)
                     return False
                 raise
             entry = _StagedPull(keys, fp, srv.topology_version, groups,
@@ -661,6 +666,11 @@ class PrefetchScheduler:
                 self._staged[(worker.worker_id, fp)] = entry
                 self._mask_add(keys)
         self.stats.inc("staged")
+        dc = srv.decisions
+        if dc is not None:
+            # staged: the outcome window reads the hit/expired counter
+            # deltas to judge whether the staged batch was ever consumed
+            dc.record_prefetch("stage", len(keys), self.stats)
         return True
 
     def report(self) -> Dict[str, int]:

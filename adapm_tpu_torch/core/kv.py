@@ -31,11 +31,14 @@ the kernel cost table (`costs`, `--sys.costs.table`). The fault plane
 --sys.checkpoint.every/path; fault/ckpt.py), request-flight tracing
 (`flight`, --sys.trace.flight), crash dumps with the executor flight
 recorder (--sys.crash_dumps, on by default) and the periodic metrics
-reporter (--sys.metrics.report) are built as the JAX server builds them.
-Every other optional plane of the JAX server (streaming, workload and
-decision traces, learned policy, the multi-process layer) is not ported:
-asking for one raises NotImplementedError naming its ROADMAP item, and
-the corresponding attributes stay None.
+reporter (--sys.metrics.report) are built as the JAX server builds them,
+and so are workload trace capture (`wtrace`, --sys.trace.workload;
+obs/wtrace.py, replayed by adapm_tpu_torch/replay), decision telemetry
+(`decisions`, --sys.trace.decisions; obs/decisions.py) and the learned
+policy plane (`policy`, --sys.policy.*; adapm_tpu_torch/policy). The
+JAX server's other optional planes (streaming, the multi-process
+layer) are not ported: asking for one raises NotImplementedError naming
+its ROADMAP item, and the corresponding attributes stay None.
 """
 from __future__ import annotations
 
@@ -100,9 +103,6 @@ def _fill_flat(out, offs, lens, pos, part) -> None:
 # SystemOptions knobs of planes this package does not have yet, with the
 # ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("trace_workload", "workload trace capture", "queue A, item 10"),
-    ("trace_decisions", "decision telemetry", "queue A, item 10"),
-    ("policy_file", "the learned policy plane", "queue A, item 10"),
     ("stream_batch", "the streaming plane", "queue A, item 11"),
     ("stream_freshness_slo_ms", "the streaming plane", "queue A, item 11"),
     ("collective_sync", "the collective exchange", "queue B, B10"),
@@ -215,6 +215,35 @@ class Server:
             self.fault = FaultPlane(self.opts.fault_spec,
                                     seed=self.opts.fault_seed,
                                     registry=self.obs)
+        # workload trace capture (obs/wtrace.py): the semantic op stream
+        # to a versioned, checksummed .wtrace for the replay engine. Off:
+        # None, one `is None` check per site, no wtrace.* names
+        self.wtrace = None
+        if self.opts.trace_workload:
+            from ..obs.wtrace import WorkloadTraceRecorder
+            self.wtrace = WorkloadTraceRecorder(
+                self, self.opts.trace_workload,
+                key_budget=self.opts.trace_workload_keys)
+        # decision telemetry (obs/decisions.py): every adaptive decision
+        # with its features and a bounded outcome window, to a .dtrace.
+        # Off: None, no decision.* names
+        self.decisions = None
+        if self.opts.trace_decisions:
+            from ..obs.decisions import DecisionRecorder
+            self.decisions = DecisionRecorder(
+                self, self.opts.trace_decisions,
+                follow_events=self.opts.trace_decisions_window)
+        # the learned policy plane (adapm_tpu_torch/policy): trained
+        # per-plane regret scorers that may veto a heuristic decision
+        # (learned) or score it without applying (shadow). Off: None, no
+        # policy.* names; a corrupt artifact raises PolicyError here
+        self.policy = None
+        if self.opts.policy_file:
+            from ..policy.runtime import PolicyPlane
+            self.policy = PolicyPlane(self)
+        # set by a ReplayEngine that drove this server (the snapshot's
+        # `replay` section)
+        self.replay_stats: Optional[Dict] = None
         # the last checkpoint-chain restore's wall time (fault/ckpt.py
         # restore_chain) and the stream cursor a chain carried (the
         # streaming plane itself is ROADMAP queue A, item 11)
@@ -232,9 +261,8 @@ class Server:
                                   recorder=self.flight_recorder,
                                   retry_policy=self._retry_policy,
                                   fault=self.fault)
-        # the planes that are not ported: always None here
-        self.tier = self.glob = self.net = None
-        self.stream = self.wtrace = self.decisions = self.policy = None
+        # tier is built below; the planes that are not ported stay None
+        self.tier = self.glob = self.net = self.stream = None
         self.sampling = None  # set by enable_sampling_support
         # the serving plane attaches itself here (serve.ServePlane), so
         # metrics_snapshot folds its readiness in and shutdown closes it
@@ -748,6 +776,25 @@ class Server:
         """Move the main copies of `keys` to shard `dest`: one allocator
         batch + one device program per class. A move whose destination
         main pool is full is demoted to a replication attempt."""
+        pol = self.policy
+        if pol is not None and len(keys) and pol.active("reloc"):
+            # a learned reloc law may HOLD the whole batch in place: the
+            # keys stay owned where they are and every pull and push
+            # reaches the same main row — slower, never wrong. The
+            # value-preservation guard: a dest replica's pending delta
+            # merges inside the relocate program, so holding the move is
+            # a bitwise no-op only when every dest replica of the batch
+            # is verifiably clean (the exact store-epoch mask); otherwise
+            # the heuristic's move proceeds unvetoed
+            if pol.consult("reloc",
+                           {"n_moved": len(keys), "n_demoted": 0},
+                           len(keys)):
+                rk = keys[self.ab.cache_slot[dest, keys] >= 0]
+                if len(rk) == 0 or not self._dirty_replica_mask(
+                        rk, np.full(len(rk), dest, np.int32)).any():
+                    pol.applied("reloc")
+                    return 0
+                pol.guard_blocked("reloc")
         demoted = np.empty(0, dtype=np.int64)
         n_moved = 0
         with self._lock:
@@ -790,6 +837,20 @@ class Server:
             with self._lock:
                 self.sync.replica_add(created, dest)
             self.sync.stats.add(replicas_created=len(created))
+        wt = self.wtrace
+        if wt is not None and (n_moved or len(demoted)):
+            # the move as it landed, with the pool-full demotions:
+            # observational (replay lets the candidate policy re-decide)
+            wt.record_decision("reloc", n_moved, dest=int(dest),
+                               demoted=int(len(demoted)))
+        dc = self.decisions
+        if dc is not None and (n_moved or len(demoted)):
+            # the same move with its features and a post-move-locality
+            # outcome window over the keys that actually moved
+            moved_keys = np.setdiff1d(keys, demoted) if len(demoted) \
+                else keys
+            dc.record_move(int(dest), n_moved, int(len(demoted)),
+                           moved_keys)
         return n_moved
 
     # -- lifecycle -----------------------------------------------------------
@@ -960,7 +1021,8 @@ class Server:
         periodic checkpointer (an in-flight save reads the pools: its
         `ckpt` stream drains here), the background planner, then the
         executor, pool quiesce, stats/trace/flight export, registry
-        unhook."""
+        unhook; the workload and decision recorders seal their files
+        after the producers stopped."""
         if self._shutdown_done:
             return
         self._shutdown_done = True
@@ -982,6 +1044,14 @@ class Server:
         self.write_stats()
         self.write_trace()
         self.write_flight_trace()
+        if self.wtrace is not None:
+            # final flush and seal after every producer stopped: the
+            # .wtrace on disk is the complete recorded stream
+            self.wtrace.close()
+        if self.decisions is not None:
+            # the same rule; close() force-resolves the open outcome
+            # windows, whose probes read residency and addressbook state
+            self.decisions.close()
         if self.spans is not None:
             self.spans.close()
         if self.flight_recorder is not None:
@@ -1042,7 +1112,8 @@ class Server:
     # metrics_snapshot(): the schema-stability contract tests pin
     _SNAPSHOT_SECTIONS = ("kv", "prefetch", "plan_cache", "staging",
                           "sync", "exec", "device", "serve", "slo",
-                          "tier", "episode", "flight", "fault", "ckpt")
+                          "tier", "episode", "flight", "fault", "ckpt",
+                          "wtrace", "replay", "decision", "policy")
 
     def metrics_snapshot(self) -> Dict:
         """The structured telemetry dict: `schema_version`,
@@ -1061,8 +1132,16 @@ class Server:
         `bytes_shipped`, `bytes_full_equiv` and `ef_residual_norm`;
         `episode` the EpisodicRunner's counters and prep/commit
         histograms. With a plane attached,
-        `serve.readiness` is its `health.readiness()` dict."""
-        out: Dict = {"schema_version": 2,
+        `serve.readiness` is its `health.readiness()` dict. Schema 3
+        added `wtrace` (the capture's events, drops, sampled batches,
+        bytes, path and flushes, with --sys.trace.workload), `replay`
+        (the stats a ReplayEngine stamped on the server it drove:
+        events replayed, reads, `reads_digest`), `decision` (the
+        recorder's tallies and regret gauges, with
+        --sys.trace.decisions) and `policy` (consults, vetoes, applied,
+        guard-blocked and shadow tallies per plane, with
+        --sys.policy.file)."""
+        out: Dict = {"schema_version": 3,
                      "metrics_enabled": bool(self.obs.enabled)}
         for sec in self._SNAPSHOT_SECTIONS:
             out[sec] = {}
@@ -1109,6 +1188,14 @@ class Server:
             out["ckpt"].update(self.ckpt.stats())
         if self._last_recovery_s is not None:
             out["ckpt"]["recovery_s"] = self._last_recovery_s
+        if self.wtrace is not None:
+            out["wtrace"].update(self.wtrace.stats())
+        if self.decisions is not None:
+            out["decision"].update(self.decisions.stats())
+        if self.policy is not None:
+            out["policy"].update(self.policy.stats())
+        if self.replay_stats is not None:
+            out["replay"].update(self.replay_stats)
         if serve_ready is not None:
             out["serve"]["readiness"] = serve_ready
         return out
@@ -1142,6 +1229,11 @@ class Server:
         self.block()
 
     def quiesce(self) -> None:
+        wt = self.wtrace
+        if wt is not None:
+            # recorded at entry: replay re-drives the quiesce at the same
+            # point of the op stream
+            wt.record_quiesce()
         with self._round_lock:
             self.sync.quiesce()
 
@@ -1270,6 +1362,9 @@ class Worker:
     def _pull_op(self, keys, out: Optional[np.ndarray]) -> int:
         keys = self._keys(keys)
         srv = self.server
+        wt = srv.wtrace
+        if wt is not None:
+            wt.record_kv("pull", self.worker_id, self._clock, keys)
         if srv.prefetch is not None:
             st = srv.prefetch.take_staged(self, keys)
             if st is not None:
@@ -1365,6 +1460,10 @@ class Worker:
         keys = self._keys(keys)
         vals = np.asarray(vals, dtype=np.float32)
         srv = self.server
+        wt = srv.wtrace
+        if wt is not None:
+            wt.record_kv("set" if is_set else "push", self.worker_id,
+                         self._clock, keys)
         probe = None
         fl = srv.flight
         if fl is not None and not is_set:
@@ -1434,14 +1533,21 @@ class Worker:
         a pre-gathered staged buffer."""
         keys = np.unique(self._keys(keys))
         end = start if end is None else end
-        self._intent_queue.push(keys, int(start), int(end))
         srv = self.server
+        wt = srv.wtrace
+        if wt is not None:
+            wt.record_intent(self.worker_id, self._clock, keys,
+                             int(start), int(end))
+        self._intent_queue.push(keys, int(start), int(end))
         if srv.prefetch is not None:
             srv.prefetch.on_intent(self, keys, int(start), int(end))
 
     def advance_clock(self) -> int:
         self._clock += 1
         self.server._clocks[self.worker_id] = self._clock
+        wt = self.server.wtrace
+        if wt is not None:
+            wt.record_clock(self.worker_id, self._clock)
         return self._clock
 
     @property
@@ -1456,11 +1562,20 @@ class Worker:
         worker will sample `n` keys around clock [start, end]."""
         start = self._clock if start is None else start
         end = start if end is None else end
-        return self.server.sampling.prepare(self, n, int(start), int(end))
+        h = self.server.sampling.prepare(self, n, int(start), int(end))
+        wt = self.server.wtrace
+        if wt is not None:
+            wt.record_sample("prep_sample", self.worker_id, self._clock,
+                             h, n, int(start), int(end))
+        return h
 
     def pull_sample(self, handle: int, n: Optional[int] = None):
         """Draw n keys (default: all prepared) from sampling handle; returns
         (keys, values[B, L])."""
+        wt = self.server.wtrace
+        if wt is not None:
+            wt.record_sample("pull_sample", self.worker_id, self._clock,
+                             handle, n)
         return self.server.sampling.pull(self, handle, n)
 
     def pull_sample_keys(self, handle: int, n: Optional[int] = None):
@@ -1469,6 +1584,10 @@ class Worker:
         return self.server.sampling.pull_keys(self, handle, n)
 
     def finish_sample(self, handle: int) -> None:
+        wt = self.server.wtrace
+        if wt is not None:
+            wt.record_sample("finish_sample", self.worker_id,
+                             self._clock, handle, None)
         self.server.sampling.finish(self, handle)
 
     # -- API: lifecycle -------------------------------------------------------

@@ -410,6 +410,14 @@ class SyncManager:
             e = np.empty(0, dtype=np.int64)
             return e, e
         relocate = self._decide_batch(cand, shard)
+        dc = self.server.decisions
+        if dc is not None:
+            # the relocate-vs-replicate split with its features;
+            # replications open a window probing whether the replicas
+            # were ever worth creating
+            rep = cand[~relocate]
+            dc.record_classify(int(shard), int(relocate.sum()),
+                               len(rep), 0, rep)
         return cand[relocate], cand[~relocate]
 
     def _decide_batch(self, keys: np.ndarray, shard: int) -> np.ndarray:
@@ -458,15 +466,34 @@ class SyncManager:
         self.stats.add(keys_considered=len(keep))
         if len(keep):
             kk, ks = keys[keep], shards[keep]
-            if self.opts.sync_dirty_only:
+            n_considered, n_dirty = len(kk), -1
+            pol = srv.policy
+            if not self.opts.sync_dirty_only and pol is not None and \
+                    pol.active("sync") and \
+                    pol.consult("sync", {"n_dirty": -1}, n_considered):
+                # a learned sync law's predicted wasted wire applies the
+                # exact dirty mask below though the static filter is off:
+                # the same value-preservation guard the filter rests on
+                pol.applied("sync")
+                filter_dirty = True
+            else:
+                filter_dirty = self.opts.sync_dirty_only
+            if filter_dirty:
                 # dirty-delta filter: a clean replica's sync program is a
                 # bit-for-bit no-op, so skipping it cannot change a read;
                 # a dirty replica's siblings ride along to pick up the
                 # post-merge value
                 dirty = srv._dirty_replica_mask(kk, ks)
+                n_dirty = int(dirty.sum())
                 if dirty.any() and not dirty.all():
                     dirty |= np.isin(kk, kk[dirty])
                 kk, ks = kk[dirty], ks[dirty]
+            dc = srv.decisions
+            if dc is not None:
+                # the ship/hold verdict of this channel's batch: clean
+                # ride-alongs (or a clean ship with the filter off) fold
+                # into decision.shipped_clean
+                dc.record_sync(channel, n_considered, n_dirty, len(kk))
             if len(kk):
                 # periodic rounds ship in the --sys.sync.compress format
                 # (the residual parks in the delta row); drop and quiesce
@@ -528,6 +555,13 @@ class SyncManager:
             self._last_round_bytes = sum(
                 st.sync_bytes_shipped for st in self.server.stores) - \
                 bytes_before
+            wt = self.server.wtrace
+            if wt is not None:
+                # the round as it landed: replay re-drives these where
+                # the workload put them, not where a wall clock did
+                wt.record_sync(forced=force_intents,
+                               all_channels=all_channels,
+                               bytes_shipped=self._last_round_bytes)
 
     def close(self) -> None:
         pass

@@ -29,8 +29,8 @@ this order:
                                                (+ `shadow_dis=<n>`)
     net=<msgs>/<bytes> peers=<live>/<total>    transport-plane frames
 
-The last three planes are not ported yet; their sections stay empty on
-the port and contribute nothing. Ratios are 2-decimal, latencies
+The transport plane is not ported yet; its section stays empty on the
+port and contributes nothing. Ratios are 2-decimal, latencies
 2-decimal milliseconds."""
 from __future__ import annotations
 

@@ -197,8 +197,8 @@ class SLOController:
         pol = self.server.policy
         if pol is not None and pol.active("serve"):
             # a learned serve law may hold the window where the heuristic
-            # proposes a move (the JAX package's policy plane; None on
-            # the port, ROADMAP queue A, item 10)
+            # proposes a move (value-preserving: the window only paces
+            # coalescing)
             if pol.consult("serve",
                            {"old_us": cur, "new_us": new,
                             "p99_ms": round(p99 * 1e3, 3),
@@ -217,8 +217,8 @@ class SLOController:
         self.adjustments.append(move)
         dc = self.server.decisions
         if dc is not None:
-            # decision telemetry (None on the port): the move with its
-            # window/target features
+            # decision telemetry: the move with its window and target
+            # features
             dc.record_serve(cur, new, p99 * 1e3, self.target_s * 1e3,
                             lambda: float(self.g_p99.value))
 

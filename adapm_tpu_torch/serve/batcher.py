@@ -38,9 +38,10 @@ state. A serve lookup is therefore bit-identical to a plain
 Tiering feeds back through `tier.note_serve` (scores and promotion of
 the looked-up cold keys). Request-flight tracing (`srv.flight`) records
 each coalesced batch, and the fault plane (`srv.fault`) fires
-`serve.drain`; the planes this package does not have (the learned
-policy, decision telemetry) are None on the port's Server. Each use
-stays behind an `is not None` guard, as in the JAX package.
+`serve.drain`; the learned policy plane (`srv.policy`) sees each
+batch's close reason and decision telemetry (`srv.decisions`) the
+measured-cost verdicts. Each use stays behind an `is not None` guard,
+as in the JAX package.
 """
 from __future__ import annotations
 

@@ -224,25 +224,42 @@ def ensure_hot_rows(server, store, shards: np.ndarray, slots: np.ndarray,
         # residents (equal scores never churn)
         is_pin = res.pinned_mask(s, cold, min_clock)
         pc, uc = cold[is_pin], cold[~is_pin]
+        n_pinned, n_unpinned = len(pc), len(uc)
+        n_victims = n_beat = 0
         if len(pc):
             short = len(pc) - res.alloc.num_free(s)
             if short > 0:
                 victims = _pick_victims(store, s, short, min_clock, sl)
+                n_victims += len(victims)
                 if len(victims):
                     _count_demotions(server,
                                      demote_rows(store, s, victims))
             n += promote_rows(store, s, pc)
+        pol = server.policy
+        if len(uc) and pol is not None and pol.active("tier") and \
+                pol.consult("tier", {"n_pinned": n_pinned,
+                                     "n_unpinned": n_unpinned},
+                            n_pinned + n_unpinned):
+            # a learned tier law's predicted promoted-never-hit regret
+            # HOLDS this shard's unpinned background promotions: the rows
+            # stay cold and read exactly from the cold pool (slower,
+            # never wrong). Pinned candidates and the force=True fused
+            # step are never policy-gated
+            pol.applied("tier")
+            uc = uc[:0]
         if len(uc):
             over = len(uc) - res.alloc.num_free(s)
             if over > 0:
                 uc = uc[np.argsort(-res.score[s, uc], kind="stable")]
                 victims = _pick_victims(store, s, over, min_clock, sl)
+                n_victims += len(victims)
                 if len(victims):
                     victims = victims[np.argsort(
                         res.score[s, victims], kind="stable")]
                     k = min(len(victims), len(uc))
                     beat = res.score[s, victims[:k]] < \
                         res.score[s, uc[:k]]
+                    n_beat = int(beat.sum())
                     if beat.any():
                         _count_demotions(
                             server,
@@ -250,6 +267,14 @@ def ensure_hot_rows(server, store, shards: np.ndarray, slots: np.ndarray,
                 uc = uc[: res.alloc.num_free(s)]
             if len(uc):
                 n += promote_rows(store, s, uc)
+        dc = server.decisions
+        if dc is not None and (n_pinned or n_unpinned):
+            # decision telemetry: this shard's promotion batch with the
+            # anti-thrash verdict; the promoted rows open a window
+            # probing re-touch while hot
+            dc.record_tier(store, s, np.concatenate((pc, uc)),
+                           n_pinned, n_unpinned, n_victims, n_beat,
+                           min_clock)
     return n
 
 
@@ -423,6 +448,10 @@ class PromotionEngine:
                 if n:
                     moved += n
                     mgr.c_demotions.inc(n)
+                    dc = srv.decisions
+                    if dc is not None:
+                        # headroom-reclaim demotion (outcome immediate)
+                        dc.record_tier_demote(s, n, free, target)
         # 3. score decay
         self._passes += 1
         if self._passes % self._DECAY_EVERY == 0:
@@ -447,6 +476,11 @@ class PromotionEngine:
             n = ensure_hot_rows(srv, st, sh, sl, min_clock=min_clock)
         if n:
             self.manager.c_promotions.inc(n)
+            wt = srv.wtrace
+            if wt is not None:
+                # the promotion as it landed: observational (replay's
+                # candidate tier policy re-decides)
+                wt.record_decision("promote", n)
         return n
 
     @staticmethod

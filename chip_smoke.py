@@ -10,8 +10,9 @@ end to end on both routing paths, then the word2vec step and
 application and the matrix-factorization application the same way,
 serves lookups and embedding-bag reads through the serving plane,
 runs the tiered store, compressed sync rounds and episodic execution,
-and drills checkpoint chains under injected faults and request-flight
-tracing.
+drills checkpoint chains under injected faults and request-flight
+tracing, and captures a workload, replays it, trains the learned policy
+on it and ranks knob candidates by replay.
 
     python3 chip_smoke.py [--json PATH]
     python3 chip_smoke.py --main-path-only   (phase 1 and phase 3's
@@ -24,6 +25,8 @@ tracing.
         pipeline on and off, phases 11 and 12, checked as in the full
         run)
     python3 chip_smoke.py --fault-only       (phase 1 and phase 14,
+        checked as in the full run)
+    python3 chip_smoke.py --replay-only      (phase 1 and phase 15,
         checked as in the full run)
 
 Phases (any failure raises and exits non-zero):
@@ -242,8 +245,32 @@ Phases (any failure raises and exits non-zero):
      program; p50/p99 of the four breakdown histograms, lookups/s
      beside the untraced segment; (e) --sys.metrics.report logs lines
      while (d) runs. The planes' own log lines are counted, not printed.
+ 15. workload traces, decision telemetry, replay and the learned policy
+     on phase 3's table over two shards, tiered (65,536 hot rows a
+     shard, fp32 cold rows), the background planner at 20 rounds/s
+     without the static dirty filter, --sys.serve.slo_ms 2: (a) capture
+     with --sys.trace.workload and --sys.trace.decisions: the table
+     filled in 4,096-key sets, two worker threads of REPLAY_STEPS steps
+     (intent for the next batch of 4,096 zipf keys, pull, push of 4,096
+     rows, advance_clock) beside 8 serving clients (12 lookups of 64
+     zipf keys each, half tenanted); both traces verify, every event
+     kind is present, none dropped or sampled, and reloc, sync, tier
+     and prefetch decisions each landed; the same workload uncaptured
+     on a fresh server for the capture's cost, and record_kv's host
+     time for a 4,096-key event; (b) replays on the card (seed 11):
+     twice at speed 100 (equal digest, reads and events), at speed 10
+     and with tier_hot_rows halved (equal digest), with seed 12 (another
+     digest); (c) the first 96 key-batch events (whole events) replayed
+     on the card and on the cpu: equal digests; (d) train_policy twice
+     (byte-identical), then replays with every plane learned and in
+     shadow mode: the plain digest, consults on the reloc, tier and
+     sync planes, none applied in shadow; (e) rank_candidates at speed
+     10 over recorded knobs, a quarter of the hot rows and twice the
+     channels (each replica synced half as often): a ranked artifact on
+     disk. Each part launches K1, K3, K9 and K11 and no kernel another
+     path owns.
 Phases 11 and 12 run after phase 4, phase 13 after phase 10, phase 14
-after phase 13. Every
+after phase 13, phase 15 after phase 14. Every
 server's background work is
 watched: a prefetch pass, planner round or tier maintenance pass that
 raised (logged and retried, never fatal to its loop), a failed
@@ -4226,6 +4253,412 @@ def report_fault(fr, smi):
           f"{fr['logged']}", flush=True)
 
 
+# phase 15: workload traces, decision telemetry, replay and the policy
+REPLAY_STEPS = 32                  # steps per worker thread (cut from
+# 64, which took phase 15 to 224 s on the card: ten replays of ~19 s)
+REPLAY_CLIENTS, REPLAY_LOOKUPS, REPLAY_KEYS = 8, 12, 64
+REPLAY_PAUSE_S = 0.1               # a client's pause between lookups
+REPLAY_SYNC_PER_S = 20.0           # the capture's background planner
+REPLAY_SLO_MS = 2.0                # the capture's --sys.serve.slo_ms
+REPLAY_CACHE = 32_768              # cache slots a shard
+REPLAY_PREFIX = 96                 # (c): key-batch events on the cpu too
+REPLAY_SEED = 11
+REPLAY_DIR = os.path.join("build", "phase15")   # traces (removed after)
+KEY_KINDS = ("pull", "push", "set", "intent", "serve")
+REPLAY_KERNELS = ("routed_gather", "ordered_scatter_add", "gather_cold",
+                  "write_main_rows")
+
+
+def replay_opts(at, capture):
+    """Phase 15's server: phase 13's tier (TIER_HOT hot rows a shard,
+    fp32 cold rows), the background planner at REPLAY_SYNC_PER_S without
+    the static dirty filter (so the learned sync law has a decision to
+    veto), the SLO controller, and with `capture` both trace knobs."""
+    kw = dict(tier=True, tier_hot_rows=TIER_HOT, tier_cold_dtype="fp32",
+              cache_slots_per_shard=REPLAY_CACHE,
+              sync_max_per_sec=REPLAY_SYNC_PER_S, sync_report_s=0,
+              sync_dirty_only=False, serve_slo_ms=REPLAY_SLO_MS)
+    if capture:
+        kw.update(trace_workload=os.path.join(REPLAY_DIR, "run.wtrace"),
+                  trace_decisions=os.path.join(REPLAY_DIR, "run.dtrace"))
+    return at.SystemOptions(**kw)
+
+
+def replay_workload(at, dev, capture):
+    """Phase 15 (a)'s workload on a fresh two-shard server: the table
+    filled in B-key sets, then two worker threads (one a shard) of
+    REPLAY_STEPS steps (intent for the next batch of B zipf keys, pull
+    of the batch, push of B rows, advance_clock) beside REPLAY_CLIENTS
+    serving clients (REPLAY_LOOKUPS flat lookups of REPLAY_KEYS zipf
+    keys each; even clients tenanted), the background planner running;
+    then quiesce and shutdown. Returns the fill and workload seconds
+    and the snapshot's wtrace and decision sections."""
+    import threading
+    from adapm_tpu_torch.serve import ServePlane
+    n = E + R
+    srv = at.setup(n, L, num_shards=2, num_workers=2, device=dev,
+                   opts=replay_opts(at, capture))
+    ws = [srv.make_worker(i) for i in range(2)]
+    fill = np.random.default_rng(31)
+    t0 = time.perf_counter()
+    for lo in range(0, n, B):
+        hi = min(lo + B, n)
+        ws[0].set(np.arange(lo, hi),
+                  fill.standard_normal((hi - lo, L), np.float32) * 0.1)
+    srv.block()
+    fill_s = time.perf_counter() - t0
+    plane = ServePlane(srv)
+    plane.configure_tenant("gold", priority=1)
+    errors = []
+
+    def train(w):
+        rng = np.random.default_rng(40 + w.worker_id)
+        batches = [np.unique(skewed_keys(rng, n, B))
+                   for _ in range(REPLAY_STEPS + 1)]
+        vals = rng.standard_normal((B, L), np.float32) * 0.01
+        try:
+            for i in range(REPLAY_STEPS):
+                c = w.current_clock
+                w.intent(batches[i + 1], c + 1, c + 2)
+                w.pull_sync(batches[i])
+                w.wait(w.push(skewed_keys(rng, n, B), vals))
+                w.advance_clock()
+            w.wait_all()
+        except Exception as ex:  # noqa: BLE001 - surface to main thread
+            errors.append(f"worker {w.worker_id}: {type(ex).__name__}: "
+                          f"{ex}")
+
+    def client(ci):
+        rng = np.random.default_rng(60 + ci)
+        try:
+            sess = plane.session(tenant="gold") if ci % 2 == 0 \
+                else plane.session()
+            for _ in range(REPLAY_LOOKUPS):
+                sess.lookup(skewed_keys(rng, n, REPLAY_KEYS))
+                time.sleep(REPLAY_PAUSE_S)
+        except Exception as ex:  # noqa: BLE001 - surface to main thread
+            errors.append(f"client {ci}: {type(ex).__name__}: {ex}")
+
+    threads = [threading.Thread(target=train, args=(w,)) for w in ws] + \
+        [threading.Thread(target=client, args=(ci,))
+         for ci in range(REPLAY_CLIENTS)]
+    srv.start_sync_thread()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=max(0.0, t0 + 600 - time.perf_counter()))
+    check(not any(t.is_alive() for t in threads),
+          "phase 15 (a): a worker or client thread hung")
+    check(not errors, f"phase 15 (a): {errors[:3]}")
+    srv.stop_sync_thread()
+    srv.quiesce()
+    if srv.ctx.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    snap = srv.metrics_snapshot()
+    check_background(srv, "phase 15 (a)")
+    plane.close()
+    srv.shutdown()
+    return dict(fill_s=fill_s, wall_s=wall_s, wtrace=snap["wtrace"],
+                decision=snap["decision"], rounds=snap["sync"]["rounds"])
+
+
+def record_cost_ms(at, reps=200):
+    """Host milliseconds the recorder takes for one B-key event
+    (record_kv: the key list, its crc32 and the append), on a throwaway
+    one-shard cpu server."""
+    path = os.path.join(REPLAY_DIR, "cost.wtrace")
+    srv = at.setup(64, 4, device="cpu", opts=at.SystemOptions(
+        sync_max_per_sec=0, trace_workload=path))
+    keys = np.unique(skewed_keys(np.random.default_rng(1), E + R, B))
+    keys = np.concatenate([keys, keys])[:B]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv.wtrace.record_kv("pull", 0, 0, keys)
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    srv.shutdown()
+    return ms
+
+
+def synthesis_ms(tr, n=16):
+    """Host milliseconds the replay engine takes to synthesize one push's
+    values and keys (its seeded numpy draws), over the trace's first `n`
+    pushes, and the trace's push and set events."""
+    from types import SimpleNamespace
+    from adapm_tpu_torch.replay import ReplayEngine
+    eng = ReplayEngine(tr, seed=REPLAY_SEED)
+    srv = SimpleNamespace(value_lengths=np.full(E + R, L, np.int64))
+    evs = [ev for ev in tr.events if ev["kind"] == "push"]
+    t0 = time.perf_counter()
+    for ev in evs[:n]:
+        eng._vals(srv, ev, eng._keys(ev))
+    ms = (time.perf_counter() - t0) * 1e3 / max(1, min(n, len(evs)))
+    sets = sum(1 for ev in tr.events if ev["kind"] == "set")
+    return dict(ms_per_push=ms, pushes=len(evs), sets=sets)
+
+
+def replay_part(K, what, fn, kernels=REPLAY_KERNELS):
+    """Run one part of phase 15 with the launch counts set to 0 just
+    before and read just after; the part must launch its kernels and no
+    kernel another path owns."""
+    K.reset_launches()
+    out = fn()
+    launches = dict(K.LAUNCHES)
+    check_launched(launches, what, kernels)
+    return out, launches
+
+
+def score_row(r):
+    s = r["score"]
+    return {k: s[k] for k in ("wall_s", "hot_hit_rate", "serve_p99_ms",
+                              "bytes_per_round", "plan_cache_hit_rate")}
+
+
+def phase_replay(at, K, dev):
+    """Phase 15 (a)-(e); the traces and artifacts live under REPLAY_DIR
+    and are removed after."""
+    import shutil
+    from adapm_tpu_torch.obs.decisions import load_dtrace
+    from adapm_tpu_torch.obs.wtrace import WorkloadTrace, load_wtrace
+    from adapm_tpu_torch.policy import train_policy
+    from adapm_tpu_torch.replay import ReplayEngine, rank_candidates
+    shutil.rmtree(REPLAY_DIR, ignore_errors=True)
+    os.makedirs(REPLAY_DIR, exist_ok=True)
+    t_phase = time.perf_counter()
+    out = {}
+    try:
+        # (a) capture on the card, then the same workload uncaptured
+        cap, out["launches_capture"] = replay_part(
+            K, "phase 15 (a)", lambda: replay_workload(at, dev, True))
+        off = replay_workload(at, dev, False)
+        wpath = os.path.join(REPLAY_DIR, "run.wtrace")
+        dpath = os.path.join(REPLAY_DIR, "run.dtrace")
+        tr = load_wtrace(wpath)
+        dtr = load_dtrace(dpath)
+        kinds = tr.kinds()
+        missing = [k for k in ("set", "intent", "pull", "push", "clock",
+                               "serve", "sync", "quiesce", "reloc",
+                               "promote") if not kinds.get(k)]
+        check(not missing, f"phase 15 (a): event kinds missing from the "
+              f"trace: {missing} ({kinds})")
+        check(tr.dropped == 0 and cap["wtrace"]["dropped_total"] == 0,
+              f"phase 15 (a): the capture dropped events "
+              f"({cap['wtrace']['dropped_total']})")
+        check(cap["wtrace"]["sampled_batches_total"] == 0,
+              "phase 15 (a): key batches were sampled, not exact")
+        planes = dtr.planes()
+        check(all(planes.get(p, 0) > 0 for p in
+                  ("reloc", "sync", "tier", "prefetch")),
+              f"phase 15 (a): decisions by plane {planes}")
+        key_events = sum(kinds.get(k, 0) for k in KEY_KINDS)
+        out["capture"] = dict(
+            kinds=kinds, key_events=key_events,
+            wtrace_mib=os.path.getsize(wpath) / 2**20,
+            dtrace_mib=os.path.getsize(dpath) / 2**20,
+            planes=planes, dtrace_dropped=dtr.dropped,
+            fill_s=cap["fill_s"], wall_s=cap["wall_s"],
+            wall_s_off=off["wall_s"], fill_s_off=off["fill_s"],
+            rounds=cap["rounds"], rounds_off=off["rounds"],
+            record_ms=record_cost_ms(at))
+
+        # (b) determinism on the card; the second replay runs under the
+        # profiler (device time, busy share)
+        def determinism():
+            runs = {}
+            for name, kw in (
+                    ("seed11_a", {}), ("seed11_b", {}),
+                    ("speed10", {"speed": 10.0}),
+                    ("hot_half", {"overrides": {
+                        "tier_hot_rows": TIER_HOT // 2}}),
+                    ("seed12", {"seed": REPLAY_SEED + 1})):
+                kw = {"seed": REPLAY_SEED, "speed": 100.0, **kw}
+                eng = ReplayEngine(tr, device=dev, **kw)
+                if name != "seed11_b" or str(dev) == "cpu":
+                    runs[name] = eng.run()
+                    continue
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    runs[name] = eng.run()
+                dev_ms = sum(
+                    e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                out["replay_device_ms"] = dev_ms
+                out["replay_busy"] = dev_ms / (runs[name]["wall_s"] * 1e3)
+            return runs
+
+        runs, out["launches_determinism"] = replay_part(
+            K, "phase 15 (b)", determinism)
+        a, b = runs["seed11_a"], runs["seed11_b"]
+        check(a["reads"] > 0 and all(
+            a[k] == b[k] for k in ("reads_digest", "reads",
+                                   "events_replayed")),
+              "phase 15 (b): two replays at speed 100 differ")
+        for name in ("speed10", "hot_half"):
+            check(runs[name]["reads_digest"] == a["reads_digest"],
+                  f"phase 15 (b): the {name} replay's digest differs")
+        check(runs["seed12"]["reads_digest"] != a["reads_digest"],
+              "phase 15 (b): seed 12 replays to seed 11's digest")
+        out["determinism"] = {
+            n: dict(wall_s=r["wall_s"], digest=r["reads_digest"],
+                    reads=r["reads"], events_replayed=r["events_replayed"],
+                    score=score_row(r)) for n, r in runs.items()}
+        out["synthesis"] = synthesis_ms(tr)
+
+        # (c) a prefix of whole events on the card and on the cpu
+        cut, seen = 0, 0
+        for i, ev in enumerate(tr.events):
+            seen += ev["kind"] in KEY_KINDS
+            if seen == REPLAY_PREFIX:
+                cut = i + 1
+                break
+        check(cut > 0, "phase 15 (c): the trace is shorter than the "
+              "prefix")
+        pre = WorkloadTrace(tr.path, tr.meta, tr.events[:cut], tr.dropped)
+        rc, out["launches_prefix"] = replay_part(
+            K, "phase 15 (c)", lambda: ReplayEngine(
+                pre, seed=REPLAY_SEED, device=dev).run())
+        rp = ReplayEngine(pre, seed=REPLAY_SEED, device="cpu").run()
+        check(rc["reads"] > 0 and rc["reads_digest"] == rp["reads_digest"]
+              and rc["reads"] == rp["reads"],
+              "phase 15 (c): the card's replay of the prefix differs from "
+              "the cpu's")
+        out["prefix"] = dict(events=cut, key_events=REPLAY_PREFIX,
+                             kinds=pre.kinds(), reads=rc["reads"],
+                             wall_s=rc["wall_s"], wall_s_cpu=rp["wall_s"])
+
+        # (d) training twice, then learned and shadow replays
+        def policy():
+            p1 = os.path.join(REPLAY_DIR, "policy1.json")
+            p2 = os.path.join(REPLAY_DIR, "policy2.json")
+            t0 = time.perf_counter()
+            bundle = train_policy(dpath, wpath, out_path=p1)
+            train_s = time.perf_counter() - t0
+            train_policy(dpath, wpath, out_path=p2)
+            with open(p1, "rb") as f1, open(p2, "rb") as f2:
+                same = f1.read() == f2.read()
+            check(same, "phase 15 (d): two trainings differ")
+            learned = {"policy_file": p1, **{
+                f"policy_{p}": "learned"
+                for p in ("reloc", "tier", "sync", "serve")}}
+            rl = ReplayEngine(tr, overrides=learned, seed=REPLAY_SEED,
+                              score_decisions=True, device=dev).run(
+                                  include_snapshot=True)
+            rs = ReplayEngine(tr, overrides={"policy_file": p1,
+                                             "policy_shadow": True},
+                              seed=REPLAY_SEED, device=dev).run(
+                                  include_snapshot=True)
+            return bundle, train_s, os.path.getsize(p1), rl, rs
+
+        (bundle, train_s, nbytes, rl, rs), out["launches_policy"] = \
+            replay_part(K, "phase 15 (d)", policy)
+        pol, dec = rl["snapshot"]["policy"], rl["snapshot"]["decision"]
+        spol = rs["snapshot"]["policy"]
+        for r, mode in ((rl, "learned"), (rs, "shadow")):
+            check(r["reads_digest"] == a["reads_digest"],
+                  f"phase 15 (d): the {mode} replay's digest differs "
+                  f"from the plain replay's")
+        for p in ("reloc", "tier", "sync"):
+            check(pol[f"consults.{p}"] > 0 and spol[f"consults.{p}"] > 0,
+                  f"phase 15 (d): the {p} plane had decisions and no "
+                  f"consult (learned {pol[f'consults.{p}']}, shadow "
+                  f"{spol[f'consults.{p}']})")
+        check(dec.get("decided.serve", 0) == 0 or pol["consults.serve"] > 0,
+              "phase 15 (d): serve decisions without a consult")
+        check(spol["applied_total"] == 0,
+              "phase 15 (d): shadow mode applied a verdict")
+        out["policy"] = dict(
+            train_s=train_s, artifact_bytes=nbytes,
+            fit={p: m["fit"] for p, m in bundle.meta["train"].items()},
+            rows={p: m["used"] for p, m in bundle.meta["train"].items()},
+            learned_wall_s=rl["wall_s"], shadow_wall_s=rs["wall_s"],
+            learned={k: pol[k] for k in pol if k.split(".")[0] in (
+                "consults", "vetoes", "applied", "guard_blocked")},
+            shadow_agree=spol["shadow_agree"],
+            shadow_disagree=spol["shadow_disagree"],
+            regret={p: dec.get(f"regret_rate.{p}")
+                    for p in ("reloc", "tier", "sync", "serve")})
+
+        # (e) ranking three candidates at speed 10
+        cands = {"recorded": {},
+                 "fewer_hot": {"tier_hot_rows": TIER_HOT // 4},
+                 "half_rounds": {"channels": 8}}
+        cpath = os.path.join(REPLAY_DIR, "compare.json")
+        art, out["launches_rank"] = replay_part(
+            K, "phase 15 (e)", lambda: rank_candidates(
+                tr, cands, seed=REPLAY_SEED, speed=10.0, out_path=cpath,
+                device=dev))
+        with open(cpath) as fh:
+            disk = json.load(fh)
+        check(sorted(disk["ranking"]) == sorted(cands)
+              and disk["winner"] == disk["ranking"][0] == art["winner"],
+              f"phase 15 (e): the artifact is not ranked: "
+              f"{disk.get('ranking')}")
+        out["rank"] = dict(
+            objective=art["objective"], ranking=art["ranking"],
+            winner=art["winner"],
+            candidates={n: dict(wall_s=c["wall_s"],
+                                objective=c["score"][art["objective"]])
+                        for n, c in art["candidates"].items()})
+    finally:
+        shutil.rmtree(REPLAY_DIR, ignore_errors=True)
+    if str(dev) != "cpu":
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def report_replay(rr, smi):
+    c = rr["capture"]
+    print(f"phase 15 (a): [{smi}] capture on the card: {c['key_events']} "
+          f"key-batch events, kinds {c['kinds']}; wtrace "
+          f"{c['wtrace_mib']:.1f} MiB, dtrace {c['dtrace_mib']:.1f} MiB, "
+          f"decisions by plane {c['planes']}; fill {c['fill_s']:.2f} s "
+          f"(off {c['fill_s_off']:.2f} s), workload wall {c['wall_s']:.3f} s "
+          f"captured, {c['wall_s_off']:.3f} s uncaptured (rounds "
+          f"{c['rounds']} / {c['rounds_off']}); record_kv of a {B}-key "
+          f"event {c['record_ms']:.3f} ms on the host; launches "
+          f"{ {k: v for k, v in rr['launches_capture'].items() if v} }",
+          flush=True)
+    d = rr["determinism"]
+    sy = rr["synthesis"]
+    busy = (f"seed11_b profiled: device {rr['replay_device_ms']:.1f} ms, "
+            f"busy {rr['replay_busy']:.4f}; " if "replay_busy" in rr else "")
+    print(f"phase 15 (b): [{smi}] replays (seed {REPLAY_SEED}): "
+          + "; ".join(f"{n} {r['wall_s']:.3f} s digest {r['digest'][:12]} "
+                      f"reads {r['reads']} events {r['events_replayed']} "
+                      f"score {r['score']}" for n, r in d.items())
+          + f"; {busy}value synthesis {sy['ms_per_push']:.2f} ms a push "
+          f"({sy['pushes']} pushes, {sy['sets']} sets); launches "
+          f"{ {k: v for k, v in rr['launches_determinism'].items() if v} }",
+          flush=True)
+    p = rr["prefix"]
+    print(f"phase 15 (c): prefix of {p['events']} events "
+          f"({p['key_events']} key-batch events, kinds {p['kinds']}): "
+          f"{p['reads']} reads, card digest == cpu digest; wall card "
+          f"{p['wall_s']:.3f} s, cpu {p['wall_s_cpu']:.3f} s; launches "
+          f"{ {k: v for k, v in rr['launches_prefix'].items() if v} }",
+          flush=True)
+    q = rr["policy"]
+    print(f"phase 15 (d): [{smi}] training {q['train_s']:.3f} s, "
+          f"{q['artifact_bytes']} B twice byte-identical, fit {q['fit']} "
+          f"from rows {q['rows']}; learned replay {q['learned_wall_s']:.3f} s "
+          f"digest == plain, {q['learned']}, regret {q['regret']}; shadow "
+          f"replay {q['shadow_wall_s']:.3f} s digest == plain, agree "
+          f"{q['shadow_agree']} disagree {q['shadow_disagree']}; launches "
+          f"{ {k: v for k, v in rr['launches_policy'].items() if v} }",
+          flush=True)
+    k = rr["rank"]
+    print(f"phase 15 (e): [{smi}] ranked by {k['objective']}: "
+          f"{k['ranking']} (winner {k['winner']}); "
+          + "; ".join(f"{n} {v['wall_s']:.3f} s {k['objective']} "
+                      f"{v['objective']}" for n, v in k["candidates"].items())
+          + f"; launches "
+          f"{ {x: v for x, v in rr['launches_rank'].items() if v} }",
+          flush=True)
+    print(f"phase 15: {rr['wall_s']:.1f} s", flush=True)
+
+
 def drive_path(K, path, kernels, seed):
     """Phase 3 or 7: the path's main path (counts set to 0 just before,
     read just after) and its run_scan windows, reported and checked."""
@@ -4302,6 +4735,15 @@ def main(argv):
         print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return 0
+    if "--replay-only" in argv:
+        # phase 15 alone (workload traces, decision telemetry, replay,
+        # the learned policy), checked as in the full run
+        report_replay(phase_replay(at, K, dev), smi)
+        check(not BACKGROUND_FAULTS, f"background work failed: "
+              f"{BACKGROUND_FAULTS}")
+        print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return 0
     if "--pipeline-only" in argv:
         # the prefetch pipeline's and the background planner's phases
         # alone (3 on and off, 11, 12), checked as in the full run
@@ -4373,6 +4815,8 @@ def main(argv):
     report_episodic(epi, smi)
     fr = phase_fault(at, K, dev)
     report_fault(fr, smi)
+    rr = phase_replay(at, K, dev)
+    report_replay(rr, smi)
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
                "adagrad_update": ("adapm_tpu_torch/csrc/adagrad.cu",
@@ -4434,7 +4878,12 @@ def main(argv):
                  fault_chain=fr["chain"]["launches"],
                  fault_degraded=fr["degraded"]["launches"],
                  fault_tiered=fr["tiered"]["launches"],
-                 flight_serve=fr["flight"]["traced"]["launches"])
+                 flight_serve=fr["flight"]["traced"]["launches"],
+                 replay_capture=rr["launches_capture"],
+                 replay_determinism=rr["launches_determinism"],
+                 replay_prefix=rr["launches_prefix"],
+                 replay_policy=rr["launches_policy"],
+                 replay_rank=rr["launches_rank"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
     # whose standalone launches it keeps, in the word2vec and MF app runs
@@ -4483,7 +4932,7 @@ def main(argv):
                        "pull_flow": pf, "planner": pl, "tier_app": tier_app,
                        "tier_storm": storm, "tier_bags": tier_bags,
                        "tier_planner": tier_pl, "episodic": epi,
-                       "fault": fr}, fh,
+                       "fault": fr, "replay": rr}, fh,
                       indent=1,
                       default=str)
     check(not BACKGROUND_FAULTS, f"background work failed: "

@@ -36,7 +36,7 @@ class Pkg:
         self.LookupRequest = __import__(
             f"{mod.__name__}.serve.admission",
             fromlist=["x"]).LookupRequest
-        self.schema = 16 if self.is_jax else 2
+        self.schema = 16 if self.is_jax else 3
 
     def setup(self, num_keys, vlen, opts, num_workers=None):
         if self.is_jax:

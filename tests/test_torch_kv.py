@@ -295,28 +295,65 @@ def test_locality_future_intent_not_acted_early():
 
 
 def test_unported_planes_raise_naming_roadmap_item():
-    for kw, item in (({"trace_decisions": "x.dtrace"}, "item 10"),
-                     ({"stream_batch": 8}, "item 11")):
+    for kw, item in (({"stream_batch": 8}, "item 11"),):
         with pytest.raises(NotImplementedError, match=item):
             adapm_tpu_torch.Server(
                 8, 2, ctx=make_context(2, "cpu"),
                 opts=adapm_tpu_torch.SystemOptions(**kw))
 
 
+def _constant_policy(path):
+    from adapm_tpu_torch.policy import PLANE_FEATURES, PlaneModel
+    from adapm_tpu_torch.policy.model import PolicyBundle
+    PolicyBundle({}, {p: PlaneModel.constant(p, 0.1)
+                      for p in PLANE_FEATURES}).save(str(path))
+    return str(path)
+
+
 def test_ported_planes_build(tmp_path):
     """The fault plane, periodic checkpoints, flight tracing, crash
-    dumps and the metrics reporter build on the port's Server (each was
+    dumps, the metrics reporter, workload and decision trace capture and
+    the learned policy plane build on the port's Server (each was
     refused before it was ported) and go down with it."""
     opts = adapm_tpu_torch.SystemOptions(
         sync_max_per_sec=0, fault_spec="sync.round=0.5", fault_seed=1,
         ckpt_every_s=60.0, ckpt_path=str(tmp_path / "chain"),
         trace_flight=True, crash_dumps=True, metrics_report_s=30.0,
-        stats_out=str(tmp_path))
+        stats_out=str(tmp_path),
+        trace_workload=str(tmp_path / "run.wtrace"),
+        trace_decisions=str(tmp_path / "run.dtrace"),
+        policy_file=_constant_policy(tmp_path / "policy.json"))
     srv = adapm_tpu_torch.Server(8, 2, ctx=make_context(2, "cpu"),
                                  opts=opts)
     assert srv.fault is not None and srv.ckpt is not None
     assert srv.flight is not None and srv.flight_recorder is not None
     assert srv.crash_dump_path is not None and srv._reporter is not None
+    assert srv.wtrace is not None and srv.decisions is not None
+    assert srv.policy is not None
     srv.shutdown()
     assert srv._reporter is None
     assert (tmp_path / "flight.0.trace.json").exists()
+    assert (tmp_path / "run.wtrace").exists()
+    assert (tmp_path / "run.dtrace").exists()
+
+
+def test_trace_and_policy_planes_off_by_default():
+    """With none of the three knobs, the Server's wtrace, decisions and
+    policy are None, and the registry holds no wtrace.*, decision.* or
+    policy.* name."""
+    srv = adapm_tpu_torch.Server(8, 2, ctx=make_context(2, "cpu"),
+                                 opts=adapm_tpu_torch.SystemOptions(
+                                     sync_max_per_sec=0))
+    w = srv.make_worker(0)
+    w.wait(w.set(np.arange(8), np.ones((8, 2), np.float32)))
+    w.intent(np.arange(4), 0, 4)
+    w.pull_sync(np.arange(8))
+    srv.wait_sync()
+    assert srv.wtrace is None and srv.decisions is None
+    assert srv.policy is None and srv.replay_stats is None
+    assert not [n for n in srv.obs.names() if n.split(".")[0] in
+                ("wtrace", "decision", "policy")]
+    snap = srv.metrics_snapshot()
+    for sec in ("wtrace", "replay", "decision", "policy"):
+        assert snap[sec] == {}, sec
+    srv.shutdown()

@@ -9,7 +9,7 @@ with the JAX test's own checks on each package, and returns what must
 agree across packages (counts, event sets, file columns and rows without
 their time stamps, reads), which is compared exactly. Each package's
 snapshot keeps its own schema version and section list (the port has no
-multi-process, streaming, trace or policy sections yet).
+multi-process or streaming sections yet).
 """
 import json
 import sys
@@ -34,7 +34,7 @@ class Pkg:
         self.metrics = __import__(f"{self.name}.obs.metrics",
                                   fromlist=["x"])
         self.utils = __import__(f"{self.name}.utils", fromlist=["x"])
-        self.schema = 16 if self.is_jax else 2
+        self.schema = 16 if self.is_jax else 3
 
     def setup(self, num_keys, vlen, opts, num_workers=None):
         if self.is_jax:
