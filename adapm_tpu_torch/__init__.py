@@ -19,7 +19,12 @@ def setup(num_keys: int, value_lengths, opts=None, num_shards=None,
           num_workers=None, device=None):
     """Convenience: build a device context + Server (reference
     `ps::Setup` + `ServerT server(...)`, apps/simple.cc:107-133).
-    `num_shards` virtual shards (default 1) on `device` (default cuda)."""
+    `num_shards` virtual shards (default 1) on `device` (default cuda).
+    Under the launcher (ADAPM_COORDINATOR set), this also joins the
+    multi-process runtime — the reference's Postoffice::Start +
+    scheduler rendezvous."""
+    from .parallel import control
+    control.init_from_env()
     ctx = make_context(num_shards, device)
     return Server(num_keys, value_lengths, opts=opts, ctx=ctx,
                   num_workers=num_workers)

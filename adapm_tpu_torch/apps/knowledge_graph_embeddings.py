@@ -21,8 +21,12 @@ This is the JAX package's app with identical flags. It runs on `cuda`;
 `run_app(args, device="cpu")` runs the same code on the CPU, where every
 kernel takes its plain version. `--scan_steps K` (device routes) trains
 K batches per DeviceRoutedRunner.run_scan window: a CUDA graph replay on
-the card, a loop over the step on the CPU. Not ported: the multi-process
-eval (ROADMAP queue A, item 11), which raises NotImplementedError.
+the card, a loop over the step on the CPU. Under the launcher
+(`python -m adapm_tpu_torch.launcher -n P -- python -m
+adapm_tpu_torch.apps.knowledge_graph_embeddings ...`) the processes train
+data-parallel through one parameter manager, and the pool eval is
+candidate-partitioned: each rank counts over the entities it owns
+through K4's multi-process form, and one allreduce merges the counts.
 
 Run: python -m adapm_tpu_torch.apps.knowledge_graph_embeddings --model complex ...
 """
@@ -99,6 +103,13 @@ class KgeRun:
         # a tiered server's slot mirror, clamped as the JAX eval reads it
         self._pool_eval_clamped = None
         self._pool_eval_clamped_ver = None
+        # the multi-process eval: its count program, the true-score
+        # function, and the owned-candidate tiles with their count and
+        # the topology version they were built at
+        self._pool_eval_mp = None
+        self._true_score = None
+        self._pool_eval_topo = -1
+        self._pool_eval_n = 0
         self.runner = FusedStepRunner(
             self.srv, make_kge_loss(args.model, args.self_adv_temp, args.l2),
             role_class={"s": self.ent_class, "r": self.rel_class,
@@ -224,10 +235,12 @@ def evaluate(run: KgeRun, triples: np.ndarray, batch: int = 64):
     Production path (--eval_chunk > 0): the count kernel reads candidate
     rows straight from the POOL and only [B] rank counts return to the
     host — no dense entity matrix anywhere (make_pool_eval_counts over
-    all entities, one process; the multi-process variant is ROADMAP
-    queue A, item 11). --eval_chunk 0 takes the dense-matrix path, in
-    torch on the run's device."""
+    all entities in one process; make_pool_eval_counts_mp over each
+    rank's owned entities in several). --eval_chunk 0 takes the
+    dense-matrix path, in torch on the run's device."""
     if run.args.eval_chunk > 0:
+        if run.srv.glob is not None:
+            return _evaluate_pool_mp(run, triples, batch)
         return _evaluate_pool(run, triples, batch)
     ent, _, rel, _ = run.current_model()
     ent_j = torch.as_tensor(ent, device=run.device)
@@ -322,9 +335,6 @@ def _clamped_tier_tables(run: KgeRun, tables):
 
 def _evaluate_pool(run: KgeRun, triples: np.ndarray, batch: int):
     """Pool-gather eval: device counts + host filter correction."""
-    if run.srv.glob is not None:
-        raise NotImplementedError("the multi-process pool eval is not "
-                                  "ported yet (ROADMAP queue A, item 11)")
     srv = run.srv
     sr_o, ro_s = run.ds.filters()
 
@@ -339,6 +349,109 @@ def _evaluate_pool(run: KgeRun, triples: np.ndarray, batch: int):
         g_o, g_s, true_sc = _pool_counts(run, s, r, o)
         _filter_correct(run, emb_rows, s, r, o, g_o, g_s, true_sc,
                         sr_o, ro_s)
+        stats[:4] += _rank_side_stats(g_o)
+        stats[4:] += _rank_side_stats(g_s)
+    return stats
+
+
+def _owned_tiles(run: KgeRun, C: int):
+    """This rank's owned entity keys as padded [nch, C] int32 tiles on
+    the device (None when it owns none) and their count; rebuilt when
+    the topology moved since the last eval (the owned set follows
+    relocations)."""
+    srv = run.srv
+    topo = srv.topology_version
+    if run._pool_eval_topo != topo:
+        ekeys = run.ekey(np.arange(run.E)).astype(np.int64)
+        with srv._lock:
+            owned = ekeys[srv.ab.owner[ekeys] >= 0]
+        nown = len(owned)
+        if nown:
+            nch = -(-nown // C)
+            pad = np.full(nch * C, owned[0], dtype=np.int32)
+            pad[:nown] = owned
+            run._pool_eval_keys = srv.ctx.put_replicated(
+                pad.reshape(nch, C))
+        else:  # a rank may own no entity; it still joins the merge
+            run._pool_eval_keys = None
+        run._pool_eval_n = nown
+        run._pool_eval_topo = topo
+    return run._pool_eval_keys, run._pool_eval_n
+
+
+def _evaluate_pool_mp(run: KgeRun, triples: np.ndarray, batch: int):
+    """Candidate-partitioned pool eval across processes. Every rank walks
+    the SAME full triple set; each scores only the entities it OWNS,
+    gathered from its local pool (each entity has exactly one owner, so
+    the per-rank greater-counts sum to exactly the global counts —
+    reference distributed Evaluator, kge.cc:544-775). Query rows come
+    through Server.read_main (remote owners answer over the channel),
+    the true score is computed by one function of the same shapes on
+    every rank, so its bytes match, and ONE barrier + allreduce per
+    evaluate() call merges the counts. No dense entity matrix, no remote
+    candidate-row fetches. Contract: all ranks call evaluate() together
+    with identical `triples`, with no training in flight."""
+    from ..models.kge import make_pool_eval_counts_mp, make_true_score
+    from ..parallel import control
+    srv = run.srv
+    C = min(run.args.eval_chunk, max(run.E, 8))
+    put = srv.ctx.put_replicated
+    if run._pool_eval_mp is None or run._pool_eval_chunk != C:
+        run._pool_eval_mp = make_pool_eval_counts_mp(
+            run.args.model, run.ent_dim, run.rel_dim, C)
+        run._true_score = make_true_score(run.args.model)
+        run._pool_eval_chunk = C
+        run._pool_eval_topo = -1
+        run._pool_eval_router = DeviceRouter(srv, 0)
+    tiles, nown = _owned_tiles(run, C)
+    counts_fn = run._pool_eval_mp
+    router = run._pool_eval_router
+    sr_o, ro_s = run.ds.filters()
+
+    def emb_rows(keys, dim):
+        rows = np.asarray(srv.read_main(keys)).reshape(len(keys), -1)
+        return rows[:, :dim]
+
+    T = len(triples)
+    G_o = np.zeros(T, dtype=np.int64)
+    G_s = np.zeros(T, dtype=np.int64)
+    true_all = np.zeros(T, dtype=np.float32)
+    for lo in range(0, T, batch):
+        t = triples[lo:lo + batch]
+        s, r, o = t[:, 0], t[:, 1], t[:, 2]
+        se = put(np.ascontiguousarray(emb_rows(run.ekey(s), run.ent_dim)))
+        re_ = put(np.ascontiguousarray(emb_rows(run.rkey(r), run.rel_dim)))
+        oe = put(np.ascontiguousarray(emb_rows(run.ekey(o), run.ent_dim)))
+        t_sc = run._true_score(se, re_, oe)
+        true_all[lo:lo + len(t)] = t_sc.cpu().numpy()
+        if nown:
+            with srv._lock:
+                tables = router.tables()
+                if srv.tier is not None:
+                    tables = _clamped_tier_tables(run, tables)
+                g_o, g_s = counts_fn(
+                    srv.stores[run.ent_class].main, tables, tiles, nown,
+                    se, re_, oe, put(run.ekey(s).astype(np.int32)),
+                    put(run.ekey(o).astype(np.int32)), t_sc)
+            G_o[lo:lo + len(t)] = g_o.cpu().numpy()
+            G_s[lo:lo + len(t)] = g_s.cpu().numpy()
+    # merge the candidate partitions: ONE barrier + allreduce per call
+    control.barrier("adapm-eval-merge")
+    gg = control.allreduce(
+        np.concatenate([G_o, G_s]).astype(np.float64), "sum",
+        site="eval-merge")
+    G_o = gg[:T].astype(np.int64)
+    G_s = gg[T:].astype(np.int64)
+
+    # correction + stats over GLOBAL counts, identical on every rank
+    stats = np.zeros(EVAL_LEN, dtype=np.float64)
+    for lo in range(0, T, batch):
+        t = triples[lo:lo + batch]
+        s, r, o = t[:, 0], t[:, 1], t[:, 2]
+        g_o = G_o[lo:lo + len(t)]
+        g_s = G_s[lo:lo + len(t)]
+        _filter_correct(run, emb_rows, s, r, o, g_o, g_s,
+                        true_all[lo:lo + len(t)], sr_o, ro_s)
         stats[:4] += _rank_side_stats(g_o)
         stats[4:] += _rank_side_stats(g_s)
     return stats
@@ -383,6 +496,8 @@ def _eval_global(run: KgeRun, triples: np.ndarray) -> np.ndarray:
     the PS-key allreduce (reference distributed Evaluator idiom)."""
     from ..parallel import control
     P = control.num_processes()
+    if P > 1 and run.args.eval_chunk > 0:
+        return evaluate(run, triples)
     part = np.array_split(triples, P)[control.process_id()]
     stats = evaluate(run, part)
     if P == 1:

@@ -52,10 +52,10 @@ def setup(num_keys: int, num_threads: int, use_techniques: str = "",
           num_channels: int = -1) -> None:
     """Record global PM options (reference bindings.cc setup: techniques and
     channel count are process-wide, applied to Servers constructed later).
-    One process: a launcher that asks for more raises (the multi-process
-    runtime is ROADMAP queue A, item 11)."""
+    Under the launcher this also joins the multi-process runtime — the
+    reference's ps::Setup -> Postoffice::Start."""
     from .parallel import control
-    control.num_processes()
+    control.init_from_env()
     global _global_opts
     from .base import MgmtTechniques
     opts = SystemOptions()

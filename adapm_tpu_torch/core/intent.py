@@ -605,8 +605,10 @@ class PrefetchScheduler:
         from .store import OOB
         shard = worker.shard
         tv = srv.topology_version
-        cls = srv._plan_cached("pull", shard, keys, tv,
-                               lambda: srv._plan_pull(keys, shard))
+        rem, _, cls = srv._plan_cached(
+            "pull", shard, keys, tv, lambda: srv._plan_pull(keys, shard))
+        if rem is not None:
+            return False  # process-remote keys: the pull path serves them
         fp = PlanCache.fingerprint(keys)
         acquired = []
         groups = []

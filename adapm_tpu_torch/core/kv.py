@@ -35,10 +35,18 @@ reporter (--sys.metrics.report) are built as the JAX server builds them,
 and so are workload trace capture (`wtrace`, --sys.trace.workload;
 obs/wtrace.py, replayed by adapm_tpu_torch/replay), decision telemetry
 (`decisions`, --sys.trace.decisions; obs/decisions.py) and the learned
-policy plane (`policy`, --sys.policy.*; adapm_tpu_torch/policy). The
-JAX server's other optional planes (streaming, the multi-process
-layer) are not ported: asking for one raises NotImplementedError naming
-its ROADMAP item, and the corresponding attributes stay None.
+policy plane (`policy`, --sys.policy.*; adapm_tpu_torch/policy).
+
+Multi-process: with a `net_node` (a LoopbackNode of net/loopback.py) or
+under the launcher (parallel/control.py), N servers form one parameter
+manager (`glob`, parallel/pm.py GlobalPM): keys owned by another process
+carry owner REMOTE here, and their pulls, pushes and sets ride the
+node's channel to the owner, ordered per worker by write futures
+(`_rw_pending` defers replica installs behind in-flight remote writes).
+`net` is the node's membership plane (loopback). The JAX server's other
+optional planes (streaming, the collective exchange) are not ported:
+asking for one raises NotImplementedError naming its ROADMAP item, and
+the corresponding attributes stay None.
 """
 from __future__ import annotations
 
@@ -103,22 +111,25 @@ def _fill_flat(out, offs, lens, pos, part) -> None:
 # SystemOptions knobs of planes this package does not have yet, with the
 # ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("stream_batch", "the streaming plane", "queue A, item 11"),
-    ("stream_freshness_slo_ms", "the streaming plane", "queue A, item 11"),
-    ("collective_sync", "the collective exchange", "queue B, B10"),
+    ("stream_batch", "the streaming plane", "queue A, item 11b"),
+    ("stream_freshness_slo_ms", "the streaming plane", "queue A, item 11b"),
+    ("collective_sync", "the collective exchange", "queue B, B10 (A11b)"),
     ("lint_lockorder", "the lock-order sentinel", "queue A, item 12"),
 )
 
 
 class _WaitEntry:
-    __slots__ = ("groups", "out", "is_write", "keys")
+    __slots__ = ("groups", "out", "is_write", "keys", "remote", "futures")
 
-    def __init__(self, groups=None, out=None, is_write=False, keys=None):
+    def __init__(self, groups=None, out=None, is_write=False, keys=None,
+                 remote=None, futures=None):
         # groups: list of (class_id, row_positions, key_lengths, vals, n)
         self.groups = groups or []
         self.out = out
         self.is_write = is_write
         self.keys = keys
+        self.remote = remote          # (positions, Future): remote keys
+        self.futures = futures or []  # outstanding cross-process writes
 
 
 class _TopoHandle:
@@ -147,7 +158,7 @@ class Server:
                  opts: Optional[SystemOptions] = None,
                  ctx: Optional[DeviceContext] = None,
                  num_workers: Optional[int] = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, net_node=None):
         self.opts = opts or SystemOptions()
         for knob, what, item in _UNPORTED_PLANES:
             if getattr(self.opts, knob):
@@ -168,9 +179,17 @@ class Server:
         self.class_lengths = [int(u) for u in uniq]
         key_class = np.searchsorted(uniq, self.value_lengths).astype(np.int32)
         class_counts = np.bincount(key_class, minlength=len(uniq))
-        # one process (the multi-process layer is ROADMAP queue A, item 11)
-        self.num_procs = 1
-        self.pid = 0
+        # identity comes from the net node when one is injected (a
+        # LoopbackNode gives each in-process node its own rank), else
+        # from the launcher's control plane (one process without it)
+        self._net_node = net_node
+        if net_node is not None:
+            self.num_procs = int(net_node.num_procs)
+            self.pid = int(net_node.pid)
+        else:
+            from ..parallel import control
+            self.num_procs = control.num_processes()
+            self.pid = control.process_id()
 
         from ..obs import metrics as _obs_metrics
         self.obs = _obs_metrics.MetricsRegistry(enabled=self.opts.metrics)
@@ -246,7 +265,7 @@ class Server:
         self.replay_stats: Optional[Dict] = None
         # the last checkpoint-chain restore's wall time (fault/ckpt.py
         # restore_chain) and the stream cursor a chain carried (the
-        # streaming plane itself is ROADMAP queue A, item 11)
+        # streaming plane itself is ROADMAP queue A, item 11b)
         self._last_recovery_s: Optional[float] = None
         self._restored_stream_cursor: Optional[int] = None
         from ..fault.policy import RetryPolicy
@@ -261,8 +280,13 @@ class Server:
                                   recorder=self.flight_recorder,
                                   retry_policy=self._retry_policy,
                                   fault=self.fault)
-        # tier is built below; the planes that are not ported stay None
+        # tier and the cross-process layer are built below; the
+        # streaming plane is not ported and stays None
         self.tier = self.glob = self.net = self.stream = None
+        # outstanding remote writes (future, keys): replication of a key
+        # with an in-flight remote write is deferred — the owner's base
+        # snapshot might miss the write (pm.py _install_replicas)
+        self._rw_pending: List = []
         self.sampling = None  # set by enable_sampling_support
         # the serving plane attaches itself here (serve.ServePlane), so
         # metrics_snapshot folds its readiness in and shutdown closes it
@@ -275,19 +299,31 @@ class Server:
         self.obs.gauge("kv.topology_version",
                        fn=lambda: self.topology_version)
         self.obs.gauge("kv.workers", fn=lambda: len(self._workers))
+        # collective wait-time histograms, observed by the (server-less)
+        # control plane via observe_global (parallel/control.py)
+        self.obs.histogram("collective.barrier_wait_s")
+        self.obs.histogram("collective.allreduce_wait_s")
 
-        self.stores: List[ShardedStore] = [
-            ShardedStore(int(class_counts[cid]), L, self.ctx,
-                         dtype=self.dtype,
-                         over_alloc=self.opts.main_over_alloc,
-                         cache_slots_per_shard=self.opts.
-                         cache_slots_per_shard,
-                         bucket_min=self.opts.remote_bucket_min,
-                         tier_hot_rows=(self.opts.tier_hot_rows
-                                        if self.opts.tier else 0),
-                         tier_cold_dtype=(self.opts.tier_cold_dtype
-                                          if self.opts.tier else "fp32"))
-            for cid, L in enumerate(self.class_lengths)]
+        self.stores: List[ShardedStore] = []
+        for cid, L in enumerate(self.class_lengths):
+            cache_slots = self.opts.cache_slots_per_shard
+            if cache_slots == 0 and self.num_procs > 1:
+                # multi-process auto default: data-parallel workloads
+                # contest keys across processes, so give each shard 2x
+                # the per-shard fair share (bounded by the class size);
+                # ensure_local raises with a hint when the pool is the
+                # limit
+                fair = -(-int(class_counts[cid]) // self.ctx.num_shards)
+                cache_slots = min(2 * fair, int(class_counts[cid]))
+            self.stores.append(ShardedStore(
+                int(class_counts[cid]), L, self.ctx, dtype=self.dtype,
+                over_alloc=self.opts.main_over_alloc,
+                cache_slots_per_shard=cache_slots,
+                bucket_min=self.opts.remote_bucket_min,
+                tier_hot_rows=(self.opts.tier_hot_rows
+                               if self.opts.tier else 0),
+                tier_cold_dtype=(self.opts.tier_cold_dtype
+                                 if self.opts.tier else "fp32")))
         if self.obs.enabled and self.stores:
             _port = self.stores[0].port
             self.obs.gauge("device.programs_total", shared=True,
@@ -315,7 +351,8 @@ class Server:
         self.ab = Addressbook(
             key_class, self.ctx.num_shards,
             [s.main_slots for s in self.stores],
-            [s.cache_slots for s in self.stores])
+            [s.cache_slots for s in self.stores],
+            num_procs=self.num_procs, pid=self.pid)
         # every counted ab mutation happens inside _topology_mutation(),
         # which bumps topology_version as the LAST step of the section
         self._ab_mut_acked = self.ab.mutations
@@ -350,6 +387,20 @@ class Server:
         self._sync_stop = threading.Event()
         # background rounds that raised (each is logged and retried)
         self.sync_loop_failures = 0
+
+        # cross-process layer: N processes (or loopback nodes) form one
+        # PM (parallel/pm.py; reference van/postoffice data plane)
+        if self.num_procs > 1:
+            from ..parallel.pm import GlobalPM
+            self.glob = GlobalPM(self, node=self._net_node)
+            node = self.glob.node
+            if hasattr(node, "bind"):
+                # loopback: attach the executor + fault plane to the
+                # port and start the membership beat thread
+                node.bind(self)
+            self.net = node.net_plane()
+            if self.opts.heartbeat_s > 0:
+                node.start_heartbeat(self.opts.heartbeat_s)
 
         # routing-plan cache + intent-driven prefetch pipeline (the hot
         # Pull/Push path levers; core/intent.py). Both revalidate against
@@ -541,47 +592,82 @@ class Server:
         """Routing plan for `_pull`: no device dispatch, no side effects.
         Safe without the server lock — callers revalidate
         `topology_version` under the lock and re-plan on a miss
-        (optimistic routing)."""
+        (optimistic routing). Returns (rem, loc_map, cls): `rem` is
+        (positions, keys) of process-remote keys (None when there are
+        none), `loc_map` the positions of the rest."""
         with self._span("kv.plan_pull"):
+            rem = loc_map = None
+            if self.glob is not None:
+                proc_rem = (self.ab.owner[keys] < 0) & \
+                    (self.ab.cache_slot[shard, keys] < 0)
+                if proc_rem.any():
+                    rem_pos = np.nonzero(proc_rem)[0]
+                    rem = (rem_pos, keys[rem_pos])
+                    loc_map = np.nonzero(~proc_rem)[0]
+                    keys = keys[loc_map]
             cls = []
             if len(keys):
                 for cid, pos in self._group_by_class(keys):
                     ks = keys[pos]
                     cls.append((cid, pos, ks,
                                 self._route(ks, shard, record=False)))
-            return cls
+            return rem, loc_map, cls
 
-    def _pull(self, keys: np.ndarray, shard: int, plan=None):
-        """Returns (groups, n_remote): one gather per length class."""
+    def _pull(self, keys: np.ndarray, shard: int, after=(), plan=None):
+        """Returns (groups, n_remote, remote): one gather per length
+        class; `remote` is (positions, Future) for process-remote keys,
+        served over the node's channel after `after` (this worker's
+        outstanding remote writes: read-your-writes)."""
         if plan is None:
             plan = self._plan_pull(keys, shard)
+        rem, loc_map, cls = plan
         groups = []
+        remote = None
         n_remote = 0
+        if rem is not None:
+            rem_pos, rem_keys = rem
+            remote = (rem_pos, self.glob.pull_async(rem_keys, after=after))
+            n_remote = len(rem_pos)
         with dispatch_gate():
             for cid, pos, ks, (o_sh, o_sl, c_sh, c_sl, use_c, nr,
-                               local) in plan:
+                               local) in cls:
                 n_remote += nr
                 if self.locality is not None:
                     self.locality.record(ks.ravel(), local.ravel())
                 o_sl = np.where(use_c, OOB, o_sl).astype(np.int32)
                 vals = self.stores[cid].gather(o_sh, o_sl, c_sh, c_sl,
                                                use_c)
-                groups.append((cid, pos, self.value_lengths[ks], vals,
+                gpos = pos if loc_map is None else loc_map[pos]
+                groups.append((cid, gpos, self.value_lengths[ks], vals,
                                len(ks)))
-        return groups, n_remote
+        return groups, n_remote, remote
 
     def _plan_push_routes(self, keys: np.ndarray, shard: int,
                           is_set: bool = False):
         """The cacheable routing part of `_plan_push` (the PlanCache entry
-        for the 'push'/'set' kinds)."""
+        for the 'push'/'set' kinds): (rem_pos, loc_pos, cls)."""
+        rem_pos = loc_pos = None
+        kloc = keys
+        if self.glob is not None:
+            # Set must reach the owner; Push may land in a local
+            # replica's delta row
+            if is_set:
+                proc_rem = self.ab.owner[keys] < 0
+            else:
+                proc_rem = (self.ab.owner[keys] < 0) & \
+                    (self.ab.cache_slot[shard, keys] < 0)
+            if proc_rem.any():
+                rem_pos = np.nonzero(proc_rem)[0]
+                loc_pos = np.nonzero(~proc_rem)[0]
+                kloc = keys[loc_pos]
         cls = []
-        if len(keys):
-            for cid, pos in self._group_by_class(keys):
-                ks = keys[pos]
+        if len(kloc):
+            for cid, pos in self._group_by_class(kloc):
+                ks = kloc[pos]
                 cls.append((cid, pos, ks,
                             self._route(ks, shard, write_through=is_set,
                                         record=False)))
-        return cls
+        return rem_pos, loc_pos, cls
 
     def _plan_push(self, keys: np.ndarray, vals: np.ndarray, shard: int,
                    is_set: bool = False, routes=None):
@@ -591,25 +677,82 @@ class Server:
         with self._span("kv.plan_push"):
             if routes is None:
                 routes = self._plan_push_routes(keys, shard, is_set=is_set)
+            rem_pos, loc_pos, cls_r = routes
             flat = vals.ndim == 1
+            rem = None
+            if rem_pos is not None:
+                rem_keys = keys[rem_pos]
+                if flat:
+                    lens = self.value_lengths[keys]
+                    offs = _offsets(lens)
+                    rem_flat = _select_flat(vals, offs, lens, rem_pos)
+                    vals = _select_flat(vals, offs, lens, loc_pos)
+                else:
+                    rem_flat = np.ascontiguousarray(vals[rem_pos]).ravel()
+                    vals = vals[loc_pos]
+                keys = keys[loc_pos]
+                rem = (rem_pos, rem_keys, rem_flat)
             cls = []
-            for cid, pos, ks, route in routes:
+            for cid, pos, ks, route in cls_r:
                 L = self.class_lengths[cid]
                 rows = self._flat_parts(keys, vals, pos, L) if flat \
                     else vals[pos]
                 cls.append((cid, ks, rows, route))
-            return cls
+            return rem, cls
 
     def _push(self, keys: np.ndarray, vals: np.ndarray, shard: int,
-              is_set: bool = False, plan=None) -> int:
-        """Returns n_remote. `plan` is an optional `_plan_push` result
-        revalidated under the lock."""
+              is_set: bool = False, after=(), plan=None):
+        """Returns (n_remote, futures): futures are outstanding
+        cross-process writes, chained after `after` (the worker's
+        earlier write futures) to keep per-worker write order. `plan` is
+        an optional `_plan_push` result revalidated under the lock."""
         self._prefetch_note(keys)
         if plan is None:
             plan = self._plan_push(keys, vals, shard, is_set=is_set)
+        rem, cls = plan
         n_remote = 0
+        futures = []
+        if rem is not None:
+            rem_pos, rem_keys, rem_flat = rem
+            chain = list(after)
+            hk = None
+            if is_set:
+                # Set invalidates any local replicas of these keys: a
+                # kept replica's pending delta would re-add on top of
+                # the overwritten value. Flush the delta (ordered BEFORE
+                # the set) and drop the replica; reads route to the
+                # owner afterwards.
+                cs = self.ab.cache_slot[shard, rem_keys]
+                has = cs >= 0
+                if has.any():
+                    hk = np.unique(rem_keys[has])
+                    lens_h = self.value_lengths[hk]
+                    offs_h = _offsets(lens_h)
+                    dflat = np.zeros(offs_h[-1], np.float32)
+                    for cid, pos in self._group_by_class(hk):
+                        rows = self.stores[cid].read_rows(
+                            "delta", np.full(len(pos), shard, np.int32),
+                            self.ab.cache_slot[
+                                shard, hk[pos]].astype(np.int32))
+                        _fill_flat(dflat, offs_h, lens_h, pos,
+                                   rows.ravel())
+                    self._drop_cross_replicas(hk, shard)
+                    chain = chain + [self.glob.write_async(
+                        hk, dflat, is_set=False, after=chain)]
+            fut = self.glob.write_async(
+                rem_keys, rem_flat.astype(np.float32), is_set,
+                after=chain)
+            if hk is not None:
+                # the owner keeps serving sync for our dropped replicas
+                # until we unsubscribe; do it once the set has landed
+                fut = self.glob.unsub_async(hk, after=[fut])
+            futures.append(fut)
+            if len(self._rw_pending) > 64:
+                self._prune_rw_pending()
+            self._rw_pending.append((fut, rem_keys))
+            n_remote += len(rem_pos)
         for cid, ks, rows, (o_sh, o_sl, c_sh, c_sl, use_c, nr,
-                            local) in plan:
+                            local) in cls:
             n_remote += nr
             if self.locality is not None:
                 self.locality.record(ks.ravel(), local.ravel())
@@ -620,7 +763,93 @@ class Server:
             else:
                 o_sl = np.where(use_c, OOB, o_sl).astype(np.int32)
                 self.stores[cid].scatter_add(o_sh, o_sl, c_sh, c_sl, rows)
-        return n_remote
+        return n_remote, futures
+
+    # -- cross-process service endpoints (GlobalPM, under the lock) ---------
+
+    def _read_owned_flat(self, keys: np.ndarray) -> np.ndarray:
+        """Current main-copy values of locally-owned keys (flat concat):
+        one K1 gather per class, read back before the reply is built."""
+        if self.tier is not None and len(keys) >= self._BULK_READ_MIN:
+            return self._read_owned_bulk(keys)
+        return self._assemble_flat(keys, self._pull_main_only(keys))
+
+    def _pull_main_only(self, keys: np.ndarray):
+        groups = []
+        for cid, pos in self._group_by_class(keys):
+            ks = keys[pos]
+            n = len(ks)
+            vals = self.stores[cid].gather(
+                self.ab.owner[ks].astype(np.int32),
+                self.ab.slot[ks].astype(np.int32),
+                np.zeros(n, np.int32), np.full(n, OOB, np.int32),
+                np.zeros(n, bool))
+            groups.append((cid, pos, self.value_lengths[ks], vals, n))
+        return groups
+
+    def _apply_remote_write(self, keys: np.ndarray, flat: np.ndarray,
+                            is_set: bool) -> None:
+        """Apply a cross-process push/set to locally-owned main rows."""
+        self._prefetch_note(keys)
+        flat = np.asarray(flat, dtype=np.float32)
+        for cid, pos in self._group_by_class(keys):
+            ks = keys[pos]
+            L = self.class_lengths[cid]
+            rows = self._flat_parts(keys, flat, pos, L)
+            o_sh = self.ab.owner[ks].astype(np.int32)
+            o_sl = self.ab.slot[ks].astype(np.int32)
+            n = len(ks)
+            zeros = np.zeros(n, np.int32)
+            oob = np.full(n, OOB, np.int32)
+            if is_set:
+                self.stores[cid].set_rows(o_sh, o_sl, rows, zeros, oob)
+            else:
+                self.stores[cid].scatter_add(o_sh, o_sl, zeros, oob, rows)
+
+    def _prune_rw_pending(self) -> None:
+        """Drop completed remote-write records (caller holds the lock). A
+        completed future means the write is applied at its owner, so any
+        owner-side read after the prune observes it."""
+        self._rw_pending = [(f, k) for f, k in self._rw_pending
+                            if not f.done()]
+
+    def _rw_blocked_keys(self):
+        """Keys with remote writes recorded since the last prune (caller
+        holds the lock); replication installs must skip them."""
+        if not self._rw_pending:
+            return None
+        return np.unique(np.concatenate([k for _, k in self._rw_pending]))
+
+    def _drop_cross_replicas(self, keys: np.ndarray, shard: int) -> None:
+        """Drop this shard's replicas of remotely-owned `keys` (metadata +
+        channel registry only; the caller flushes the deltas and
+        unsubscribes at the owner). Caller holds the lock."""
+        keys = keys[self.ab.cache_slot[shard, keys] >= 0]
+        if len(keys) == 0:
+            return
+        with self._topology_mutation():
+            self.sync.replica_discard(keys, shard)
+            for _, pos in self._group_by_class(keys):
+                self.ab.drop_replicas(keys[pos], shard)
+            self.sync.stats.add(replicas_dropped=len(keys))
+
+    def _flush_drop_local_replicas(self, keys: np.ndarray) -> None:
+        """Flush pending deltas of all local replicas of `keys` into their
+        local main copies and drop the replicas (before a forced
+        cross-process relocation, so no delta is lost)."""
+        sh_idx, k_idx = np.nonzero(self.ab.cache_slot[:, keys] >= 0)
+        if len(k_idx) == 0:
+            return
+        karr = keys[k_idx].astype(np.int64)
+        sarr = sh_idx.astype(np.int32)
+        self._sync_replicas(karr, sarr)
+        with self._topology_mutation():
+            self.sync.replica_discard(karr, sarr)
+            for s in np.unique(sarr):
+                sk = karr[sarr == s]
+                for _, pos in self._group_by_class(sk):
+                    self.ab.drop_replicas(sk[pos], int(s))
+            self.sync.stats.add(replicas_dropped=len(karr))
 
     def _plan_cached(self, kind: str, shard: int, keys: np.ndarray,
                      tv: int, compute):
@@ -643,8 +872,50 @@ class Server:
             self.prefetch.note_writes(keys)
 
     def ensure_local(self, keys: np.ndarray, shard: int) -> None:
-        """Make process-remote keys locally servable: a no-op in one
-        process (the only mode this package has)."""
+        """Make process-remote `keys` locally servable (replicate or adopt
+        via the owner's decision) — the fused runners' miss path: apps
+        signal intent ahead so keys are local by step time; a cold miss
+        blocks here once instead of computing on missing rows. No-op in a
+        single process. Must not be called holding the server lock with
+        a remote key among `keys` (it makes round trips)."""
+        if self.glob is None:
+            return
+        with self._lock:
+            rem = keys[(self.ab.owner[keys] < 0)
+                       & (self.ab.cache_slot[shard, keys] < 0)]
+        if len(rem) == 0:
+            return
+        rem = np.unique(rem)
+        end = int(self._clocks.max()) + 2
+        self.sync.intent_end[shard, rem] = np.maximum(
+            self.sync.intent_end[shard, rem], end)
+        for attempt in range(50):
+            self.glob.intent_remote(rem, shard, end)
+            # installs are deferred for keys with in-flight remote writes
+            # (and capacity-truncated ones get unsubscribed) — retry until
+            # everything is servable locally
+            with self._lock:
+                rem = rem[(self.ab.owner[rem] < 0)
+                          & (self.ab.cache_slot[shard, rem] < 0)]
+            if len(rem) == 0:
+                return
+            # a full cache pool frees up as expired replicas drop: drive a
+            # full sync round (flush + drop) before retrying
+            with self._round_lock:
+                self.sync.run_round(all_channels=True)
+            _time.sleep(0.005 * (attempt + 1))
+        raise RuntimeError(
+            f"{len(rem)} keys could not be made local on shard {shard} "
+            f"(cache pool full? raise --sys.cache_slots); first: "
+            f"{rem[:5].tolist()}")
+
+    def all_local(self, keys: np.ndarray, shard: int) -> bool:
+        """Whether every key is servable on `shard` without the network
+        (owned here or replicated on the shard); always in one process."""
+        if self.glob is None:
+            return True
+        return bool(((self.ab.owner[keys] >= 0)
+                     | (self.ab.cache_slot[shard, keys] >= 0)).all())
 
     # -- planner ops (called by SyncManager) ---------------------------------
 
@@ -963,9 +1234,19 @@ class Server:
                 self._wb_cond.wait(timeout=5.0)
 
     def barrier(self) -> None:
-        """Process barrier. One process: flush dispatch."""
+        """Process barrier (the control plane's, parallel/control.py,
+        replacing the reference's scheduler BARRIER protocol,
+        src/postoffice.cc:149-174). One process: flush dispatch. The
+        background sync rounds pause across it."""
+        was_running = self._sync_thread is not None
+        if was_running:
+            self.stop_sync_thread()
         with self._span("collective.barrier"):
             self.block()
+            if self.glob is not None:
+                self.glob.node.barrier()
+        if was_running:
+            self.start_sync_thread()
 
     def block(self) -> None:
         with self._lock:
@@ -985,10 +1266,13 @@ class Server:
                 self.sync.run_round()
 
     def dead_nodes(self, max_age_s: float = 10.0) -> list:
-        """Peer processes whose heartbeat has gone stale. One process,
-        no heartbeat: none (the JAX server's answer with heartbeats
-        off)."""
-        return []
+        """Peer processes whose heartbeat has gone stale (reference
+        Postoffice::GetDeadNodes; requires --sys.heartbeat > 0). With a
+        net node attached, its membership plane is the authority."""
+        if self.glob is not None:
+            return self.glob.node.dead_peers(max_age_s)
+        from ..parallel import control
+        return control.dead_processes(max_age_s)
 
     # -- degraded readiness --------------------------------------------------
 
@@ -1021,8 +1305,10 @@ class Server:
         periodic checkpointer (an in-flight save reads the pools: its
         `ckpt` stream drains here), the background planner, then the
         executor, pool quiesce, stats/trace/flight export, registry
-        unhook; the workload and decision recorders seal their files
-        after the producers stopped."""
+        unhook, then the cross-process layer (whose fallback drain and
+        serve pools still answer peers until its pm-down barrier); the
+        workload and decision recorders seal their files after the
+        producers stopped."""
         if self._shutdown_done:
             return
         self._shutdown_done = True
@@ -1058,6 +1344,9 @@ class Server:
             self.flight_recorder.close()
         from ..obs import metrics as _obs_metrics
         _obs_metrics.clear_global_registry(self.obs)
+        if self.glob is not None:
+            self.glob.node.stop_heartbeat()
+            self.glob.shutdown()
 
     def locality_summary(self) -> Dict[str, float]:
         """Aggregate worker op/param locality ratios (reference shutdown
@@ -1113,7 +1402,8 @@ class Server:
     _SNAPSHOT_SECTIONS = ("kv", "prefetch", "plan_cache", "staging",
                           "sync", "exec", "device", "serve", "slo",
                           "tier", "episode", "flight", "fault", "ckpt",
-                          "wtrace", "replay", "decision", "policy")
+                          "wtrace", "replay", "decision", "policy", "pm",
+                          "net")
 
     def metrics_snapshot(self) -> Dict:
         """The structured telemetry dict: `schema_version`,
@@ -1140,7 +1430,10 @@ class Server:
         recorder's tallies and regret gauges, with
         --sys.trace.decisions) and `policy` (consults, vetoes, applied,
         guard-blocked and shadow tallies per plane, with
-        --sys.policy.file)."""
+        --sys.policy.file). With more than one process, `pm` holds the
+        GlobalPM's counters and its hop histogram, and `net` (loopback
+        nodes) the transport plane's msgs, bytes, retransmits, peers and
+        failovers."""
         out: Dict = {"schema_version": 3,
                      "metrics_enabled": bool(self.obs.enabled)}
         for sec in self._SNAPSHOT_SECTIONS:
@@ -1171,6 +1464,13 @@ class Server:
                 {k: int(v) for k, v in self.prefetch.report().items()})
         if self._plan_cache is not None:
             out["plan_cache"].update(self._plan_cache.stats())
+        if self.glob is not None:
+            with self.glob._stats_lock:
+                out["pm"].update({k: int(v)
+                                  for k, v in self.glob.stats.items()})
+                out["pm"]["hops"] = [int(h) for h in self.glob.hops]
+        if self.net is not None:
+            out["net"].update(self.net.stats())
         out["exec"].update(self.exec.stats())
         if self.stores:
             out["device"].update(self.stores[0].port.stats())
@@ -1241,21 +1541,29 @@ class Server:
     _BULK_READ_MIN = 65536
 
     def read_main(self, keys) -> np.ndarray:
-        """Current authoritative main-copy values (flat concat)."""
+        """Current authoritative main-copy values (flat concat).
+        Multi-process: remotely-owned keys are read from their owner over
+        the node's channel."""
         keys = np.asarray(keys, dtype=np.int64)
+        if self.glob is not None:
+            lens = self.value_lengths[keys]
+            offs = _offsets(lens)
+            out = np.empty(offs[-1], dtype=np.float32)
+            with self._lock:
+                owned = self.ab.owner[keys] >= 0
+                pos = np.nonzero(owned)[0]
+                if len(pos):
+                    _fill_flat(out, offs, lens, pos,
+                               self._read_owned_flat(keys[pos]))
+            rem = np.nonzero(~owned)[0]
+            if len(rem):
+                flat_r, _ = self.glob.request_pull(keys[rem])
+                _fill_flat(out, offs, lens, rem, flat_r)
+            return out
         with self._lock:
             if self.tier is not None and len(keys) >= self._BULK_READ_MIN:
                 return self._read_owned_bulk(keys)
-            groups = []
-            for cid, pos in self._group_by_class(keys):
-                ks = keys[pos]
-                n = len(ks)
-                vals = self.stores[cid].gather(
-                    self.ab.owner[ks].astype(np.int32),
-                    self.ab.slot[ks].astype(np.int32),
-                    np.zeros(n, np.int32), np.full(n, OOB, np.int32),
-                    np.zeros(n, bool))
-                groups.append((cid, pos, self.value_lengths[ks], vals, n))
+            groups = self._pull_main_only(keys)
         return self._assemble_flat(keys, groups)
 
     def _read_owned_bulk(self, keys: np.ndarray) -> np.ndarray:
@@ -1274,13 +1582,17 @@ class Server:
             _fill_flat(out, offs, lens, pos, rows.ravel())
         return out
 
-    def _assemble_flat(self, keys: np.ndarray, groups) -> np.ndarray:
+    def _assemble_flat(self, keys: np.ndarray, groups,
+                       remote=None) -> np.ndarray:
         lens = self.value_lengths[keys]
         offs = _offsets(lens)
         out = np.empty(offs[-1], dtype=np.float32)
         for cid, pos, klens, vals, n in groups:
             _fill_flat(out, offs, lens, np.asarray(pos),
                        vals[:n].cpu().numpy().ravel())
+        if remote is not None:
+            rem_pos, fut = remote
+            _fill_flat(out, offs, lens, rem_pos, fut.result())
         return out
 
 
@@ -1295,6 +1607,9 @@ class Worker:
         self._clock = int(server._clocks[worker_id])
         self._ts = 0
         self._pending: Dict[int, _WaitEntry] = {}
+        # outstanding cross-process write futures (read-your-writes and
+        # per-worker write order across the channel)
+        self._write_futs: List = []
         from .intent import IntentQueue
         self._intent_queue = IntentQueue()
         self.stats = {"pull_ops": 0, "pull_ops_local": 0,
@@ -1315,6 +1630,10 @@ class Worker:
         self._ts += 1
         self._pending[self._ts] = entry
         return self._ts
+
+    def _live_write_futs(self):
+        self._write_futs = [f for f in self._write_futs if not f.done()]
+        return list(self._write_futs)
 
     def _instrumented(self, name: str, h, impl, *args):
         """Latency histogram + span + flight bracket for a worker op; a
@@ -1377,6 +1696,7 @@ class Worker:
                     self._finish_pull(keys, entry)
                     return LOCAL
                 return self._new_ts(entry)
+        after = self._live_write_futs() if srv.glob is not None else ()
         plan, tv = None, -1
         if srv.opts.optimistic_routing:
             # route outside the lock; revalidate the topology below
@@ -1387,11 +1707,13 @@ class Worker:
         with srv._lock:
             if plan is not None and srv.topology_version != tv:
                 plan = None  # topology moved underneath us: re-plan
-            groups, n_remote = srv._pull(keys, self.shard, plan=plan)
+            groups, n_remote, remote = srv._pull(keys, self.shard,
+                                                 after=after, plan=plan)
         self.stats["pull_ops"] += 1
         self.stats["pull_params"] += len(keys)
         self.stats["pull_params_local"] += len(keys) - n_remote
-        entry = _WaitEntry(groups=groups, out=out, keys=keys)
+        entry = _WaitEntry(groups=groups, out=out, keys=keys,
+                           remote=remote)
         if n_remote == 0:
             self.stats["pull_ops_local"] += 1
             self._finish_pull(keys, entry)
@@ -1410,7 +1732,8 @@ class Worker:
         return flat
 
     def _finish_pull(self, keys, entry: _WaitEntry) -> np.ndarray:
-        flat = self.server._assemble_flat(keys, entry.groups)
+        flat = self.server._assemble_flat(keys, entry.groups,
+                                          remote=entry.remote)
         if entry.out is not None:
             np.copyto(entry.out.reshape(-1)[: len(flat)], flat)
         self._last_result = flat
@@ -1424,7 +1747,7 @@ class Worker:
         with srv._lock:
             if not bool(srv.ab.is_local(keys, self.shard).all()):
                 return False, None
-            groups, _ = srv._pull(keys, self.shard)
+            groups, _, _ = srv._pull(keys, self.shard)
         return True, self._finish_pull(keys, _WaitEntry(groups=groups,
                                                         out=out))
 
@@ -1471,19 +1794,28 @@ class Worker:
             # time -> first serve read of the key; marked visible under
             # the lock once the scatter is enqueued
             probe = fl.freshness.note_push(keys)
+        after = self._live_write_futs() if srv.glob is not None else ()
         plan, tv = None, -1
         if srv.opts.optimistic_routing:
             tv = srv.topology_version
             plan = srv._plan_push(
                 keys, vals, self.shard, is_set=is_set,
                 routes=self._cached_push_routes(keys, tv, is_set))
-        with srv._lock:
+        # Set may invalidate (consume the delta of) cross-process
+        # replicas; that must not interleave with an in-flight sync
+        # round's extracted delta (pm.py delta_window, taken BEFORE the
+        # server lock)
+        dm = srv.glob.delta_window_for(keys) \
+            if srv.glob is not None and is_set else contextlib.nullcontext()
+        with dm, srv._lock:
             if plan is not None and srv.topology_version != tv:
                 plan = None
-            n_remote = srv._push(keys, vals, self.shard, is_set=is_set,
-                                 plan=plan)
+            n_remote, futs = srv._push(keys, vals, self.shard,
+                                       is_set=is_set, after=after,
+                                       plan=plan)
             if probe is not None:
                 fl.freshness.push_visible(probe)
+        self._write_futs.extend(futs)
         if not is_set:
             self.stats["push_ops"] += 1
             self.stats["push_params"] += len(keys)
@@ -1492,7 +1824,7 @@ class Worker:
                 self.stats["push_ops_local"] += 1
         if n_remote == 0:
             return LOCAL
-        return self._new_ts(_WaitEntry(is_write=True))
+        return self._new_ts(_WaitEntry(is_write=True, futures=futs))
 
     # -- API: waiting ---------------------------------------------------------
 
@@ -1503,8 +1835,12 @@ class Worker:
         entry = self._pending.pop(ts, None)
         if entry is None:
             return None
-        if entry.groups:
+        if entry.groups or entry.remote is not None:
             return self._finish_pull(entry.keys, entry)
+        # write op: stream order covers the local programs; cross-process
+        # writes complete when their futures resolve
+        for f in entry.futures:
+            f.result()
         self.server.block()
         return None
 
@@ -1516,6 +1852,11 @@ class Worker:
         """Non-blocking completion check (reference IsFinished)."""
         if ts == LOCAL or ts not in self._pending:
             return True
+        entry = self._pending[ts]
+        if not all(f.done() for f in entry.futures):
+            return False
+        if entry.remote is not None and not entry.remote[1].done():
+            return False
         dev = self.server.ctx.device
         return dev.type != "cuda" or torch.cuda.current_stream(dev).query()
 

@@ -390,6 +390,32 @@ class ShardedStore:
             float(self._ef_resid_dev)
         return max(dev, self._ef_resid_host)
 
+    def install_replica_rows(self, c_shard, c_slot, vals) -> None:
+        """Install replicas of remote-owned keys: `vals` is the owner's
+        base, the delta rows start at zero."""
+        n = len(c_shard)
+        # cross-process replica: its base comes from a remote owner, so
+        # local epochs cannot track it (cross replicas are exempt from
+        # the dirty filter — core/sync.py sync_channel)
+        self.delta_dirty[c_shard, c_slot] = False
+        a = pad_bucket(n, (c_shard, 0), (c_slot, OOB),
+                       minimum=self.bucket_min)
+        v = self._vals_bucket(vals, a[0].shape[0])
+        self.cache, self.delta = self.port.install_rows(
+            self.cache, self.delta, *a, v)
+
+    def refresh_after_sync(self, c_shard, c_slot, fresh, shipped) -> None:
+        """A cross-process sync round's landing: the owner's fresh value
+        becomes the replica base and exactly the shipped delta leaves the
+        delta row (K3), so a local read sees base + delta throughout."""
+        n = len(c_shard)
+        a = pad_bucket(n, (c_shard, 0), (c_slot, OOB),
+                       minimum=self.bucket_min)
+        b = a[0].shape[0]
+        self.cache, self.delta = self.port.refresh_after_sync(
+            self.cache, self.delta, *a,
+            self._vals_bucket(fresh, b), self._vals_bucket(shipped, b))
+
     def relocate_rows(self, old_shard, old_slot, new_shard, new_slot,
                       rc_shard, rc_slot):
         n = len(old_shard)

@@ -14,8 +14,12 @@ Knuth multiplicative hash (reference handle.h:1016-1029). Periodic
 rounds ship in the --sys.sync.compress format (K12 sync_compress, with
 the residual parked in the delta row); drop and quiesce flushes stay
 exact. With tiered storage, each drained intent pins its owner rows hot
-(TierManager.note_intent). The cross-process exchange and collective
-cadence are not ported (ROADMAP queue A, item 11; queue B, B10).
+(TierManager.note_intent). Multi-process (parallel/pm.py GlobalPM): an
+intent on a key another process owns asks the owner to relocate or
+replicate it, and replicas of remote keys sync and drop over the node's
+channel, per-channel rounds overlapping their round trips. The
+collective exchange and its cadence are not ported (ROADMAP queue B,
+B10 (A11b)).
 """
 from __future__ import annotations
 
@@ -282,6 +286,8 @@ class SyncManager:
         # per-channel (monotonic, dirty, live) memo for the
         # dirty_fraction gauges (_dirty_counts)
         self._df_cache: dict = {}
+        # lazy: the pool of concurrent all-channel rounds (multi-process)
+        self._chan_exec = None
         # per-channel min-active-clock at the channel's last sync round
         # (-1 = never synced yet); feeds _h_staleness
         self._chan_last_clock = np.full(self.num_channels, -1,
@@ -311,9 +317,15 @@ class SyncManager:
                     # actions apply per intent entry: a later intent in
                     # the same drain must observe placement changes made
                     # by earlier ones
-                    relocate_keys, replicate_keys = self._register(
-                        w.shard, keys, end)
+                    relocate_keys, replicate_keys, remote_keys = \
+                        self._register(w.shard, keys, end)
                     self.stats.add(intents_processed=len(keys))
+                    if len(remote_keys):
+                        # keys owned by another process: the OWNER
+                        # decides relocate-vs-replicate (reference owner
+                        # branch, sync_manager.h:553-739)
+                        self.server.glob.intent_remote(remote_keys,
+                                                       w.shard, end)
                     if len(relocate_keys):
                         self.stats.add(relocations=self.server._relocate_to(
                             relocate_keys, w.shard))
@@ -388,10 +400,11 @@ class SyncManager:
         return sum(d for d, _ in counts) / total if total else 0.0
 
     def _register(self, shard: int, keys: np.ndarray,
-                  end: int) -> Tuple[np.ndarray, np.ndarray]:
+                  end: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Register an intent batch; returns (keys to relocate to `shard`,
-        keys to replicate onto `shard`). Vectorized; capacity degradation
-        is handled downstream (_relocate demotes to replication,
+        keys to replicate onto `shard`, remotely-owned keys for the
+        cross-process layer). Vectorized; capacity degradation is
+        handled downstream (_relocate demotes to replication,
         _create_replicas truncates)."""
         ie = self.intent_end
         from ..base import check_key_range
@@ -406,9 +419,15 @@ class SyncManager:
             from ..utils.stats import INTENT_START
             self.server.tracer.record(keys, INTENT_START, shard)
         cand = keys[~self.server.ab.is_local(keys, shard)]
+        e = np.empty(0, dtype=np.int64)
         if len(cand) == 0:
-            e = np.empty(0, dtype=np.int64)
-            return e, e
+            return e, e, e
+        remote = e
+        if self.server.glob is not None:
+            rm = self.server.ab.owner[cand] < 0
+            remote, cand = cand[rm], cand[~rm]
+            if len(cand) == 0:
+                return e, e, remote
         relocate = self._decide_batch(cand, shard)
         dc = self.server.decisions
         if dc is not None:
@@ -417,8 +436,8 @@ class SyncManager:
             # were ever worth creating
             rep = cand[~relocate]
             dc.record_classify(int(shard), int(relocate.sum()),
-                               len(rep), 0, rep)
-        return cand[relocate], cand[~relocate]
+                               len(rep), len(remote), rep)
+        return cand[relocate], cand[~relocate], remote
 
     def _decide_batch(self, keys: np.ndarray, shard: int) -> np.ndarray:
         """Relocate vs replicate (reference sync_manager.h:624-644): relocate
@@ -446,8 +465,9 @@ class SyncManager:
 
     def sync_channel(self, channel: int) -> None:
         """Refresh replicas with active intent; flush+drop expired ones
-        (reference readAndPotentiallyDropReplica, handle.h:601-662). The
-        server lock brackets only the table snapshot here and the
+        (reference readAndPotentiallyDropReplica, handle.h:601-662).
+        Replicas of remotely-owned keys sync/drop over the node's channel.
+        The server lock brackets only the table snapshot here and the
         revalidation + enqueue inside `_sync_replicas`/`_drop_replicas`."""
         srv = self.server
         table = self.replicas[channel]
@@ -457,13 +477,16 @@ class SyncManager:
             self._chan_last_clock[channel] = mc
             if 0 <= last <= mc and len(table):
                 self._h_staleness.observe(float(mc - last))
-        with srv._lock:
+        with srv._lock:  # snapshot only (channel handlers mutate too)
             if len(table) == 0:
                 return
             keys, shards = table.snapshot()
+            cross = (srv.ab.owner[keys] < 0).astype(np.uint8) \
+                if srv.glob is not None else None
         min_clocks = srv.shard_min_clocks()
-        keep, drop = self._scan_partition(keys, shards, min_clocks)
-        self.stats.add(keys_considered=len(keep))
+        keep, keep_x, drop, drop_x = self._scan_partition(
+            keys, shards, cross, min_clocks)
+        self.stats.add(keys_considered=len(keep) + len(keep_x))
         if len(keep):
             kk, ks = keys[keep], shards[keep]
             n_considered, n_dirty = len(kk), -1
@@ -502,32 +525,48 @@ class SyncManager:
                                    threshold=self.opts.sync_threshold,
                                    compress=True)
                 self.stats.add(keys_synced=len(kk))
+        if len(keep_x):
+            # replicas of remote keys: exempt from the dirty filter (the
+            # owner's writes are invisible to local epochs, and the
+            # round is also how they observe remote pushes)
+            srv.glob.sync_replicas(keys[keep_x], shards[keep_x])
+            self.stats.add(keys_synced=len(keep_x))
+        if (len(drop) or len(drop_x)) and srv.tracer is not None:
+            from ..utils.stats import INTENT_STOP
+            dk = np.concatenate([keys[drop], keys[drop_x]])
+            ds = np.concatenate([shards[drop], shards[drop_x]])
+            for s in np.unique(ds):
+                srv.tracer.record(dk[ds == s], INTENT_STOP, int(s))
         if len(drop):
             dk, ds = keys[drop], shards[drop]
-            if srv.tracer is not None:
-                from ..utils.stats import INTENT_STOP
-                for s in np.unique(ds):
-                    srv.tracer.record(dk[ds == s], INTENT_STOP, int(s))
             srv._drop_replicas(dk, ds)
             with srv._lock:
                 self.replica_discard(dk, ds)
             self.stats.add(replicas_dropped=len(dk))
+        if len(drop_x):
+            # discards from the channel tables itself
+            srv.glob.drop_replicas(keys[drop_x], shards[drop_x])
+            self.stats.add(replicas_dropped=len(drop_x))
 
     def _scan_partition(self, keys: np.ndarray, shards: np.ndarray,
+                        cross: Optional[np.ndarray],
                         min_clocks: np.ndarray):
-        """(keep, drop) index arrays of one channel snapshot: keep iff the
-        holder shard's intent horizon is still active. One native pass or
-        its vectorized numpy equivalent."""
+        """Partition one channel snapshot into (keep_local, keep_cross,
+        drop_local, drop_cross) index arrays: keep iff the holder shard's
+        intent horizon is still active. One native pass or its vectorized
+        numpy equivalent."""
         srv = self.server
         if srv._native is not None:
             from ..native import replica_scan_partition
-            keep, _, drop, _ = replica_scan_partition(
+            return replica_scan_partition(
                 srv._native, keys, shards, self.intent_end,
                 np.ascontiguousarray(min_clocks, np.int64),
-                srv.num_keys, None)
-            return keep, drop
+                srv.num_keys, cross)
         keep = self.intent_end[shards, keys] >= min_clocks[shards]
-        return np.nonzero(keep)[0], np.nonzero(~keep)[0]
+        x = np.zeros(len(keys), dtype=bool) if cross is None \
+            else cross.astype(bool)
+        return (np.nonzero(keep & ~x)[0], np.nonzero(keep & x)[0],
+                np.nonzero(~keep & ~x)[0], np.nonzero(~keep & x)[0])
 
     def run_round(self, force_intents: bool = False,
                   all_channels: bool = False) -> None:
@@ -545,8 +584,7 @@ class SyncManager:
             with timed(self._h_round), self.server._span("sync.round"):
                 self.drain_intents(force=force_intents)
                 if all_channels:
-                    for c in range(self.num_channels):
-                        self.sync_channel(c)
+                    self._sync_all_channels()
                 else:
                     self.sync_channel(self._next_channel)
                     self._next_channel = \
@@ -563,8 +601,45 @@ class SyncManager:
                                all_channels=all_channels,
                                bytes_shipped=self._last_round_bytes)
 
+    def _sync_all_channels(self) -> None:
+        """All channels' rounds. Multi-process, >1 channel: issued
+        CONCURRENTLY — channels partition keys (per-channel delta locks,
+        pm.delta_window), local device work serializes briefly under the
+        server lock, and the expensive part (per-channel round trips to
+        owners) overlaps instead of stacking (reference: C parallel
+        SyncManager threads, coloc_kv_server.h:100-105). One process:
+        serial — no network latency to hide, only thread overhead."""
+        srv = self.server
+        if srv.glob is None or self.num_channels == 1:
+            for c in range(self.num_channels):
+                self.sync_channel(c)
+            return
+        if self._chan_exec is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._chan_exec = ThreadPoolExecutor(
+                max_workers=self.num_channels,
+                thread_name_prefix="adapm-chan")
+        futs = [self._chan_exec.submit(self.sync_channel, c)
+                for c in range(self.num_channels)]
+        errs = []
+        for f in futs:
+            try:
+                f.result()
+            except Exception as e:  # noqa: BLE001 — all reported below
+                errs.append(e)
+        if errs:
+            # surface every channel's failure: log the others before
+            # raising the first
+            from ..utils.log import alog
+            for e in errs[1:]:
+                alog(f"[sync] concurrent channel round also failed: "
+                     f"{type(e).__name__}: {e}")
+            raise errs[0]
+
     def close(self) -> None:
-        pass
+        if self._chan_exec is not None:
+            self._chan_exec.shutdown(wait=True)
+            self._chan_exec = None
 
     def _min_active_clock(self):
         """Min clock over the registered, unfinished workers; None when no
@@ -604,17 +679,34 @@ class SyncManager:
                     if len(self.replicas[c]) == 0:
                         continue
                     keys, shards = self.replicas[c].snapshot()
-                # unconditional flush: quiesce bypasses the dirty filter
-                # and the threshold so no pending delta is ever lost
-                srv._sync_replicas(keys, shards)
-                self.stats.add(keys_synced=len(keys),
-                               keys_considered=len(keys))
+                    cross = (srv.ab.owner[keys] < 0) \
+                        if srv.glob is not None else None
+                if cross is not None:
+                    lk, ls = keys[~cross], shards[~cross]
+                    rk, rs = keys[cross], shards[cross]
+                else:
+                    lk, ls = keys, shards
+                    rk = rs = np.empty(0, dtype=np.int64)
+                if len(lk):
+                    # unconditional flush: quiesce bypasses the dirty
+                    # filter and the threshold so no pending delta is
+                    # ever lost
+                    srv._sync_replicas(lk, ls)
+                    self.stats.add(keys_synced=len(lk),
+                                   keys_considered=len(lk))
+                if len(rk):
+                    srv.glob.sync_replicas(rk, rs)
+                    self.stats.add(keys_synced=len(rk),
+                                   keys_considered=len(rk))
             srv.block()
 
     def report(self) -> str:
         s = self.stats
-        return (f"sync: rounds={s.rounds} intents={s.intents_processed} "
-                f"replicas+={s.replicas_created} -={s.replicas_dropped} "
-                f"relocations={s.relocations} "
-                f"keys_shipped={s.keys_synced}/"
-                f"considered={s.keys_considered}")
+        out = (f"sync: rounds={s.rounds} intents={s.intents_processed} "
+               f"replicas+={s.replicas_created} -={s.replicas_dropped} "
+               f"relocations={s.relocations} "
+               f"keys_shipped={s.keys_synced}/"
+               f"considered={s.keys_considered}")
+        if self.server.glob is not None:
+            out += " | " + self.server.glob.report()
+        return out

@@ -448,4 +448,4 @@ class TorchDevicePort(DevicePort):
 
     def compile_collective(self, fn, mesh, in_specs, out_specs):
         raise NotImplementedError("the collective exchange is not ported "
-                                  "yet (ROADMAP queue B, B10)")
+                                  "yet (ROADMAP queue B, B10 (A11b))")

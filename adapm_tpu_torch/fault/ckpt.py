@@ -45,8 +45,9 @@ captured dirty (cache, delta) rows.
 Periodic operation: `--sys.checkpoint.every S --sys.checkpoint.path D`
 runs `save()` as a self-rescheduling program on the executor's `ckpt`
 stream. `Server.shutdown()` closes the checkpointer BEFORE pool teardown
-and drains the `ckpt` stream. The chain is single-process; the port's
-multi-process layer is ROADMAP queue A, item 11.
+and drains the `ckpt` stream. The chain is single-process, as in the
+JAX package: a multi-process job takes per-rank shards
+(utils/checkpoint.py), ROADMAP queue A, item 11b.
 """
 from __future__ import annotations
 
@@ -71,9 +72,9 @@ MANIFEST_NAME = "chain.json"
 _AUX_KEYS = ("owner", "slot", "cache_slot", "relocation_counter",
              "intent_end", "clocks")
 
-_MULTI_PROCESS = ("incremental checkpoint chains are single-process; the "
-                  "multi-process layer is not ported yet (ROADMAP queue "
-                  "A, item 11)")
+_MULTI_PROCESS = ("incremental checkpoint chains are single-process; "
+                  "multi-process jobs take per-rank shards, which are not "
+                  "ported yet (ROADMAP queue A, item 11b)")
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -609,7 +610,7 @@ def _apply_chain(server, chain: List[Tuple[Dict, Dict]]) -> None:
             w._clock = int(server._clocks[wid])
         if "stream_cursor" in aux:
             # the acked-event horizon: kept on the server (the streaming
-            # plane itself is ROADMAP queue A, item 11)
+            # plane itself is ROADMAP queue A, item 11b)
             cur = int(np.asarray(aux["stream_cursor"]).reshape(-1)[0])
             server._restored_stream_cursor = cur
             if getattr(server, "stream", None) is not None:

@@ -44,9 +44,9 @@ Injection points wired in the port:
     ckpt.restore    checkpoint restore entry, before any server
                     mutation
 
-The `net.*` points (`draw`, a non-raising evaluation) parse and keep
-their accounting, but nothing in the port fires them until the
-transport plane is ported (ROADMAP queue A, item 11).
+and the `net.*` wire points of the loopback transport (net/loopback.py:
+net.send, net.recv, net.delay, net.dup, net.partition), evaluated with
+`draw` (non-raising: a dropped or duplicated frame is the fault).
 """
 from __future__ import annotations
 

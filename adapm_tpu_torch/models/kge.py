@@ -15,8 +15,9 @@ The eval programs rank every entity for both sides of a triple:
 `make_eval_scores` against a dense entity matrix, and
 `make_pool_eval_counts`, which counts the candidates scoring above the
 true triple straight from the main pool through the hand-written kernel
-K4 (ops/kernels.py pool_eval_counts). The multi-process
-`make_pool_eval_counts_mp` is not ported (ROADMAP queue A, item 11).
+K4 (ops/kernels.py pool_eval_counts). `make_pool_eval_counts_mp` is its
+multi-process form, the same kernel with query rows in, only the rank's
+owned entities as candidates and the true score an input.
 """
 from __future__ import annotations
 
@@ -211,6 +212,25 @@ def _pool_rows(pool, owner, slot, keys, dim):
     return rows[:, :dim]
 
 
+def _k4_counts(model, ent_main, owner, slot, ent_keys, nvalid, se, re_,
+               oe, true_sc, skeys, okeys, ties):
+    """K4 over the first `nvalid` candidates of `ent_keys` for the query
+    rows se/re_/oe: (g_o, g_s), or with `ties` K4's plain version's
+    (g_o, g_s, t_o, t_s)."""
+    if model == "complex":
+        a, b, c, dcoef = _complex_queries(se, re_, oe)
+        q_o, q_s = torch.cat([a, b], -1), torch.cat([c, dcoef], -1)
+    else:
+        q_o, q_s = _rescal_queries(se, re_, oe)
+    args = (ent_main, owner, slot, ent_keys, int(nvalid), q_o.contiguous(),
+            q_s.contiguous(), true_sc.contiguous(), okeys.to(torch.int32),
+            skeys.to(torch.int32))
+    parts = 2 if model == "complex" else 1
+    if ties:
+        return pool_eval_counts_plain(*args, parts=parts, ties=True)
+    return pool_eval_counts(*args, parts=parts)
+
+
 def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
                           chunk: int, shared_pool: bool = False):
     """Full-entity eval without materializing the entity matrix: candidate
@@ -234,7 +254,6 @@ def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
     instead and also returns the per-side near-tie counts
     (ops/kernels.py pool_eval_counts_plain)."""
     score = {"complex": complex_score, "rescal": rescal_score}[model]
-    parts = 2 if model == "complex" else 1
 
     def counts(ent_main, rel_main, tables, ent_keys, nE, skeys, rkeys,
                okeys, ties=False):
@@ -247,20 +266,9 @@ def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
         rpool = ent_main if shared_pool else rel_main
         re_ = _pool_rows(rpool, owner, slot, rkeys, rel_dim)
         true_sc = score(se, re_, oe)  # same triple -> same score each side
-        if model == "complex":
-            a, b, c, dcoef = _complex_queries(se, re_, oe)
-            q_o, q_s = torch.cat([a, b], -1), torch.cat([c, dcoef], -1)
-        else:
-            q_o, q_s = _rescal_queries(se, re_, oe)
-        args = (ent_main, owner, slot, ent_keys, int(nE), q_o.contiguous(),
-                q_s.contiguous(), true_sc.contiguous(),
-                okeys.to(torch.int32), skeys.to(torch.int32))
-        if ties:
-            g_o, g_s, t_o, t_s = pool_eval_counts_plain(
-                *args, parts=parts, ties=True)
-            return g_o, g_s, true_sc, t_o, t_s
-        g_o, g_s = pool_eval_counts(*args, parts=parts)
-        return g_o, g_s, true_sc
+        out = _k4_counts(model, ent_main, owner, slot, ent_keys, nE, se,
+                         re_, oe, true_sc, skeys, okeys, ties)
+        return out[:2] + (true_sc,) + out[2:]
 
     if shared_pool:
         def counts_shared(ent_main, tables, ent_keys, nE, skeys, rkeys,
@@ -268,4 +276,41 @@ def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
             return counts(ent_main, None, tables, ent_keys, nE, skeys,
                           rkeys, okeys, ties=ties)
         return counts_shared
+    return counts
+
+
+def make_pool_eval_counts_mp(model: str, ent_dim: int, rel_dim: int,
+                             chunk: int):
+    """Candidate-partitioned twin of make_pool_eval_counts (the JAX
+    package's make_pool_eval_counts_mp, the multi-process chunked eval):
+
+      - the query embeddings arrive as ROWS (se/re_/oe, fetched through
+        Server.read_main, which resolves remote owners over the channel)
+        instead of keys, so only CANDIDATE rows are gathered — exactly
+        this rank's owned entities, always in the local pool;
+      - `ent_keys` tiles cover the rank's OWNED entities only, padded at
+        the tail (`nvalid` masks the padding); each entity has exactly
+        one owner, so N ranks partition the candidate set exactly and
+        the per-rank greater-counts sum to the global counts (reference
+        distributed Evaluator, kge.cc:544-775);
+      - the true score is an INPUT (make_true_score), the same bytes on
+        every rank.
+
+    fn(ent_main, tables, ent_keys [nch, chunk] int32, nvalid, se, re_,
+       oe, skeys [B], okeys [B], true_sc [B]) -> (greater_o [B],
+       greater_s [B]), through K4 itself (ops/kernels.py
+    pool_eval_counts) over the owned tiles, its queries formed as
+    make_pool_eval_counts forms them. `ties=True`
+    (for checks) counts with its plain version and also returns the
+    per-side near-tie counts."""
+    def counts(ent_main, tables, ent_keys, nvalid, se, re_, oe, skeys,
+               okeys, true_sc, ties=False):
+        if ent_keys.shape[1] != chunk:
+            raise ValueError(f"key tiles are {ent_keys.shape[1]} wide, the "
+                             f"program was built for chunk {chunk}")
+        owner, slot, _ = tables
+        return _k4_counts(model, ent_main, owner, slot, ent_keys, nvalid,
+                          se[:, :ent_dim], re_[:, :rel_dim],
+                          oe[:, :ent_dim], true_sc, skeys, okeys, ties)
+
     return counts

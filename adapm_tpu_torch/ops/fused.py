@@ -55,6 +55,7 @@ staged pull buffers of trained keys are dropped.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +73,43 @@ _GATE = dispatch_gate()
 def _key_dtype(num_keys: int):
     """Key-upload dtype: int32 while every key fits."""
     return np.int32 if num_keys <= 2**31 else np.int64
+
+
+@contextlib.contextmanager
+def _step_lock(server, shard: int, role_keys):
+    """Hold the server lock for a step with every key of `role_keys`
+    servable on `shard`. One process: just the lock. Multi-process: the
+    keys are localized first, OUTSIDE the lock (Server.ensure_local makes
+    round trips, and a peer's handler may need this lock to serve them),
+    then the lock is taken and the placement checked; a key a peer's
+    intent relocated away in between is localized again. A step (or a
+    captured run_scan window) therefore never routes to a REMOTE slot."""
+    if server.glob is None:
+        with server._lock:
+            yield
+        return
+    keys = np.unique(np.concatenate(
+        [np.asarray(k, dtype=np.int64).ravel()
+         for k in role_keys.values()]))
+    for _ in range(50):
+        server.ensure_local(keys, shard)
+        server._lock.acquire()
+        if server.all_local(keys, shard):
+            break
+        server._lock.release()
+    else:
+        raise RuntimeError(f"{len(keys)} step keys could not be held "
+                           f"local on shard {shard}")
+    try:
+        yield
+    finally:
+        server._lock.release()
+
+
+def _window_keys(batches, roles) -> Dict[str, np.ndarray]:
+    """Role -> the keys of every batch of a window, joined."""
+    return {r: np.concatenate([np.asarray(b[r], np.int64).ravel()
+                               for b in batches]) for r in roles}
 
 
 def _mark_fused_writes(server, shard: int, role_class, role_keys,
@@ -874,7 +912,7 @@ class DeviceRoutedRunner:
             raise ValueError(
                 "staged keys differ from the step's batch — pass the "
                 "handle prefetch_keys returned for THIS batch")
-        with srv._lock:
+        with _step_lock(srv, self.shard, role_keys):
             if srv.tier is not None:
                 # the step reads main rows through the hot pool: promote
                 # and pin the batch before the route mirror is read
@@ -936,14 +974,15 @@ class DeviceRoutedRunner:
                                  "share roles and shapes")
         if auxes is not None and len(auxes) != K:
             raise ValueError("run_scan: one aux per batch")
-        with srv._lock:
+        # every key of the window is localized before the tables are read
+        # (and a graph captured): the window never routes to a REMOTE slot
+        union = _window_keys(batches, roles)
+        with _step_lock(srv, self.shard, union):
             if srv.tier is not None:
                 # the mirror is read once for the window, so all its rows
                 # must be hot at once: pin the UNION (per-batch pins would
                 # let a later batch's forced eviction take an earlier one's)
-                srv.tier.pin_step_keys(self.role_class, {
-                    r: np.concatenate([np.asarray(b[r], np.int64).ravel()
-                                       for b in batches]) for r in roles})
+                srv.tier.pin_step_keys(self.role_class, union)
             for b in batches:
                 self._note_step_writes(b)
             tables = self.router.tables()
@@ -1092,15 +1131,13 @@ class FusedStepRunner:
                  eps: float = 1e-10, shard: int = 0) -> torch.Tensor:
         """One training step; returns the loss (a device scalar)."""
         srv = self.server
-        with srv._lock:
+        # localized before the lock (and before pin_step_keys, which
+        # skips slot < 0 entries)
+        with _step_lock(srv, shard, role_keys):
             if srv.tier is not None:
                 # pin the whole batch hot as ONE union before any role's
                 # routes are translated: a later role's forced eviction
-                # must never take an earlier role's translated rows.
-                # Localize first: pin_step_keys skips slot < 0 entries
-                for k in role_keys.values():
-                    srv.ensure_local(np.asarray(k, dtype=np.int64).ravel(),
-                                     shard)
+                # must never take an earlier role's translated rows
                 srv.tier.pin_step_keys(self.role_class, role_keys)
             routes = self.routes_for(role_keys, shard)
             # all roles are host-provided here: the written key set is

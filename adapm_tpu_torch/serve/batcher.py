@@ -316,7 +316,7 @@ class LookupBatcher:
             t_enqueued = t_dispatch
         else:
             try:
-                flat, t_enqueued = self._lookup_union(union)
+                flat, t_enqueued = self._lookup_union(union, after)
                 t_cutoff = t_enqueued
             except (KeyboardInterrupt, SystemExit):
                 _shed_interrupted(reqs)
@@ -359,13 +359,14 @@ class LookupBatcher:
         if cs is not None:
             cs.append((now, now - r.t0, r.priority))
 
-    def _lookup_union(self, keys: np.ndarray):
+    def _lookup_union(self, keys: np.ndarray, after=()):
         """One coalesced pull of the (unique, sorted) union: an
         optimistic plan through the shared routing-plan cache,
         revalidated against `topology_version` under the lock, then
-        `Server._pull` (one K1 launch per length class). Returns (flat
-        values, the stamp taken right after the gathers were
-        enqueued)."""
+        `Server._pull` (one K1 launch per length class; process-remote
+        keys ride the node's channel after `after`, the requesters'
+        live write futures). Returns (flat values, the stamp taken right
+        after the gathers were enqueued)."""
         srv = self.server
         with srv._span("serve.lookup"):
             plan, tv = None, -1
@@ -377,9 +378,11 @@ class LookupBatcher:
             with srv._lock:
                 if plan is not None and srv.topology_version != tv:
                     plan = None  # topology moved underneath us: re-plan
-                groups, _ = srv._pull(keys, self.shard, plan=plan)
+                groups, _, remote = srv._pull(keys, self.shard,
+                                              after=after, plan=plan)
                 t_enqueued = time.perf_counter()
-            return srv._assemble_flat(keys, groups), t_enqueued
+            return (srv._assemble_flat(keys, groups, remote=remote),
+                    t_enqueued)
 
     # -- bag reads -----------------------------------------------------------
 
@@ -440,7 +443,7 @@ class LookupBatcher:
                           for k, v in dev.items()}
                 self.c_bag_fused.inc()
             else:
-                flat, t_enqueued = self._lookup_union(union)
+                flat, t_enqueued = self._lookup_union(union, after)
                 self.c_bag_hostpool.inc()
                 pooled = self._pool_from_flat(flat, union, groups)
             t_cutoff = t_enqueued

@@ -9,9 +9,9 @@ the tables, so an adapted placement survives a restart.
 
 The file is the JAX package's format v3, array for array (the same
 names, dtypes and geometry), so a `.npz` written by either package
-restores bitwise into the other. The port runs one process: the
-multi-process form (per-rank shards + a manifest, bracketed by the
-quiesce protocol) is ROADMAP queue A, item 11, and raises here.
+restores bitwise into the other. The multi-process form (per-rank
+shards + a manifest, bracketed by the quiesce protocol) is ROADMAP
+queue A, item 11b, and raises here.
 """
 from __future__ import annotations
 
@@ -24,8 +24,8 @@ import numpy as np
 # package's version number: the two packages read each other's files.
 FORMAT_VERSION = 3
 
-_MULTI_PROCESS = ("multi-process checkpoints are not ported yet "
-                  "(ROADMAP queue A, item 11)")
+_MULTI_PROCESS = ("multi-process checkpoints (per-rank shards) are not "
+                  "ported yet (ROADMAP queue A, item 11b)")
 
 
 def rank_path(path: str, rank: int) -> str:

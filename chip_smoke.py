@@ -11,22 +11,26 @@ application and the matrix-factorization application the same way,
 serves lookups and embedding-bag reads through the serving plane,
 runs the tiered store, compressed sync rounds and episodic execution,
 drills checkpoint chains under injected faults and request-flight
-tracing, and captures a workload, replays it, trains the learned policy
-on it and ranks knob candidates by replay.
+tracing, captures a workload, replays it, trains the learned policy
+on it and ranks knob candidates by replay, and runs the multi-process
+parameter manager: a loopback cluster of four nodes on the card, and
+the KGE app as two processes through the port's launcher.
 
     python3 chip_smoke.py [--json PATH]
     python3 chip_smoke.py --main-path-only   (phase 1 and phase 3's
         step alone: copied into an earlier tree of the port, it times
         that tree's step the same way)
     python3 chip_smoke.py --kernels K4,K8    (phase 1 and the named
-        kernels' parts of phase 2 alone, the same way; K4 and K8-K12 can
-        be named)
+        kernels' parts of phase 2 alone, the same way; K4, K4mp (K4's
+        multi-process form) and K8-K12 can be named)
     python3 chip_smoke.py --pipeline-only    (phase 1, phase 3 with the
         pipeline on and off, phases 11 and 12, checked as in the full
         run)
     python3 chip_smoke.py --fault-only       (phase 1 and phase 14,
         checked as in the full run)
     python3 chip_smoke.py --replay-only      (phase 1 and phase 15,
+        checked as in the full run)
+    python3 chip_smoke.py --mp-only          (phase 1 and phase 16,
         checked as in the full run)
 
 Phases (any failure raises and exits non-zero):
@@ -45,7 +49,14 @@ Phases (any failure raises and exits non-zero):
      data, and ComplEx K=256 and RESCAL K=128 on random data under the
      near-tie rule, each at B=64 and at the app's tail batch B=36, with
      the share of the bound, the launch plan and the kernel's registers,
-     spills and static shared memory from its ptxas log); K5
+     spills and static shared memory from its ptxas log; K4's
+     multi-process form (models/kge.py make_pool_eval_counts_mp, K4 over
+     one rank's half of those candidates: 100,000 owned entities in two
+     65,536-key tiles), the query triples as rows and the true score an
+     input: exact on integer-valued rows and under the near-tie rule on
+     random rows, ComplEx and RESCAL each at B=64 and B=36, timed as K4
+     alone and with its query forming, beside matmul + compare + sum
+     over the owned rows); K5
      complex_step: the step's rows (K1's buffer, zipf duplicates) at
      B=4096, N=32, d=128 for self_adv_temp T in {0, 1} and l2 in {0, 0.1},
      loss and update rows within rtol 1e-5 / atol 1e-6, bitwise over two
@@ -250,8 +261,8 @@ Phases (any failure raises and exits non-zero):
      shard, fp32 cold rows), the background planner at 20 rounds/s
      without the static dirty filter, --sys.serve.slo_ms 2: (a) capture
      with --sys.trace.workload and --sys.trace.decisions: the table
-     filled in 4,096-key sets, two worker threads of REPLAY_STEPS steps
-     (intent for the next batch of 4,096 zipf keys, pull, push of 4,096
+     filled in 4,096-key sets, two worker threads of REPLAY_STEPS (16)
+     steps (intent for the next batch of 4,096 zipf keys, pull, push of 4,096
      rows, advance_clock) beside 8 serving clients (12 lookups of 64
      zipf keys each, half tenanted); both traces verify, every event
      kind is present, none dropped or sampled, and reloc, sync, tier
@@ -269,8 +280,36 @@ Phases (any failure raises and exits non-zero):
      channels (each replica synced half as often): a ranked artifact on
      disk. Each part launches K1, K3, K9 and K11 and no kernel another
      path owns.
+ 16. the multi-process layer: (a) a LoopbackCluster of 4 nodes in this
+     process, each a Server on the card over phase 3's key space
+     (201,000 keys of 512 f32, integer-valued, each node filling its
+     home keys), one worker a node: 32 rounds (28, then 4 profiled)
+     of intent for the next 4,096 zipf keys, a pull, a push of
+     integer-valued rows to them, a planner round and advance_clock,
+     each set of rounds ending in WaitSync -> Barrier -> WaitSync ->
+     Barrier; every node's reads of every touched key bitwise the NumPy
+     shadow, relocations, replications and keys served after a
+     redirect all > 0, no decode error; pull and push p50/p99, keys/s,
+     the hop histogram, the fabric's msgs and bytes, K1/K3 launches,
+     the busy share of the profiled rounds, the host seconds of each
+     part of the phase; (b) 8 more rounds with the wire's
+     fault points firing (net.send, net.recv, net.dup, net.delay):
+     bitwise again, faults fired; then the survivors replicate the
+     hottest keys, one node is killed, and each survivor's membership
+     plane detects the death and promotes exactly its replicas of the
+     dead node's keys (read back bitwise), counts the rest as
+     net.lost_keys, and reports net.failover_s; (c) the KGE app of
+     phase 5 (1 epoch of the 409,600 triples, --scan_steps 8) as two
+     processes through `python -m adapm_tpu_torch.launcher -n 2`, the
+     kernels built here before the ranks start: both ranks report the
+     same global eval statistics and counts, and those counts equal a
+     one-process K4 eval of the table rank 0 checkpointed after its eval
+     (near-tie rule); each rank launches K1, K5, K3 and K4 (in its
+     multi-process form) and no kernel another path owns; each rank's
+     epoch seconds and examples/s, their sum beside phase 5's one
+     process, eval seconds, DCN messages and bytes.
 Phases 11 and 12 run after phase 4, phase 13 after phase 10, phase 14
-after phase 13, phase 15 after phase 14. Every
+after phase 13, phase 15 after phase 14, phase 16 after phase 15. Every
 server's background work is
 watched: a prefetch pass, planner round or tier maintenance pass that
 raised (logged and retried, never fatal to its loop), a failed
@@ -657,6 +696,8 @@ def phase_kernels(K, dev, rng):
     del main, vals, g, rows
     torch.cuda.empty_cache()
     rec["pool_eval_counts"] = phase_k4(K, dev, rng)
+    torch.cuda.empty_cache()
+    rec["pool_eval_counts"]["mp_form"] = phase_k4_mp(K, dev, rng)
     torch.cuda.empty_cache()
     rec["complex_step"] = phase_k5(K, dev, rng)
     torch.cuda.empty_cache()
@@ -1229,6 +1270,144 @@ def phase_k4(K, dev, rng):
                         for nb in K4_BATCHES}
     rec["ptxas"] = ptxas_summary("pool_eval_counts")
     return rec
+
+
+def phase_k4_mp(K, dev, rng):
+    """K4 in its multi-process form (models/kge.py
+    make_pool_eval_counts_mp, the eval entry each rank calls) at the
+    app's eval width over one rank's half of the candidates: a
+    200,000-entity pool (rows of 512 f32), 100,000 owned entities in two
+    65,536-key tiles (the second padded), the query triples as rows and
+    the true score an input, at B=64 and the app's tail B=36, for
+    ComplEx (K=256) and RESCAL (K=128): exact on integer-valued rows,
+    under the near-tie rule on random rows. Timed are K4 on the formed
+    queries (`ms`), the whole entry with its query forming (`entry_ms`),
+    K4's plain version and matmul + compare + sum over the owned rows."""
+    from adapm_tpu_torch.models.kge import (_complex_queries,
+                                            _rescal_queries,
+                                            make_pool_eval_counts_mp,
+                                            make_true_score)
+    nk = E + R
+    slots = -8 * (-int(np.ceil(nk * 1.25)) // 8)
+    pool = torch.randn((1, slots, L), device=dev) * 0.1
+    owner = torch.zeros(nk, dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(rng.permutation(slots)[:nk].astype(np.int32),
+                           device=dev)
+    tables = (owner, slot, None)
+    nown = E // 2
+    owned = rng.permutation(E)[:nown].astype(np.int32)
+    nch = -(-nown // EVAL_CHUNK)
+    pad = np.full(nch * EVAL_CHUNK, owned[0], np.int32)
+    pad[:nown] = owned
+    keys = torch.as_tensor(pad.reshape(nch, EVAL_CHUNK), device=dev)
+    s_k = torch.as_tensor(rng.integers(0, E, EVAL_B).astype(np.int32),
+                          device=dev)
+    o_k = torch.as_tensor(rng.integers(0, E, EVAL_B).astype(np.int32),
+                          device=dev)
+    r_k = torch.as_tensor(rng.integers(E, nk, EVAL_B).astype(np.int32),
+                          device=dev)
+    widths = {"complex": (2 * D_MODEL, 2 * D_MODEL),
+              "rescal": (D_MODEL, D_MODEL * D_MODEL)}
+    fns = {m: make_pool_eval_counts_mp(m, kd, rd, EVAL_CHUNK)
+           for m, (kd, rd) in widths.items()}
+
+    def rows(p, k, dim):
+        return p[0, slot[k.long()], :dim].contiguous()
+
+    def batch(p, model, re_, nb):
+        kd = widths[model][0]
+        se, oe = rows(p, s_k[:nb], kd), rows(p, o_k[:nb], kd)
+        re_ = re_[:nb].contiguous()
+        true = make_true_score(model)(se, re_, oe).contiguous()
+        return (p, tables, keys, nown, se, re_, oe, s_k[:nb].contiguous(),
+                o_k[:nb].contiguous(), true)
+
+    # exact on integer rows: both models, both batch sizes
+    ipool = torch.randint(-3, 4, pool.shape, device=dev).float()
+    exact_counted = 0
+    for model, (kd, rd) in widths.items():
+        ire = torch.randint(-2, 3, (EVAL_B, rd), device=dev).float()
+        for nb in K4_BATCHES:
+            iargs = batch(ipool, model, ire, nb)
+            ge = fns[model](*iargs)
+            pe = fns[model](*iargs, ties=True)[:2]
+            check(all(torch.equal(a, b) for a, b in zip(ge, pe)),
+                  f"K4 (multi-process form, {model}) counts differ from "
+                  f"the plain version on integer rows at B={nb}")
+            exact_counted += int(ge[0].sum() + ge[1].sum())
+    del ipool
+
+    out = {}
+    for model, (kd, rd) in widths.items():
+        re_ = rows(pool, r_k, rd) if model == "complex" else \
+            torch.randn((EVAL_B, rd), device=dev) * 0.1
+        cand = pool[0, slot[torch.as_tensor(owned, device=dev).long()],
+                    :kd].contiguous()     # the dense yardstick's rows
+        parts = 2 if model == "complex" else 1
+        for nb in K4_BATCHES:
+            args = batch(pool, model, re_, nb)
+            g_o, g_s = fns[model](*args)
+            p_o, p_s, t_o, t_s = fns[model](*args, ties=True)
+            torch.cuda.synchronize()
+            diff = torch.cat([(g_o - p_o).abs(), (g_s - p_s).abs()])
+            ties = torch.cat([t_o, t_s])
+            check(bool((diff <= ties).all()),
+                  f"K4 (multi-process form, {model}, B={nb}) counts "
+                  f"differ from the plain version beyond the near-tie "
+                  f"rule: diff {diff.tolist()} ties {ties.tolist()}")
+            check(bool((g_o > 0).any() and (g_o < nown - 1).any()),
+                  f"K4 (multi-process form, {model}, B={nb}) counts are "
+                  f"degenerate")
+            se, re_b, oe, tr = args[4], args[5], args[6], args[9]
+            if model == "complex":
+                a, b, c, dd = _complex_queries(se, re_b, oe)
+                q_o, q_s = torch.cat([a, b], -1), torch.cat([c, dd], -1)
+            else:
+                q_o, q_s = (q.contiguous()
+                            for q in _rescal_queries(se, re_b, oe))
+            kargs = (pool, owner, slot, keys, nown, q_o, q_s, tr,
+                     args[8], args[7])
+
+            def library():
+                t = tr[:, None]
+                return ((q_o @ cand.T) > t).sum(1), \
+                    ((q_s @ cand.T) > t).sum(1)
+
+            entry = cuda_ms(lambda: fns[model](*args))
+            out[model, nb] = timed(
+                max_abs_err=float(diff.max()), ties=int(ties.sum()),
+                counted=int(g_o.sum() + g_s.sum()), K=kd, B=nb,
+                nvalid=nown, entry_ms=entry[0], entry_ms_spread=entry[1:],
+                ms=cuda_ms(lambda: K.pool_eval_counts(*kargs, parts=parts)),
+                plain_ms=cuda_ms(lambda: K.pool_eval_counts_plain(
+                    *kargs, parts=parts)),
+                library_ms=cuda_ms(library),
+                # each owned candidate row's K floats and key read once,
+                # the query coefficients read once; 2 sides x B x nvalid
+                # x K multiply-adds, 2 operations each
+                bound=bound(nown * kd * 4 + nown * 4 + 2 * nb * kd * 4,
+                            2 * 2 * nb * nown * kd))
+        del cand
+    rec = dict(out["complex", EVAL_B])
+    rec["forms"] = {f"{m} B={nb}": r for (m, nb), r in out.items()}
+    rec["exact_counted"] = exact_counted
+    return rec
+
+
+def report_k4_mp(r):
+    for form, f in r["forms"].items():
+        print(f"phase 2: K4 multi-process form {form} K={f['K']} over "
+              f"{f['nvalid']} owned candidates: {fmt_t(f, 'ms')} ms (bound "
+              f"{f['bound'][0]:.4f} ms, {f['bound'][1]}, share "
+              f"{f['bound'][0] / f['ms']:.3f}), entry with its query "
+              f"forming {fmt_t(f, 'entry_ms')} ms, plain "
+              f"{fmt_t(f, 'plain_ms')} ms, matmul+compare+sum "
+              f"{fmt_t(f, 'library_ms')} ms, count diff {f['max_abs_err']}"
+              f" within {f['ties']} near-ties, {f['counted']} counted",
+              flush=True)
+    print(f"phase 2: K4 multi-process form exact on integer rows "
+          f"(ComplEx and RESCAL) at B={K4_BATCHES}: "
+          f"{r['exact_counted']} counted", flush=True)
 
 
 def ptxas_summary(name):
@@ -3544,6 +3723,7 @@ def report_kernels(rec):
           f"(bound {k3['uniform_bound'][0]:.4f} ms); multi-segment form at "
           f"{ROLE_SPLIT} bitwise; deterministic over two runs", flush=True)
     report_k4(rec["pool_eval_counts"])
+    report_k4_mp(rec["pool_eval_counts"]["mp_form"])
     report_k8(rec["gather_pool"])
     report_tier_kernels(rec)
     k5 = rec["complex_step"]
@@ -4254,8 +4434,9 @@ def report_fault(fr, smi):
 
 
 # phase 15: workload traces, decision telemetry, replay and the policy
-REPLAY_STEPS = 32                  # steps per worker thread (cut from
-# 64, which took phase 15 to 224 s on the card: ten replays of ~19 s)
+REPLAY_STEPS = 16                  # steps per worker thread (cut from
+# 64, which took phase 15 to 224 s on the card: ten replays of ~19 s;
+# then from 32, 169 s of a 1,036 s run that added phase 16)
 REPLAY_CLIENTS, REPLAY_LOOKUPS, REPLAY_KEYS = 8, 12, 64
 REPLAY_PAUSE_S = 0.1               # a client's pause between lookups
 REPLAY_SYNC_PER_S = 20.0           # the capture's background planner
@@ -4658,6 +4839,514 @@ def report_replay(rr, smi):
           flush=True)
     print(f"phase 15: {rr['wall_s']:.1f} s", flush=True)
 
+# phase 16: the multi-process layer. (a) and (b): a loopback cluster of
+# MP_NODES servers on the card in this process, one worker a node, on
+# phase 3's key space; (c): the KGE app as MP_RANKS launched processes
+# on the one card
+MP_NODES, MP_ROUNDS, MP_KEYS = 4, 32, 4096
+MP_PROF_ROUNDS = 4   # (a)'s last rounds, profiled for the busy share: a
+# trace of all 32 took ~60 s to post-process on the card's host
+MP_STORM_ROUNDS = 8
+MP_STORM_SPEC = "net.send=0.02,net.recv=0.02,net.dup=0.05,net.delay=0.02"
+MP_STORM_TIMEOUT_S = 0.5                    # one attempt, in the storm
+MP_RANKS = 2
+# the ranks' records (removed), beside this script wherever it is run from
+MP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "phase16")
+MP_APP_KERNELS = APP_KERNELS
+MP_RANK_TIMEOUT_S = 420
+
+
+def mp_cluster(at, dev):
+    """MP_NODES loopback nodes on the card over phase 3's key space, each
+    node's home keys filled from one seeded integer-valued table (so
+    every fold is exact); returns the cluster and the NumPy shadow."""
+    from adapm_tpu_torch.net import LoopbackCluster
+    cl = LoopbackCluster(
+        MP_NODES, num_keys=E + R, value_lengths=L, num_workers=1,
+        device=dev, heartbeat_ms=100.0, timeout_ms=5000.0,
+        opts_factory=lambda r: at.SystemOptions(sync_max_per_sec=0,
+                                                prefetch=False))
+    shadow = np.random.default_rng(16).integers(
+        -4, 5, size=(E + R, L)).astype(np.float32)
+
+    def fill(rank, srv):
+        w = srv.make_worker(0)
+        keys = np.arange(E + R, dtype=np.int64)
+        mine = keys[srv.glob.home_proc(keys) == rank]
+        for lo in range(0, len(mine), 50_000):
+            k = mine[lo:lo + 50_000]
+            w.wait(w.set(k, shadow[k]))
+        srv.barrier()
+        return w
+
+    cl.workers = cl.run(fill)
+    return cl, shadow
+
+
+def mp_rounds(cl, shadow, rounds, seed, lat):
+    """Each node's worker: per round, intent for its next batch of
+    MP_KEYS zipf keys, a pull of this batch, a push of integer-valued
+    rows to it, one planner round, advance_clock; then the quiesce
+    protocol (WaitSync -> Barrier -> WaitSync -> Barrier). The pushes are
+    drawn up front and added to the shadow. Returns the keys each node
+    touched."""
+    draws = []
+    for rank in range(MP_NODES):
+        rng = np.random.default_rng(seed + rank)
+        ks = [np.unique(skewed_keys(rng, E, MP_KEYS))
+              for _ in range(rounds + 1)]
+        vs = [rng.integers(-2, 3, size=(len(k), L)).astype(np.float32)
+              for k in ks[:rounds]]
+        draws.append((ks, vs))
+        for k, v in zip(ks, vs):
+            shadow[k] += v
+
+    def drive(rank, srv):
+        w = cl.workers[rank]
+        ks, vs = draws[rank]
+        w.intent(ks[0], w.current_clock, w.current_clock)
+        for i in range(rounds):
+            w.intent(ks[i + 1], w.current_clock + 1, w.current_clock + 1)
+            t0 = time.perf_counter()
+            got = w.pull_sync(ks[i])
+            t1 = time.perf_counter()
+            w.wait(w.push(ks[i], vs[i]))
+            t2 = time.perf_counter()
+            lat["pull"].append(t1 - t0)
+            lat["push"].append(t2 - t1)
+            lat["keys"] += 2 * len(ks[i])
+            check(np.isfinite(got).all(), "phase 16: non-finite pull")
+            srv.drive_rounds(1)
+            w.advance_clock()
+        srv.wait_sync()
+        srv.barrier()
+        srv.wait_sync()
+        srv.barrier()
+        return np.unique(np.concatenate(ks[:rounds]))
+
+    return cl.run(drive)
+
+
+def mp_check_reads(cl, shadow, touched, what):
+    """Every node reads every touched key: bitwise the shadow."""
+    allk = np.unique(np.concatenate(touched))
+
+    def read(rank, srv):
+        return cl.workers[rank].pull_sync(allk)
+
+    for rank, got in enumerate(cl.run(read)):
+        check(got.tobytes() == shadow[allk].tobytes(),
+              f"{what}: node {rank}'s reads of {len(allk)} keys differ "
+              f"from the shadow")
+    return len(allk)
+
+
+def mp_stats(cl, ranks):
+    pm = [cl.servers[r].glob.stats for r in ranks]
+    net = [cl.servers[r].net.stats() for r in ranks]
+    return dict(
+        relocations=sum(p["relocations_in"] for p in pm),
+        replications=sum(p["replicas_granted"] for p in pm),
+        redirects=sum(p["redirects"] for p in pm),
+        hops=[int(sum(cl.servers[r].glob.hops[i] for r in ranks))
+              for i in range(3)],
+        msgs=sum(n["msgs_out"] for n in net),
+        bytes=sum(n["bytes_out"] for n in net),
+        retransmits=sum(n["retransmits"] for n in net),
+        dup_suppressed=sum(n["dup_suppressed"] for n in net),
+        decode_errors=sum(n["decode_errors"] for n in net))
+
+
+def p50_p99(xs):
+    return (float(np.percentile(xs, 50)) * 1e3,
+            float(np.percentile(xs, 99)) * 1e3)
+
+
+def mp_loopback(at, K, dev):
+    """Phase 16 (a) and (b)."""
+    from torch.profiler import ProfilerActivity, profile
+    from adapm_tpu_torch.base import CLOCK_MAX, NOT_CACHED
+    from adapm_tpu_torch.fault.inject import FaultPlane
+    out = {"parts_s": {}}
+    mark = [time.perf_counter()]
+
+    def lap(name):   # host seconds of each part, for the report
+        now = time.perf_counter()
+        out["parts_s"][name] = now - mark[0]
+        mark[0] = now
+
+    cl, shadow = mp_cluster(at, dev)
+    lap("build and fill")
+    dead = MP_NODES - 1
+    try:
+        # (a) the rounds; the last MP_PROF_ROUNDS profiled for the busy
+        # share (each call ends in the quiesce protocol)
+        lat = {"pull": [], "push": [], "keys": 0}
+        K.reset_launches()
+        t0 = time.perf_counter()
+        touched = mp_rounds(cl, shadow, MP_ROUNDS - MP_PROF_ROUNDS, 1600,
+                            lat)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            touched += mp_rounds(cl, shadow, MP_PROF_ROUNDS, 1650, lat)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        wall, prof_wall = t2 - t0, t2 - t1
+        launches = dict(K.LAUNCHES)
+        dev_s = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    ) / 1e6
+        st = mp_stats(cl, range(MP_NODES))
+        lap("(a) rounds")
+        nread = mp_check_reads(cl, shadow, touched, "phase 16 (a)")
+        lap("(a) reads")
+        check(st["relocations"] > 0 and st["replications"] > 0,
+              f"phase 16 (a): relocations {st['relocations']}, "
+              f"replications {st['replications']}: both decisions must "
+              f"occur")
+        check(st["hops"][1] + st["hops"][2] > 0 and st["redirects"] > 0,
+              f"phase 16 (a): no key was served after a redirect "
+              f"(hops {st['hops']}, redirects {st['redirects']})")
+        check(st["decode_errors"] == 0, "phase 16 (a): decode errors")
+        check_launched(launches, "phase 16 (a)",
+                       ("routed_gather", "ordered_scatter_add"))
+        out["a"] = dict(st, wall_s=wall, keys_per_s=lat["keys"] / wall,
+                        pull_ms=p50_p99(lat["pull"]),
+                        push_ms=p50_p99(lat["push"]),
+                        device_s=dev_s or None,
+                        busy_share=dev_s / prof_wall if dev_s else None,
+                        launches=launches, keys_read=nread)
+
+        # (b) the storm: the wire points of every node's port fire
+        planes = [FaultPlane(MP_STORM_SPEC, seed=5 + r)
+                  for r in range(MP_NODES)]
+        for node, fp in zip(cl.nodes, planes):
+            node.port.fault = fp
+        # a dropped frame costs one attempt's timeout before its
+        # retransmit: shorter attempts for the storm
+        timeout_s, cl.fabric.timeout_s = cl.fabric.timeout_s, \
+            MP_STORM_TIMEOUT_S
+        before = mp_stats(cl, range(MP_NODES))
+        lat_b = {"pull": [], "push": [], "keys": 0}
+        K.reset_launches()
+        t0 = time.perf_counter()
+        touched_b = mp_rounds(cl, shadow, MP_STORM_ROUNDS, 1700, lat_b)
+        storm_s = time.perf_counter() - t0
+        for node in cl.nodes:
+            node.port.fault = None
+        cl.fabric.timeout_s = timeout_s
+        lap("(b) storm")
+        fired = {p: sum(fp.counts(p)[1] for fp in planes)
+                 for p in ("net.send", "net.recv", "net.dup", "net.delay")}
+        check(sum(fired.values()) > 0, "phase 16 (b): no fault fired")
+        nread_b = mp_check_reads(cl, shadow, touched_b, "phase 16 (b)")
+        lap("(b) reads")
+        st_b = mp_stats(cl, range(MP_NODES))
+        check(st_b["decode_errors"] == 0, "phase 16 (b): decode errors")
+        out["b"] = dict(fired=fired, wall_s=storm_s, keys_read=nread_b,
+                        pull_ms=p50_p99(lat_b["pull"]),
+                        retransmits=st_b["retransmits"]
+                        - before["retransmits"],
+                        dup_suppressed=st_b["dup_suppressed"]
+                        - before["dup_suppressed"],
+                        launches=dict(K.LAUNCHES))
+
+        # (b) the dead-peer drill: the survivors replicate the hottest
+        # keys (competing intents), then node `dead` is killed
+        hot = np.unique(skewed_keys(np.random.default_rng(99), E, 2048))
+
+        def replicate(rank, srv):
+            w = cl.workers[rank]
+            if rank != dead:
+                w.intent(hot, w.current_clock, CLOCK_MAX)
+            srv.wait_sync()
+            srv.barrier()
+
+        cl.run(replicate)
+        lap("(b) replicate")
+        survivors = [r for r in range(MP_NODES) if r != dead]
+        expect = {}
+        for r in survivors:
+            srv = cl.servers[r]
+            with srv._lock:
+                keys = np.arange(srv.num_keys, dtype=np.int64)
+                hint = srv.glob.owner_hint
+                owned = (hint == dead) | ((hint == NOT_CACHED) &
+                                          (srv.glob.home_proc(keys) == dead))
+                cand = keys[owned & (srv.ab.owner < 0)]
+                rep = (srv.ab.cache_slot[:, cand] >= 0).any(axis=0)
+            expect[r] = (cand[rep], int((~rep).sum()))
+        check(sum(len(v[0]) for v in expect.values()) > 0,
+              "phase 16 (b): no survivor holds a replica of a key the "
+              "dead node owns")
+        t0 = time.perf_counter()
+        cl.kill(dead)
+        while time.perf_counter() - t0 < 30 and not all(
+                cl.servers[r].net.stats()["failovers"] >= 1
+                for r in survivors):
+            time.sleep(0.01)
+        drill = {}
+        for r in survivors:
+            ns = cl.servers[r].net.stats()
+            check(ns["failovers"] == 1 and ns["peers_dead"] == 1,
+                  f"phase 16 (b): node {r} did not fail over ({ns})")
+            check(ns["promoted_keys"] == len(expect[r][0]),
+                  f"phase 16 (b): node {r} promoted {ns['promoted_keys']}"
+                  f" keys, {len(expect[r][0])} replicated")
+            check(ns["lost_keys"] == expect[r][1],
+                  f"phase 16 (b): node {r} counted {ns['lost_keys']} lost "
+                  f"keys, {expect[r][1]} owned by the dead node without a "
+                  f"replica")
+            check(0.0 < ns["failover_s"] < 10.0,
+                  f"phase 16 (b): failover_s {ns['failover_s']}")
+            drill[r] = dict(promoted=ns["promoted_keys"],
+                            lost=ns["lost_keys"],
+                            failover_s=ns["failover_s"])
+        detect_s = time.perf_counter() - t0
+
+        def reread(rank, srv):
+            k = expect[rank][0]
+            got = cl.workers[rank].pull_sync(k)
+            check(got.tobytes() == shadow[k].tobytes(),
+                  f"phase 16 (b): node {rank}'s promoted keys differ from "
+                  f"the shadow")
+            return len(k)
+
+        cl.run(reread, ranks=survivors)
+        out["drill"] = dict(nodes=drill, detect_s=detect_s)
+        lap("(b) drill")
+    finally:
+        cl.shutdown()
+        dead_srv = cl.servers[dead]
+        if dead_srv is not None and cl.fabric.is_dead(dead):
+            dead_srv.shutdown()   # the corpse's own planes and pools
+        del cl
+        torch.cuda.empty_cache()
+        lap("teardown")
+    return out
+
+
+def mp_rank(argv):
+    """One launched rank of phase 16 (c): the KGE app (main's parse and
+    run) on the card, its launch counts, the filtered counts of its evals
+    (recorded where _rank_side_stats takes them) and its DCN traffic,
+    written to OUT/rank<r>.json."""
+    out = argv[argv.index("--mp-rank") + 1]
+    app_argv = argv[argv.index("--") + 1:]
+    from adapm_tpu_torch.apps import knowledge_graph_embeddings as kge
+    from adapm_tpu_torch.ops import kernels as K
+    from adapm_tpu_torch.parallel import control, pm
+    counts, dcn = [], {}
+    side = kge._rank_side_stats
+
+    def record(greater):
+        counts.append(np.asarray(greater).tolist())
+        return side(greater)
+
+    kge._rank_side_stats = record
+    down = pm.GlobalPM.shutdown
+
+    def shutdown(self):
+        dcn.update(getattr(self.chan, "stats", {}))
+        return down(self)
+
+    pm.GlobalPM.shutdown = shutdown
+    K.build()            # the parent built them: this finds the libraries
+    K.reset_launches()
+    res = kge.run_app(kge.build_parser().parse_args(app_argv))
+    rank = control.process_id()
+    keep = ("mrr", "hits1", "hits10", "mrr_o", "mrr_s", "test_mrr",
+            "test_hits10", "epoch_s", "eval_s", "epoch_losses", "gen_s",
+            "replicas_created", "loss")
+    rec = {k: res[k] for k in keep}
+    rec.update(rank=rank, launches=dict(K.LAUNCHES),
+               replayed=dict(K.REPLAYED), counts=counts, dcn=dcn,
+               cuda=torch.cuda.get_device_name(0))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def mp_one_process(K, dev, argv, ckpt, recorded):
+    """The one-process K4 eval of the table the ranks evaluated (rank 0's
+    checkpoint): the filtered counts of the same triples and their
+    near-tie counts (the plain version's), in the order the ranks
+    recorded theirs."""
+    from adapm_tpu_torch.apps import knowledge_graph_embeddings as kge
+    from adapm_tpu_torch.io import kge as kgeio
+    args = kge.build_parser().parse_args(argv + ["--init_from", ckpt])
+    ds, _ = kgeio.generate_lowrank(
+        num_entities=args.synthetic_entities,
+        num_relations=args.synthetic_relations,
+        n_train=args.synthetic_triples, seed=args.seed,
+        dim_truth=args.gen_dim_truth, temperature=args.gen_temperature,
+        torch_device=dev)
+    run = kge.KgeRun(args, ds, device=dev)
+    try:
+        run.init_model()
+        sr_o, ro_s = ds.filters()
+
+        def emb_rows(keys, dim):
+            return run.srv.read_main(keys).reshape(len(keys), -1)[:, :dim]
+
+        got, ties = [], []
+        for triples in (ds.valid[:args.eval_triples],
+                        ds.test[:args.eval_triples]):
+            for lo in range(0, len(triples), EVAL_B):
+                t = triples[lo:lo + EVAL_B]
+                s, r, o = t[:, 0], t[:, 1], t[:, 2]
+                g_o, g_s, true_sc, t_o, t_s = kge._pool_counts(
+                    run, s, r, o, ties=True)
+                kge._filter_correct(run, emb_rows, s, r, o, g_o, g_s,
+                                    true_sc, sr_o, ro_s)
+                got += [g_o, g_s]
+                ties += [t_o, t_s]
+    finally:
+        run.srv.shutdown()
+    check(len(got) == len(recorded),
+          f"phase 16 (c): the ranks recorded {len(recorded)} count "
+          f"vectors, the one-process eval {len(got)}")
+    diff = [np.abs(np.asarray(a) - b) for a, b in zip(recorded, got)]
+    check(all((d <= t).all() for d, t in zip(diff, ties)),
+          "phase 16 (c): the ranks' global counts differ from the "
+          "one-process K4 eval of the same table beyond the near-tie rule")
+    return dict(count_diff=int(max(d.max() for d in diff)),
+                ties=int(sum(t.sum() for t in ties)),
+                triples=int(sum(len(g) for g in got[::2])))
+
+
+def mp_app(K, dev, script=None):
+    """Phase 16 (c): the KGE app as MP_RANKS processes through the port's
+    launcher, on the one card; each rank runs `script` (this file) with
+    --mp-rank."""
+    import shutil
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    os.makedirs(MP_DIR, exist_ok=True)
+    argv = APP_ARGS + ["--synthetic_triples", str(100 * B), "--epochs",
+                       "1", "--eval_every", "1", "--eval_triples", "100",
+                       "--scan_steps", str(SCAN_K), "--checkpoint_every",
+                       "1", "--checkpoint_dir", MP_DIR]
+    log = os.path.join(MP_DIR, "ranks.log")
+    env = dict(os.environ, TORCH_CPP_LOG_LEVEL="ERROR")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "adapm_tpu_torch.launcher", "-n",
+             str(MP_RANKS), "--no-keepalive", "--", sys.executable,
+             script or os.path.abspath(__file__), "--mp-rank", MP_DIR,
+             "--"] + argv,
+            stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=here,
+            start_new_session=True)
+        try:
+            code = p.wait(timeout=MP_RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            import signal
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            code = "timeout"
+    wall = time.perf_counter() - t0
+    if code != 0:
+        with open(log) as fh:
+            tail = fh.read()[-6000:]
+        raise RuntimeError(f"chip_smoke: phase 16 (c): the launched ranks "
+                           f"failed ({code}):\n{tail}")
+    ranks = []
+    for r in range(MP_RANKS):
+        with open(os.path.join(MP_DIR, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    stats = ("mrr", "hits1", "hits10", "mrr_o", "mrr_s", "test_mrr",
+             "test_hits10")
+    for rk in ranks[1:]:
+        check(all(rk[k] == ranks[0][k] for k in stats),
+              f"phase 16 (c): the ranks report different global eval "
+              f"statistics: {[{k: x[k] for k in stats} for x in ranks]}")
+        check(rk["counts"] == ranks[0]["counts"],
+              "phase 16 (c): the ranks' global counts differ")
+    for rk in ranks:
+        ln, rp = rk["launches"], rk["replayed"]
+        check_launched({k: ln[k] + rp[k] for k in ln},
+                       f"phase 16 (c) rank {rk['rank']}", MP_APP_KERNELS)
+        check(np.isfinite(rk["epoch_losses"]).all(),
+              f"phase 16 (c): rank {rk['rank']}'s loss is not finite")
+    t0 = time.perf_counter()
+    one = mp_one_process(K, dev, argv,
+                         os.path.join(MP_DIR, "kge_epoch0.npz"),
+                         ranks[0]["counts"])
+    one["s"] = time.perf_counter() - t0
+    steps = [100 // MP_RANKS] * MP_RANKS
+    eps = [n * B / rk["epoch_s"][0] for n, rk in zip(steps, ranks)]
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    return dict(wall_s=wall, examples_per_s=eps,
+                examples_per_s_sum=float(sum(eps)),
+                epoch_s=[rk["epoch_s"][0] for rk in ranks],
+                eval_s=[rk["eval_s"] for rk in ranks],
+                gen_s=[rk["gen_s"] for rk in ranks],
+                mrr=ranks[0]["mrr"], test_mrr=ranks[0]["test_mrr"],
+                loss=ranks[0]["loss"],
+                replicas_created=[rk["replicas_created"] for rk in ranks],
+                dcn=[rk["dcn"] for rk in ranks],
+                launches=[rk["launches"] for rk in ranks],
+                replayed=[rk["replayed"] for rk in ranks], one_process=one)
+
+
+def phase_mp(at, K, dev):
+    """Phase 16: (a) and (b) on the loopback cluster, (c) the launched
+    app."""
+    t0 = time.perf_counter()
+    out = mp_loopback(at, K, dev)
+    out["app"] = mp_app(K, dev)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def report_mp(mp, smi, app_eps=None):
+    a, b, d, c = mp["a"], mp["b"], mp["drill"], mp["app"]
+    print(f"phase 16 (a): {MP_NODES} loopback nodes on the card, "
+          f"{MP_ROUNDS} rounds of {MP_KEYS} zipf keys a worker: pull "
+          f"p50/p99 {a['pull_ms'][0]:.3f}/{a['pull_ms'][1]:.3f} ms, push "
+          f"{a['push_ms'][0]:.3f}/{a['push_ms'][1]:.3f} ms, "
+          f"{a['keys_per_s']:.0f} keys/s, relocations "
+          f"{a['relocations']}, replications {a['replications']}, "
+          f"redirects {a['redirects']}, hops(1/2/3+) {a['hops']}, net "
+          f"{a['msgs']} msgs {a['bytes'] / 2**20:.1f} MiB, K1 "
+          f"{a['launches']['routed_gather']} K3 "
+          f"{a['launches']['ordered_scatter_add']}, busy "
+          f"{a['busy_share']} (the last {MP_PROF_ROUNDS} rounds), "
+          f"{a['keys_read']} keys read bitwise the "
+          f"shadow on every node; host seconds by part "
+          f"{ {k: round(v, 2) for k, v in mp['parts_s'].items()} } | "
+          f"{smi}",
+          flush=True)
+    print(f"phase 16 (b): storm {MP_STORM_SPEC}: fired {b['fired']}, "
+          f"retransmits {b['retransmits']}, duplicates suppressed "
+          f"{b['dup_suppressed']}, {b['wall_s']:.2f} s for "
+          f"{MP_STORM_ROUNDS} rounds, pull p50/p99 "
+          f"{b['pull_ms'][0]:.3f}/{b['pull_ms'][1]:.3f} ms, "
+          f"{b['keys_read']} keys bitwise; dead-peer drill: "
+          f"{d['nodes']} (failed over within {d['detect_s']:.3f} s of "
+          f"the kill)", flush=True)
+    one = c["one_process"]
+    beside = "" if app_eps is None else \
+        f" (phase 5, one process: {app_eps:.0f})"
+    print(f"phase 16 (c): the KGE app on {MP_RANKS} launched processes: "
+          f"epochs {[round(t, 3) for t in c['epoch_s']]} s, examples/s "
+          f"{[round(x) for x in c['examples_per_s']]}, summed "
+          f"{c['examples_per_s_sum']:.0f}{beside}, evals "
+          f"{c['eval_s']} s, loss (summed over the ranks, as the app's "
+          f"allreduce reports it) {c['loss']:.6g}, MRR {c['mrr']:.4g} (test "
+          f"{c['test_mrr']:.4g}) on every rank, equal to the one-process "
+          f"K4 eval of the same table (count diff {one['count_diff']} "
+          f"within {one['ties']} near-ties over {one['triples']} "
+          f"triples x 2 sides; {one['s']:.1f} s), DCN {c['dcn']}, launches "
+          f"{c['launches']} replayed {c['replayed']}, wall "
+          f"{c['wall_s']:.1f} s; phase 16 {mp['phase_s']:.1f} s",
+          flush=True)
+
+
 
 def drive_path(K, path, kernels, seed):
     """Phase 3 or 7: the path's main path (counts set to 0 just before,
@@ -4682,6 +5371,9 @@ def main(argv):
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
+    if "--mp-rank" in argv:
+        # one launched rank of phase 16 (c), started by this script
+        return mp_rank(argv)
     import adapm_tpu_torch as at
     from adapm_tpu_torch.ops import kernels as K
     watch_background(at)
@@ -4699,7 +5391,8 @@ def main(argv):
         # the named kernels' phase-2 checks and times alone, unchecked
         # against the contract's other phases: copied into an earlier
         # tree of the port, it times that tree's kernels the same way
-        parts = {"K4": (phase_k4, report_k4), "K8": (phase_k8, report_k8)}
+        parts = {"K4": (phase_k4, report_k4), "K8": (phase_k8, report_k8),
+                 "K4mp": (phase_k4_mp, report_k4_mp)}
         for nm, key, run in (("K9", "gather_cold", phase_k9),
                              ("K10", "gather_pool_cold", phase_k10),
                              ("K11", "write_main_rows", phase_k11),
@@ -4739,6 +5432,15 @@ def main(argv):
         # phase 15 alone (workload traces, decision telemetry, replay,
         # the learned policy), checked as in the full run
         report_replay(phase_replay(at, K, dev), smi)
+        check(not BACKGROUND_FAULTS, f"background work failed: "
+              f"{BACKGROUND_FAULTS}")
+        print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return 0
+    if "--mp-only" in argv:
+        # phase 16 alone (the multi-process layer), checked as in the
+        # full run
+        report_mp(phase_mp(at, K, dev), smi)
         check(not BACKGROUND_FAULTS, f"background work failed: "
               f"{BACKGROUND_FAULTS}")
         print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
@@ -4817,6 +5519,8 @@ def main(argv):
     report_fault(fr, smi)
     rr = phase_replay(at, K, dev)
     report_replay(rr, smi)
+    mpr = phase_mp(at, K, dev)
+    report_mp(mpr, smi, app_eps=tps[-1])
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
                "adagrad_update": ("adapm_tpu_torch/csrc/adagrad.cu",
@@ -4883,7 +5587,12 @@ def main(argv):
                  replay_determinism=rr["launches_determinism"],
                  replay_prefix=rr["launches_prefix"],
                  replay_policy=rr["launches_policy"],
-                 replay_rank=rr["launches_rank"])
+                 replay_rank=rr["launches_rank"],
+                 mp_loopback=mpr["a"]["launches"],
+                 mp_storm=mpr["b"]["launches"],
+                 mp_app=mpr["app"]["launches"][0],
+                 mp_app_rank1=mpr["app"]["launches"][1],
+                 mp_app_replayed=mpr["app"]["replayed"][0])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
     # whose standalone launches it keeps, in the word2vec and MF app runs
@@ -4904,6 +5613,16 @@ def main(argv):
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"])
                for n, r in rec.items()]
+    # K4's multi-process form (phase 2 at one rank's owned candidates,
+    # launched on phase 16 (c)'s ranks) on K4's line
+    k4m = rec["pool_eval_counts"]["mp_form"]
+    kernels[list(rec).index("pool_eval_counts")].update(
+        mp_form_replaces="adapm_tpu/models/kge.py:175",
+        mp_form_launches=paths["mp_app"]["pool_eval_counts"],
+        mp_form_max_abs_err=k4m["max_abs_err"], mp_form_ms=k4m["ms"],
+        mp_form_entry_ms=k4m["entry_ms"], mp_form_plain_ms=k4m["plain_ms"],
+        mp_form_bound_ms=k4m["bound"][0], mp_form_bound_by=k4m["bound"][1],
+        mp_form_library_ms=k4m["library_ms"])
     for line in kernels:   # the parent's eager path (K5-K7), K6-K8's
         for key in ("eager_ms", "cold_ms", "call_ms", "event_ms"):  # views
             if key in rec[line["name"]]:
@@ -4932,7 +5651,7 @@ def main(argv):
                        "pull_flow": pf, "planner": pl, "tier_app": tier_app,
                        "tier_storm": storm, "tier_bags": tier_bags,
                        "tier_planner": tier_pl, "episodic": epi,
-                       "fault": fr, "replay": rr}, fh,
+                       "fault": fr, "replay": rr, "mp": mpr}, fh,
                       indent=1,
                       default=str)
     check(not BACKGROUND_FAULTS, f"background work failed: "

@@ -17,7 +17,10 @@ sum under concurrent pushes; K10 on long bags with cold members and
 K11's last-wins and drop cases, bitwise their plain versions; an
 incremental checkpoint chain saved on the card restored bitwise into a
 fresh server on the card and into one on the CPU, and a flight-traced
-lookup whose device slice is above zero.
+lookup whose device slice is above zero; K4's multi-process form
+(queries from rows, owned candidates) equal to its plain version on
+integer rows and within the near-tie rule on random ComplEx rows, and
+two loopback nodes with their pools on the card bitwise a shadow.
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -346,6 +349,141 @@ def test_pool_eval_counts_many_tiles_and_streamed_queries(cuda, Kd, E):
     ref = K.pool_eval_counts_plain(*dev_args)
     for got in _k4_twice(dev_args):
         assert all(torch.equal(x, y.cpu()) for x, y in zip(got, ref))
+
+
+def _k4_mp_case(rng, dev, B, model, d, integer, E=900, nown=500,
+                C=256, L=None):
+    """K4 in its multi-process form (models/kge.py
+    make_pool_eval_counts_mp): the rank owns `nown` of E entities (a
+    padded key tile), the queries come as rows. Returns the entry and its
+    arguments on the CPU and on `dev`."""
+    from adapm_tpu_torch.models import kge
+    kd = 2 * d if model == "complex" else d
+    rd = kd if model == "complex" else d * d
+    L = L or max(kd, 8) + 3
+    S, R = 2, E
+    flat = rng.permutation(S * R)[:E]
+    owner = torch.from_numpy((flat // R).astype(np.int32))
+    slot = torch.from_numpy((flat % R).astype(np.int32))
+    if integer:
+        pool = torch.from_numpy(rng.integers(-3, 4, (S, R, L))).float()
+        se, oe = (torch.from_numpy(rng.integers(-3, 4, (B, kd))).float()
+                  for _ in range(2))
+        re_ = torch.from_numpy(rng.integers(-2, 3, (B, rd))).float()
+    else:
+        pool = torch.randn(S, R, L)
+        se, re_, oe = torch.randn(B, kd), torch.randn(B, rd), \
+            torch.randn(B, kd)
+    owned = rng.permutation(E)[:nown].astype(np.int32)
+    nch = -(-nown // C)
+    pad = np.full(nch * C, owned[0], np.int32)
+    pad[:nown] = owned
+    keys = torch.from_numpy(pad.reshape(nch, C))
+    okey = torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
+    skey = torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
+    if model == "complex":
+        a, b, _, _ = kge._complex_queries(se, re_, oe)
+        q_o = torch.cat([a, b], -1)
+    else:
+        q_o, _ = kge._rescal_queries(se, re_, oe)
+    # true scores of real owned candidates: exact ties on integer data
+    idx = torch.from_numpy(owned[np.arange(B) % nown]).long()
+    rows = K._fill_gather_plain(pool, owner[idx], slot[idx])[:, :kd]
+    true = (q_o * rows).sum(1)
+    args = [pool, (owner, slot, None), keys, nown, se, re_, oe, skey, okey,
+            true]
+
+    def to(a):
+        if isinstance(a, tuple):
+            return tuple(to(x) for x in a)
+        return a.to(dev) if torch.is_tensor(a) else a
+
+    fn = kge.make_pool_eval_counts_mp(model, kd, rd, C)
+    return fn, args, [to(a) for a in args]
+
+
+@pytest.mark.parametrize("model,d", [("complex", 128), ("complex", 3),
+                                     ("rescal", 16), ("rescal", 7)])
+@pytest.mark.parametrize("B", [1, 36, 64, 150])
+def test_pool_eval_counts_mp_exact_and_near_ties(cuda, model, d, B):
+    """K4 in its multi-process form, the queries formed from rows by the
+    models' own helpers: equal to the plain version (on the CPU) on
+    integer rows and over two runs; on random rows, ComplEx and RESCAL
+    alike, within the near-tie rule of the plain version run on the card
+    with the same queries."""
+    rng = np.random.default_rng(B * 100 + d)
+    fn, ref_args, dev_args = _k4_mp_case(rng, cuda, B, model, d, True)
+    ref = fn(*ref_args)
+    for _ in range(2):
+        got = fn(*dev_args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(got, ref))
+    assert int(ref[0].sum()) > 0
+    fn, _, dev_args = _k4_mp_case(rng, cuda, B, model, d, False)
+    g_o, g_s = fn(*dev_args)
+    p_o, p_s, t_o, t_s = fn(*dev_args, ties=True)
+    assert ((g_o - p_o).abs() <= t_o).all()
+    assert ((g_s - p_s).abs() <= t_s).all()
+
+
+def test_pool_eval_counts_mp_owns_nothing_and_raises(cuda):
+    rng = np.random.default_rng(3)
+    fn, _, dev_args = _k4_mp_case(rng, cuda, 8, "complex", 4, True)
+    dev_args[3] = 0
+    g_o, g_s = fn(*dev_args)
+    assert not g_o.any() and not g_s.any()
+    dev_args[3] = 5
+    bad = list(dev_args)
+    bad[2] = bad[2][:, :-1].contiguous()        # tiles narrower than C
+    with pytest.raises(ValueError):
+        fn(*bad)
+
+
+def test_loopback_cluster_on_the_card(cuda):
+    """Two loopback nodes with their pools on the card: pulls, pushes and
+    sets across nodes, an exclusive intent (relocation) and a competing
+    one (replication), integer-valued, bitwise the NumPy shadow after
+    the quiesce protocol, and K4's multi-process form launched by the
+    candidate-partitioned eval's counts on each node."""
+    from adapm_tpu_torch.base import CLOCK_MAX
+    from adapm_tpu_torch.config import SystemOptions
+    from adapm_tpu_torch.net import LoopbackCluster
+    cl = LoopbackCluster(2, num_keys=96, value_lengths=8, device=cuda,
+                         opts_factory=lambda r: SystemOptions(
+                             sync_max_per_sec=0, prefetch=False))
+    try:
+        keys = np.arange(96, dtype=np.int64)
+        base = np.arange(96 * 8, dtype=np.float32).reshape(96, 8)
+
+        def scenario(rank, srv):
+            w = srv.make_worker(0)
+            if rank == 0:
+                w.wait(w.set(keys, base))
+            srv.barrier()
+            if rank == 1:
+                w.intent(keys[:48], 0, CLOCK_MAX)
+                srv.wait_sync()
+            srv.barrier()
+            if rank == 0:
+                w.intent(keys[:24], 0, CLOCK_MAX)
+                srv.wait_sync()
+            srv.barrier()
+            w.wait(w.push(keys, np.full((96, 8), rank + 1.0, np.float32)))
+            srv.wait_sync()
+            srv.barrier()
+            srv.wait_sync()
+            srv.barrier()
+            return w.pull_sync(keys), srv.read_main(keys).reshape(96, 8)
+
+        outs = cl.run(scenario)
+        for pulled, main in outs:
+            assert np.array_equal(pulled, base + 3)
+            assert np.array_equal(main, base + 3)
+        st = [s.glob.stats for s in cl.servers]
+        assert sum(x["relocations_in"] for x in st) > 0
+        assert sum(x["replicas_granted"] for x in st) > 0
+    finally:
+        cl.shutdown()
 
 
 def test_wrappers_raise_on_bad_cuda_input(cuda):

@@ -180,22 +180,99 @@ def test_jax_checkpoint_evaluates_alike(tmp_path, monkeypatch):
     run_t.srv.shutdown()
 
 
-def test_unported_options_raise():
-    """What the port has not taken over raises: the multi-process pool
-    eval (ROADMAP queue A, item 11). (--scan_steps is ported:
-    tests/test_torch_complex_step.py.)"""
+_MP_APP = """
+import json, os, sys
+from adapm_tpu_torch.apps import knowledge_graph_embeddings as tk
+from adapm_tpu_torch.parallel import control
+res = tk.run_app(tk.build_parser().parse_args(sys.argv[2:]), device="cpu")
+keep = ("mrr", "hits1", "hits10", "mrr_o", "mrr_s", "test_mrr",
+        "test_hits10", "loss", "replicas_created")
+with open(os.path.join(sys.argv[1],
+                       f"res{control.process_id()}.json"), "w") as f:
+    json.dump({k: res[k] for k in keep}, f)
+"""
+
+
+def _mp_app(tmp_path, monkeypatch, extra=()):
+    """The KGE app as 2 launched CPU processes (adapm_tpu_torch.launcher,
+    the TCPStore control plane, the DCN channel); returns each rank's
+    result and the argv (with the checkpoint directory)."""
+    from adapm_tpu_torch import launcher
+    argv = ["--dim", "4", "--neg_ratio", "2", "--synthetic_entities", "60",
+            "--synthetic_relations", "4", "--synthetic_triples", "300",
+            "--epochs", "1", "--batch_size", "32", "--eval_every", "1",
+            "--eval_triples", "40", "--eval_chunk", "16",
+            "--checkpoint_every", "1", "--checkpoint_dir",
+            str(tmp_path / "ck")] + list(extra) + FAST
+    monkeypatch.setenv("PYTHONPATH", os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    monkeypatch.setenv("TORCH_CPP_LOG_LEVEL", "ERROR")
+    code = launcher.launch_local(
+        2, [sys.executable, "-c", _MP_APP, str(tmp_path)] + argv,
+        keepalive=False)
+    assert code == 0
+    import json
+    res = [json.loads((tmp_path / f"res{r}.json").read_text())
+           for r in range(2)]
+    return res, argv
+
+
+def _one_process_eval(argv, ck, triples):
+    """The one-process pool eval (K4 over all entities) of a checkpoint."""
     from adapm_tpu_torch.io import kge as kgeio
-    args = tk.build_parser().parse_args(
-        ["--dim", "4", "--synthetic_entities", "30",
-         "--synthetic_relations", "2", "--synthetic_triples", "64"] + FAST)
-    ds = kgeio.generate_synthetic(30, 2, 64, seed=1)
+    args = tk.build_parser().parse_args(argv + ["--init_from", str(ck)])
+    ds = kgeio.generate_synthetic(args.synthetic_entities,
+                                  args.synthetic_relations,
+                                  args.synthetic_triples, seed=args.seed)
     run = tk.KgeRun(args, ds, device="cpu")
-    run.init_model()
-    run.srv.glob = object()            # what a multi-process run holds
-    with pytest.raises(NotImplementedError, match="queue A, item 11"):
-        tk.evaluate(run, ds.test[:8])
-    run.srv.glob = None
-    run.srv.shutdown()
+    try:
+        run.init_model()
+        agg = tk._eval_global(run, getattr(ds, triples)[:args.eval_triples])
+    finally:
+        run.srv.shutdown()
+    cnt = max(float(agg[3]) + float(agg[7]), 1.0)
+    return (float(agg[0]) + float(agg[4])) / cnt, \
+        (float(agg[2]) + float(agg[6])) / cnt
+
+
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """The multi-process pool eval, refused until the multi-process layer
+    was ported, now runs: the app trains on 2 launched CPU processes and
+    evaluates through K4's multi-process form (each rank counts over its
+    owned entities, one allreduce merges the counts). Both ranks report
+    the same global statistics, and they equal the one-process eval of
+    the same table (the epoch-0 checkpoint rank 0 writes right after the
+    eval) exactly. Nothing of the app's options raises any more
+    (--scan_steps: tests/test_torch_complex_step.py)."""
+    res, argv = _mp_app(tmp_path, monkeypatch)
+    keys = ("mrr", "hits1", "hits10", "mrr_o", "mrr_s", "test_mrr",
+            "test_hits10", "loss")
+    for k in keys:
+        assert res[0][k] == res[1][k], (k, res[0][k], res[1][k])
+    assert np.isfinite(res[0]["loss"]) and res[0]["mrr"] > 0
+    mrr, h10 = _one_process_eval(argv, tmp_path / "ck" / "kge_epoch0.npz",
+                                 "valid")
+    assert (mrr, h10) == (res[0]["mrr"], res[0]["hits10"])
+
+
+@pytest.mark.slow
+def test_multiprocess_scan_steps_against_per_step(tmp_path, monkeypatch):
+    """A 2-process --scan_steps 2 run (every window's keys localized
+    before its routes are read) beside the per-step run: both train to a
+    finite loss within 5% of each other (the ranks' interleaving makes
+    data-parallel runs differ in the last bits), and each one's global
+    eval equals the one-process eval of its own table."""
+    out = {}
+    for k in ("1", "2"):
+        d = tmp_path / f"k{k}"
+        d.mkdir()
+        res, argv = _mp_app(d, monkeypatch, ("--scan_steps", k))
+        assert res[0]["mrr"] == res[1]["mrr"]
+        mrr, _ = _one_process_eval(argv, d / "ck" / "kge_epoch0.npz",
+                                   "valid")
+        assert mrr == res[0]["mrr"]
+        out[k] = res[0]["loss"]
+    np.testing.assert_allclose(out["2"], out["1"], rtol=0.05)
 
 
 def test_app_imports_neither_jax_nor_the_jax_package():

@@ -10,8 +10,8 @@ bitwise), the `prefetch.report()` counters after `flush()` and the
 placement tables (compared exactly). The fused-step scenarios' losses
 and trained rows are model math, held to rtol 1e-5 / atol 1e-6 across
 packages (bitwise within each). The nineteenth JAX scenario,
-`test_control_payload_framing`, tests `parallel/control.py` and stays
-with the multi-process layer (ROADMAP A11).
+`test_control_payload_framing`, tests `parallel/control.py`: its twin
+is in tests/test_torch_launcher.py, with the port's control plane.
 """
 import argparse
 
