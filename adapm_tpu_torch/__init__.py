@@ -11,6 +11,7 @@ from .base import CLOCK_MAX, LOCAL, WORKER_FINISHED, MgmtTechniques  # noqa
 from .config import SystemOptions  # noqa
 from .core.kv import Server, Worker  # noqa
 from .device.context import DeviceContext, make_context  # noqa
+from .parallel.mesh import MeshContext, get_mesh_context, make_mesh  # noqa
 
 __version__ = "0.1.0"
 
@@ -19,12 +20,12 @@ def setup(num_keys: int, value_lengths, opts=None, num_shards=None,
           num_workers=None, device=None):
     """Convenience: build a device context + Server (reference
     `ps::Setup` + `ServerT server(...)`, apps/simple.cc:107-133).
-    `num_shards` virtual shards (default 1) on `device` (default cuda).
-    Under the launcher (ADAPM_COORDINATOR set), this also joins the
-    multi-process runtime — the reference's Postoffice::Start +
-    scheduler rendezvous."""
+    `num_shards` virtual shards (default 1) on `device` (default: this
+    process's card, parallel/mesh.py make_mesh). Under the launcher
+    (ADAPM_COORDINATOR set), this also joins the multi-process runtime —
+    the reference's Postoffice::Start + scheduler rendezvous."""
     from .parallel import control
     control.init_from_env()
-    ctx = make_context(num_shards, device)
+    ctx = make_mesh(num_shards, device=device)
     return Server(num_keys, value_lengths, opts=opts, ctx=ctx,
                   num_workers=num_workers)

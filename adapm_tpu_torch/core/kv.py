@@ -43,10 +43,12 @@ manager (`glob`, parallel/pm.py GlobalPM): keys owned by another process
 carry owner REMOTE here, and their pulls, pushes and sets ride the
 node's channel to the owner, ordered per worker by write futures
 (`_rw_pending` defers replica installs behind in-flight remote writes).
-`net` is the node's membership plane (loopback). The JAX server's other
-optional planes (streaming, the collective exchange) are not ported:
-asking for one raises NotImplementedError naming its ROADMAP item, and
-the corresponding attributes stay None.
+`net` is the node's membership plane (loopback). With
+--sys.collective_sync the cross-process replica deltas ride the BSP
+collective exchange (parallel/collective.py; `collective_pull/push`).
+`stream` is the streaming plane (adapm_tpu_torch/stream) when a
+--sys.stream.* knob is set. The lock-order sentinel is not ported yet:
+asking for it raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -111,9 +113,6 @@ def _fill_flat(out, offs, lens, pos, part) -> None:
 # SystemOptions knobs of planes this package does not have yet, with the
 # ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("stream_batch", "the streaming plane", "queue A, item 11b"),
-    ("stream_freshness_slo_ms", "the streaming plane", "queue A, item 11b"),
-    ("collective_sync", "the collective exchange", "queue B, B10 (A11b)"),
     ("lint_lockorder", "the lock-order sentinel", "queue A, item 12"),
 )
 
@@ -264,8 +263,9 @@ class Server:
         # `replay` section)
         self.replay_stats: Optional[Dict] = None
         # the last checkpoint-chain restore's wall time (fault/ckpt.py
-        # restore_chain) and the stream cursor a chain carried (the
-        # streaming plane itself is ROADMAP queue A, item 11b)
+        # restore_chain) and the stream cursor a chain carried (also
+        # applied to self.stream.cursor when the plane exists; kept apart
+        # so a restore into a plane-less server still surfaces it)
         self._last_recovery_s: Optional[float] = None
         self._restored_stream_cursor: Optional[int] = None
         from ..fault.policy import RetryPolicy
@@ -280,8 +280,8 @@ class Server:
                                   recorder=self.flight_recorder,
                                   retry_policy=self._retry_policy,
                                   fault=self.fault)
-        # tier and the cross-process layer are built below; the
-        # streaming plane is not ported and stays None
+        # tier, the cross-process layer and the streaming plane are
+        # built below
         self.tier = self.glob = self.net = self.stream = None
         # outstanding remote writes (future, keys): replication of a key
         # with an in-flight remote write is deferred — the owner's base
@@ -401,6 +401,18 @@ class Server:
             self.net = node.net_plane()
             if self.opts.heartbeat_s > 0:
                 node.start_heartbeat(self.opts.heartbeat_s)
+
+        # streaming plane (adapm_tpu_torch/stream): the acked-event
+        # cursor, the ingest accounting and the FreshnessSLO controller.
+        # None unless a --sys.stream.* knob is set (no stream.* names
+        # then). Built after the sync manager (the controller's first
+        # lever) and the executor (its tick and the trainer's pump run
+        # there), started here so a freshness target steers at once
+        if self.opts.stream_batch > 0 or \
+                self.opts.stream_freshness_slo_ms > 0:
+            from ..stream import StreamPlane
+            self.stream = StreamPlane(self)
+            self.stream.start()
 
         # routing-plan cache + intent-driven prefetch pipeline (the hot
         # Pull/Push path levers; core/intent.py). Both revalidate against
@@ -1314,6 +1326,11 @@ class Server:
         self._shutdown_done = True
         if self._serve_plane is not None:
             self._serve_plane.close()
+        if self.stream is not None:
+            # the ingest pump pushes through the live pools (its `stream`
+            # stream drains inside close) and the freshness tick walks
+            # sync and replica state
+            self.stream.close()
         if self._reporter is not None:
             self._reporter.stop()
             self._reporter = None
@@ -1403,7 +1420,7 @@ class Server:
                           "sync", "exec", "device", "serve", "slo",
                           "tier", "episode", "flight", "fault", "ckpt",
                           "wtrace", "replay", "decision", "policy", "pm",
-                          "net")
+                          "net", "collective", "stream")
 
     def metrics_snapshot(self) -> Dict:
         """The structured telemetry dict: `schema_version`,
@@ -1433,7 +1450,11 @@ class Server:
         --sys.policy.file). With more than one process, `pm` holds the
         GlobalPM's counters and its hop histogram, and `net` (loopback
         nodes) the transport plane's msgs, bytes, retransmits, peers and
-        failovers."""
+        failovers; with --sys.collective_sync, `collective` holds the BSP
+        exchange's `bsp_rounds`, `bsp_iterations`, `bsp_rows_out` and
+        `bsp_rows_in`. `stream` holds the streaming plane's cursor,
+        ingest counters, trainer and FreshnessSLO report when a
+        --sys.stream.* knob is set."""
         out: Dict = {"schema_version": 3,
                      "metrics_enabled": bool(self.obs.enabled)}
         for sec in self._SNAPSHOT_SECTIONS:
@@ -1469,6 +1490,12 @@ class Server:
                 out["pm"].update({k: int(v)
                                   for k, v in self.glob.stats.items()})
                 out["pm"]["hops"] = [int(h) for h in self.glob.hops]
+            if self.glob.coll is not None:
+                out["collective"].update(
+                    {f"bsp_{k}": int(v)
+                     for k, v in self.glob.coll.stats.items()})
+        if self.stream is not None:
+            out["stream"].update(self.stream.stats())
         if self.net is not None:
             out["net"].update(self.net.stats())
         out["exec"].update(self.exec.stats())
@@ -1536,6 +1563,19 @@ class Server:
             wt.record_quiesce()
         with self._round_lock:
             self.sync.quiesce()
+
+    def collective_pull(self, keys) -> np.ndarray:
+        """BSP pull through the collective exchange — EVERY process must
+        call this together (parallel/pm.py collective_pull;
+        --sys.collective_sync). Returns owner values, flat."""
+        assert self.glob is not None, "single process: use Worker.pull"
+        return self.glob.collective_pull(keys)
+
+    def collective_push(self, keys, vals) -> None:
+        """BSP additive push through the collective exchange — same
+        collective contract as collective_pull."""
+        assert self.glob is not None, "single process: use Worker.push"
+        self.glob.collective_push(keys, vals)
 
     # tiered batches at least this large read through _read_owned_bulk
     _BULK_READ_MIN = 65536

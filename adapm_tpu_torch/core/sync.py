@@ -17,9 +17,10 @@ exact. With tiered storage, each drained intent pins its owner rows hot
 (TierManager.note_intent). Multi-process (parallel/pm.py GlobalPM): an
 intent on a key another process owns asks the owner to relocate or
 replicate it, and replicas of remote keys sync and drop over the node's
-channel, per-channel rounds overlapping their round trips. The
-collective exchange and its cadence are not ported (ROADMAP queue B,
-B10 (A11b)).
+channel, per-channel rounds overlapping their round trips. With
+--sys.collective_sync those deltas ship in the BSP collective exchange
+instead (parallel/collective.py): at every WaitSync/quiesce point, and
+at each --sys.collective_cadence clock boundary.
 """
 from __future__ import annotations
 
@@ -296,6 +297,14 @@ class SyncManager:
         self._last_round_t = 0.0
         # wire bytes shipped by the most recent round (sync.bytes_per_round)
         self._last_round_bytes = 0
+        # collective cadence state (--sys.collective_cadence K): local
+        # joins of the BSP exchange are serialized (two local threads
+        # entering it at once would corrupt the global exchange
+        # sequence); _cad_joined counts the clock boundaries already
+        # serviced since the last global sync point
+        import threading
+        self._coll_lock = threading.Lock()
+        self._cad_joined = 0
 
     # ------------------------------------------------------------------
     # intent registration + replicate-vs-relocate decision
@@ -525,10 +534,12 @@ class SyncManager:
                                    threshold=self.opts.sync_threshold,
                                    compress=True)
                 self.stats.add(keys_synced=len(kk))
-        if len(keep_x):
+        if len(keep_x) and not self.opts.collective_sync:
             # replicas of remote keys: exempt from the dirty filter (the
             # owner's writes are invisible to local epochs, and the
-            # round is also how they observe remote pushes)
+            # round is also how they observe remote pushes). Collective
+            # mode: they accumulate and ship in the BSP exchange at the
+            # next WaitSync/quiesce point or cadence boundary
             srv.glob.sync_replicas(keys[keep_x], shards[keep_x])
             self.stats.add(keys_synced=len(keep_x))
         if (len(drop) or len(drop_x)) and srv.tracer is not None:
@@ -589,6 +600,12 @@ class SyncManager:
                     self.sync_channel(self._next_channel)
                     self._next_channel = \
                         (self._next_channel + 1) % self.num_channels
+                if force_intents and all_channels:
+                    # the WaitSync shape: in collective mode the agreed
+                    # point where every process joins the BSP exchange
+                    self._collective_point()
+                else:
+                    self._maybe_cadence()
                 self.stats.add(rounds=1)
             self._last_round_bytes = sum(
                 st.sync_bytes_shipped for st in self.server.stores) - \
@@ -640,6 +657,70 @@ class SyncManager:
         if self._chan_exec is not None:
             self._chan_exec.shutdown(wait=True)
             self._chan_exec = None
+
+    def _collective_active(self) -> bool:
+        return self.server.glob is not None and self.opts.collective_sync
+
+    def _collective_exchange(self, quiescing: bool) -> bool:
+        """One BSP exchange of every cross-process replica delta (caller
+        holds _coll_lock). Returns True iff all processes entered it
+        quiescing."""
+        srv = self.server
+        with srv._lock:
+            parts = [t.snapshot() for t in self.replicas]
+            karr = np.concatenate([k for k, _ in parts])
+            sarr = np.concatenate([s for _, s in parts])
+            m = srv.ab.owner[karr] < 0
+            karr, sarr = karr[m], sarr[m]
+        all_q = srv.glob.collective_sync(karr, sarr, quiescing=quiescing)
+        self.stats.add(keys_synced=len(karr), keys_considered=len(karr))
+        return all_q
+
+    def _maybe_cadence(self) -> None:
+        """--sys.collective_cadence K: join one BSP exchange per K-clock
+        boundary this process's workers have crossed. Every process runs
+        the same check in its run_round, so exchanges pair up globally in
+        boundary order; a process that crosses fewer boundaries before
+        its next WaitSync/quiesce is absorbed there by the flag loop
+        (_collective_point). Bounded staleness: a replica observes any
+        remote push within K clocks of the slowest process (plus one
+        run_round)."""
+        K = self.opts.collective_cadence
+        if K <= 0 or not self._collective_active():
+            return
+        while True:
+            mc = self._min_active_clock()
+            if mc is None or mc < (self._cad_joined + 1) * K:
+                return
+            with self._coll_lock:
+                # re-check: another local thread may have serviced it (or
+                # the last worker may have finalized mid-check)
+                mc = self._min_active_clock()
+                if mc is None or mc < (self._cad_joined + 1) * K:
+                    continue
+                self._cad_joined += 1
+                self._collective_exchange(quiescing=False)
+
+    def _collective_point(self) -> None:
+        """Ship all cross-process replica deltas through the collective
+        exchange. Reached by every process together; runs (with possibly
+        zero items) whenever collective mode is on. With a cadence this
+        is a FLAG LOOP: the process keeps joining exchanges
+        (quiescing=True) until every peer is also at its wait point —
+        absorbing peers that crossed more cadence boundaries."""
+        if not self._collective_active():
+            return
+        with self._coll_lock:
+            while True:
+                all_q = self._collective_exchange(quiescing=True)
+                if all_q or self.opts.collective_cadence <= 0:
+                    break
+            # a global sync point: re-base the cadence so all processes
+            # agree that past boundaries need no exchange
+            K = self.opts.collective_cadence
+            if K > 0:
+                mc = self._min_active_clock()
+                self._cad_joined = 0 if mc is None else mc // K
 
     def _min_active_clock(self):
         """Min clock over the registered, unfinished workers; None when no
@@ -694,10 +775,13 @@ class SyncManager:
                     srv._sync_replicas(lk, ls)
                     self.stats.add(keys_synced=len(lk),
                                    keys_considered=len(lk))
-                if len(rk):
+                if len(rk) and not self.opts.collective_sync:
                     srv.glob.sync_replicas(rk, rs)
                     self.stats.add(keys_synced=len(rk),
                                    keys_considered=len(rk))
+            # collective mode: one BSP exchange covers every cross
+            # replica (joined by all processes, items or not)
+            self._collective_point()
             srv.block()
 
     def report(self) -> str:

@@ -446,6 +446,20 @@ class TorchDevicePort(DevicePort):
             "eagerly, and K-step windows are captured as CUDA graphs by "
             "ops/fused.py DeviceRoutedRunner.run_scan")
 
-    def compile_collective(self, fn, mesh, in_specs, out_specs):
-        raise NotImplementedError("the collective exchange is not ported "
-                                  "yet (ROADMAP queue B, B10 (A11b))")
+    def compile_collective(self, fn, mesh, in_specs="p", out_specs="p"):
+        """The collective exchange over the process list `mesh`
+        (parallel/mesh.py ProcessMesh) where the JAX port builds a
+        shard_map program over a one-device-per-process mesh. The one
+        collective program the PM uses is the leafwise all-to-all over
+        the process axis (`fn="all_to_all"`, specs on that axis); it
+        returns parallel/exchange.py SlabExchange: K13 on the card, the
+        plain version for a CPU context."""
+        if fn != "all_to_all" or in_specs != mesh.axis or \
+                out_specs != mesh.axis:
+            raise ValueError(
+                "the port builds one collective program: the all-to-all "
+                f"over the process axis {mesh.axis!r} (got fn={fn!r}, "
+                f"in_specs={in_specs!r}, out_specs={out_specs!r})")
+        from ..parallel.exchange import SlabExchange
+        self.programs += 1
+        return SlabExchange(mesh)

@@ -46,8 +46,8 @@ Periodic operation: `--sys.checkpoint.every S --sys.checkpoint.path D`
 runs `save()` as a self-rescheduling program on the executor's `ckpt`
 stream. `Server.shutdown()` closes the checkpointer BEFORE pool teardown
 and drains the `ckpt` stream. The chain is single-process, as in the
-JAX package: a multi-process job takes per-rank shards
-(utils/checkpoint.py), ROADMAP queue A, item 11b.
+JAX package: a multi-process job takes the quiesced per-rank shards of
+utils/checkpoint.py save_server/restore_server.
 """
 from __future__ import annotations
 
@@ -73,8 +73,8 @@ _AUX_KEYS = ("owner", "slot", "cache_slot", "relocation_counter",
              "intent_end", "clocks")
 
 _MULTI_PROCESS = ("incremental checkpoint chains are single-process; "
-                  "multi-process jobs take per-rank shards, which are not "
-                  "ported yet (ROADMAP queue A, item 11b)")
+                  "multi-process jobs use utils.checkpoint.save_server's "
+                  "quiesced per-rank shards")
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -609,8 +609,8 @@ def _apply_chain(server, chain: List[Tuple[Dict, Dict]]) -> None:
         for wid, w in server._workers.items():
             w._clock = int(server._clocks[wid])
         if "stream_cursor" in aux:
-            # the acked-event horizon: kept on the server (the streaming
-            # plane itself is ROADMAP queue A, item 11b)
+            # the acked-event horizon: kept on the server, and applied
+            # to the streaming plane's cursor when the plane exists
             cur = int(np.asarray(aux["stream_cursor"]).reshape(-1)[0])
             server._restored_stream_cursor = cur
             if getattr(server, "stream", None) is not None:

@@ -31,6 +31,11 @@ PyTorch version.
     K12 sync_compress       csrc/sync_compress.cu   (XLA: the wire transform
                                                      of jaxport.
                                                      _sync_replicas_compressed)
+    K13 alltoall_put        csrc/alltoall_put.cu    (XLA: the all-to-all of
+                                                     parallel/collective.py,
+                                                     jaxport.compile_collective:
+                                                     the BSP exchange, HBM to
+                                                     HBM through CUDA IPC)
 
 K9-K12 read and write the wire formats of tier/quant.py (fp32, fp16,
 int8 with a per-row f32 scale) bit for bit as its host twins do
@@ -79,7 +84,8 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
             "gather_pool": "gather_pool.cu",
             "gather_cold": "gather_cold.cu",
             "write_main_rows": "write_main_rows.cu",
-            "sync_compress": "sync_compress.cu"}
+            "sync_compress": "sync_compress.cu",
+            "alltoall_put": "alltoall_put.cu"}
 
 # launches per kernel since the last reset_launches(), counted by the
 # wrappers (chip_smoke.py reads them to show the main path went through
@@ -89,7 +95,7 @@ LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
                             "complex_step": 0, "sgns_step": 0, "mf_step": 0,
                             "gather_pool": 0, "gather_cold": 0,
                             "gather_pool_cold": 0, "write_main_rows": 0,
-                            "sync_compress": 0}
+                            "sync_compress": 0, "alltoall_put": 0}
 # launches made by replays of captured CUDA graphs (ops/fused.py
 # run_scan): each replay adds the launches recorded at its capture. No
 # wrapper runs then, so LAUNCHES does not count them.
@@ -220,6 +226,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_sync_compress.restype = I
         lib.adapm_sync_compress.argtypes = [P] * 3 + [LL, I, I, I, F] + \
             [P] * 4 + [I, I, P]
+    elif name == "alltoall_put":
+        lib.adapm_alltoall_put.restype = I
+        lib.adapm_alltoall_put.argtypes = [P, P, I, LL, LL, P]
+        lib.adapm_a2a_alloc.restype = I
+        lib.adapm_a2a_alloc.argtypes = [LL, ctypes.POINTER(P), P]
+        lib.adapm_a2a_open.restype = I
+        lib.adapm_a2a_open.argtypes = [P, ctypes.POINTER(P)]
+        lib.adapm_a2a_close.restype = I
+        lib.adapm_a2a_close.argtypes = [P]
+        lib.adapm_a2a_free.restype = I
+        lib.adapm_a2a_free.argtypes = [P]
     elif name == "ordered_scatter":
         lib.adapm_flat_targets.restype = I
         lib.adapm_flat_targets.argtypes = [P, P, P, I, P, I, I, P]
@@ -1536,3 +1553,110 @@ def mf_step(w: torch.Tensor, h: torch.Tensor, x: torch.Tensor,
     LAUNCHES["mf_step"] += 1
     _check(rc, "mf_step")
     return loss
+
+
+# ---------------------------------------------------------------------------
+# K13 alltoall_put
+# ---------------------------------------------------------------------------
+
+
+def alltoall_put_plain(src: torch.Tensor, dsts, offset: int) -> None:
+    """The plain version of K13: row d of `src` [P, T] (uint8) copied to
+    `dsts[d][offset:offset + T]`, every d, with `copy_`."""
+    T = src.shape[1]
+    for d, dst in enumerate(dsts):
+        dst[offset:offset + T].copy_(src[d])
+
+
+def alltoall_put(src: torch.Tensor, dsts, offset: int,
+                 table: Optional[torch.Tensor] = None) -> None:
+    """K13: one launch writes row d of `src` [P, T] (contiguous uint8)
+    into `dsts[d]` (a flat uint8 tensor: a receive slab, this process's
+    own or a peer's mapped through CUDA IPC) at byte `offset`, for every
+    destination d. `table` is the [P] int64 device array of the slabs'
+    base pointers (each `dsts[d].data_ptr()`) on `src`'s card, built
+    here when None; with a table, a peer's slab may lie on another card
+    (the launch writes it through peer access). T and `offset` must be
+    multiples of 16. CPU tensors take the plain version."""
+    P = len(dsts)
+    _require(src.dim() == 2 and src.shape[0] == P and
+             src.dtype == torch.uint8 and src.is_contiguous(),
+             "alltoall_put: src must be a contiguous uint8 [P, T]")
+    T = src.shape[1]
+    for dst in dsts:
+        _require(dst.dtype == torch.uint8 and dst.dim() == 1 and
+                 offset >= 0 and offset + T <= dst.numel(),
+                 "alltoall_put: each destination must be a flat uint8 slab "
+                 "holding [offset, offset + T)")
+    if not _on_cuda(src, *(dsts if table is None else [table])):
+        alltoall_put_plain(src, dsts, offset)
+        return
+    _require(T % 16 == 0 and offset % 16 == 0 and _aligned16(src, *dsts),
+             "alltoall_put: T, offset and every buffer must be 16-byte "
+             "aligned")
+    if table is None:
+        table = torch.tensor([d.data_ptr() for d in dsts],
+                             dtype=torch.int64, device=src.device)
+    _require(table.dtype == torch.int64 and table.numel() == P and
+             table.device == src.device,
+             "alltoall_put: table must be the [P] int64 device pointers")
+    rc = _lib("alltoall_put").adapm_alltoall_put(
+        _ptr(src), _ptr(table), P, T, int(offset), _stream())
+    LAUNCHES["alltoall_put"] += 1
+    _check(rc, "alltoall_put")
+
+
+class _SlabView:
+    """`__cuda_array_interface__` of a raw device allocation, so torch
+    can view it without owning it."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (int(nbytes),), "typestr": "|u1",
+            "data": (int(ptr), False), "strides": None, "version": 2}
+
+
+def slab_view(ptr: int, nbytes: int) -> torch.Tensor:
+    """A flat uint8 tensor over `nbytes` of device memory at `ptr` (a
+    slab from `slab_alloc` or `slab_open`), on the card that holds it;
+    it does not own the memory."""
+    return torch.as_tensor(_SlabView(ptr, nbytes))
+
+
+def _a2a_call(fn, what: str, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{what} failed (cudaError {rc})")
+
+
+def slab_alloc(nbytes: int) -> Tuple[int, bytes]:
+    """A zeroed receive slab from raw cudaMalloc on the current device:
+    (pointer, its 64-byte CUDA IPC handle)."""
+    lib = _lib("alltoall_put")
+    ptr = ctypes.c_void_p()
+    handle = ctypes.create_string_buffer(64)
+    _a2a_call(lib.adapm_a2a_alloc, "cudaMalloc/cudaIpcGetMemHandle",
+              int(nbytes), ctypes.byref(ptr), handle)
+    return int(ptr.value), handle.raw
+
+
+def slab_open(handle: bytes) -> int:
+    """Map a peer's slab (cudaIpcOpenMemHandle, lazy peer access);
+    raises if the handle cannot be opened."""
+    lib = _lib("alltoall_put")
+    ptr = ctypes.c_void_p()
+    _a2a_call(lib.adapm_a2a_open, "cudaIpcOpenMemHandle",
+              ctypes.c_char_p(bytes(handle)), ctypes.byref(ptr))
+    return int(ptr.value)
+
+
+def slab_close(ptr: int) -> None:
+    """Unmap a peer's slab (cudaIpcCloseMemHandle)."""
+    _a2a_call(_lib("alltoall_put").adapm_a2a_close, "cudaIpcCloseMemHandle",
+              ctypes.c_void_p(ptr))
+
+
+def slab_free(ptr: int) -> None:
+    """Free this process's own slab (cudaFree)."""
+    _a2a_call(_lib("alltoall_put").adapm_a2a_free, "cudaFree",
+              ctypes.c_void_p(ptr))

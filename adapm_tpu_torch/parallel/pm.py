@@ -47,9 +47,9 @@ Device work on handler threads: a served read gathers through K1 on the
 server's stream and returns host rows (`.cpu()` synchronizes), so every
 reply's rows are complete before its frame is encoded; a served write
 enqueues K3 under the lock, ordered on the stream before any later
-gather. The BSP collective exchange (`collective_sync`,
-`collective_pull`, `collective_push`) is not ported: it raises, naming
-ROADMAP queue B, B10 (A11b).
+gather. With --sys.collective_sync the replica deltas of remote keys
+ride the BSP collective exchange instead (`collective_sync`,
+`collective_pull`, `collective_push`; parallel/collective.py over K13).
 """
 from __future__ import annotations
 
@@ -62,10 +62,6 @@ import numpy as np
 
 from ..base import NOT_CACHED, MgmtTechniques
 from ..utils.log import alog
-
-_COLLECTIVE = ("the collective exchange (collective_sync, collective_pull, "
-               "collective_push) is not ported yet (ROADMAP queue B, "
-               "B10 (A11b))")
 
 # client-side redirect-retry budget: transient misses (a request racing an
 # ownership transfer) resolve within a hop or two once the adoption lands;
@@ -139,6 +135,12 @@ class GlobalPM:
         if node is None:
             from ..net.port import DcnNode
             node = DcnNode(server.opts)
+        if server.opts.collective_sync and node.kind != "dcn":
+            # before any channel or pool starts: nothing to tear down
+            raise ValueError(
+                "--sys.collective_sync requires the dcn backend (device "
+                "collectives are meaningless on the in-process "
+                f"{node.kind!r} fabric)")
         self.node = node
         self.pid = node.pid
         self.num_procs = node.num_procs
@@ -220,9 +222,14 @@ class GlobalPM:
         # deadlock even when _drive itself runs on _exec_r
         self._exec_fan = ThreadPoolExecutor(max_workers=max(2, nr),
                                             thread_name_prefix="adapm-pm-f")
-        # the BSP collective exchange (--sys.collective_sync) is not
-        # ported: the Server refuses the knob, and these stay None
+        # BSP collective sync engine (--sys.collective_sync): replica
+        # delta/fresh rows ride the collective exchange at WaitSync/
+        # quiesce points and cadence boundaries instead of DCN RPC
+        # (parallel/collective.py)
         self.coll = None
+        if server.opts.collective_sync:
+            from .collective import CollectiveSync
+            self.coll = CollectiveSync(self, server.opts.collective_bucket)
         node.barrier("pm-up")
 
     @contextmanager
@@ -952,16 +959,78 @@ class GlobalPM:
 
     def collective_sync(self, keys: np.ndarray, shards: np.ndarray,
                         quiescing: bool = True) -> bool:
-        """BSP replica refresh over the collective exchange: not ported."""
-        raise NotImplementedError(_COLLECTIVE)
+        """BSP replica refresh over the collective exchange
+        (parallel/collective.py): same contract as sync_replicas, but
+        EVERY process must call this together (the WaitSync/quiesce
+        protocol, or a --sys.collective_cadence clock boundary) — `keys`
+        may be empty and the process still joins each exchange. Enabled
+        by --sys.collective_sync. Returns True iff every process entered
+        this exchange with quiescing=True (the cadence flag loop's
+        termination test, core/sync.py)."""
+        assert self.coll is not None, "--sys.collective_sync is off"
+        with self.delta_window():
+            ext = self._extract_deltas(keys, shards)
+            if ext is None:
+                empty = np.empty(0, dtype=np.int64)
+                _, all_q = self.coll.request_sync(
+                    empty, np.empty(0, np.float32), empty,
+                    quiescing=quiescing)
+                return all_q
+            karr, sarr, cs_all, class_rows, lens, offs, shipped = ext
+            fresh, all_q = self.coll.request_sync(karr, shipped, lens,
+                                                  quiescing=quiescing)
+            self._install_fresh(karr, sarr, cs_all, class_rows, lens,
+                                offs, fresh)
+            with self._stats_lock:
+                self.stats["keys_synced_out"] += len(karr)
+            return all_q
 
     def collective_pull(self, keys) -> np.ndarray:
-        """BSP pull over the collective exchange: not ported."""
-        raise NotImplementedError(_COLLECTIVE)
+        """BSP pull over the collective exchange. EVERY process must call
+        this together (keys MAY be empty); request keys travel to their
+        owners with a ZERO delta (the owner-side merge is a no-op) and
+        the owners' current values ride the return exchange. Returns the
+        flat value buffer for `keys`.
+
+        Contract differences from Worker.pull, by design: values are the
+        OWNER's (a local replica's pending delta is not folded in), and
+        the owner records requester interest for the pulled keys as it
+        does for replica syncs. Requires --sys.collective_sync.
+
+        Ordering rule (every collective_* entry point): synchronous RPC
+        data ops (read_main, remote Pull/Push/Set) are separated from
+        the NEXT exchange by a Server.barrier(), as in the JAX package,
+        so no rank enters an exchange while a peer still waits on its
+        RPC reply."""
+        assert self.coll is not None, "--sys.collective_sync is off"
+        keys = np.asarray(keys, dtype=np.int64)
+        lens = self.server.value_lengths[keys] if len(keys) \
+            else np.empty(0, dtype=np.int64)
+        zeros = np.zeros(int(lens.sum()), dtype=np.float32)
+        # the sync manager's _coll_lock serializes ALL of this process's
+        # exchange joins (cadence boundaries, quiesce flag loops, these
+        # entry points): two local threads in request_sync at once would
+        # interleave their exchanges against the peers' single sequence
+        with self.server.sync._coll_lock:
+            fresh, _ = self.coll.request_sync(keys, zeros, lens,
+                                              quiescing=False)
+        return fresh
 
     def collective_push(self, keys, vals) -> None:
-        """BSP additive push over the collective exchange: not ported."""
-        raise NotImplementedError(_COLLECTIVE)
+        """BSP additive push over the collective exchange: the delta rows
+        travel to their owners and merge there — the owner-side apply of
+        a remote Push, with the transport swapped. Same collective
+        contract as collective_pull (every process joins; keys MAY be
+        empty)."""
+        assert self.coll is not None, "--sys.collective_sync is off"
+        keys = np.asarray(keys, dtype=np.int64)
+        lens = self.server.value_lengths[keys] if len(keys) \
+            else np.empty(0, dtype=np.int64)
+        flat = np.ascontiguousarray(vals, dtype=np.float32).ravel()
+        assert flat.size == int(lens.sum()), \
+            f"vals size {flat.size} != keys' total length {lens.sum()}"
+        with self.server.sync._coll_lock:  # see collective_pull
+            self.coll.request_sync(keys, flat, lens, quiescing=False)
 
     def drop_replicas(self, keys: np.ndarray, shards: np.ndarray) -> None:
         """Drop local replicas of remote-owned keys (parallel key /
@@ -1131,5 +1200,8 @@ class GlobalPM:
         self._exec_r.shutdown(wait=True)
         self._exec_w.shutdown(wait=True)
         self._exec_fan.shutdown(wait=True)
+        if self.coll is not None:
+            # every rank is past its last exchange: unmap, meet, free
+            self.coll.close()
         self.node.barrier("pm-down")
         self.chan.shutdown()

@@ -9,9 +9,16 @@ the tables, so an adapted placement survives a restart.
 
 The file is the JAX package's format v3, array for array (the same
 names, dtypes and geometry), so a `.npz` written by either package
-restores bitwise into the other. The multi-process form (per-rank
-shards + a manifest, bracketed by the quiesce protocol) is ROADMAP
-queue A, item 11b, and raises here.
+restores bitwise into the other.
+
+Multi-process: each rank writes `<path>.rank<r>.npz` with its local
+pools, tables and cross-process metadata (owner hints, relocation
+counters, interest bitmasks), bracketed by the quiesce protocol
+(WaitSync -> Barrier -> WaitSync) so the shards are mutually
+consistent; rank 0 also writes `<path>.manifest.npz` pinning the
+topology. Restore asserts the process count and loads each rank's own
+shard into a freshly launched job of the same shape — the adapted
+placement (cross-process relocations and replicas included) survives.
 """
 from __future__ import annotations
 
@@ -24,16 +31,23 @@ import numpy as np
 # package's version number: the two packages read each other's files.
 FORMAT_VERSION = 3
 
-_MULTI_PROCESS = ("multi-process checkpoints (per-rank shards) are not "
-                  "ported yet (ROADMAP queue A, item 11b)")
-
-
 def rank_path(path: str, rank: int) -> str:
     return f"{path}.rank{rank}.npz"
 
 
 def manifest_path(path: str) -> str:
     return f"{path}.manifest.npz"
+
+
+def _savez(path: str, **arrs) -> None:
+    """`np.savez_compressed(path, **arrs)`'s archive (and its rule of
+    appending `.npz`), each large member deflated in parallel chunks
+    (fault/ckpt.py _npz_bytes), written atomically."""
+    from ..fault.ckpt import _npz_bytes
+    from . import write_atomic
+    if not path.endswith(".npz"):
+        path += ".npz"
+    write_atomic(path, _npz_bytes(arrs))
 
 
 def _host(t) -> np.ndarray:
@@ -44,14 +58,19 @@ def _host(t) -> np.ndarray:
 
 
 def save_server(server, path: str) -> None:
-    """Write the full manager state to one `.npz` at `path`."""
+    """Write the full manager state (one process: one `.npz` at `path`;
+    multi-process: per-rank shards + manifest, globally quiesced)."""
     if server.fault is not None:
         # injection point (shared with the incremental chain): fires
         # before any I/O, so a failed save leaves the previous
         # checkpoint intact
         server.fault.fire("ckpt.save")
     if server.glob is not None:
-        raise NotImplementedError(_MULTI_PROCESS)
+        # quiesce so every delta is merged and every base is fresh
+        server.wait_sync()
+        server.barrier()
+        server.wait_sync()
+        server.barrier()
     server.block()
     with server._lock:
         arrs: Dict[str, np.ndarray] = {
@@ -68,6 +87,10 @@ def save_server(server, path: str) -> None:
             "intent_end": server.sync.intent_end,
             "clocks": server._clocks,
         }
+        if server.glob is not None:
+            arrs["owner_hint"] = server.glob.owner_hint
+            arrs["reloc"] = server.glob.reloc
+            arrs["interest"] = server.glob.interest
         for cid, st in enumerate(server.stores):
             # main_host() is the authoritative full-size main table
             # whether or not the store is tiered, so checkpoints restore
@@ -77,25 +100,43 @@ def save_server(server, path: str) -> None:
             arrs[f"delta_{cid}"] = _host(st.delta)
         # the tables are serialized after the lock releases: copies
         for k in ("value_lengths", "owner", "slot", "cache_slot",
-                  "relocation_counter", "intent_end", "clocks"):
-            arrs[k] = np.array(arrs[k])
-    np.savez_compressed(path, **arrs)
+                  "relocation_counter", "intent_end", "clocks",
+                  "owner_hint", "reloc", "interest"):
+            if k in arrs:
+                arrs[k] = np.array(arrs[k])
+    if server.glob is None:
+        _savez(path, **arrs)
+        return
+    _savez(rank_path(path, server.pid), **arrs)
+    if server.pid == 0:
+        _savez(manifest_path(path),
+                            format_version=np.int64(FORMAT_VERSION),
+                            num_procs=np.int64(server.num_procs),
+                            num_shards=np.int64(server.num_shards),
+                            num_keys=np.int64(server.num_keys))
+    server.barrier()  # checkpoint complete on every rank
 
 
 def restore_server(server, path: str) -> None:
     """Restore state saved by save_server (by either package) into a
     compatibly-constructed Server (same num_keys, value_lengths, shard
-    count, pool geometry)."""
+    count, pool geometry; multi-process: the same process count — each
+    rank reads its own shard)."""
     if server.fault is not None:
         # fires before any mutation: a failed restore leaves the live
         # server serving its current state
         server.fault.fire("ckpt.restore")
     if server.glob is not None:
-        raise NotImplementedError(_MULTI_PROCESS)
-    ck = np.load(path if os.path.exists(path) else rank_path(path, 0))
-    assert int(ck["num_procs"]) == 1, (
-        "this is one rank shard of a multi-process checkpoint; restore "
-        "it under a launcher with the same process count")
+        mf = np.load(manifest_path(path))
+        assert int(mf["num_procs"]) == server.num_procs, \
+            "process count mismatch (elastic restore is not supported)"
+        ck = np.load(rank_path(path, server.pid))
+        assert int(ck["pid"]) == server.pid
+    else:
+        ck = np.load(path if os.path.exists(path) else rank_path(path, 0))
+        assert int(ck["num_procs"]) == 1, (
+            "this is one rank shard of a multi-process checkpoint; "
+            "restore it under a launcher with the same process count")
     got = int(ck["format_version"])
     if got != FORMAT_VERSION:
         raise ValueError(
@@ -140,10 +181,16 @@ def restore_server(server, path: str) -> None:
             st.install_replica_pools(ck[f"cache_{cid}"],
                                      ck[f"delta_{cid}"])
         _rebuild_allocators_and_replicas(server)
+        if server.glob is not None:
+            server.glob.owner_hint[:] = ck["owner_hint"]
+            server.glob.reloc[:] = ck["reloc"]
+            server.glob.interest[:] = ck["interest"]
     if server.prefetch is not None:
         # staged pull buffers predate the restore
         server.prefetch.invalidate_all()
     server.block()
+    if server.glob is not None:
+        server.barrier()  # all ranks restored before traffic resumes
 
 
 def _rebuild_allocators_and_replicas(server) -> None:

@@ -14,7 +14,10 @@ drills checkpoint chains under injected faults and request-flight
 tracing, captures a workload, replays it, trains the learned policy
 on it and ranks knob candidates by replay, and runs the multi-process
 parameter manager: a loopback cluster of four nodes on the card, and
-the KGE app as two processes through the port's launcher.
+the KGE app as two processes through the port's launcher; runs the BSP
+collective exchange (K13 over CUDA IPC) between three launched
+processes with per-rank checkpoints, and the streaming north-star
+scenario.
 
     python3 chip_smoke.py [--json PATH]
     python3 chip_smoke.py --main-path-only   (phase 1 and phase 3's
@@ -22,7 +25,7 @@ the KGE app as two processes through the port's launcher.
         that tree's step the same way)
     python3 chip_smoke.py --kernels K4,K8    (phase 1 and the named
         kernels' parts of phase 2 alone, the same way; K4, K4mp (K4's
-        multi-process form) and K8-K12 can be named)
+        multi-process form), K8-K12 and K13 can be named)
     python3 chip_smoke.py --pipeline-only    (phase 1, phase 3 with the
         pipeline on and off, phases 11 and 12, checked as in the full
         run)
@@ -31,6 +34,10 @@ the KGE app as two processes through the port's launcher.
     python3 chip_smoke.py --replay-only      (phase 1 and phase 15,
         checked as in the full run)
     python3 chip_smoke.py --mp-only          (phase 1 and phase 16,
+        checked as in the full run)
+    python3 chip_smoke.py --collective-only  (phase 1 and phase 17,
+        checked as in the full run)
+    python3 chip_smoke.py --stream-only      (phase 1 and phase 18,
         checked as in the full run)
 
 Phases (any failure raises and exits non-zero):
@@ -100,7 +107,14 @@ Phases (any failure raises and exits non-zero):
      beside index_copy_ of the winners' pre-dequantized rows; K12
      sync_compress on 65,536 replica rows
      of 512 f32, half below the threshold, fp16 and int8 (its four
-     outputs; no library call computes it). CUDA-event
+     outputs; no library call computes it); K13 alltoall_put in one
+     process at phase 17's leaves (3 destinations, a bucket of 1,024
+     i64 keys and 1,024 rows of 512 f32: 2,105,344 bytes a
+     destination) into 3 raw-cudaMalloc slabs, every source at both
+     parities, bitwise its plain version, each slab unpacking to what
+     each source sent, timed in the trace with L2 flushed before each
+     launch and warm, beside its plain version and 3 copy_ calls into
+     the same slabs. CUDA-event
      times (the median and the min-max spread of 20 launches) of
      kernel, plain version and one library call, and the least time the
      card could take.
@@ -308,8 +322,41 @@ Phases (any failure raises and exits non-zero):
      multi-process form) and no kernel another path owns; each rank's
      epoch seconds and examples/s, their sum beside phase 5's one
      process, eval seconds, DCN messages and bytes.
+ 17. the BSP collective exchange: three processes on the card through
+     `python -m adapm_tpu_torch.launcher -n 3` (each re-running this
+     script with --coll-rank), each a Server over phase 3's key space
+     (integer-valued, each rank filling its home keys) with
+     --sys.collective_sync, bucket 1,024 and --sys.collective_cadence
+     4: 16 rounds of intent for the next 4,096 zipf keys, a pull, a
+     push, a planner round and advance_clock, ending in WaitSync ->
+     Barrier -> WaitSync (replica deltas ride K13's exchange at the
+     cadence boundaries and the wait points, owners merge with K3 and
+     re-gather with K1); every rank's reads of every touched key
+     bitwise the NumPy shadow; exchange iterations, rows out and rows in
+     > 0; a collective pull and push of 4,096 keys bitwise the shadow;
+     one exchange of phase 2's K13 leaves (each rank's from its seed)
+     bitwise what the plain put delivers from the same leaves; a
+     per-rank save_server, then a restore into three fresh ranks,
+     bitwise; each rank launches K13, K1 and K3 and no kernel another
+     path owns; each rank's pools on card rank % cards, that card
+     current. Reports collective.exchange_s p50/p99, iterations a
+     round, rows and bytes exchanged, the per-rank save and restore
+     seconds and the host seconds of each part.
+ 18. the streaming plane: stream/scenario.py run_northstar on the card
+     at phase 3's width (201,000 keys of 512 f32; segment A 2 s,
+     segment B 24 s):
+     ingest through Worker.push (K3), multi-tenant lookup_bags (K8),
+     incremental chain links, a kill, restore_chain and replay_tail;
+     the restored cursor lags the acked watermark, the table right
+     after replay_tail is bitwise an unkilled shadow that applied the
+     same batches, and the captured .wtrace replays to one reads_digest
+     twice. Reports events/s, the ingest pump's host seconds by part,
+     served p99, freshness p99 over the last 20 s of segment B (printed
+     only over at least 100 samples; the count beside it) and
+     recovery_s.
 Phases 11 and 12 run after phase 4, phase 13 after phase 10, phase 14
-after phase 13, phase 15 after phase 14, phase 16 after phase 15. Every
+after phase 13, phase 15 after phase 14, phase 16 after phase 15,
+phases 17 and 18 after phase 16. Every
 server's background work is
 watched: a prefetch pass, planner round or tier maintenance pass that
 raised (logged and retried, never fatal to its loop), a failed
@@ -320,7 +367,7 @@ knobs, the pipeline on, and phases 8 and 9 run each again with
 --sys.prefetch 0: the same epoch losses bitwise, the same launches.
 Every path's launch counts are set to 0 just before it runs and read
 just after; each path must have launched each of its kernels and no
-kernel another path owns (K2, K5, K6, K7, K8).
+kernel another path owns (K2, K5-K13).
 The near-tie rule: the kernel sums each dot in another order than the
 plain version's matmuls, so a count may differ by at most the number of
 candidates whose score lies within the f32 dot-product error bound of
@@ -386,7 +433,7 @@ W2V_STEP_LAUNCHES = {"routed_gather": 1, "sgns_step": 1,
 # the others' (the model math, and K8, the bag read of phase 10)
 OWNED_KERNELS = MODEL_KERNELS + ("gather_pool", "gather_cold",
                                  "gather_pool_cold", "write_main_rows",
-                                 "sync_compress")
+                                 "sync_compress", "alltoall_put")
 # the bag-serving shape of the MLPerf Training DLRM-DCNv2 reference
 # (recommendation_v2/torchrec_dcn, Criteo 1TB multi-hot): 26 sparse
 # features of embedding dim 128 with these cardinalities and multi-hot
@@ -444,11 +491,12 @@ def cuda_ms(fn, reps=20, warmup=3):
     return float(np.median(t)), float(t.min()), float(t.max())
 
 
-def kernel_ms(fn, kernel, reps=20, warmup=3, between=None):
+def kernel_ms(fn, kernel, reps=20, warmup=3, between=None, per_call=1):
     """The profiler's view of `reps` calls of fn(): the device
     milliseconds of each launch of the kernel whose name contains
-    `kernel`, as (median, min, max), and the device milliseconds per
-    call of everything the calls ran. For a kernel shorter than its
+    `kernel` (summed over the `per_call` such records one call makes),
+    as (median, min, max), and the device milliseconds per call of
+    everything the calls ran. For a kernel shorter than its
     wrapper's host time, CUDA events around each call (cuda_ms) measure
     the host's launch gap as well; the trace measures the kernel alone.
     `between()` runs before each call (e.g. an L2 flush). A trace that
@@ -479,11 +527,12 @@ def kernel_ms(fn, kernel, reps=20, warmup=3, between=None):
         else:
             mine = np.array([e.self_device_time_total for e in evs
                              if kernel in e.name]) / 1e3
-            if len(mine) == reps:
+            if len(mine) == reps * per_call:
                 break
         TRACE_RETAKES[kernel] = TRACE_RETAKES.get(kernel, 0) + 1
-    check(len(mine) == reps, f"the trace holds {len(mine)} launches of "
-          f"{kernel}, expected {reps}")
+    check(len(mine) == reps * per_call, f"the trace holds {len(mine)} "
+          f"launches of {kernel}, expected {reps * per_call}")
+    mine = mine.reshape(reps, per_call).sum(axis=1)
     return (float(np.median(mine)), float(mine.min()),
             float(mine.max())), total
 
@@ -713,6 +762,7 @@ def phase_kernels(K, dev, rng):
                       ("sync_compress", phase_k12)):
         rec[name] = run(K, dev, rng)
         torch.cuda.empty_cache()
+    rec["alltoall_put"] = phase_k13(K, dev, rng)
     return rec
 
 
@@ -3726,6 +3776,7 @@ def report_kernels(rec):
     report_k4_mp(rec["pool_eval_counts"]["mp_form"])
     report_k8(rec["gather_pool"])
     report_tier_kernels(rec)
+    report_k13(rec["alltoall_put"])
     k5 = rec["complex_step"]
     print(f"phase 2: K5 at B={B}, N={N}, d={D_MODEL}: {fmt_t(k5, 'ms')} ms "
           f"(bound {k5['bound'][0]:.4f} ms, share "
@@ -5348,6 +5399,499 @@ def report_mp(mp, smi, app_eps=None):
 
 
 
+# -- K13 and phases 17-18 ------------------------------------------------
+
+COLL_RANKS, COLL_BUCKET, COLL_CADENCE = 3, 1024, 4
+COLL_ROUNDS, COLL_KEYS = 16, 4096
+COLL_KERNELS = ("routed_gather", "ordered_scatter_add", "alltoall_put")
+# the ranks' records and checkpoint shards (removed), beside this script
+COLL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "phase17")
+COLL_RANK_TIMEOUT_S = 300
+# segment B is long enough that the trailing window holds 100 or more
+# freshness probes (every 8th push probes one key: about 6 a second at
+# 1,500 events/s in batches of 32)
+STREAM_SEGMENT_S, STREAM_SEGMENT_B_S = 2.0, 24.0
+STREAM_CKPT_S, STREAM_TRAILING_S = 0.75, 20.0
+FRESHNESS_MIN_SAMPLES = 100
+STREAM_KERNELS = ("ordered_scatter_add", "gather_pool")
+STREAM_DIR = os.path.join("build", "phase18")   # chain, trace (removed)
+
+
+def k13_leaves(rng, P):
+    """One rank's X1 leaves at phase 17's shapes: the keys [P, bucket]
+    i64 (-1 padded past a random valid prefix) and the delta rows
+    [P, bucket, L] f32 it sends each process."""
+    keys = np.full((P, COLL_BUCKET), -1, dtype=np.int64)
+    for d in range(P):
+        n = int(rng.integers(COLL_BUCKET // 2, COLL_BUCKET + 1))
+        keys[d, :n] = rng.integers(0, E + R, n)
+    rows = rng.standard_normal((P, COLL_BUCKET, L)).astype(np.float32)
+    return [keys, rows]
+
+
+def phase_k13(K, dev, rng):
+    """K13 in one process: P local raw-cudaMalloc slabs (a launch cannot
+    tell a local slab pointer from an IPC-mapped one on the same card),
+    each of P source ranks' packed X1 leaves put into every slab at both
+    parities: bitwise the plain version (copy_ into torch tensors), and
+    the slabs unpack to what each source sent. Timed as its device
+    time in the trace with L2 flushed before each launch (the bound
+    counts each byte read once from and written once to HBM; the 12.6
+    MB of one put otherwise stays in the 50 MB L2 between launches) and
+    with L2 warm, beside the plain version and P copy_ calls into the
+    same slabs: the copies' Memcpy DtoD records in the trace, summed a
+    call, L2 flushed and warm as K13's, and between CUDA events, as the
+    wrapper call is."""
+    from adapm_tpu_torch.parallel.exchange import _Layout
+    P = COLL_RANKS
+    sent = [k13_leaves(rng, P) for _ in range(P)]
+    lay = _Layout(sent[0], P)
+    T, nbytes = lay.T, 2 * P * lay.T
+    ptrs = [K.slab_alloc(nbytes)[0] for _ in range(P)]
+    try:
+        slabs = [K.slab_view(p, nbytes) for p in ptrs]
+        table = torch.tensor(ptrs, dtype=torch.int64, device=dev)
+        plain = [torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+                 for _ in range(P)]
+        srcs = [torch.from_numpy(lay.pack(x)).to(dev) for x in sent]
+        for parity in (0, 1):
+            for s in range(P):
+                off = parity * P * T + s * T
+                K.alltoall_put(srcs[s], slabs, off, table)
+                K.alltoall_put_plain(srcs[s], plain, off)
+        torch.cuda.synchronize()
+        for d in range(P):
+            check(torch.equal(slabs[d], plain[d]),
+                  f"K13: slab {d} differs from the plain version")
+            got = lay.unpack(slabs[d][:P * T].cpu().numpy().reshape(P, T))
+            for s in range(P):
+                check(all(np.array_equal(g[s], x[d])
+                          for g, x in zip(got, sent[s])),
+                      f"K13: slab {d} does not hold what rank {s} sent")
+        put = lambda: K.alltoall_put(srcs[0], slabs, 0, table)  # noqa
+        copies = lambda: [slabs[d][:T].copy_(srcs[0][d])  # noqa
+                          for d in range(P)]
+        warm, total = kernel_ms(put, "put_kernel")
+        lib_warm, _ = kernel_ms(copies, "Memcpy", per_call=P)
+        flush = torch.empty(64 << 20, device=dev)
+        ms, _ = kernel_ms(put, "put_kernel", between=flush.zero_)
+        lib_ms, _ = kernel_ms(copies, "Memcpy", per_call=P,
+                              between=flush.zero_)
+        del flush
+        out = timed(
+            max_abs_err=0.0, ms=ms, warm_ms=warm,
+            plain_ms=cuda_ms(lambda: K.alltoall_put_plain(srcs[0], plain,
+                                                          0)),
+            library_ms=lib_ms, library_warm_ms=lib_warm,
+            library_call_ms=cuda_ms(copies),
+            bound=bound(2 * P * T, 0),
+            call_ms=cuda_ms(lambda: K.alltoall_put(srcs[0], slabs, 0,
+                                                   table)),
+            device_ms_per_call=total, bytes_per_put=P * T,
+            ptxas=ptxas_summary("alltoall_put"))
+    finally:
+        torch.cuda.synchronize()
+        del slabs, plain
+        for p in ptrs:
+            K.slab_free(p)
+    return out
+
+
+def report_k13(r):
+    print(f"phase 2: K13 alltoall_put, {COLL_RANKS} destinations x "
+          f"{r['bytes_per_put'] // COLL_RANKS} bytes (bucket {COLL_BUCKET}"
+          f": keys i64 + rows of {L} f32): kernel, L2 flushed before "
+          f"each launch, {fmt_t(r, 'ms')} ms in the trace (bound "
+          f"{r['bound'][0]:.4f} ms, {r['bound'][1]}, share "
+          f"{r['bound'][0] / r['ms']:.3f}), L2-warm "
+          f"{fmt_s(*r['warm_ms'])} ms; the wrapper call "
+          f"between events {fmt_s(*r['call_ms'])} ms; plain "
+          f"{fmt_t(r, 'plain_ms')} ms; {COLL_RANKS} copy_ into the same "
+          f"slabs, their Memcpy DtoD records in the trace summed a call, "
+          f"L2 flushed {fmt_t(r, 'library_ms')} ms, L2-warm "
+          f"{fmt_s(*r['library_warm_ms'])} ms, between events "
+          f"{fmt_s(*r['library_call_ms'])} ms; bitwise the plain version "
+          f"at both parities; ptxas {r['ptxas']}", flush=True)
+
+
+def coll_exchange_plain(K, rank, P):
+    """One exchange of phase 17's X1 leaves straight through the rank's
+    engine (`coll.exchange`, K13 on the card), and what the plain put
+    (K13's plain version over CPU slabs) delivers to this rank from the
+    same P sources' leaves: (got, want)."""
+    from adapm_tpu_torch.parallel.exchange import _Layout
+    sent = [k13_leaves(np.random.default_rng(1700 + s), P)
+            for s in range(P)]
+    lay = _Layout(sent[0], P)
+    slabs = [torch.zeros(P * lay.T, dtype=torch.uint8) for _ in range(P)]
+    for s_ in range(P):
+        K.alltoall_put_plain(torch.from_numpy(lay.pack(sent[s_])), slabs,
+                             s_ * lay.T)
+    want = lay.unpack(slabs[rank].numpy().reshape(P, lay.T))
+    return sent[rank], want
+
+
+def coll_shadow():
+    """Phase 17's integer-valued table, from one seed (phase 16's)."""
+    return np.random.default_rng(16).integers(
+        -4, 5, size=(E + R, L)).astype(np.float32)
+
+
+def coll_draws(rank, seed=170):
+    """Rank `rank`'s round keys (COLL_ROUNDS + 1 batches of COLL_KEYS zipf
+    keys) and integer pushes, then its collective pull keys and
+    collective push rows."""
+    rng = np.random.default_rng(seed + rank)
+    ks = [np.unique(skewed_keys(rng, E, COLL_KEYS))
+          for _ in range(COLL_ROUNDS + 1)]
+    vs = [rng.integers(-2, 3, size=(len(k), L)).astype(np.float32)
+          for k in ks[:COLL_ROUNDS]]
+    ck = np.unique(rng.integers(0, E + R, COLL_KEYS)).astype(np.int64)
+    cv = rng.integers(-2, 3, size=(len(ck), L)).astype(np.float32)
+    return ks, vs, ck, cv
+
+
+def coll_rank(argv):
+    """One launched rank of phase 17: `--coll-rank OUT train` fills its
+    home keys, drives the collective path and saves its checkpoint
+    shard; `--coll-rank OUT restore` restores that shard into a fresh
+    server and reads back. Writes OUT/<stage><rank>.json."""
+    out, stage = argv[argv.index("--coll-rank") + 1:][:2]
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.ops import kernels as K
+    from adapm_tpu_torch.parallel import control
+    from adapm_tpu_torch.utils.checkpoint import restore_server, save_server
+    parts = {}
+    t0 = time.perf_counter()
+    K.build()            # the parent built them: this finds the libraries
+    rank, P = control.process_id(), control.num_processes()
+    srv = at.setup(E + R, L, opts=at.SystemOptions(
+        sync_max_per_sec=0, prefetch=False, collective_sync=True,
+        collective_bucket=COLL_BUCKET, collective_cadence=COLL_CADENCE))
+    w = srv.make_worker(0)
+    shadow = coll_shadow()
+    draws = [coll_draws(r) for r in range(P)]
+    for ks, vs, ck, cv in draws:
+        for k, v in zip(ks, vs):
+            shadow[k] += v
+    touched = np.unique(np.concatenate(
+        [np.concatenate(d[0][:COLL_ROUNDS]) for d in draws]))
+    ckpt = os.path.join(out, "ck")
+    rec = dict(rank=rank, cuda=torch.cuda.get_device_name(0),
+               device=str(srv.ctx.device),
+               current=torch.cuda.current_device())
+    parts["setup_s"] = time.perf_counter() - t0
+    if stage == "restore":
+        for ks, vs, ck, cv in draws:
+            shadow[ck] += cv
+        t0 = time.perf_counter()
+        restore_server(srv, ckpt)
+        rec["restore_s"] = time.perf_counter() - t0
+        allk = np.union1d(touched, np.concatenate([d[2] for d in draws]))
+        got = w.pull_sync(allk)
+        rec["restored_bitwise"] = got.tobytes() == shadow[allk].tobytes()
+        rec["keys_read"] = int(len(allk))
+        srv.barrier()
+        srv.shutdown()
+        rec["parts_s"] = parts
+        with open(os.path.join(out, f"restore{rank}.json"), "w") as fh:
+            json.dump(rec, fh)
+        return 0
+    keys = np.arange(E + R, dtype=np.int64)
+    t0 = time.perf_counter()
+    mine = keys[srv.glob.home_proc(keys) == rank]
+    base = coll_shadow()
+    for lo in range(0, len(mine), 50_000):
+        k = mine[lo:lo + 50_000]
+        w.wait(w.set(k, base[k]))
+    del base
+    srv.barrier()
+    parts["fill_s"] = time.perf_counter() - t0
+    ks, vs, ck, cv = draws[rank]
+    lat = []
+    K.reset_launches()
+    t0 = time.perf_counter()
+    w.intent(ks[0], w.current_clock, w.current_clock)
+    for i in range(COLL_ROUNDS):
+        w.intent(ks[i + 1], w.current_clock + 1, w.current_clock + 1)
+        got = w.pull_sync(ks[i])
+        check(np.isfinite(got).all(), "phase 17: non-finite pull")
+        w.wait(w.push(ks[i], vs[i]))
+        t1 = time.perf_counter()
+        srv.drive_rounds(1)
+        lat.append(time.perf_counter() - t1)
+        w.advance_clock()
+    srv.wait_sync()
+    srv.barrier()
+    srv.wait_sync()
+    srv.barrier()
+    torch.cuda.synchronize()
+    parts["rounds_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(K.LAUNCHES)
+    rec["round_s"] = lat
+    t0 = time.perf_counter()
+    got = w.pull_sync(touched)
+    rec["reads_bitwise"] = got.tobytes() == shadow[touched].tobytes()
+    rec["keys_read"] = int(len(touched))
+    srv.barrier()          # RPC reads done before the next exchange
+    parts["check_s"] = time.perf_counter() - t0
+    coll = srv.glob.coll
+    rec["stats"] = dict(coll.stats)
+    rec["pm"] = {k: int(v) for k, v in srv.glob.stats.items()}
+    rec["bytes_put"] = coll.bytes_put
+    rec["replicas_created"] = int(srv.sync.stats.replicas_created)
+    snap = srv.metrics_snapshot()["collective"]
+    rec["exchange_s"] = snap["exchange_s"]
+    # the collective pull and push of COLL_KEYS keys
+    t0 = time.perf_counter()
+    c0 = srv.collective_pull(ck).reshape(len(ck), L)
+    rec["coll_pull_bitwise"] = c0.tobytes() == shadow[ck].tobytes()
+    srv.collective_push(ck, cv)
+    for _, _, ck2, cv2 in draws:
+        shadow[ck2] += cv2
+    srv.barrier()
+    c1 = srv.collective_pull(ck).reshape(len(ck), L)
+    rec["coll_push_bitwise"] = c1.tobytes() == shadow[ck].tobytes()
+    torch.cuda.synchronize()
+    parts["coll_pull_push_s"] = time.perf_counter() - t0
+    rec["launches_all"] = dict(K.LAUNCHES)
+    # the cross-process exchange itself against its plain version
+    mine, want = coll_exchange_plain(K, rank, P)
+    got = coll.exchange(tuple(mine))
+    rec["exchange_bitwise"] = all(
+        g.tobytes() == x.tobytes() for g, x in zip(got, want))
+    t0 = time.perf_counter()
+    save_server(srv, ckpt)
+    rec["save_s"] = time.perf_counter() - t0
+    rec["shard_bytes"] = os.path.getsize(f"{ckpt}.rank{rank}.npz")
+    srv.shutdown()
+    rec["parts_s"] = parts
+    with open(os.path.join(out, f"train{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def coll_launch(stage, script=None):
+    """COLL_RANKS processes of this script through the port's launcher,
+    on the one card."""
+    log = os.path.join(COLL_DIR, f"{stage}.log")
+    env = dict(os.environ, TORCH_CPP_LOG_LEVEL="ERROR")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "adapm_tpu_torch.launcher", "-n",
+             str(COLL_RANKS), "--no-keepalive", "--", sys.executable,
+             script or os.path.abspath(__file__), "--coll-rank", COLL_DIR,
+             stage],
+            stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=here,
+            start_new_session=True)
+        try:
+            code = p.wait(timeout=COLL_RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            import signal
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            code = "timeout"
+    wall = time.perf_counter() - t0
+    if code != 0:
+        with open(log) as fh:
+            tail = fh.read()[-6000:]
+        raise RuntimeError(f"chip_smoke: phase 17 ({stage}): the launched "
+                           f"ranks failed ({code}):\n{tail}")
+    recs = []
+    for r in range(COLL_RANKS):
+        with open(os.path.join(COLL_DIR, f"{stage}{r}.json")) as fh:
+            recs.append(json.load(fh))
+    return recs, wall
+
+
+def phase_collective(K, dev, script=None):
+    """Phase 17: the collective path as COLL_RANKS launched processes,
+    then the per-rank restore into COLL_RANKS fresh ones."""
+    import shutil
+    shutil.rmtree(COLL_DIR, ignore_errors=True)
+    os.makedirs(COLL_DIR, exist_ok=True)
+    t_phase = time.perf_counter()
+    train, wall_t = coll_launch("train", script)
+    restore, wall_r = coll_launch("restore", script)
+    cards = torch.cuda.device_count()
+    for rk in train + restore:
+        # each rank on its own card where there are enough, and that
+        # card current (the kernel wrappers launch on its stream)
+        own = rk["rank"] % cards
+        check(rk["device"] == f"cuda:{own}" and rk["current"] == own,
+              f"phase 17 rank {rk['rank']}: pools on {rk['device']}, "
+              f"current device {rk['current']}, expected cuda:{own}")
+    for rk in train:
+        what = f"phase 17 rank {rk['rank']}"
+        check(rk["reads_bitwise"], f"{what}: reads of {rk['keys_read']} "
+              "touched keys differ from the shadow")
+        st = rk["stats"]
+        check(st["iterations"] > 0 and st["rows_out"] > 0 and
+              st["rows_in"] > 0, f"{what}: the exchange moved nothing: "
+              f"{st}")
+        check(rk["replicas_created"] > 0, f"{what}: no replica was made")
+        check(rk["coll_pull_bitwise"] and rk["coll_push_bitwise"],
+              f"{what}: collective pull/push differ from the shadow")
+        check(rk["exchange_bitwise"], f"{what}: an exchange of phase 17's "
+              "leaves differs from its plain version's delivery")
+        check_launched(rk["launches"], what, COLL_KERNELS)
+        check_launched(rk["launches_all"], what + " (collective pull/push)",
+                       COLL_KERNELS)
+    for rk in restore:
+        check(rk["restored_bitwise"], f"phase 17 rank {rk['rank']}: the "
+              "restored shard's reads differ from the shadow")
+    shutil.rmtree(COLL_DIR, ignore_errors=True)
+    from adapm_tpu_torch.obs.metrics import hist_percentile
+    xs = [rk["exchange_s"] for rk in train]
+    rounds = np.concatenate([rk["round_s"] for rk in train])
+    it = sum(rk["stats"]["iterations"] for rk in train) / len(train)
+    return dict(
+        train=train, restore=restore, wall_s=(wall_t, wall_r),
+        exchange_ms=[(hist_percentile(x, 0.5) * 1e3,
+                      hist_percentile(x, 0.99) * 1e3) for x in xs],
+        exchanges=[x["count"] for x in xs],
+        iterations=[rk["stats"]["iterations"] for rk in train],
+        rounds=[rk["stats"]["rounds"] for rk in train],
+        iterations_per_round=it / max(1, train[0]["stats"]["rounds"]),
+        rows_out=[rk["stats"]["rows_out"] for rk in train],
+        rows_in=[rk["stats"]["rows_in"] for rk in train],
+        bytes_put=[rk["bytes_put"] for rk in train],
+        round_ms=p50_p99(rounds),
+        save_s=[rk["save_s"] for rk in train],
+        restore_s=[rk["restore_s"] for rk in restore],
+        shard_mib=[rk["shard_bytes"] / 2**20 for rk in train],
+        parts_s=[rk["parts_s"] for rk in train],
+        launches=[rk["launches"] for rk in train],
+        devices=[rk["device"] for rk in train],
+        phase_s=time.perf_counter() - t_phase)
+
+
+def report_collective(c, smi):
+    print(f"phase 17: {COLL_RANKS} launched ranks on {c['devices']}, "
+          f"--sys.collective_sync bucket {COLL_BUCKET} cadence "
+          f"{COLL_CADENCE}, {COLL_ROUNDS} rounds of {COLL_KEYS} zipf "
+          f"keys a rank: exchange p50/p99 per rank "
+          f"{[(round(a, 3), round(b, 3)) for a, b in c['exchange_ms']]} "
+          f"ms over {c['exchanges']} exchanges; BSP rounds {c['rounds']}, "
+          f"iterations {c['iterations']} ({c['iterations_per_round']:.2f} "
+          f"a round), rows out {c['rows_out']} in {c['rows_in']}, bytes "
+          f"put {[round(b / 2**20, 1) for b in c['bytes_put']]} MiB; "
+          f"planner round p50/p99 {c['round_ms'][0]:.3f}/"
+          f"{c['round_ms'][1]:.3f} ms; reads of every touched key and the "
+          f"collective pull/push of {COLL_KEYS} keys bitwise the shadow on "
+          f"every rank, an exchange of K13's phase-2 leaves bitwise its "
+          f"plain version's delivery; launches {c['launches']} | {smi}",
+          flush=True)
+    print(f"phase 17: per-rank save {[round(s, 3) for s in c['save_s']]} "
+          f"s ({[round(m, 1) for m in c['shard_mib']]} MiB shards), restore "
+          f"into {COLL_RANKS} fresh ranks "
+          f"{[round(s, 3) for s in c['restore_s']]} s, bitwise; host "
+          f"seconds by part {c['parts_s']}; launches wall "
+          f"{[round(s, 1) for s in c['wall_s']]} s; phase 17 "
+          f"{c['phase_s']:.1f} s", flush=True)
+
+
+def phase_stream(at, K, dev):
+    """Phase 18: run_northstar on the card at phase 3's width; the table
+    right after replay_tail against an unkilled shadow that applied the
+    same batches; the captured .wtrace replayed twice."""
+    import shutil
+    from adapm_tpu_torch.obs.wtrace import load_wtrace
+    from adapm_tpu_torch.replay import ReplayEngine
+    from adapm_tpu_torch.stream import EventLog, StreamTrainer
+    from adapm_tpu_torch.stream.scenario import _build, _opts, run_northstar
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    os.makedirs(STREAM_DIR, exist_ok=True)
+    t_phase = time.perf_counter()
+    allk = np.arange(E + R, dtype=np.int64)
+    held = {}
+
+    def on_replayed(srv):
+        held["table"] = srv.read_main(allk)
+        held["cursor"] = int(srv.stream.cursor[0])
+
+    K.reset_launches()
+    res = run_northstar(
+        num_keys=E + R, vlen=L, segment_s=STREAM_SEGMENT_S,
+        segment_b_s=STREAM_SEGMENT_B_S,
+        ckpt_every_s=STREAM_CKPT_S, trailing_s=STREAM_TRAILING_S,
+        workdir=STREAM_DIR, device=dev, on_replayed=on_replayed)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_launched(launches, "phase 18", STREAM_KERNELS)
+    d = res["drill"]
+    check(d["restored_cursor"] < d["acked_at_kill"],
+          f"phase 18: the restored cursor {d['restored_cursor']} does not "
+          f"lag the acked watermark {d['acked_at_kill']}")
+    check(held["cursor"] == d["acked_at_kill"], "phase 18: replay_tail "
+          "did not reach the acked watermark")
+    # the unkilled shadow: the same initial table, the same batches
+    t0 = time.perf_counter()
+    hot = np.arange(512, dtype=np.int64)
+    shadow, _, _ = _build(E + R, L, _opts(32, 0.0, 0.0, None), hot, dev)
+    try:
+        tr = StreamTrainer(shadow, EventLog(E + R, seed=7,
+                                            keys_per_event=8))
+        tr.run_until(d["acked_at_kill"])
+        want = shadow.read_main(allk)
+    finally:
+        shadow.shutdown()
+    check(held["table"].tobytes() == want.tobytes(),
+          "phase 18: the restored and replayed table differs from the "
+          "unkilled shadow")
+    shadow_s = time.perf_counter() - t0
+    del held["table"], want
+    t0 = time.perf_counter()
+    path = os.path.join(STREAM_DIR, "northstar.wtrace")
+    tr = load_wtrace(path)
+    digests = [ReplayEngine(tr, seed=11, device=dev).run()["reads_digest"]
+               for _ in range(2)]
+    check(digests[0] == digests[1], f"phase 18: the .wtrace replays to "
+          f"two digests {digests}")
+    replay_s = time.perf_counter() - t0
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    return dict(res=res, launches=launches, shadow_s=shadow_s,
+                replay_s=replay_s, digest=digests[0],
+                trace_events=len(tr.events),
+                phase_s=time.perf_counter() - t_phase)
+
+
+def report_stream(s, smi):
+    r, d = s["res"], s["res"]["drill"]
+    f = r["freshness"]
+    if f["samples"] >= FRESHNESS_MIN_SAMPLES:
+        fresh = f"freshness p50/p99 {f['p50_ms']}/{f['p99_ms']} ms"
+    else:
+        fresh = (f"freshness p50/p99 not reported (fewer than "
+                 f"{FRESHNESS_MIN_SAMPLES} samples)")
+    parts = {seg: {k: round(v, 3) if isinstance(v, float) else v
+                   for k, v in p.items()}
+             for seg, p in r["ingest"].items()}
+    print(f"phase 18: run_northstar on the card, {E + R} keys of {L} f32, "
+          f"stream batch {r['stream_batch']} at {r['stream_rate']} "
+          f"events/s, segment A {STREAM_SEGMENT_S} s, segment B "
+          f"{STREAM_SEGMENT_B_S} s: {r['events_per_sec']} events/s "
+          f"({r['events_applied']} applied); the ingest pump's host "
+          f"seconds by part {parts}; served p50/p99 {r['served_p50_ms']}/"
+          f"{r['served_p99_ms']} ms over {r['served_lookups']} gold bag "
+          f"reads ({r['bronze_sheds']} bronze sheds), {fresh} (target "
+          f"{f['target_ms']} ms, {f['samples']} samples in the trailing "
+          f"{f['trailing_window_s']} s; all of segment B "
+          f"{f['segment_b_samples']} samples, p99 "
+          f"{f['segment_b_p99_ms']} ms), "
+          f"recovery_s {d['recovery_s']} (restored cursor "
+          f"{d['restored_cursor']} behind the acked {d['acked_at_kill']}, "
+          f"{d['replayed_events']} replayed); the replayed table bitwise "
+          f"an unkilled shadow ({s['shadow_s']:.1f} s); the .wtrace "
+          f"({s['trace_events']} events) replays to one digest twice "
+          f"({s['replay_s']:.1f} s); launches {s['launches']}; phase 18 "
+          f"{s['phase_s']:.1f} s | {smi}", flush=True)
+
+
 def drive_path(K, path, kernels, seed):
     """Phase 3 or 7: the path's main path (counts set to 0 just before,
     read just after) and its run_scan windows, reported and checked."""
@@ -5374,6 +5918,9 @@ def main(argv):
     if "--mp-rank" in argv:
         # one launched rank of phase 16 (c), started by this script
         return mp_rank(argv)
+    if "--coll-rank" in argv:
+        # one launched rank of phase 17, started by this script
+        return coll_rank(argv)
     import adapm_tpu_torch as at
     from adapm_tpu_torch.ops import kernels as K
     watch_background(at)
@@ -5392,7 +5939,8 @@ def main(argv):
         # against the contract's other phases: copied into an earlier
         # tree of the port, it times that tree's kernels the same way
         parts = {"K4": (phase_k4, report_k4), "K8": (phase_k8, report_k8),
-                 "K4mp": (phase_k4_mp, report_k4_mp)}
+                 "K4mp": (phase_k4_mp, report_k4_mp),
+                 "K13": (phase_k13, report_k13)}
         for nm, key, run in (("K9", "gather_cold", phase_k9),
                              ("K10", "gather_pool_cold", phase_k10),
                              ("K11", "write_main_rows", phase_k11),
@@ -5441,6 +5989,21 @@ def main(argv):
         # phase 16 alone (the multi-process layer), checked as in the
         # full run
         report_mp(phase_mp(at, K, dev), smi)
+        check(not BACKGROUND_FAULTS, f"background work failed: "
+              f"{BACKGROUND_FAULTS}")
+        print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return 0
+    if "--collective-only" in argv:
+        # phase 17 alone (the collective exchange, per-rank
+        # checkpoints), checked as in the full run
+        report_collective(phase_collective(K, dev), smi)
+        print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return 0
+    if "--stream-only" in argv:
+        # phase 18 alone (the streaming plane), checked as in the full run
+        report_stream(phase_stream(at, K, dev), smi)
         check(not BACKGROUND_FAULTS, f"background work failed: "
               f"{BACKGROUND_FAULTS}")
         print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
@@ -5521,6 +6084,10 @@ def main(argv):
     report_replay(rr, smi)
     mpr = phase_mp(at, K, dev)
     report_mp(mpr, smi, app_eps=tps[-1])
+    cr = phase_collective(K, dev)
+    report_collective(cr, smi)
+    sr = phase_stream(at, K, dev)
+    report_stream(sr, smi)
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
                "adagrad_update": ("adapm_tpu_torch/csrc/adagrad.cu",
@@ -5547,7 +6114,9 @@ def main(argv):
                                    "write_main_rows.cu",
                                    "adapm_tpu/device/jaxport.py:368"),
                "sync_compress": ("adapm_tpu_torch/csrc/sync_compress.cu",
-                                 "adapm_tpu/device/jaxport.py:140")}
+                                 "adapm_tpu/device/jaxport.py:140"),
+               "alltoall_put": ("adapm_tpu_torch/csrc/alltoall_put.cu",
+                                "adapm_tpu/device/jaxport.py:654")}
     paths = dict(step=step_launches, scan=sc["launches"],
                  scan_replayed=sc["replayed"], replica=used,
                  app=app_launches, app_replayed=app["replayed"],
@@ -5592,19 +6161,24 @@ def main(argv):
                  mp_storm=mpr["b"]["launches"],
                  mp_app=mpr["app"]["launches"][0],
                  mp_app_rank1=mpr["app"]["launches"][1],
-                 mp_app_replayed=mpr["app"]["replayed"][0])
+                 mp_app_replayed=mpr["app"]["replayed"][0],
+                 collective=cr["launches"][0],
+                 collective_rank1=cr["launches"][1],
+                 collective_rank2=cr["launches"][2],
+                 stream=sr["launches"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
     # whose standalone launches it keeps, in the word2vec and MF app runs
     # (phases 8 and 9, device routes) for K6 and K7, in phase 10's bag
     # segments for K8, in phase 13's tiered int8 app run (a) for K9 and
     # K11, its tiered bag segment (c) for K10 and its int8 compressed
-    # planner run (d) for K12; the launches of replayed graphs stand
-    # apart under *_replayed
+    # planner run (d) for K12, in phase 17's rank 0 for K13; the
+    # launches of replayed graphs stand apart under *_replayed
     home = {"adagrad_update": "rescal", "sgns_step": "w2v_app",
             "mf_step": "mf_app", "gather_pool": "serve_bags",
             "gather_cold": "tier_app", "gather_pool_cold": "tier_bags",
-            "write_main_rows": "tier_app", "sync_compress": "tier_planner"}
+            "write_main_rows": "tier_app", "sync_compress": "tier_planner",
+            "alltoall_put": "collective"}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=paths[home.get(n, "app")][n],
@@ -5623,8 +6197,11 @@ def main(argv):
         mp_form_entry_ms=k4m["entry_ms"], mp_form_plain_ms=k4m["plain_ms"],
         mp_form_bound_ms=k4m["bound"][0], mp_form_bound_by=k4m["bound"][1],
         mp_form_library_ms=k4m["library_ms"])
-    for line in kernels:   # the parent's eager path (K5-K7), K6-K8's
-        for key in ("eager_ms", "cold_ms", "call_ms", "event_ms"):  # views
+    # the parent's eager path (K5-K7), K6-K8's views, K13's L2-warm and
+    # event times and its copy_ calls'
+    for line in kernels:
+        for key in ("eager_ms", "cold_ms", "call_ms", "event_ms",
+                    "warm_ms", "library_warm_ms", "library_call_ms"):
             if key in rec[line["name"]]:
                 line[key] = rec[line["name"]][key][0]
     k3 = rec["ordered_scatter_add"]
@@ -5651,7 +6228,8 @@ def main(argv):
                        "pull_flow": pf, "planner": pl, "tier_app": tier_app,
                        "tier_storm": storm, "tier_bags": tier_bags,
                        "tier_planner": tier_pl, "episodic": epi,
-                       "fault": fr, "replay": rr, "mp": mpr}, fh,
+                       "fault": fr, "replay": rr, "mp": mpr,
+                       "collective": cr, "stream": sr}, fh,
                       indent=1,
                       default=str)
     check(not BACKGROUND_FAULTS, f"background work failed: "

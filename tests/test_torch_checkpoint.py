@@ -383,8 +383,7 @@ def test_damaged_chain_same_error_class_on_both(breaker, tmp_path):
 def test_chain_carries_stream_cursor(writer, reader, tmp_path):
     """A chain whose server had a streaming plane carries its acked-event
     cursor (`aux_stream_cursor`); a restore keeps it on the server as
-    `_restored_stream_cursor` in either package (the port's streaming
-    plane itself is ROADMAP queue A, item 11b)."""
+    `_restored_stream_cursor` in either package."""
     from types import SimpleNamespace
     srv, _ = _adapted_server(writer)
     srv.stream = SimpleNamespace(cursor=np.array([41], dtype=np.int64))

@@ -20,7 +20,11 @@ fresh server on the card and into one on the CPU, and a flight-traced
 lookup whose device slice is above zero; K4's multi-process form
 (queries from rows, owned candidates) equal to its plain version on
 integer rows and within the near-tie rule on random ComplEx rows, and
-two loopback nodes with their pools on the card bitwise a shadow.
+two loopback nodes with their pools on the card bitwise a shadow; K13
+into raw-cudaMalloc slabs bitwise its plain version at both parities,
+its alignment checks, and two launched ranks on the card exchanging
+through K13 over CUDA IPC, their collective pull and push bitwise a
+shadow.
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -1364,3 +1368,71 @@ def test_flight_device_slice_after_readback(cuda, tmp_path):
     for d, p in zip(dev, prog):
         assert d["dur"] > 0
         assert d["dur"] <= p["dur"] + 1e-3
+
+
+def _slabs(nbytes, P, cuda):
+    ptrs = [K.slab_alloc(nbytes)[0] for _ in range(P)]
+    return ptrs, [K.slab_view(p, nbytes) for p in ptrs]
+
+
+@pytest.mark.parametrize("P,T", [(2, 16), (3, 2_105_360), (4, 4_112)])
+def test_alltoall_put_bitwise_plain(cuda, P, T):
+    """K13 into P raw-cudaMalloc slabs (a launch cannot tell a local slab
+    from an IPC-mapped one), every source at both parities: bitwise the
+    plain version's copy_ into torch tensors, with and without a given
+    pointer table."""
+    nbytes = 2 * P * T
+    ptrs, slabs = _slabs(nbytes, P, cuda)
+    try:
+        plain = [torch.zeros(nbytes, dtype=torch.uint8, device=cuda)
+                 for _ in range(P)]
+        table = torch.tensor(ptrs, dtype=torch.int64, device=cuda)
+        g = torch.Generator(device="cpu").manual_seed(P)
+        for parity in (0, 1):
+            for s in range(P):
+                src = torch.randint(0, 256, (P, T), dtype=torch.uint8,
+                                    generator=g).to(cuda)
+                off = parity * P * T + s * T
+                K.alltoall_put(src, slabs, off,
+                               table if s % 2 == 0 else None)
+                K.alltoall_put_plain(src, plain, off)
+        torch.cuda.synchronize()
+        for a, b in zip(slabs, plain):
+            assert torch.equal(a, b)
+    finally:
+        torch.cuda.synchronize()
+        for p in ptrs:
+            K.slab_free(p)
+
+
+def test_alltoall_put_rejects_misaligned(cuda):
+    ptrs, slabs = _slabs(256, 2, cuda)
+    try:
+        with pytest.raises(ValueError, match="16-byte"):
+            K.alltoall_put(torch.zeros((2, 24), dtype=torch.uint8,
+                                       device=cuda), slabs, 0)
+        with pytest.raises(ValueError, match="16-byte"):
+            K.alltoall_put(torch.zeros((2, 32), dtype=torch.uint8,
+                                       device=cuda), slabs, 8)
+        with pytest.raises(ValueError, match="span devices"):
+            K.alltoall_put(torch.zeros((2, 32), dtype=torch.uint8),
+                           slabs, 0)
+    finally:
+        for p in ptrs:
+            K.slab_free(p)
+
+
+def test_collective_exchange_across_processes_on_card(cuda, tmp_path):
+    """Two launched ranks with their pools on the card exchange through
+    K13 over CUDA IPC: the collective pull and push of
+    tests/test_torch_collective.py bitwise its shadow."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_collective as tc
+    tc.run_mp(2, "pullpush", tmp_path, timeout=240, device="cuda")
+    want = (tc._base(tc.E_PP, 4) + 3.0).astype(np.float32)
+    for r in range(2):
+        for tag in ("c", "m"):
+            assert np.load(tmp_path / f"{tag}{r}.npy").tobytes() == \
+                want.tobytes()

@@ -295,11 +295,20 @@ def test_locality_future_intent_not_acted_early():
 
 
 def test_unported_planes_raise_naming_roadmap_item():
-    for kw, item in (({"stream_batch": 8}, "item 11"),):
-        with pytest.raises(NotImplementedError, match=item):
-            adapm_tpu_torch.Server(
-                8, 2, ctx=make_context(2, "cpu"),
-                opts=adapm_tpu_torch.SystemOptions(**kw))
+    """The lock-order sentinel (ROADMAP A12) still raises, naming its
+    item; a stream knob, whose plane is ported now, builds the plane."""
+    with pytest.raises(NotImplementedError, match="item 12"):
+        adapm_tpu_torch.Server(
+            8, 2, ctx=make_context(2, "cpu"),
+            opts=adapm_tpu_torch.SystemOptions(lint_lockorder=True))
+    srv = adapm_tpu_torch.Server(
+        8, 2, ctx=make_context(2, "cpu"),
+        opts=adapm_tpu_torch.SystemOptions(stream_batch=8))
+    try:
+        assert srv.stream is not None and srv.stream.freshness is None
+        assert srv.metrics_snapshot()["stream"]["cursor"] == 0
+    finally:
+        srv.shutdown()
 
 
 def _constant_policy(path):

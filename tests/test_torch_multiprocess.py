@@ -138,6 +138,7 @@ def _rank_main(argv) -> None:
         mine = owned_by_proc(srv, rank)
         mine = mine[srv.ab.owner[mine] == w.shard]
         assert w.pull(mine) == LOCAL, "own-shard keys should be LOCAL"
+        srv.barrier()  # every rank read the pushes before any rank sets
         # a set after pushes overwrites at the owner, for every rank
         if rank == P - 1:
             w.wait(w.set(keys[:8], np.full((8, 4), -3.0, np.float32)))

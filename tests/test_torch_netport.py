@@ -491,22 +491,24 @@ def test_single_process_server_has_no_net_plane():
 
 
 def test_collective_sync_rejected_on_loopback():
-    """The collective exchange is not ported: asking for it raises,
-    naming its ROADMAP item, before any node is built — and so do the
-    GlobalPM's collective entry points."""
-    with pytest.raises(NotImplementedError, match=r"B10 \(A11b\)"):
+    """Collective mode needs the dcn backend: on the loopback fabric the
+    port raises the JAX package's ValueError before any node is built,
+    and with the mode off the GlobalPM's collective entry points refuse
+    as the JAX package's do."""
+    with pytest.raises(ValueError, match="collective_sync"):
         LoopbackCluster(
             2, num_keys=32, value_lengths=4, device="cpu",
             opts_factory=lambda r: _opts(collective_sync=True))
     cl = _cluster(num_keys=32)
     try:
         g = cl.servers[0].glob
+        assert g.coll is None
         for call in (lambda: g.collective_pull(np.arange(2)),
                      lambda: g.collective_push(np.arange(2),
                                                np.zeros(8, np.float32)),
                      lambda: g.collective_sync(np.arange(2),
                                                np.zeros(2, np.int32))):
-            with pytest.raises(NotImplementedError, match="B10"):
+            with pytest.raises(AssertionError, match="collective_sync"):
                 call()
     finally:
         cl.shutdown()

@@ -111,12 +111,21 @@ def test_torch_port_matches_numpy_ref_port_bitwise_every_op(seed):
 
 
 def test_unported_port_methods_name_their_roadmap_item():
-    """The port methods still unported name their ROADMAP item; the
-    tiered cold path and wire ingest (B8) now run, bitwise
-    NumpyRefPort's, in every wire format."""
+    """`compile` names where the port's programs live; the collective
+    construction point (B10) builds the exchange over a process list
+    (the plain version for a CPU context) and refuses any program but
+    the all-to-all; the tiered cold path and wire ingest (B8) run,
+    bitwise NumpyRefPort's, in every wire format."""
+    from adapm_tpu_torch.parallel.exchange import SlabExchange
+    from adapm_tpu_torch.parallel.mesh import process_mesh
     tp = TorchDevicePort()
-    with pytest.raises(NotImplementedError, match="B10"):
-        tp.compile_collective(None, None, None, None)
+    mesh = process_mesh(0, 2, "cpu")
+    xchg = tp.compile_collective("all_to_all", mesh, "p", "p")
+    assert isinstance(xchg, SlabExchange) and not xchg.cuda
+    assert (xchg.pid, xchg.P) == (0, 2)
+    xchg.close()      # no slab was made: nothing to release
+    with pytest.raises(ValueError, match="all-to-all"):
+        tp.compile_collective("psum", mesh, "p", "p")
     with pytest.raises(NotImplementedError,
                        match="DeviceRoutedRunner.run_scan"):
         tp.compile(None)

@@ -193,16 +193,31 @@ def test_simple_main_returns_zero():
 
 
 def test_apps_import_neither_jax_nor_the_jax_package(tmp_path):
-    """Every module of the port imported, and the new apps' and the
-    bindings' whole paths run on the CPU, in a fresh interpreter: no
-    module of JAX or of the JAX package gets imported."""
+    """Every module of the port imported (the collective exchange, mesh
+    and streaming modules among them), and the new apps', the stream
+    trainer's and the bindings' whole paths run on the CPU, in a fresh
+    interpreter: no module of JAX or of the JAX package gets
+    imported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy as np\n"
         "import adapm_tpu_torch\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(adapm_tpu_torch.__path__,\n"
         "                               'adapm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        "new = {'adapm_tpu_torch.parallel.' + n for n in\n"
+        "       ('collective', 'exchange', 'mesh')} | \\\n"
+        "    {'adapm_tpu_torch.stream.' + n for n in\n"
+        "     ('ingest', 'freshness', 'scenario')}\n"
+        "assert new <= names, new - names\n"
+        "from adapm_tpu_torch.stream import EventLog, StreamTrainer\n"
+        "ss = adapm_tpu_torch.setup(64, 4, device='cpu',\n"
+        "    opts=adapm_tpu_torch.SystemOptions(sync_max_per_sec=0,\n"
+        "        prefetch=False, stream_batch=4))\n"
+        "StreamTrainer(ss, EventLog(64, seed=1)).run_until(8)\n"
+        "ss.shutdown()\n"
         "from adapm_tpu_torch.apps import word2vec, matrix_factorization\n"
         "from adapm_tpu_torch.apps import simple\n"
         "from adapm_tpu_torch import bindings\n"

@@ -341,8 +341,19 @@ def test_replay_rejects_bad_knobs_and_bad_speed(ctx, tmp_path):
             run({pin: 1})
     # a knob of a plane the port does not have yet fails loudly, naming
     # its ROADMAP item, before any server exists
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run({"stream_batch": 8})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        run({"lint_lockorder": True})
+    # recorded stream knobs are zeroed, as the JAX engine zeroes them:
+    # every push the ingest issued is already in the op stream
+    from adapm_tpu_torch.replay.engine import _build_opts
+    trace = load_wtrace(path)
+    trace.meta.setdefault("knobs", {}).update(
+        stream_batch=32, stream_rate=2000.0, stream_freshness_slo_ms=400.0,
+        stream_freshness_slo_class="1=200")
+    opts, _ = _build_opts(trace, overrides=None)
+    assert opts.stream_batch == 0 and opts.stream_rate == 0.0
+    assert opts.stream_freshness_slo_ms == 0.0
+    assert opts.stream_freshness_slo_class == ""
 
 
 def test_replay_snapshot_section_and_decisions_skipped(ctx, tmp_path):
