@@ -301,7 +301,7 @@ def _pool_counts(run: KgeRun, s, r, o, ties: bool = False):
             (srv.stores[run.ent_class].main,
              srv.stores[run.rel_class].main)
         if srv.tier is not None:
-            tables = _clamped_tier_tables(run, tables)
+            tables = _clamped_tier_tables(run, srv.tier, tables)
         out = run._pool_eval(
             *pools, tables, run._pool_eval_keys, run.E,
             keys(run.ekey(s)), keys(run.rkey(r)), keys(run.ekey(o)),
@@ -313,18 +313,19 @@ def _pool_counts(run: KgeRun, s, r, o, ties: bool = False):
                         for t in out[3:])
 
 
-def _clamped_tier_tables(run: KgeRun, tables):
+def _clamped_tier_tables(run: KgeRun, tier, tables):
     """The eval's routing tables on a tiered server, as the JAX package's
     eval program reads them. Its tiered slot mirror maps a cold key to
     OOB, and an XLA gather CLAMPS an out-of-range index: a cold key (a
     cold candidate, or a cold s/r/o of the triple) reads the last row of
     its owner shard's hot pool, not a zero row. K4 reads OOB as a zero
     row (the data plane's fill rule), so the slot mirror handed to it is
-    clamped here the same way. Cached per routing version."""
+    clamped here the same way (`tier` is the server's TierManager).
+    Cached per routing version."""
     router = run._pool_eval_router
     if run._pool_eval_clamped_ver != router._version:
         srv = run.srv
-        slot = srv.tier.compose_slot_table()
+        slot = tier.compose_slot_table()
         last = np.array([st.main.shape[1] - 1 for st in srv.stores],
                         dtype=np.int64)[srv.ab.key_class]
         clamped = np.minimum(slot.astype(np.int64), last).astype(np.int32)
@@ -428,7 +429,7 @@ def _evaluate_pool_mp(run: KgeRun, triples: np.ndarray, batch: int):
             with srv._lock:
                 tables = router.tables()
                 if srv.tier is not None:
-                    tables = _clamped_tier_tables(run, tables)
+                    tables = _clamped_tier_tables(run, srv.tier, tables)
                 g_o, g_s = counts_fn(
                     srv.stores[run.ent_class].main, tables, tiles, nown,
                     se, re_, oe, put(run.ekey(s).astype(np.int32)),

@@ -62,6 +62,7 @@ import torch
 
 from ..base import LOCAL, WORKER_FINISHED
 from ..config import SystemOptions
+from ..device import cuda as dcuda
 from ..device.context import DeviceContext, make_context
 from ..exec.executor import dispatch_gate
 from ..obs.spans import NULL_SPAN
@@ -110,13 +111,6 @@ def _fill_flat(out, offs, lens, pos, part) -> None:
         out[idx] = part
 
 
-# SystemOptions knobs of planes this package does not have yet, with the
-# ROADMAP item that ports each
-_UNPORTED_PLANES = (
-    ("lint_lockorder", "the lock-order sentinel", "queue A, item 12"),
-)
-
-
 class _WaitEntry:
     __slots__ = ("groups", "out", "is_write", "keys", "remote", "futures")
 
@@ -159,10 +153,6 @@ class Server:
                  num_workers: Optional[int] = None,
                  dtype=torch.float32, net_node=None):
         self.opts = opts or SystemOptions()
-        for knob, what, item in _UNPORTED_PLANES:
-            if getattr(self.opts, knob):
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})")
         self.ctx = ctx or make_context()
         self.num_keys = int(num_keys)
         self.dtype = dtype
@@ -328,6 +318,8 @@ class Server:
             _port = self.stores[0].port
             self.obs.gauge("device.programs_total", shared=True,
                            fn=lambda p=_port: p.programs)
+            self.obs.gauge("device.wire_ingest_rows_total", shared=True,
+                           fn=lambda p=_port: p.wire_ingest_rows)
 
         # the measured kernel cost table (ops/costs.py), attached when
         # --sys.costs.table names one: calibrate=1 measures K1 and K8 on
@@ -365,6 +357,19 @@ class Server:
         self._lock = threading.RLock()
         # serializes sync ROUNDS (reentrant: run_round takes it itself)
         self._round_lock = threading.RLock()
+        if self.opts.lint_lockorder:
+            # the runtime lock-order sentinel (lint/lockorder.py): this
+            # server's locks join the process-wide acquisition graph, so a
+            # cycle or a lock taken under the dispatch gate raises
+            # LockOrderError at the acquire instead of deadlocking a
+            # storm. Off (the default) keeps the plain locks above.
+            from ..lint import lockorder
+            lockorder.enable_sentinel()
+            self._lock = lockorder.SentinelLock("server", self._lock)
+            self._round_lock = lockorder.SentinelLock(
+                "sync_round", self._round_lock)
+            self.obs._lock = lockorder.SentinelLock(
+                "metrics_registry", self.obs._lock)
         self._in_setup = False
         self._wb_cond = threading.Condition()
         self._wb_waiting: set = set()
@@ -411,8 +416,8 @@ class Server:
         if self.opts.stream_batch > 0 or \
                 self.opts.stream_freshness_slo_ms > 0:
             from ..stream import StreamPlane
-            self.stream = StreamPlane(self)
-            self.stream.start()
+            plane = self.stream = StreamPlane(self)
+            plane.start()
 
         # routing-plan cache + intent-driven prefetch pipeline (the hot
         # Pull/Push path levers; core/intent.py). Both revalidate against
@@ -1263,6 +1268,9 @@ class Server:
     def block(self) -> None:
         with self._lock:
             for s in self.stores:
+                # apm-lint: disable=APM002 quiesce point BY DESIGN: the
+                # lock must be held across the device wait here, or a
+                # racing op enqueues more work on the rows being drained
                 s.block()
 
     def drive_rounds(self, n: int = 1) -> None:
@@ -1417,8 +1425,8 @@ class Server:
     # snapshot sections present (possibly empty) in every
     # metrics_snapshot(): the schema-stability contract tests pin
     _SNAPSHOT_SECTIONS = ("kv", "prefetch", "plan_cache", "staging",
-                          "sync", "exec", "device", "serve", "slo",
-                          "tier", "episode", "flight", "fault", "ckpt",
+                          "sync", "exec", "fused", "device", "serve",
+                          "slo", "tier", "episode", "flight", "fault", "ckpt",
                           "wtrace", "replay", "decision", "policy", "pm",
                           "net", "collective", "stream")
 
@@ -1898,7 +1906,7 @@ class Worker:
         if entry.remote is not None and not entry.remote[1].done():
             return False
         dev = self.server.ctx.device
-        return dev.type != "cuda" or torch.cuda.current_stream(dev).query()
+        return dev.type != "cuda" or dcuda.stream_idle(dev)
 
     def wait_sync(self) -> None:
         self.server.wait_sync()

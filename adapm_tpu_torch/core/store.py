@@ -31,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import cuda as dcuda
 from ..device import default_port
 from ..device.torchport import OOB  # noqa: F401  (re-exported)
 
@@ -502,4 +503,4 @@ class ShardedStore:
 
     def block(self) -> None:
         if self.main.device.type == "cuda":
-            torch.cuda.synchronize(self.main.device)
+            dcuda.synchronize(self.main.device)

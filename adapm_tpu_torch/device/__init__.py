@@ -8,6 +8,8 @@
     context.py   — DeviceContext: one device holding S virtual shards
                    (replaces the JAX package's device mesh).
     episode.py   — episodic execution: EpisodicRunner, plan_episodes.
+    cuda.py      — the CUDA seam: events, stream probes, device setters
+                   and graph capture for code outside the device plane.
 """
 from __future__ import annotations
 

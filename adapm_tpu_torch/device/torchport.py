@@ -10,7 +10,14 @@ package's `device/jaxport.py`, with the same semantics, bit for bit:
     stored row in batch order (K3 `ordered_scatter_add`, `np.add.at`
     semantics);
   - sets drop out-of-range entries, and of several entries naming one
-    row the LAST wins (`refport._drop_set`), resolved before the write;
+    row the LAST wins (`refport._drop_set`), resolved on the card with no
+    sort (K14 `drop_set`: a claim, then only the winner writes); a base
+    and its delta are set by one claim (K14's install form), reading the
+    source row where it lies when it is another pool's row;
+  - a planner round (K15 `sync_round`) folds each replica's delta row,
+    read where it lies, into its owner in batch order, then K14's
+    install form sets the fresh owner row as the base and zeros the
+    delta;
   - copies are clones and choices are selects, so -0.0 survives;
   - a bag read (K8 `gather_pool`) folds its member rows into their
     bags in batch order, as the scatter-adds do;
@@ -40,9 +47,10 @@ import torch
 
 from ..exec import dispatch_gate
 from ..ops.kernels import (F16_MAX, WIRE_DTYPES,  # noqa: F401 (F16_MAX)
+                           drop_set, drop_set_install, drop_set_zero,
                            gather_cold, gather_pool, gather_pool_cold,
-                           ordered_scatter_add, routed_gather, set_winners,
-                           sync_compress, write_main_rows)
+                           ordered_scatter_add, routed_gather, sync_compress,
+                           sync_round, write_main_rows)
 from .port import DevicePort
 
 _GATE = dispatch_gate()
@@ -72,17 +80,6 @@ def _vals(x, like: torch.Tensor) -> torch.Tensor:
         return x.to(device=like.device, dtype=like.dtype).contiguous()
     return torch.as_tensor(np.ascontiguousarray(x),
                            device=like.device).to(like.dtype)
-
-
-def drop_set(pool: torch.Tensor, sh: torch.Tensor, sl: torch.Tensor,
-             vals: torch.Tensor) -> None:
-    """In place `pool.at[sh, sl].set(vals, mode="drop")`: out-of-range
-    entries are skipped; of several entries naming one row, the last in
-    batch order wins (deduplicated here: an indexed write with duplicate
-    indices has no defined winner on CUDA)."""
-    S, R, L = pool.shape
-    tgt, keep = set_winners(pool, sh, sl)
-    pool.view(S * R, L)[tgt] = vals[keep]
 
 
 def _non_decreasing(seg) -> bool:
@@ -157,22 +154,20 @@ class TorchDevicePort(DevicePort):
         self.programs += 1
         d = main.device
         v = _vals(vals, main)
-        c_sh, c_sl = _idx(c_shard, d), _idx(c_slot, d)
         with _GATE:
             drop_set(main, _idx(o_shard, d), _idx(o_slot, d), v)
-            drop_set(cache, c_sh, c_sl, v)
-            drop_set(delta, c_sh, c_sl, torch.zeros_like(v))
+            drop_set_install(cache, delta, _idx(c_shard, d),
+                             _idx(c_slot, d), rows=v)
         return main, cache, delta
 
     def replica_create(self, main, cache, delta, o_shard, o_slot,
                        c_shard, c_slot):
         self.programs += 1
         d = main.device
-        c_sh, c_sl = _idx(c_shard, d), _idx(c_slot, d)
         with _GATE:
-            rows = fill_gather(main, _idx(o_shard, d), _idx(o_slot, d))
-            drop_set(cache, c_sh, c_sl, rows)
-            drop_set(delta, c_sh, c_sl, torch.zeros_like(rows))
+            drop_set_install(cache, delta, _idx(c_shard, d),
+                             _idx(c_slot, d),
+                             src=(main, _idx(o_shard, d), _idx(o_slot, d)))
         return cache, delta
 
     def sync_replicas(self, main, cache, delta, r_shard, r_cslot,
@@ -186,19 +181,9 @@ class TorchDevicePort(DevicePort):
             return self._sync_compressed(main, cache, delta, r_sh, r_cs,
                                          o_sh, o_sl, threshold, compress)
         with _GATE:
-            # extract -> merge into owners (ordered) -> re-gather the
-            # fresh owner rows -> refresh bases, clear deltas
-            dvals = fill_gather(delta, r_sh, r_cs)
-            if threshold > 0.0:
-                thr = torch.tensor(threshold, dtype=main.dtype, device=d)
-                ship = dvals.abs().amax(dim=1) >= thr
-                oob = torch.full_like(r_cs, int(OOB))
-                r_cs = torch.where(ship, r_cs, oob)
-                o_sl = torch.where(ship, o_sl, oob)
-            ordered_scatter_add(main, o_sh, o_sl, dvals)
-            fresh = fill_gather(main, o_sh, o_sl)
-            drop_set(cache, r_sh, r_cs, fresh)
-            drop_set(delta, r_sh, r_cs, torch.zeros_like(fresh))
+            # merge into owners (ordered) -> refresh bases, clear deltas
+            sync_round(main, cache, delta, r_sh, r_cs, o_sh, o_sl,
+                       threshold)
         return main, cache, delta
 
     @staticmethod
@@ -207,8 +192,10 @@ class TorchDevicePort(DevicePort):
         """A compressed round in the order of the JAX program
         (_sync_replicas_compressed): K12 quantizes the deltas and parks
         the residuals, K3 merges the shipped rows into the owners (held
-        rows' coordinates OOB), K1 re-gathers the fresh owner rows, and
-        the sets install them as bases and the new deltas. Returns the
+        rows' coordinates OOB), and K14's install form sets each shipped
+        replica's fresh owner row, read where it lies, as its base and its
+        residual as its delta. A held row's new delta is its delta as it
+        was (K12 passes it through), so it is left unwritten. Returns the
         pools and the max-abs parked residual (a device scalar)."""
         with _GATE:
             shipped, new_delta, ship, norm = sync_compress(
@@ -217,9 +204,8 @@ class TorchDevicePort(DevicePort):
             rs = torch.where(ship, r_cs, oob)
             osl = torch.where(ship, o_sl, oob)
             ordered_scatter_add(main, o_sh, osl, shipped)
-            fresh = fill_gather(main, o_sh, osl)
-            drop_set(cache, r_sh, rs, fresh)
-            drop_set(delta, r_sh, r_cs, new_delta)
+            drop_set_install(cache, delta, r_sh, rs, src=(main, o_sh, osl),
+                             resid=new_delta)
         return main, cache, delta, norm
 
     def read_rows_at(self, arr, sh, sl):
@@ -232,10 +218,9 @@ class TorchDevicePort(DevicePort):
         self.programs += 1
         d = cache.device
         v = _vals(vals, cache)
-        c_sh, c_sl = _idx(c_shard, d), _idx(c_slot, d)
         with _GATE:
-            drop_set(cache, c_sh, c_sl, v)
-            drop_set(delta, c_sh, c_sl, torch.zeros_like(v))
+            drop_set_install(cache, delta, _idx(c_shard, d), _idx(c_slot, d),
+                             rows=v)
         return cache, delta
 
     def refresh_after_sync(self, cache, delta, c_shard, c_slot, fresh,
@@ -260,17 +245,14 @@ class TorchDevicePort(DevicePort):
             rows = fill_gather(main, _idx(old_shard, d), _idx(old_slot, d))
             rows = rows + fill_gather(delta, rc_sh, rc_sl)
             drop_set(main, _idx(new_shard, d), _idx(new_slot, d), rows)
-            drop_set(delta, rc_sh, rc_sl, torch.zeros_like(rows))
+            drop_set_zero(delta, rc_sh, rc_sl)
         return main, delta
 
     def clear_rows(self, arr, sh, sl):
         self.programs += 1
         d = arr.device
-        sh = _idx(sh, d)
         with _GATE:
-            drop_set(arr, sh, _idx(sl, d),
-                     torch.zeros((sh.numel(), arr.shape[-1]),
-                                 dtype=arr.dtype, device=d))
+            drop_set_zero(arr, _idx(sh, d), _idx(sl, d))
         return arr
 
     @staticmethod
@@ -413,11 +395,10 @@ class TorchDevicePort(DevicePort):
         self.programs += 1
         d = cache.device
         v = _vals(vals, cache)
-        r = torch.zeros_like(v) if resid is None else _vals(resid, delta)
-        c_sh, c_sl = _idx(c_shard, d), _idx(c_slot, d)
+        r = None if resid is None else _vals(resid, delta)
         with _GATE:
-            drop_set(cache, c_sh, c_sl, v)
-            drop_set(delta, c_sh, c_sl, r)
+            drop_set_install(cache, delta, _idx(c_shard, d), _idx(c_slot, d),
+                             rows=v, resid=r)
         return cache, delta
 
     # -- buffer allocation / transfer ----------------------------------------

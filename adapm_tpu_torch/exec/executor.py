@@ -54,11 +54,20 @@ from typing import Callable, Dict, List, Optional
 # of which device context it was built on: every server in the process
 # enqueues onto the same CUDA streams, so one gate fixes one enqueue
 # order for all of them. Reentrant: store ops nest and a caller already
-# holding the gate must not self-deadlock.
-_DISPATCH_GATE = threading.RLock()
+# holding the gate must not self-deadlock. The RLock lives inside a
+# SentinelLock (lint/lockorder.py): dispatch sites capture the gate at
+# import (`_GATE = dispatch_gate()`), so the lock-order sentinel cannot
+# swap it per server the way it swaps Server._lock; the wrapper pays one
+# `is None` check per acquire while the sentinel is off
+# (--sys.lint.lockorder, the default) and records the gate's edges when
+# it is on.
+from ..lint.lockorder import GATE_NAME, GATE_UID, SentinelLock
+
+_DISPATCH_GATE = SentinelLock(GATE_NAME, inner=threading.RLock(),
+                              uid=GATE_UID)
 
 
-def dispatch_gate():
+def dispatch_gate() -> SentinelLock:
     """The process-wide sharded-dispatch mutex. Every site that
     dispatches a sharded device program acquires it around the dispatch
     (enqueue) itself — `with dispatch_gate(): self.main = _prog(...)`.

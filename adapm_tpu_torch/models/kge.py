@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..exec import dispatch_gate
 from ..ops.kernels import (complex_step, pool_eval_counts,
                            pool_eval_counts_plain, routed_gather)
 
@@ -207,8 +208,9 @@ def make_true_score(model: str):
 def _pool_rows(pool, owner, slot, keys, dim):
     """The first `dim` columns of the main-pool rows of `keys` (K1)."""
     k = keys.long()
-    rows = routed_gather(pool, None, None, owner.index_select(0, k),
-                         slot.index_select(0, k))
+    with dispatch_gate():
+        rows = routed_gather(pool, None, None, owner.index_select(0, k),
+                             slot.index_select(0, k))
     return rows[:, :dim]
 
 

@@ -86,6 +86,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if path is None:
             return None
         try:
+            # apm-lint: disable=APM008 the host-side C++ router
+            # (native/router.cpp): a CPU library with no device code, not
+            # a kernel library
             lib = ctypes.CDLL(path)
         except OSError:
             # stale/incompatible cached binary: fall back to numpy

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..core.store import OOB, bucket_size
+from ..device import cuda as dcuda
 from ..exec import dispatch_gate
 from . import kernels
 from .kernels import (adagrad_update, ordered_scatter_add_segments,
@@ -490,10 +491,15 @@ def make_device_routed_step(loss_fn: Callable[..., torch.Tensor],
                 owner, slot, _ = tables
                 o_sh, o_sl = owner.index_select(0, k), slot.index_select(0, k)
                 routes[c] = (o_sh, o_sl)
+                # apm-lint: disable=APM001 the body of the runner-held step
+                # function: DeviceRoutedRunner calls it, eagerly or into a
+                # graph capture, inside `with srv.exec.track("main"), _GATE:`
                 flat = routed_gather(main, None, None, o_sh, o_sl)
                 n_local += (o_sh == shard).sum()
             else:
                 routes[c] = _route_on_device(tables, k, shard)
+                # apm-lint: disable=APM001 the same step body, under the
+                # runner's gate
                 flat = routed_gather(main, cache, delta, *routes[c])
                 o_sh, use_c = routes[c][0], routes[c][4]
                 n_local += (use_c | (o_sh == shard)).sum()
@@ -630,7 +636,7 @@ class _PinnedRing:
         i = self.next
         self.next = (i + 1) % len(self.bufs)
         if self.events[i] is None:
-            self.events[i] = torch.cuda.Event()
+            self.events[i] = dcuda.event()
         else:
             self.events[i].synchronize()
         n = sum(a.size for a in arrs)
@@ -715,6 +721,17 @@ class DeviceRoutedRunner:
         self._local_index = None
         self._li_version = None
         self._locstat = torch.zeros(4, dtype=torch.int64, device=dev)
+        # its drain cadence, in the `fused` section as the JAX runner
+        # reports it: each read of the counts folds the accumulator to
+        # the host (a device sync), and the interval a width forces is
+        # 2**62 // params a step for this int64 accumulator (2**30 for
+        # the JAX runner's int32 one), which no run reaches. `shared`:
+        # several runners per server feed the same counters.
+        self._c_drains = server.obs.counter("fused.locstat_drains",
+                                            shared=True)
+        self._g_drain_every = server.obs.gauge(
+            "fused.locstat_drain_every", unit="steps", shared=True)
+        self._drain_every = None      # set on the first step
         self._lr_eps = _LrEps(dev)
         server._locality_sources.append(self.locality_counts)
         self._mk = dict(loss_fn=loss_fn, role_class=role_class,
@@ -770,7 +787,18 @@ class DeviceRoutedRunner:
         analog of Worker.stats)."""
         with self.server._lock:
             p, pl, o, ol = (int(v) for v in self._locstat.cpu())
+        self._c_drains.inc()
         return {"params": p, "params_local": pl, "ops": o, "ops_local": ol}
+
+    def _note_drain_every(self, role_keys) -> None:
+        """Set the drain-interval gauge from the first step's params a
+        step (key shapes are fixed per runner)."""
+        if self._drain_every is None:
+            pps = sum(np.asarray(k).size for k in role_keys.values())
+            if self._neg_shape is not None:
+                pps += int(np.prod(self._neg_shape))
+            self._drain_every = max(1, 2**62 // max(1, pps))
+            self._g_drain_every.set(self._drain_every)
 
     def _shard_has_replicas(self) -> bool:
         srv = self.server
@@ -812,7 +840,7 @@ class DeviceRoutedRunner:
             # the untiered fallback (the full population) would draw cold
             # keys, whose mirror rows are OOB: promote a bounded slice of
             # the population and draw from its device-resident part
-            idx = self._tiered_neg_fallback(pop)
+            idx = self._tiered_neg_fallback(srv.tier, pop)
         elif len(idx) == 0:
             idx = pop  # nothing local: draw from the full population
         kdt = _key_dtype(srv.num_keys)
@@ -823,15 +851,16 @@ class DeviceRoutedRunner:
         self._li_version = li_ver
         return self._local_index
 
-    def _tiered_neg_fallback(self, pop: np.ndarray) -> np.ndarray:
+    def _tiered_neg_fallback(self, tier, pop: np.ndarray) -> np.ndarray:
         """The device-resident keys of the population after promoting its
-        first 4,096 (wherever they are owned); raises if none is."""
+        first 4,096 (wherever they are owned) through the server's tier
+        manager `tier`; raises if none is."""
         srv = self.server
         ab = srv.ab
         cid = self.role_class[self.neg_role]
         res = srv.stores[cid].res
         take = pop[:4096]
-        srv.tier.ensure_hot(cid, ab.owner[take], ab.slot[take])
+        tier.ensure_hot(cid, ab.owner[take], ab.slot[take])
         o_sh, o_sl = ab.owner[pop], ab.slot[pop]
         ok = o_sl >= 0
         resident = np.zeros(len(pop), dtype=bool)
@@ -936,6 +965,7 @@ class DeviceRoutedRunner:
                 loss = fn(pools, self._locstat, tables, keys, local_index,
                           self._alias, self._gen, aux, self._lr_eps(lr, eps))
             self.steps += 1
+            self._note_drain_every(role_keys)
         return loss
 
     def _scan_fn(self, no_replicas: bool):
@@ -1004,6 +1034,7 @@ class DeviceRoutedRunner:
                         pools, self._locstat, tables, self._put_keys(stacked),
                         local_index, self._alias, self._gen, auxes, lr_eps)
             self.steps += K
+            self._note_drain_every(batches[0])
         return losses
 
     def _graph_window(self, no_rep, pools, tables, stacked, local_index,
@@ -1079,19 +1110,11 @@ class DeviceRoutedRunner:
         fn = self._scan_fn(no_rep)
         args = (pools, self._locstat, tables, entry.keys, None, None, None,
                 entry.aux, self._lr_eps.t)
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = fn(*args).clone()
-        cur.wait_stream(side)
-        out.record_stream(cur)
+        out = dcuda.warm_on_side_stream(lambda: fn(*args).clone(), dev)
         entry.graph = None                      # release an older capture
         before = dict(kernels.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                entry.losses = fn(*args)
+            graph, entry.losses = dcuda.capture_graph(lambda: fn(*args))
             entry.launches = {k: kernels.LAUNCHES[k] - before[k]
                               for k in before}
         finally:

@@ -36,6 +36,15 @@ PyTorch version.
                                                      jaxport.compile_collective:
                                                      the BSP exchange, HBM to
                                                      HBM through CUDA IPC)
+    K14 drop_set /          csrc/drop_set.cu        (XLA: jaxport's masked
+        drop_set_install /                           set/copy programs,
+        drop_set_zero                                _set_rows ... _clear_rows,
+                                                     _install_cache_rows*)
+    K15 sync_round          csrc/sync_round.cu      (XLA: jaxport._sync_replicas
+                                                     and _sync_replicas_
+                                                     thresholded; K3's fold in
+                                                     csrc/ordered_fold.cuh, K14's
+                                                     install form)
 
 K9-K12 read and write the wire formats of tier/quant.py (fp32, fp16,
 int8 with a per-row f32 scale) bit for bit as its host twins do
@@ -85,7 +94,9 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
             "gather_cold": "gather_cold.cu",
             "write_main_rows": "write_main_rows.cu",
             "sync_compress": "sync_compress.cu",
-            "alltoall_put": "alltoall_put.cu"}
+            "alltoall_put": "alltoall_put.cu",
+            "drop_set": "drop_set.cu",
+            "sync_round": "sync_round.cu"}
 
 # launches per kernel since the last reset_launches(), counted by the
 # wrappers (chip_smoke.py reads them to show the main path went through
@@ -95,7 +106,8 @@ LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
                             "complex_step": 0, "sgns_step": 0, "mf_step": 0,
                             "gather_pool": 0, "gather_cold": 0,
                             "gather_pool_cold": 0, "write_main_rows": 0,
-                            "sync_compress": 0, "alltoall_put": 0}
+                            "sync_compress": 0, "alltoall_put": 0,
+                            "drop_set": 0, "sync_round": 0}
 # launches made by replays of captured CUDA graphs (ops/fused.py
 # run_scan): each replay adds the launches recorded at its capture. No
 # wrapper runs then, so LAUNCHES does not count them.
@@ -237,6 +249,20 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_a2a_close.argtypes = [P]
         lib.adapm_a2a_free.restype = I
         lib.adapm_a2a_free.argtypes = [P]
+    elif name == "drop_set":
+        lib.adapm_drop_set.restype = I
+        lib.adapm_drop_set.argtypes = [P] * 5 + [I] * 5 + [P]
+        lib.adapm_drop_set_install.restype = I
+        lib.adapm_drop_set_install.argtypes = [P] * 9 + [I, I, P] + [I] * 5 \
+            + [P]
+        lib.adapm_drop_set_zero.restype = I
+        lib.adapm_drop_set_zero.argtypes = [P] * 3 + [I] * 5 + [P]
+    elif name == "sync_round":
+        lib.adapm_sync_ship.restype = I
+        lib.adapm_sync_ship.argtypes = [P] * 5 + [LL] + [I] * 5 + [I, F, I] \
+            + [P] * 3 + [I, P]
+        lib.adapm_sync_fold.restype = I
+        lib.adapm_sync_fold.argtypes = [P] * 6 + [LL] + [I] * 5 + [P]
     elif name == "ordered_scatter":
         lib.adapm_flat_targets.restype = I
         lib.adapm_flat_targets.argtypes = [P, P, P, I, P, I, I, P]
@@ -906,23 +932,33 @@ def write_main_rows_plain(main, sh, row, mode, q, scale) -> torch.Tensor:
     return main
 
 
-# K11's claim scratch: one int32 word per pool row, all -1 between
-# calls, by (device, stream, rows). Calls on one stream run in order and
-# each leaves it all -1, so pools of one size share it there.
+# the claim scratch of K11 and K14: one int32 word per pool row, all -1
+# between calls, by (kernel, device, stream, rows). Calls on one stream
+# run in order and each leaves it all -1, so pools of one size share it
+# there. A graph holds the address of what its capture allocates, so a
+# set inside a captured window must find its scratch already made.
 _claims: Dict[tuple, torch.Tensor] = {}
 _claims_lock = threading.Lock()
 
 
-def _claim_scratch(main: torch.Tensor, stream) -> torch.Tensor:
-    rows = main.shape[0] * main.shape[1]
-    key = (main.device, stream.cuda_stream, rows)
+def _claim_key(kernel: str, pool: torch.Tensor, stream) -> tuple:
+    return (kernel, pool.device, stream.cuda_stream,
+            pool.shape[0] * pool.shape[1])
+
+
+def _claim_scratch(kernel: str, pool: torch.Tensor, stream) -> torch.Tensor:
+    key = _claim_key(kernel, pool, stream)
     claim = _claims.get(key)
     if claim is None:
         with _claims_lock:
             claim = _claims.get(key)
             if claim is None:
+                _require(not torch.cuda.is_current_stream_capturing(),
+                         f"{kernel}: no claim scratch for a pool of "
+                         f"{key[3]} rows on this stream; make it before "
+                         "a CUDA graph capture (a graph keeps its address)")
                 claim = _claims[key] = torch.full(
-                    (rows,), -1, dtype=torch.int32, device=main.device)
+                    (key[3],), -1, dtype=torch.int32, device=pool.device)
     return claim
 
 
@@ -947,7 +983,7 @@ def write_main_rows(main, sh, row, mode, q, scale=None) -> torch.Tensor:
         return main
     _require(m <= 2**30, "write_main_rows: at most 2**30 rows a call")
     stream = torch.cuda.current_stream(main.device)
-    claim = _claim_scratch(main, stream)
+    claim = _claim_scratch("write_main_rows", main, stream)
     vec = int(L % 4 == 0 and _aligned16(main, q))
     rc = _lib("write_main_rows").adapm_write_main_rows(
         _ptr(main), _ptr(claim), _ptr(sh), _ptr(row), _ptr(q), _ptr(scale),
@@ -955,9 +991,233 @@ def write_main_rows(main, sh, row, mode, q, scale=None) -> torch.Tensor:
     LAUNCHES["write_main_rows"] += 1
     if rc != 0:
         # a write that never ran leaves the scratch claimed
-        _claims.pop((main.device, stream.cuda_stream, S * R), None)
+        _claims.pop(_claim_key("write_main_rows", main, stream), None)
     _check(rc, "write_main_rows")
     return main
+
+
+# ---------------------------------------------------------------------------
+# K14 drop_set
+# ---------------------------------------------------------------------------
+
+# out-of-range slot for a held replica of a thresholded round (the port's
+# padding sentinel, device/torchport.py OOB)
+_OOB = 2**31 - 2
+
+
+def drop_set_plain(pool, sh, sl, vals) -> None:
+    """The plain version of K14's first form (any device): the winners
+    resolved with one stable sort (set_winners), then one indexed write.
+    In place."""
+    S, R, L = pool.shape
+    tgt, keep = set_winners(pool, sh, sl)
+    pool.view(S * R, L)[tgt] = vals[keep]
+
+
+def drop_set_install_plain(cache, delta, c_sh, c_sl, rows=None, src=None,
+                           resid=None) -> None:
+    """The plain version of K14's install form (any device): the source
+    rows (`rows`, or the fill-read of `src` = (pool, o_sh, o_sl)) set into
+    `cache`, and `resid` (zeros when None) into `delta`, at (c_sh, c_sl)."""
+    if rows is None:
+        rows = _fill_gather_plain(*src)
+    drop_set_plain(cache, c_sh, c_sl, rows)
+    drop_set_plain(delta, c_sh, c_sl,
+                   torch.zeros_like(rows) if resid is None else resid)
+
+
+def drop_set_zero_plain(pool, sh, sl) -> None:
+    """The plain version of K14's zero form (any device)."""
+    drop_set_plain(pool, sh, sl, torch.zeros(
+        (sh.numel(), pool.shape[-1]), dtype=pool.dtype, device=pool.device))
+
+
+def _check_set(what: str, pool, sh, sl) -> int:
+    """The checks K14's forms share; returns the entry count."""
+    S, R, _ = pool.shape
+    _require(pool.dtype == torch.float32 and pool.is_contiguous(),
+             f"{what}: the pools must be contiguous f32")
+    _require(sh.dtype == sl.dtype == torch.int32 and sh.is_contiguous()
+             and sl.is_contiguous() and sh.numel() == sl.numel(),
+             f"{what}: coordinates must be contiguous int32 [m]")
+    _require(S * R < 2**31 - 1,
+             f"{what}: the pool has too many rows for int32 targets")
+    _require(sh.numel() <= 2**30, f"{what}: at most 2**30 entries a call")
+    return sh.numel()
+
+
+def _check_src_rows(what: str, t, m: int, L: int) -> None:
+    _require(t is None or (t.dtype == torch.float32 and t.is_contiguous()
+                           and tuple(t.shape) == (m, L)),
+             f"{what}: source rows must be contiguous f32 [m, L]")
+
+
+def _set_call(fn, what: str, pool, stream, *args) -> None:
+    rc = fn(*args)
+    LAUNCHES["drop_set"] += 1
+    if rc != 0:
+        # a write that never ran leaves the scratch claimed
+        _claims.pop(_claim_key("drop_set", pool, stream), None)
+    _check(rc, what)
+
+
+def drop_set(pool, sh, sl, vals) -> None:
+    """K14: pool.at[sh, sl].set(vals, mode="drop") in place over an
+    [S, R, L] f32 pool, int32 coordinates and [m, L] f32 rows: an
+    out-of-range entry drops and, of several naming one row, the last in
+    batch order wins (csrc/drop_set.cu, form 1: a claim and a write
+    launch, counted as one)."""
+    if not _on_cuda(pool, sh, sl, vals):
+        return drop_set_plain(pool, sh, sl, vals)
+    m = _check_set("drop_set", pool, sh, sl)
+    S, R, L = pool.shape
+    _check_src_rows("drop_set", vals, m, L)
+    if m == 0:
+        return
+    stream = torch.cuda.current_stream(pool.device)
+    claim = _claim_scratch("drop_set", pool, stream)
+    vec = int(L % 4 == 0 and _aligned16(pool, vals))
+    _set_call(_lib("drop_set").adapm_drop_set, "drop_set", pool, stream,
+              _ptr(pool), _ptr(claim), _ptr(sh), _ptr(sl), _ptr(vals), m, S,
+              R, L, vec, stream.cuda_stream)
+
+
+def drop_set_install(cache, delta, c_sh, c_sl, rows=None, src=None,
+                     resid=None) -> None:
+    """K14's install form, in place: one claim over (c_sh, c_sl) of the
+    [S, C, L] f32 cache/delta pair; each winner sets its source row into
+    `cache` and its row of `resid` ([m, L] f32; zeros when None) into
+    `delta`. The source is `rows` ([m, L] f32) or, with `src` = (pool,
+    o_sh, o_sl), the fill-read of another pool at int32 coordinates, read
+    where it lies (a zero row out of range). One claim and one write
+    launch, counted as one."""
+    _require((rows is None) != (src is None),
+             "drop_set_install: give the source rows or the pool to read "
+             "them from, not both")
+    srcs = tuple(src) if src is not None else (None, None, None)
+    if not _on_cuda(cache, delta, c_sh, c_sl, rows, resid, *srcs):
+        return drop_set_install_plain(cache, delta, c_sh, c_sl, rows, src,
+                                      resid)
+    m = _check_set("drop_set_install", cache, c_sh, c_sl)
+    S, R, L = cache.shape
+    _require(delta.dtype == torch.float32 and delta.is_contiguous()
+             and delta.shape == cache.shape,
+             "drop_set_install: delta must be contiguous f32 of cache's "
+             "shape")
+    _check_src_rows("drop_set_install", rows, m, L)
+    _check_src_rows("drop_set_install", resid, m, L)
+    spool, o_sh, o_sl = srcs
+    So = Ro = 0
+    if spool is not None:
+        So, Ro, Ls = spool.shape
+        _require(spool.dtype == torch.float32 and spool.is_contiguous()
+                 and Ls == L and spool.data_ptr() not in (
+                     cache.data_ptr(), delta.data_ptr()),
+                 "drop_set_install: the source pool must be contiguous f32 "
+                 "of the rows' width, and neither cache nor delta")
+        _require(o_sh.dtype == o_sl.dtype == torch.int32
+                 and o_sh.is_contiguous() and o_sl.is_contiguous()
+                 and o_sh.numel() == o_sl.numel() == m,
+                 "drop_set_install: source coordinates must be contiguous "
+                 "int32 [m]")
+    if m == 0:
+        return
+    stream = torch.cuda.current_stream(cache.device)
+    claim = _claim_scratch("drop_set", cache, stream)
+    vec = int(L % 4 == 0 and _aligned16(cache, delta, rows, resid, spool))
+    _set_call(_lib("drop_set").adapm_drop_set_install, "drop_set_install",
+              cache, stream, _ptr(cache), _ptr(delta), _ptr(claim),
+              _ptr(c_sh), _ptr(c_sl), _ptr(rows), _ptr(spool), _ptr(o_sh),
+              _ptr(o_sl), So, Ro, _ptr(resid), m, S, R, L, vec,
+              stream.cuda_stream)
+
+
+def drop_set_zero(pool, sh, sl) -> None:
+    """K14's zero form: every in-range (sh, sl) row of the [S, R, L] f32
+    pool set to zeros, in place (one launch, no claim: each entry writes
+    the same bits)."""
+    if not _on_cuda(pool, sh, sl):
+        return drop_set_zero_plain(pool, sh, sl)
+    m = _check_set("drop_set_zero", pool, sh, sl)
+    S, R, L = pool.shape
+    if m == 0:
+        return
+    rc = _lib("drop_set").adapm_drop_set_zero(
+        _ptr(pool), _ptr(sh), _ptr(sl), m, S, R, L,
+        int(L % 4 == 0 and _aligned16(pool)), _stream())
+    LAUNCHES["drop_set"] += 1
+    _check(rc, "drop_set_zero")
+
+
+# ---------------------------------------------------------------------------
+# K15 sync_round
+# ---------------------------------------------------------------------------
+
+
+def sync_round_plain(main, cache, delta, r_sh, r_cs, o_sh, o_sl,
+                     threshold: float = 0.0) -> None:
+    """The plain version of K15 (any device), the JAX program's steps in
+    torch ops: extract the replica deltas, hold those below the threshold
+    (both coordinates OOB), merge the rest into their owners in batch
+    order, re-gather the fresh owner rows, set them as bases and zero the
+    deltas. In place."""
+    dvals = _fill_gather_plain(delta, r_sh, r_cs)
+    if threshold > 0.0:
+        thr = torch.tensor(threshold, dtype=main.dtype, device=main.device)
+        ship = dvals.abs().amax(dim=1) >= thr
+        oob = torch.full_like(r_cs, _OOB)
+        r_cs = torch.where(ship, r_cs, oob)
+        o_sl = torch.where(ship, o_sl, oob)
+    ordered_scatter_add_plain(main, o_sh, o_sl, dvals)
+    fresh = _fill_gather_plain(main, o_sh, o_sl)
+    drop_set_plain(cache, r_sh, r_cs, fresh)
+    drop_set_plain(delta, r_sh, r_cs, torch.zeros_like(fresh))
+
+
+def sync_round(main, cache, delta, r_sh, r_cs, o_sh, o_sl,
+               threshold: float = 0.0) -> None:
+    """K15: one planner round over n replicas at int32 (r_sh, r_cs) of the
+    [S, C, L] f32 cache/delta pair, owned at (o_sh, o_sl) of the [So, Ro,
+    L] f32 main pool, in place (sync_round_plain's contract;
+    csrc/sync_round.cu). The ship pass and the fold (counted as one
+    sync_round launch) around K3's stable sort, then K14's install form
+    (counted as drop_set's)."""
+    if not _on_cuda(main, cache, delta, r_sh, r_cs, o_sh, o_sl):
+        return sync_round_plain(main, cache, delta, r_sh, r_cs, o_sh, o_sl,
+                                threshold)
+    So, Ro, L = main.shape
+    S, C, Ld = delta.shape
+    n = r_sh.numel()
+    _require(all(t.dtype == torch.float32 and t.is_contiguous()
+                 for t in (main, cache, delta))
+             and cache.shape == delta.shape and Ld == L,
+             "sync_round: the pools must be contiguous f32, cache and delta "
+             "of one shape, rows of one width")
+    _require(all(t.dtype == torch.int32 and t.is_contiguous()
+                 and t.numel() == n for t in (r_sh, r_cs, o_sh, o_sl)),
+             "sync_round: coordinates must be contiguous int32 [n]")
+    _require(So * Ro < 2**31 - 1 and S * C < 2**31 - 1,
+             "sync_round: a pool has too many rows for int32 targets")
+    if n == 0:
+        return
+    dev = main.device
+    flat, rcs, osl = (torch.empty(n, dtype=torch.int32, device=dev)
+                      for _ in range(3))
+    lib = _lib("sync_round")
+    rc = lib.adapm_sync_ship(
+        _ptr(delta), _ptr(r_sh), _ptr(r_cs), _ptr(o_sh), _ptr(o_sl), n, S, C,
+        L, So, Ro, int(threshold > 0.0), float(threshold), _OOB,
+        _ptr(flat), _ptr(rcs), _ptr(osl),
+        int(L % 4 == 0 and _aligned16(delta)), _stream())
+    _check(rc, "sync_round (ship pass)")
+    sf, perm = torch.sort(flat, stable=True)
+    rc = lib.adapm_sync_fold(
+        _ptr(main), _ptr(sf), _ptr(perm), _ptr(delta), _ptr(r_sh), _ptr(rcs),
+        n, So * Ro, S, C, L, int(L % 4 == 0 and _aligned16(main, delta)),
+        _stream())
+    LAUNCHES["sync_round"] += 1
+    _check(rc, "sync_round")
+    drop_set_install(cache, delta, r_sh, rcs, src=(main, o_sh, osl))
 
 
 def sync_compress_plain(delta, r_sh, r_cs, mode: str, threshold: float):

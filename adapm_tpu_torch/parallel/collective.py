@@ -61,9 +61,9 @@ class _JoinWatchdog:
                      f"wait_sync hangs here")
         self._warn_after = warn_after
         self._stop = threading.Event()
-        # a liveness watchdog for an exchange that may be stuck waiting
-        # on peers: it must report even when every executor worker is
-        # parked inside that exchange
+        # apm-lint: disable=APM004 liveness watchdog for a BSP exchange
+        # that may be stuck waiting on peers: it must be able to report
+        # even when every executor worker is parked inside that exchange
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="adapm-coll-watchdog")
 

@@ -191,8 +191,9 @@ def start_heartbeat(interval_s: float = 2.0) -> None:
             if stop.wait(interval_s):
                 return
 
-    # process-level heartbeat with no Server (hence no executor) in
-    # scope: the control plane outlives and predates any Server
+    # apm-lint: disable=APM004 process-level heartbeat with no Server
+    # (hence no executor) in scope: the control plane outlives and
+    # predates any Server on this rank (launcher-adjacent, like dcn.py)
     threading.Thread(target=loop, daemon=True,
                      name="adapm-heartbeat").start()
 

@@ -46,7 +46,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..exec import dispatch_gate
 from . import control
+
+_GATE = dispatch_gate()
 
 _ALIGN = 16
 
@@ -170,11 +173,13 @@ class SlabExchange:
         if self.cuda:
             with torch.cuda.device(self.device):
                 src = src.to(self.device)
-                K.alltoall_put(src, lay.views, half + self.pid * lay.T,
-                               lay.table)
+                with _GATE:
+                    K.alltoall_put(src, lay.views, half + self.pid * lay.T,
+                                   lay.table)
                 torch.cuda.current_stream(self.device).synchronize()
         else:
-            K.alltoall_put(src, lay.views, half + self.pid * lay.T)
+            with _GATE:
+                K.alltoall_put(src, lay.views, half + self.pid * lay.T)
         self.bytes_put += P * lay.T
         # every process's puts of this exchange have landed past here
         control.barrier(f"{self.site}-x")

@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..device import cuda as dcuda
 from ..device.context import DeviceContext
 
 KV_AXIS = "kv"
@@ -63,7 +64,7 @@ def _own_device() -> torch.device:
     if control.num_processes() > 1 and torch.cuda.is_available():
         dev = torch.device("cuda", control.process_id()
                            % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
+        dcuda.set_device(dev)
         return dev
     return torch.device("cuda")
 

@@ -79,11 +79,9 @@ _DECISION_KINDS = frozenset({"reloc", "promote"})
 def _build_opts(trace: WorkloadTrace, overrides: Optional[Dict]):
     """SystemOptions for one replay run: the RECORDED knobs, the
     determinism and hygiene pins, then the candidate's overrides
-    (SystemOptions field names; unknown or pinned names fail loudly, and
-    so does a knob of a plane the port does not have yet)."""
+    (SystemOptions field names; unknown or pinned names fail loudly)."""
     from ..base import MgmtTechniques
     from ..config import SystemOptions
-    from ..core.kv import _UNPORTED_PLANES
     opts = SystemOptions()
     for k, v in dict(trace.meta.get("knobs", {})).items():
         if not hasattr(opts, k):
@@ -143,11 +141,6 @@ def _build_opts(trace: WorkloadTrace, overrides: Optional[Dict]):
                          "override trace_decisions (export the "
                          "labeled dataset from the CAPTURED run's "
                          ".dtrace via replay/dataset.py)")
-    for knob, what, item in _UNPORTED_PLANES:
-        if getattr(opts, knob):
-            raise NotImplementedError(
-                f"replay knob {knob!r}: {what} is not ported yet "
-                f"(ROADMAP {item})")
     opts.validate_serve()
     return opts, num_shards
 

@@ -60,7 +60,8 @@ class ServePlane:
         self.server = server
         self.opts = opts
         self.queue = AdmissionQueue(opts.serve_queue, registry=server.obs,
-                                    lanes=max(1, opts.serve_dispatchers))
+                                    lanes=max(1, opts.serve_dispatchers),
+                                    lockorder=opts.lint_lockorder)
         self.batcher = LookupBatcher(server, opts, self.queue, shard=shard)
         # the read-only replica exists only with rows budgeted
         self.replica = None

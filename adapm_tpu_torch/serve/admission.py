@@ -36,9 +36,8 @@ All of the following are inert until configured:
     across tenants within a class, then FIFO. With no tenant and only
     default priorities, `take` is a plain FIFO.
 
-The admission condition variable holds a plain lock (the JAX package's
-lock-order sentinel, `--sys.lint.lockorder`, is not ported: ROADMAP
-queue A, item 12).
+With `--sys.lint.lockorder` the admission condition variable's lock
+joins the lock-order sentinel's graph (lint/lockorder.py).
 """
 from __future__ import annotations
 
@@ -251,13 +250,22 @@ class AdmissionQueue:
     `serve.rejected_total` / `serve.shed_total` counters, and the
     per-tenant `serve.tenant.<name>.*` counters."""
 
-    def __init__(self, bound: int, registry=None, lanes: int = 1):
+    def __init__(self, bound: int, registry=None, lanes: int = 1,
+                 lockorder: bool = False):
         assert bound >= 1, "admission queue bound must be >= 1"
         self.bound = int(bound)
         self.lanes = max(1, int(lanes))
         self._lanes: List["collections.deque[LookupRequest]"] = [
             collections.deque() for _ in range(self.lanes)]
-        self._cond = threading.Condition()
+        if lockorder:
+            # the runtime lock-order sentinel (--sys.lint.lockorder): the
+            # admission condvar's lock joins the process-wide acquisition
+            # graph; off, a plain Condition with no wrapper
+            from ..lint.lockorder import SentinelLock
+            self._cond = threading.Condition(
+                SentinelLock("serve_admission"))
+        else:
+            self._cond = threading.Condition()
         self._closed = False
         self._registry = registry
         self._tenants: Dict[str, TenantState] = {}

@@ -413,6 +413,10 @@ PROF_STEPS = 8                        # phase 3 (pipeline): profiled steps
 APP_STEPS1 = 64                       # phase 5's --scan_steps 1 runs
 PULL_BATCHES = 64                     # phase 11: pull-driven batches
 PLANNER_RUNS = 300                    # phase 12: pushes per worker thread
+# phase 12's rounds/s in the last full run before K14 and K15 (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 5): quoted beside this
+# run's, not measured in it
+PLANNER_ROUNDS_S_BEFORE = 124.2
 # word2vec at bench.py bench_w2v's width: V words (keys 2w, 2w+1), rows
 # [emb d | adagrad d], B pairs, N alias-drawn negatives per pair
 V_W2V, D_W2V, B_W2V, N_W2V = 100_000, 128, 8192, 5
@@ -763,6 +767,11 @@ def phase_kernels(K, dev, rng):
         rec[name] = run(K, dev, rng)
         torch.cuda.empty_cache()
     rec["alltoall_put"] = phase_k13(K, dev, rng)
+    torch.cuda.empty_cache()
+    rec["drop_set"] = phase_k14(K, dev, rng)
+    torch.cuda.empty_cache()
+    rec["sync_round"] = phase_k15(K, dev, rng)
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -2176,7 +2185,8 @@ def phase_planner(at, K, dev):
           "rows differ from the sequential sum")
     check(created > 0, "phase 12: competing intents created no replica")
     check_launched(launches, "phase 12", ("routed_gather",
-                                          "ordered_scatter_add"))
+                                          "ordered_scatter_add",
+                                          "sync_round", "drop_set"))
     got_c, _, rounds_c, _, _ = planner_run(at, "cpu")
     check(np.array_equal(got_g.view(np.uint32), got_c.view(np.uint32)),
           "phase 12: cuda and cpu differ")
@@ -2857,7 +2867,9 @@ def phase_serve_bags(at, K, dev):
     fill = np.random.default_rng(4)
     for lo in range(0, nkeys, 1 << 20):
         hi = min(lo + (1 << 20), nkeys)
-        vals = fill.standard_normal((hi - lo, L_DLRM), dtype=np.float32)
+        # uniform draws: a third of normal draws' host time over the
+        # table's 1.8e9 values; the checks compare the server with itself
+        vals = fill.random((hi - lo, L_DLRM), dtype=np.float32)
         vals *= 0.01
         w.set(np.arange(lo, hi), vals)
     srv.block()
@@ -2985,10 +2997,13 @@ def grid_rows(rng, n, width, step=2.0 ** -7):
     """Rows exactly on an int8 grid (integers q*step, |q| <= 127, one
     element of each row at +-127, step a power of two): every cold
     format stores them exactly, so no residual parks and a row reads the
-    same bits hot or cold."""
-    q = rng.integers(-126, 127, size=(n, width)).astype(np.float32)
+    same bits hot or cold. Drawn as int8 (a quarter of an int64 draw's
+    host time: phase 13 (c) fills 7,116,632 rows this way)."""
+    q = rng.integers(-126, 127, size=(n, width), dtype=np.int8).astype(
+        np.float32)
     q[:, 0] = np.where(rng.random(n) < 0.5, -127.0, 127.0)
-    return q * np.float32(step)
+    q *= np.float32(step)
+    return q
 
 
 def wire_of(mode, rows, dev):
@@ -3295,6 +3310,334 @@ def phase_k12(K, dev, rng):
     return dict(out["int8"], modes=out)
 
 
+def claims_clear(K):
+    """K11's and K14's claim scratch all -1 (as every call leaves it)."""
+    return all(bool((c == -1).all()) for c in K._claims.values())
+
+
+def phase_k14(K, dev, rng):
+    """Phase 2, K14: K11's shape (TIER_PROMOTED entries of L f32 into a
+    TIER_HOT-row pool, S=1) for each of k11_batches' batches (distinct
+    rows; a quarter repeating an earlier target, drops and OOB padding):
+    the set form, the install form on a cache/delta pair (from source
+    rows, and read from a main pool of phase 3's rows as replica_create
+    reads it) and the zero form, each bitwise its plain version and over
+    two runs, the claim scratch all -1 after every call. Timed by the
+    device time of all a call launches (the trace) and between CUDA
+    events, beside index_copy_ of the winners (the set form) and the
+    plain version, which is the parent's path (set_winners: a stable
+    sort, a mask, an indexed write)."""
+    pool = torch.randn((1, TIER_HOT, L), device=dev)
+    pool[0, :4] = -0.0
+    cache = torch.randn((1, TIER_HOT, L), device=dev)
+    delta = torch.randn((1, TIER_HOT, L), device=dev)
+    vals = torch.as_tensor(rng.standard_normal((TIER_PROMOTED, L),
+                                               np.float32), device=dev)
+    vals[:64, ::3] = -0.0
+    src = torch.randn((1, 2 * TIER_HOT, L), device=dev)
+    src[0, :8] = -0.0
+    o_sl = torch.as_tensor(rng.integers(0, 2 * TIER_HOT, TIER_PROMOTED)
+                           .astype(np.int32), device=dev)
+    o_sl[::97] = 2**31 - 2
+    o_sh = torch.zeros_like(o_sl)
+    batches, call_kernels = {}, None
+    for name, sh_np, row_np in k11_batches(rng):
+        sh, row = (torch.as_tensor(a, device=dev) for a in (sh_np, row_np))
+        tgt, keep = K.set_winners(pool, sh, row)
+        winners = int(tgt.numel())
+        forms = {
+            "set": ((pool,), lambda p: K.drop_set(*p, sh, row, vals),
+                    lambda p: K.drop_set_plain(*p, sh, row, vals),
+                    winners * L * 8),
+            "install": ((cache, delta), lambda p: K.drop_set_install(
+                *p, sh, row, rows=vals), lambda p: K.drop_set_install_plain(
+                    *p, sh, row, rows=vals), winners * L * 12),
+            "install_src": ((cache, delta), lambda p: K.drop_set_install(
+                *p, sh, row, src=(src, o_sh, o_sl)),
+                lambda p: K.drop_set_install_plain(
+                    *p, sh, row, src=(src, o_sh, o_sl)),
+                winners * L * 12 + len(row_np) * 8),
+            "zero": ((pool,), lambda p: K.drop_set_zero(*p, sh, row),
+                     lambda p: K.drop_set_zero_plain(*p, sh, row),
+                     winners * L * 4),
+        }
+        out = {}
+        for form, (pools, kern, plain, nbytes) in forms.items():
+            # every form bitwise on both batches; the duplicates batch
+            # times the set form alone (K11's batch, K11's yardstick)
+            timed_form = name == "distinct" or form == "set"
+            got = []
+            for _ in range(2):
+                p = [t.clone() for t in pools]
+                kern(p)
+                got.append(p)
+                check(claims_clear(K), f"K14 ({name}, {form}) left its "
+                      "claim scratch set")
+            ref = [t.clone() for t in pools]
+            plain(ref)
+            check(all(bitwise(a, b) and bitwise(a, c)
+                      for a, b, c in zip(got[0], got[1], ref)),
+                  f"K14 ({name}, {form}) differs from its plain version or "
+                  "between two runs")
+            if not timed_form:
+                out[form] = dict(max_abs_err=max(
+                    float((a - b).abs().max()) for a, b in zip(got[0], ref)),
+                    rows=len(row_np), winners=winners)
+                del got, ref
+                continue
+            scratch = [t.clone() for t in pools]
+            library = None
+            if form == "set":
+                flat, dw = scratch[0].view(-1, L), vals[keep]
+
+                def library(flat=flat, tgt=tgt, dw=dw):
+                    flat.index_copy_(0, tgt, dw)
+
+                if call_kernels is None:
+                    call_kernels = one_call_kernels(lambda: kern(scratch))
+                    check(sorted("claim_kernel" in k for k in call_kernels)
+                          == [False, True] and all(n == 1 for n in
+                                                   call_kernels.values()),
+                          f"K14: one call ran {call_kernels}, not its "
+                          "claim and write kernels alone")
+            out[form] = timed(
+                device_ms(lambda: kern(scratch)),
+                cuda_ms(lambda: plain(scratch)),
+                None if library is None else device_ms(library),
+                max_abs_err=max(float((a - b).abs().max())
+                                for a, b in zip(got[0], ref)),
+                event_ms=cuda_ms(lambda: kern(scratch)),
+                library_event_ms=None if library is None
+                else cuda_ms(library),
+                bound=bound(nbytes + len(row_np) * 8, 0),
+                rows=len(row_np), winners=winners)
+            del got, ref, scratch
+        batches[name] = dict(out["set"], forms=out)
+    return dict(batches["distinct"], duplicates=batches["duplicates"],
+                call_kernels=call_kernels)
+
+
+def sync_setup(rng, dev, S, n, C):
+    """A planner round's pools at phase 12's layout: keys of L f32, key k
+    owned by shard k % S at slot k // S and replicated on every other
+    shard, n replicas in all (S=2: one a key, owners distinct in a round;
+    S=4: three, each owner folded three times), the replica slots a
+    permutation of each shard's C cache slots; half the keys' deltas
+    below the threshold 0.5, in a shuffled batch order."""
+    keys = n // (S - 1)
+    main = torch.randn((S, -(-keys // S), L), device=dev)
+    main[:, :4] = -0.0
+    cache = torch.randn((S, C, L), device=dev)
+    delta = torch.randn((S, C, L), device=dev)
+    delta[:, 1::2] *= 1e-3
+    delta[0, :4, ::5] = -0.0
+    k = np.tile(np.arange(keys), S - 1)
+    j = np.repeat(np.arange(1, S), keys)
+    o_sh, o_sl, r_sh = k % S, k // S, (k + j) % S
+    r_cs = np.empty(len(k), np.int64)
+    for sh in range(S):
+        at = np.flatnonzero(r_sh == sh)
+        r_cs[at] = rng.permutation(C)[:len(at)]
+    order = rng.permutation(len(k))
+    coords = [torch.as_tensor(a[order].astype(np.int32), device=dev)
+              for a in (r_sh, r_cs, o_sh, o_sl)]
+    return [main, cache, delta], coords
+
+
+def parent_sync(K, main, cache, delta, r_sh, r_cs, o_sh, o_sl, thr):
+    """The parent's planner round (device/torchport.py before K15): K1
+    extracts the deltas, torch ops hold the rows below the threshold, K3
+    merges, K1 re-gathers the fresh owner rows, and two set_winners sets
+    install them and zero the deltas."""
+    dvals = K.routed_gather(delta, None, None, r_sh, r_cs)
+    if thr > 0.0:
+        ship = dvals.abs().amax(dim=1) >= torch.tensor(thr,
+                                                       device=main.device)
+        oob = torch.full_like(r_cs, 2**31 - 2)
+        r_cs = torch.where(ship, r_cs, oob)
+        o_sl = torch.where(ship, o_sl, oob)
+    K.ordered_scatter_add(main, o_sh, o_sl, dvals)
+    fresh = K.routed_gather(main, None, None, o_sh, o_sl)
+    K.drop_set_plain(cache, r_sh, r_cs, fresh)
+    K.drop_set_plain(delta, r_sh, r_cs, torch.zeros_like(fresh))
+
+
+def fresh_ms(run, restore, reps=20, traces=3, events=True):
+    """Device ms a call (every record of the calls, from a profiler
+    trace) and ms a call between CUDA events, as (median, min, max), of
+    `reps` calls run(i) whose inputs restore() makes fresh before each
+    batch of calls, outside the timing: a planner round zeroes the deltas
+    it reads, so the next round on the same rows would ship nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    run(0)
+    dev_t, ev_t = [], []
+    for _ in range(traces):
+        restore()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                run(i)
+            torch.cuda.synchronize()
+        dev_t.append(sum(e.self_device_time_total for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+                     / 1e3 / reps)
+        if not events:
+            continue
+        restore()
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(evs):
+            a.record()
+            run(i)
+            b.record()
+        torch.cuda.synchronize()
+        ev_t += [a.elapsed_time(b) for a, b in evs]
+    stat = lambda t: (float(np.median(t)), float(min(t)),  # noqa: E731
+                      float(max(t)))
+    return stat(dev_t), stat(ev_t) if ev_t else None
+
+
+def phase_k15(K, dev, rng):
+    """Phase 2, K15: TIER_SYNC_ROWS replica rows of L f32 at S=2 (phase
+    12's layout at K12's shape), at threshold 0 and with half the rows
+    held: bitwise its plain version, the parent's composition and over
+    two runs, the claim scratch all -1; timed by the device time of all a
+    round launches (the trace) and between CUDA events, each round on
+    fresh deltas, beside the parent's K1 + K3 + K1 + two-set composition
+    (no single library call computes it). Then bitwise only at S=4,
+    where every owner folds three replicas in a round."""
+    n = TIER_SYNC_ROWS
+    reps = 20
+    out = {}
+    pools, co = sync_setup(rng, dev, 2, n, n // 2 + 4096)
+    deltas = [pools[2].clone() for _ in range(reps)]
+
+    def restore():
+        for d in deltas:
+            d.copy_(pools[2])
+
+    for thr in (0.0, 0.5):
+        got = []
+        for _ in range(2):
+            p = [t.clone() for t in pools]
+            K.sync_round(*p, *co, threshold=thr)
+            got.append(p)
+        check(claims_clear(K), f"K15 (threshold {thr}) left K14's claim "
+              "scratch set")
+        ref = [t.clone() for t in pools]
+        K.sync_round_plain(*ref, *co, threshold=thr)
+        par = [t.clone() for t in pools]
+        parent_sync(K, *par, *co, thr)
+        check(all(bitwise(a, b) and bitwise(a, c) and bitwise(a, d)
+                  for a, b, c, d in zip(got[0], got[1], ref, par)),
+              f"K15 (threshold {thr}) differs from its plain version, the "
+              "parent's composition or between two runs")
+        dv = K._fill_gather_plain(pools[2], co[0], co[1])
+        shipped = int((dv.abs().amax(dim=1) >= thr).sum())
+        del dv, got, ref, par
+        main, cache = pools[0].clone(), pools[1].clone()
+
+        def kern(i, thr=thr):
+            K.sync_round(main, cache, deltas[i], *co, threshold=thr)
+
+        def parent(i, thr=thr):
+            parent_sync(K, main, cache, deltas[i], *co, thr)
+
+        def plain(i, thr=thr):
+            K.sync_round_plain(main, cache, deltas[i], *co, threshold=thr)
+
+        restore()
+        calls = one_call_kernels(lambda: kern(0), reps=4)
+        restore()
+        parent_calls = one_call_kernels(lambda: parent(0), reps=4)
+        ms, event_ms = fresh_ms(kern, restore)
+        parent_ms, parent_event_ms = fresh_ms(parent, restore)
+        plain_ms = fresh_ms(plain, restore, reps=3, traces=1,
+                            events=False)[0]
+        # each input byte read once, each output byte written once: the
+        # delta rows (all, for the threshold's max-abs), the shipped
+        # owners' rows read and written, the shipped replicas' cache and
+        # delta rows written; four int32 coordinates an entry
+        nbytes = n * L * 4 + shipped * L * 4 * 4 + n * 16
+        out[thr] = timed(
+            ms, plain_ms, None, max_abs_err=0.0, event_ms=event_ms,
+            parent_ms=parent_ms, parent_event_ms=parent_event_ms,
+            bound=bound(nbytes, shipped * L), rows=n, shipped=shipped,
+            launches_a_round=sum(calls.values()),
+            parent_launches_a_round=sum(parent_calls.values()),
+            call_kernels=calls)
+        del main, cache
+    del pools, deltas
+    torch.cuda.empty_cache()
+    pools, co = sync_setup(rng, dev, 4, n, n // 4 + 4096)
+    for thr in (0.0, 0.5):
+        got = []
+        for _ in range(2):
+            p = [t.clone() for t in pools]
+            K.sync_round(*p, *co, threshold=thr)
+            got.append(p)
+        ref = [t.clone() for t in pools]
+        K.sync_round_plain(*ref, *co, threshold=thr)
+        check(all(bitwise(a, b) and bitwise(a, c)
+                  for a, b, c in zip(got[0], got[1], ref)),
+              f"K15 at S=4 (threshold {thr}, owners folded three times a "
+              "round) differs from its plain version or between two runs")
+        del got, ref
+    return dict(out[0.0], held=out[0.5], s4_bitwise=True)
+
+
+def report_k14_k15(rec):
+    """Phase 2's lines of K14 and K15 (those in `rec`)."""
+    k14 = rec.get("drop_set")
+    if k14 is not None:
+        print(f"phase 2: K14, the device records of one set call: "
+              f"{k14['call_kernels']}", flush=True)
+        for batch, b in (("distinct", k14), ("duplicates", k14["duplicates"])):
+            for form, r in b["forms"].items():
+                if "ms" not in r:
+                    print(f"phase 2: K14 {form} at {r['rows']} entries "
+                          f"({batch}, {r['winners']} winners): bitwise its "
+                          "plain version and over two runs, the claim "
+                          "scratch all -1 after each call (not timed)",
+                          flush=True)
+                    continue
+                lib = "" if r["library_ms"] is None else (
+                    f"; index_copy_ of the winners {fmt_t(r, 'library_ms')} "
+                    f"ms of device time, {fmt_s(*r['library_event_ms'])} "
+                    "between events")
+                print(f"phase 2: K14 {form} at {r['rows']} entries ({batch}, "
+                      f"{r['winners']} winners) of {L} f32 into {TIER_HOT} "
+                      f"rows: {fmt_t(r, 'ms')} ms of device time a call "
+                      f"(trace), {fmt_s(*r['event_ms'])} ms between CUDA "
+                      f"events (bound {r['bound'][0]:.4f} ms, "
+                      f"{r['bound'][1]}, share "
+                      f"{r['bound'][0] / r['ms']:.3f}); plain (the parent's "
+                      f"set_winners path) {fmt_t(r, 'plain_ms')} ms{lib}; "
+                      "bitwise its plain version and over two runs, the "
+                      "claim scratch all -1 after each call", flush=True)
+    k15 = rec.get("sync_round")
+    if k15 is not None:
+        for what, r in (("threshold 0", k15), ("half held", k15["held"])):
+            print(f"phase 2: K15 at {r['rows']} replica rows of {L} f32, "
+                  f"S=2, {what} ({r['shipped']} shipped): "
+                  f"{fmt_t(r, 'ms')} ms of device time a round (trace), "
+                  f"{fmt_s(*r['event_ms'])} ms between CUDA events (bound "
+                  f"{r['bound'][0]:.4f} ms, {r['bound'][1]}, share "
+                  f"{r['bound'][0] / r['ms']:.3f}); plain "
+                  f"{fmt_t(r, 'plain_ms')} ms; the parent's K1 + K3 + K1 + "
+                  f"two sets {fmt_s(*r['parent_ms'])} ms of device time, "
+                  f"{fmt_s(*r['parent_event_ms'])} between events; "
+                  f"{r['launches_a_round']:g} device records a round "
+                  f"against the parent's {r['parent_launches_a_round']:g} "
+                  f"({r['call_kernels']}); bitwise its plain version, the "
+                  "parent's and over two runs", flush=True)
+        print("phase 2: K15 at S=4 (every owner folds three replicas a "
+              "round), threshold 0 and half held: bitwise its plain "
+              "version and over two runs", flush=True)
+
+
 def report_tier_kernels(rec, names=("gather_cold", "gather_pool_cold",
                                      "write_main_rows", "sync_compress")):
     """Phase 2's lines of K9-K12 (those of `names`)."""
@@ -3373,8 +3716,10 @@ def phase_tier_app(K):
     """Phase 13 (a): the KGE app tiered at full width, fp32 and int8 cold
     rows."""
     from adapm_tpu_torch.apps import knowledge_graph_embeddings as kge
+    # one eval after the second epoch and the test eval (cut from an
+    # eval every epoch: the tiered eval's seconds are settled)
     argv = APP_ARGS + ["--synthetic_triples", str(100 * B), "--epochs", "2",
-                       "--eval_every", "1", "--eval_triples", "100",
+                       "--eval_every", "2", "--eval_triples", "100",
                        "--scan_steps", str(SCAN_K), "--sys.tier", "1",
                        "--sys.tier.hot_rows", str(TIER_HOT)]
     out = {}
@@ -3401,14 +3746,16 @@ def phase_tier_app(K):
     return out
 
 
-def tier_table(at, dev, mode, seed, tier=True):
+def tier_table(at, dev, mode, seed, tier=True, lockorder=False):
     """Phase 3's table (E + R keys of L f32) with values on an int8 grid
     (the AdaGrad half non-negative), tiered with TIER_HOT hot rows and
-    `mode` cold rows, or not."""
+    `mode` cold rows, or not; under the lock-order sentinel
+    (--sys.lint.lockorder) when `lockorder`."""
     opts = dict(tier=True, tier_hot_rows=TIER_HOT, tier_cold_dtype=mode) \
         if tier else {}
     srv = at.setup(E + R, L, opts=at.SystemOptions(
-        cache_slots_per_shard=1, sync_max_per_sec=0, **opts), device=dev)
+        cache_slots_per_shard=1, sync_max_per_sec=0,
+        lint_lockorder=lockorder, **opts), device=dev)
     w = srv.make_worker(0)
     fill = np.random.default_rng(seed)
     for lo in range(0, E + R, 50_000):
@@ -3426,14 +3773,20 @@ def phase_tier_storm(at, K, dev):
     on the card, TIER_STORM_OPS ops of pushes with duplicates, sets,
     pulls, promotions, demotions and sync rounds. fp32 cold rows: every
     read bitwise the shadow's; int8: within two grid steps
-    (tier/quant.py grid_step)."""
+    (tier/quant.py grid_step). The fp32 storm runs under the lock-order
+    sentinel (--sys.lint.lockorder): it must record edges and no
+    violation."""
+    from adapm_tpu_torch.lint import lockorder
     from adapm_tpu_torch.tier.quant import grid_step
     n = E + R
     out = {}
     for mode in ("fp32", "int8"):
         K.reset_launches()
-        srv, w = tier_table(at, dev, mode, 21)
-        ref, wr = tier_table(at, dev, mode, 21, tier=False)
+        sentinel = mode == "fp32"
+        lockorder.disable_sentinel()
+        srv, w = tier_table(at, dev, mode, 21, lockorder=sentinel)
+        ref, wr = tier_table(at, dev, mode, 21, tier=False,
+                             lockorder=sentinel)
         rng = np.random.default_rng(22)
 
         def agree(a, b, what):
@@ -3489,6 +3842,13 @@ def phase_tier_storm(at, K, dev):
         check_background(srv, f"phase 13 (b, {mode})")
         srv.shutdown()
         ref.shutdown()
+        if sentinel:
+            sen = lockorder.get_sentinel()
+            check(sen is not None and sen.edges() and sen.violations == 0,
+                  f"phase 13 (b, {mode}): the lock-order sentinel recorded "
+                  f"no edge or a violation")
+            out[mode]["sentinel_edges"] = sen.edges()
+        lockorder.disable_sentinel()
         torch.cuda.empty_cache()
     return out
 
@@ -3698,7 +4058,11 @@ def report_tier_storm(storm, smi):
         print(f"phase 13 (b, {mode}): storm of {TIER_STORM_OPS} ops over "
               f"{E + R} keys in {r['storm_s']:.2f} s, reads "
               f"{'bitwise' if mode == 'fp32' else 'within two grid steps'}"
-              f" the untiered shadow; tier {r['tier']}, residuals evicted "
+              f" the untiered shadow"
+              + (f", under the lock-order sentinel: edges "
+                 f"{r['sentinel_edges']}, no violation"
+                 if "sentinel_edges" in r else "")
+              + f"; tier {r['tier']}, residuals evicted "
               f"{r['ef_evicted']}; launches {r['launches']} [{smi}]",
               flush=True)
 
@@ -3777,6 +4141,7 @@ def report_kernels(rec):
     report_k8(rec["gather_pool"])
     report_tier_kernels(rec)
     report_k13(rec["alltoall_put"])
+    report_k14_k15(rec)
     k5 = rec["complex_step"]
     print(f"phase 2: K5 at B={B}, N={N}, d={D_MODEL}: {fmt_t(k5, 'ms')} ms "
           f"(bound {k5['bound'][0]:.4f} ms, share "
@@ -3857,7 +4222,14 @@ def report_main_path(mp, step_launches, path):
     """Phase 3's or 7's lines: the step's speed, launches and device
     profile."""
     ph = path.phase
-    print(f"{ph}: {path.unit} step: fill {mp['fill_s']:.1f} s, "
+    from adapm_tpu_torch.exec import dispatch_gate
+    from adapm_tpu_torch.lint import lockorder
+    check(isinstance(dispatch_gate(), lockorder.SentinelLock)
+          and lockorder.get_sentinel() is None,
+          f"{ph}: the dispatch gate is not a SentinelLock with the "
+          "sentinel off")
+    print(f"{ph}: {path.unit} step (the dispatch gate a SentinelLock, the "
+          f"sentinel off): fill {mp['fill_s']:.1f} s, "
           f"{mp['ms_per_step']:.3f} ms/step, {mp['per_s']:.0f} "
           f"{path.unit}/s, loss {mp['first_loss']:.5f} -> "
           f"{mp['last_loss']:.5f}, launches {step_launches} (each step "
@@ -3980,7 +4352,9 @@ def report_planner(pl, smi):
     print(f"phase 12: background planner (S=2, two worker threads x "
           f"{PLANNER_RUNS} integer pushes under competing intents): "
           f"{pl['rounds_s']:.1f} rounds/s on cuda ({pl['rounds_s_cpu']:.1f} "
-          f"on cpu), {pl['replicas_created']} replicas created, launches "
+          f"on cpu; the last run before K14 and K15, "
+          f"{PLANNER_ROUNDS_S_BEFORE} on cuda, quoted, no target), "
+          f"{pl['replicas_created']} replicas created, launches "
           f"{pl['launches']}; every row bitwise the sequential sum and the "
           f"cpu run; no background round failed [{smi}]", flush=True)
 
@@ -4894,7 +5268,9 @@ def report_replay(rr, smi):
 # MP_NODES servers on the card in this process, one worker a node, on
 # phase 3's key space; (c): the KGE app as MP_RANKS launched processes
 # on the one card
-MP_NODES, MP_ROUNDS, MP_KEYS = 4, 32, 4096
+# (a)'s rounds cut from 32 to 16: its pull/push percentiles are settled
+# (PERF.md section 5), and the run has to stay within 80% of its limit
+MP_NODES, MP_ROUNDS, MP_KEYS = 4, 16, 4096
 MP_PROF_ROUNDS = 4   # (a)'s last rounds, profiled for the busy share: a
 # trace of all 32 took ~60 s to post-process on the card's host
 MP_STORM_ROUNDS = 8
@@ -5933,6 +6309,16 @@ def main(argv):
           flush=True)
     build_s = K.build()
     print(f"phase 1: kernels built in {build_s:.1f} s", flush=True)
+    # the port's lint over its own tree (python -m adapm_tpu_torch.lint)
+    from adapm_tpu_torch.lint import Analyzer
+    t_lint = time.perf_counter()
+    lint = Analyzer(os.path.dirname(os.path.dirname(
+        os.path.abspath(at.__file__)))).run()
+    check(lint.ok(), "phase 1: the port's lint found:\n" + lint.to_text())
+    print(f"phase 1: lint clean over {lint.files_scanned} files, "
+          f"{len(lint.rules)} rules, {len(lint.suppressions_used)} "
+          f"justified suppressions, in "
+          f"{time.perf_counter() - t_lint:.2f} s", flush=True)
     rng = np.random.default_rng(0)
     if "--kernels" in argv:
         # the named kernels' phase-2 checks and times alone, unchecked
@@ -5940,7 +6326,11 @@ def main(argv):
         # tree of the port, it times that tree's kernels the same way
         parts = {"K4": (phase_k4, report_k4), "K8": (phase_k8, report_k8),
                  "K4mp": (phase_k4_mp, report_k4_mp),
-                 "K13": (phase_k13, report_k13)}
+                 "K13": (phase_k13, report_k13),
+                 "K14": (phase_k14, lambda r: report_k14_k15(
+                     {"drop_set": r})),
+                 "K15": (phase_k15, lambda r: report_k14_k15(
+                     {"sync_round": r}))}
         for nm, key, run in (("K9", "gather_cold", phase_k9),
                              ("K10", "gather_pool_cold", phase_k10),
                              ("K11", "write_main_rows", phase_k11),
@@ -6018,18 +6408,33 @@ def main(argv):
         check(not BACKGROUND_FAULTS, f"background work failed: "
               f"{BACKGROUND_FAULTS}")
         return 0
+    # where the run's time goes: the seconds since the start at the end
+    # of each phase, printed and kept in the --json record
+    laps = []
+
+    def lap(what):
+        laps.append((what, round(time.perf_counter() - t_start, 1)))
+        print(f"chip_smoke: {what} done at {laps[-1][1]} s", flush=True)
+
+    lap("phase 1")
     rec = phase_kernels(K, dev, rng)
     report_kernels(rec)
+    lap("phase 2")
     mp, step_launches, sc = drive_path(K, kge_path, STEP_KERNELS, 0)
+    lap("phase 3")
     pp = phase_pipeline(at, K, dev)
     report_pipeline(pp, smi)
+    lap("phase 3 (pipeline)")
     used = phase_replicas(at, K, dev)
     print(f"phase 4: replica phase launches {used} (per replica step "
           f"{REPLICA_STEP_LAUNCHES}); cuda and cpu agree", flush=True)
+    lap("phase 4")
     pf = phase_pull_flow(at, K, dev)
     report_pull_flow(pf, smi)
+    lap("phase 11")
     pl = phase_planner(at, K, dev)
     report_planner(pl, smi)
+    lap("phase 12")
     app, app_launches = phase_app(K)
     tps = [100 * B / t for t in app["epoch_s"]]
     print(f"phase 5: app: generation {app['gen_s']:.2f} s, epochs "
@@ -6045,6 +6450,7 @@ def main(argv):
     print("phase 5: host seconds inside: " + "; ".join(
         f"{k} {v:.3f}" for k, v in app["host_seconds"].items()), flush=True)
     report_app_pipeline(app, smi)
+    lap("phase 5")
     hr = phase_host_routes(K)
     f = hr["full"]
     print(f"phase 6: host routes: generation {f['gen_s']:.2f} s, epoch "
@@ -6058,36 +6464,50 @@ def main(argv):
           f"losses cuda {hr['rescal_losses_cuda']} vs cpu "
           f"{hr['rescal_losses_cpu']}, launches {hr['rescal_launches']}",
           flush=True)
+    lap("phase 6")
     st, w2v_step_launches, sc7 = drive_path(K, w2v_path, W2V_KERNELS, 2)
+    lap("phase 7")
     w2v_app = phase_w2v_app(K)
     report_w2v_app(w2v_app)
+    lap("phase 8")
     mfr = phase_mf_app(K)
     report_mf(mfr)
+    lap("phase 9")
     serve_flat = phase_serve_flat(at, K, dev)
     serve_bags = phase_serve_bags(at, K, dev)
     report_serve(serve_flat, serve_bags, smi)
+    lap("phase 10")
     tier_app = phase_tier_app(K)
     report_tier_app(tier_app, smi)
+    lap("phase 13 (a)")
     storm = phase_tier_storm(at, K, dev)
     report_tier_storm(storm, smi)
+    lap("phase 13 (b)")
     tier_bags = phase_tier_bags(at, K, dev, serve_bags["segments"]["sum"])
     report_tier_bags(tier_bags, smi)
+    lap("phase 13 (c)")
     tier_pl = phase_tier_planner(at, K, dev, {
         k: pl[k] for k in ("bytes_shipped", "bytes_full_equiv",
                            "bytes_per_round", "rounds_s")})
     report_tier_planner(tier_pl, smi)
     epi = phase_episodic(at, K, dev)
     report_episodic(epi, smi)
+    lap("phase 13 (d, e)")
     fr = phase_fault(at, K, dev)
     report_fault(fr, smi)
+    lap("phase 14")
     rr = phase_replay(at, K, dev)
     report_replay(rr, smi)
+    lap("phase 15")
     mpr = phase_mp(at, K, dev)
     report_mp(mpr, smi, app_eps=tps[-1])
+    lap("phase 16")
     cr = phase_collective(K, dev)
     report_collective(cr, smi)
+    lap("phase 17")
     sr = phase_stream(at, K, dev)
     report_stream(sr, smi)
+    lap("phase 18")
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
                "adagrad_update": ("adapm_tpu_torch/csrc/adagrad.cu",
@@ -6116,7 +6536,11 @@ def main(argv):
                "sync_compress": ("adapm_tpu_torch/csrc/sync_compress.cu",
                                  "adapm_tpu/device/jaxport.py:140"),
                "alltoall_put": ("adapm_tpu_torch/csrc/alltoall_put.cu",
-                                "adapm_tpu/device/jaxport.py:654")}
+                                "adapm_tpu/device/jaxport.py:654"),
+               "drop_set": ("adapm_tpu_torch/csrc/drop_set.cu",
+                            "adapm_tpu/device/jaxport.py:104"),
+               "sync_round": ("adapm_tpu_torch/csrc/sync_round.cu",
+                              "adapm_tpu/device/jaxport.py:126")}
     paths = dict(step=step_launches, scan=sc["launches"],
                  scan_replayed=sc["replayed"], replica=used,
                  app=app_launches, app_replayed=app["replayed"],
@@ -6172,13 +6596,15 @@ def main(argv):
     # (phases 8 and 9, device routes) for K6 and K7, in phase 10's bag
     # segments for K8, in phase 13's tiered int8 app run (a) for K9 and
     # K11, its tiered bag segment (c) for K10 and its int8 compressed
-    # planner run (d) for K12, in phase 17's rank 0 for K13; the
+    # planner run (d) for K12, in phase 17's rank 0 for K13, in phase
+    # 12's planner run for K14 and K15; the
     # launches of replayed graphs stand apart under *_replayed
     home = {"adagrad_update": "rescal", "sgns_step": "w2v_app",
             "mf_step": "mf_app", "gather_pool": "serve_bags",
             "gather_cold": "tier_app", "gather_pool_cold": "tier_bags",
             "write_main_rows": "tier_app", "sync_compress": "tier_planner",
-            "alltoall_put": "collective"}
+            "alltoall_put": "collective", "drop_set": "planner",
+            "sync_round": "planner"}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=paths[home.get(n, "app")][n],
@@ -6204,6 +6630,25 @@ def main(argv):
                     "warm_ms", "library_warm_ms", "library_call_ms"):
             if key in rec[line["name"]]:
                 line[key] = rec[line["name"]][key][0]
+    # K14's other forms and the JAX programs it also replaces; K15's
+    # thresholded round, its device records a round against the parent's
+    k14 = rec["drop_set"]
+    kernels[list(rec).index("drop_set")].update(
+        replaces_also=[f"adapm_tpu/device/jaxport.py:{n}" for n in
+                       (114, 214, 224, 237, 283, 290, 300)],
+        **{f"{form}_ms": k14["forms"][form]["ms"]
+           for form in ("install", "install_src", "zero")},
+        **{f"{form}_bound_ms": k14["forms"][form]["bound"][0]
+           for form in ("install", "install_src", "zero")},
+        duplicates_ms=k14["duplicates"]["ms"])
+    k15 = rec["sync_round"]
+    kernels[list(rec).index("sync_round")].update(
+        replaces_also=["adapm_tpu/device/jaxport.py:188"],
+        parent_ms=k15["parent_ms"][0], held_ms=k15["held"]["ms"],
+        held_bound_ms=k15["held"]["bound"][0],
+        held_parent_ms=k15["held"]["parent_ms"][0],
+        launches_a_round=k15["launches_a_round"],
+        parent_launches_a_round=k15["parent_launches_a_round"])
     k3 = rec["ordered_scatter_add"]
     k3_line = kernels[list(rec).index("ordered_scatter_add")]
     k3_line.update(fold_ms=k3["fold_ms"][0], order_ms=k3["order_ms"][0],
@@ -6229,7 +6674,7 @@ def main(argv):
                        "tier_storm": storm, "tier_bags": tier_bags,
                        "tier_planner": tier_pl, "episodic": epi,
                        "fault": fr, "replay": rr, "mp": mpr,
-                       "collective": cr, "stream": sr}, fh,
+                       "collective": cr, "stream": sr, "laps": laps}, fh,
                       indent=1,
                       default=str)
     check(not BACKGROUND_FAULTS, f"background work failed: "

@@ -10,7 +10,9 @@ differs in the last bits (autograd and XLA group the sums differently),
 so the final tables are held to rtol 1e-5 / atol 1e-6. The mechanics
 cases (partition, the inline degradation, FusedStepRunner's pin-only
 prep, the snapshot sections, the port boundary, the knob) run on the
-port; the storm leaves out the lock-order sentinel (ROADMAP A12).
+port. The storm's tiered server runs under each package's lock-order
+sentinel (`--sys.lint.lockorder`), which must record edges and no
+violation.
 """
 import numpy as np
 import pytest
@@ -79,7 +81,7 @@ def _batches(rng, n, bsz=16):
 
 def sc_storm(P):
     rng = np.random.default_rng(0)
-    srv = P.mk(True, hot_rows=16)
+    srv = P.mk(True, hot_rows=16, lint_lockorder=True)
     ref = P.mk(False)
     w, wr = srv.make_worker(0), ref.make_worker(0)
     vals = _init_vals(rng)
@@ -147,10 +149,27 @@ def sc_storm(P):
     plane_r.close()
     srv.shutdown()
     ref.shutdown()
+    lockorder = __import__(f"{P.mod.__name__}.lint.lockorder",
+                           fromlist=["x"])
+    sen = lockorder.get_sentinel()
+    assert sen is not None and sen.edges(), \
+        "sentinel saw no lock edges: the storm exercised nothing"
+    sen.assert_clean()
+    lockorder.disable_sentinel()
     return np.asarray(losses), final
 
 
-def test_episodic_storm_bit_identical_to_sequential_shadow():
+@pytest.fixture
+def port_sentinel():
+    """The port's lock-order sentinel, off before the test and torn down
+    after it (the shared conftest tears down only the JAX package's)."""
+    from adapm_tpu_torch.lint import lockorder
+    lockorder.disable_sentinel()
+    yield
+    lockorder.disable_sentinel()
+
+
+def test_episodic_storm_bit_identical_to_sequential_shadow(port_sentinel):
     lj, tj = sc_storm(Pkg(adapm_tpu))
     lp, tp = sc_storm(Pkg(adapm_tpu_torch))
     np.testing.assert_allclose(lp, lj, rtol=1e-5, atol=1e-6)

@@ -17,10 +17,9 @@ that run on it, held to tests/test_exec.py's scenarios.
    (whole-table `read_main`, duplicate-heavy pulls, served lookups)
    must be bitwise the same on all three at every step and after
    quiesce. A single-stream tiered server with the background planner,
-   a serving plane and tier maintenance shuts down promptly.
-
-Left out, with the plane it needs: the lock-order sentinel of the
-property test (ROADMAP A12).
+   a serving plane and tier maintenance shuts down promptly. Both port
+   runs go under the port's lock-order sentinel
+   (`--sys.lint.lockorder`): it must record edges and no violation.
 """
 import threading
 import time
@@ -251,7 +250,8 @@ def test_dispatch_gate_is_reentrant_process_wide(gate):
 def _port_server(single_stream: bool):
     opts = adapm_tpu_torch.SystemOptions(
         sync_max_per_sec=0, prefetch=True, prefetch_pull="off",
-        tier=True, tier_hot_rows=16, exec_single_stream=single_stream)
+        tier=True, tier_hot_rows=16, exec_single_stream=single_stream,
+        lint_lockorder=True)
     return adapm_tpu_torch.setup(E, L, opts=opts, num_shards=8,
                                  device="cpu")
 
@@ -263,7 +263,26 @@ def _jax_server():
     return adapm_tpu.setup(E, L, opts=opts)
 
 
-def test_single_stream_server_shutdown_with_sync_and_serve():
+@pytest.fixture
+def port_sentinel():
+    """The port's lock-order sentinel, off before the test and torn down
+    after it (the shared conftest tears down only the JAX package's)."""
+    from adapm_tpu_torch.lint import lockorder
+    lockorder.disable_sentinel()
+    yield lockorder
+    lockorder.disable_sentinel()
+
+
+def _assert_sentinel_clean(lockorder):
+    """The storm recorded a non-trivial acquisition graph and no ordering
+    violation (the dynamic check of APM001/APM002's static claims)."""
+    sen = lockorder.get_sentinel()
+    assert sen is not None and sen.edges(), \
+        "sentinel saw no lock edges: the storm exercised nothing"
+    sen.assert_clean()
+
+
+def test_single_stream_server_shutdown_with_sync_and_serve(port_sentinel):
     """A single-stream tiered port server running the background planner,
     a serving plane AND tier maintenance shuts down promptly (each drain
     targets its own stream)."""
@@ -283,9 +302,10 @@ def test_single_stream_server_shutdown_with_sync_and_serve():
         "single-stream shutdown stalled on a cross-subsystem drain"
     assert srv.exec.live_streams() == []
     assert srv.sync_loop_failures == 0
+    _assert_sentinel_clean(port_sentinel)
 
 
-def test_enqueue_order_property_producers_match_jax():
+def test_enqueue_order_property_producers_match_jax(port_sentinel):
     from adapm_tpu.serve import ServePlane as JaxPlane
     from adapm_tpu_torch.serve import ServePlane
     rng = np.random.default_rng(0)
@@ -369,3 +389,4 @@ def test_enqueue_order_property_producers_match_jax():
     for s in servers:
         s.shutdown()
         assert s.exec.live_streams() == []
+    _assert_sentinel_clean(port_sentinel)

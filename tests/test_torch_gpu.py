@@ -14,7 +14,10 @@ the prefetch pipeline and the background planner on the card: a staged
 pull bitwise the plain pull, one graph capture across windows while
 delegated rounds relocate keys, the planner converging to the exact
 sum under concurrent pushes; K10 on long bags with cold members and
-K11's last-wins and drop cases, bitwise their plain versions; an
+K11's last-wins and drop cases, bitwise their plain versions; K14's
+three forms and K15 (owners repeated within a round, held rows) bitwise
+theirs, and the device port's sets and syncs on the card bitwise the
+same programs on the CPU; an
 incremental checkpoint chain saved on the card restored bitwise into a
 fresh server on the card and into one on the CPU, and a flight-traced
 lookup whose device slice is above zero; K4's multi-process form
@@ -1100,6 +1103,159 @@ def test_write_main_rows_last_wins_and_drops(cuda, L, mode):
             assert torch.equal(_bits(got), _bits(ref)), name
             for claim in K._claims.values():
                 assert bool((claim == -1).all()), name
+
+
+def _k14_sources(rng, m, L, S, R):
+    rows = torch.randn(m, L)
+    rows[::3, ::2] = -0.0
+    resid = torch.randn(m, L)
+    resid[1::4] = -0.0
+    src = torch.randn(S + 1, R + 5, L)
+    src[0, :4] = -0.0
+    return rows, resid, (src, *_coords(rng, m, S + 1, R + 5))
+
+
+def _on(cuda, *xs):
+    return [x.to(cuda) if isinstance(x, torch.Tensor) else
+            tuple(_on(cuda, *x)) if isinstance(x, tuple) else x for x in xs]
+
+
+@pytest.mark.parametrize("L", [512, 7])
+def test_drop_set_forms_last_wins_and_drops(cuda, L):
+    """K14's three forms bitwise their plain versions (the last entry
+    naming a row wins, out-of-range entries drop, -0.0 survives) and over
+    two runs, on the default stream and on a second one; the install form
+    from source rows, with and without a residual, and read from another
+    pool; the claim scratch all -1 after every call."""
+    rng = np.random.default_rng(L)
+    S, R = 2, 300
+    pool = torch.randn(S, R, L)
+    pool[0, :3] = -0.0
+    side = torch.cuda.Stream(cuda)
+    for name, sh, sl in _k11_batches(rng, S, R):
+        sh, sl = torch.from_numpy(sh), torch.from_numpy(sl)
+        rows, resid, src = _k14_sources(rng, len(sh), L, S, R)
+        cases = {
+            "rows": (K.drop_set, (sh, sl, rows), 1),
+            "zero": (K.drop_set_zero, (sh, sl), 1),
+            "install": (K.drop_set_install, (sh, sl, rows), 2),
+            "install_resid": (lambda c, d, *a: K.drop_set_install(
+                c, d, *a[:3], resid=a[3]), (sh, sl, rows, resid), 2),
+            "install_src": (lambda c, d, *a: K.drop_set_install(
+                c, d, a[0], a[1], src=a[2]), (sh, sl, src), 2),
+        }
+        for form, (fn, args, npools) in cases.items():
+            pools = [pool.clone() for _ in range(npools)]
+            fn(*pools, *args)
+            for stream in (torch.cuda.current_stream(cuda), side, None):
+                got = [p.clone().to(cuda) for p in
+                       [pool] * npools]
+                if stream is None:
+                    fn(*got, *_on(cuda, *args))
+                else:
+                    stream.wait_stream(torch.cuda.current_stream(cuda))
+                    with torch.cuda.stream(stream):
+                        fn(*got, *_on(cuda, *args))
+                    torch.cuda.current_stream(cuda).wait_stream(stream)
+                torch.cuda.synchronize()
+                for g, r in zip(got, pools):
+                    assert torch.equal(_bits(g), _bits(r)), (name, form)
+                for claim in K._claims.values():
+                    assert bool((claim == -1).all()), (name, form)
+
+
+def _sync_case(rng, S, L, n, C=64, R=40):
+    main = torch.randn(S, R, L)
+    cache = torch.randn(S, C, L)
+    delta = torch.randn(S, C, L)
+    delta[:, ::2] *= 1e-3                  # half of the rows held
+    delta[0, :3] = -0.0
+    main[:, :2] = -0.0
+    r_sh = rng.integers(0, S, n).astype(np.int32)
+    r_cs = rng.integers(0, C, n).astype(np.int32)
+    o_sh = rng.integers(0, S, n).astype(np.int32)
+    # few owners: several replicas fold into one owner row in a round
+    o_sl = rng.integers(0, 6, n).astype(np.int32)
+    u = rng.random(n)
+    r_cs[u < 0.05] = OOB
+    o_sl[(u >= 0.05) & (u < 0.1)] = OOB
+    r_sh[(u >= 0.1) & (u < 0.12)] = -1
+    o_sh[(u >= 0.12) & (u < 0.14)] = S
+    return [main, cache, delta] + [torch.from_numpy(a) for a in
+                                   (r_sh, r_cs, o_sh, o_sl)]
+
+
+@pytest.mark.parametrize("L", [512, 7])
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("threshold", [0.0, 0.5])
+def test_sync_round_bitwise_plain(cuda, L, S, threshold):
+    """K15 bitwise its plain version and over two runs: owners repeated
+    within a round (their folds in batch order), held rows below the
+    threshold, duplicate replicas, OOB and negative coordinates, -0.0;
+    K14's claim scratch all -1 after."""
+    rng = np.random.default_rng(S * 100 + L)
+    for n in (1, 37, 3000):
+        args = _sync_case(rng, S, L, n)
+        ref = [t.clone() for t in args[:3]]
+        K.sync_round_plain(*ref, *args[3:], threshold=threshold)
+        outs = []
+        for _ in range(2):
+            got = _on(cuda, *[t.clone() for t in args])
+            K.sync_round(*got, threshold=threshold)
+            torch.cuda.synchronize()
+            outs.append(got[:3])
+        for name, a, b, r in zip(("main", "cache", "delta"), *outs, ref):
+            assert torch.equal(_bits(a), _bits(b)), (n, name)
+            assert torch.equal(_bits(a), _bits(r)), (n, name)
+        for claim in K._claims.values():
+            assert bool((claim == -1).all()), n
+
+
+def test_port_sets_and_syncs_on_card_bitwise_cpu(cuda):
+    """The device port's set, replica, sync (plain, thresholded and
+    compressed), relocate, install and clear programs on the card bitwise
+    the same programs on the CPU, op after op, with K14 and K15 launched."""
+    from adapm_tpu_torch.device.torchport import TorchDevicePort
+    rng = np.random.default_rng(5)
+    S, R, C, L = 4, 48, 24, 16
+    init = [torch.randn(S, k, L) for k in (R, C, C)]
+    cpu = [t.clone() for t in init]
+    gpu = [t.to(cuda) for t in init]
+    pc, pg = TorchDevicePort(), TorchDevicePort()
+    K.reset_launches()
+    for i in range(60):
+        n = int(rng.integers(1, 40))
+        a_sh, a_sl = _coords(rng, n, S, R)
+        b_sh, b_sl = _coords(rng, n, S, C)
+        v = rng.normal(size=(n, L)).astype(np.float32)
+        op = i % 6
+        for port, pools in ((pc, cpu), (pg, gpu)):
+            if op == 0:
+                pools[:] = port.set_rows(*pools, a_sh, a_sl, v, b_sh, b_sl)
+            elif op == 1:
+                pools[1:] = port.replica_create(*pools, a_sh, a_sl, b_sh,
+                                                b_sl)
+            elif op == 2:
+                thr = (0.0, 0.8)[i % 2]
+                pools[:] = port.sync_replicas(*pools, b_sh, b_sl, a_sh,
+                                              a_sl, threshold=thr)
+            elif op == 3:
+                n_sh, n_sl = _coords(rng, n, S, R) if port is pc else \
+                    (n_sh, n_sl)
+                pools[0], pools[2] = port.relocate(
+                    pools[0], pools[2], a_sh, a_sl, n_sh, n_sl, b_sh, b_sl)
+            elif op == 4:
+                pools[1:] = port.install_cache_rows(
+                    pools[1], pools[2], b_sh, b_sl, v,
+                    resid=v * 0.5 if i % 2 else None)
+                pools[0] = port.clear_rows(pools[0], a_sh, a_sl)
+            else:
+                out = port.sync_replicas(*pools, b_sh, b_sl, a_sh, a_sl,
+                                         threshold=0.3, compress="int8")
+                pools[:] = out[:3]
+        for name, a, b in zip(("main", "cache", "delta"), cpu, gpu):
+            assert torch.equal(_bits(a), _bits(b)), (i, op, name)
+    assert K.LAUNCHES["drop_set"] > 0 and K.LAUNCHES["sync_round"] > 0
 
 
 # -- the prefetch pipeline and the background planner on the card ----------

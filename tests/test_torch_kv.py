@@ -25,6 +25,16 @@ def _bits(a):
     return np.asarray(a, dtype=np.float32).view(np.uint32)
 
 
+@pytest.fixture
+def port_sentinel():
+    """The port's lock-order sentinel torn down after the test (the
+    shared conftest tears down only the JAX package's)."""
+    from adapm_tpu_torch.lint import lockorder
+    lockorder.disable_sentinel()
+    yield
+    lockorder.disable_sentinel()
+
+
 class Twin:
     """One JAX server and one port server built alike; `w(i, meth, ...)`
     runs a worker op on both and checks that they agree."""
@@ -294,13 +304,28 @@ def test_locality_future_intent_not_acted_early():
     assert tw.t.ab.is_local(np.array([7]), 0).all()
 
 
-def test_unported_planes_raise_naming_roadmap_item():
-    """The lock-order sentinel (ROADMAP A12) still raises, naming its
-    item; a stream knob, whose plane is ported now, builds the plane."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        adapm_tpu_torch.Server(
-            8, 2, ctx=make_context(2, "cpu"),
-            opts=adapm_tpu_torch.SystemOptions(lint_lockorder=True))
+def test_unported_planes_raise_naming_roadmap_item(port_sentinel):
+    """No plane is refused any more: the lock-order sentinel's knob
+    builds a server whose locks report to the port's sentinel (a set and
+    a pull record the server -> gate edge, and no violation); a stream
+    knob builds the stream plane."""
+    from adapm_tpu_torch.lint import lockorder
+    srv = adapm_tpu_torch.Server(
+        8, 2, ctx=make_context(2, "cpu"),
+        opts=adapm_tpu_torch.SystemOptions(lint_lockorder=True,
+                                           sync_max_per_sec=0))
+    try:
+        assert isinstance(srv._lock, lockorder.SentinelLock)
+        assert isinstance(srv._round_lock, lockorder.SentinelLock)
+        sen = lockorder.get_sentinel()
+        assert sen is not None
+        w = srv.make_worker(0)
+        w.wait(w.set(np.arange(8), np.ones((8, 2), np.float32)))
+        w.pull_sync(np.arange(4))
+        assert ("server", "dispatch_gate") in sen.edges()
+        sen.assert_clean()
+    finally:
+        srv.shutdown()
     srv = adapm_tpu_torch.Server(
         8, 2, ctx=make_context(2, "cpu"),
         opts=adapm_tpu_torch.SystemOptions(stream_batch=8))

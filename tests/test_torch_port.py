@@ -184,7 +184,9 @@ def test_unported_port_methods_name_their_roadmap_item():
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """A grep of every source of the port and of chip_smoke.py: no
     import of jax (or jaxlib) and none of the JAX package `adapm_tpu`
-    (tier/quant.py included: the port keeps its own copy)."""
+    (tier/quant.py included: the port keeps its own copy; the lint plane,
+    lint/, included: the port keeps its own analyzer, rules and
+    sentinel)."""
     import os
     import re
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -194,6 +196,10 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     for d, _, names in os.walk(os.path.join(root, "adapm_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
+    lint = os.path.join(root, "adapm_tpu_torch", "lint")
+    assert {os.path.join(lint, n) for n in ("__init__.py", "__main__.py",
+                                            "analyzer.py", "rules.py",
+                                            "lockorder.py")} <= set(files)
     hits = [(f, m.group(0).strip()) for f in files
             for m in bad.finditer(open(f).read())]
     assert not hits, hits

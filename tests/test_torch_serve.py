@@ -28,6 +28,25 @@ def ctx():
     return make_context(8, "cpu")
 
 
+@pytest.fixture
+def port_sentinel():
+    """The port's lock-order sentinel, off before the test and torn down
+    after it (the shared conftest tears down only the JAX package's)."""
+    from adapm_tpu_torch.lint import lockorder
+    lockorder.disable_sentinel()
+    yield lockorder
+    lockorder.disable_sentinel()
+
+
+def _assert_sentinel_clean(lockorder):
+    """The storm's locks (server, round, registry, admission, gate)
+    joined the graph, and nothing cycled or was taken under the gate."""
+    sen = lockorder.get_sentinel()
+    assert sen is not None and sen.edges(), \
+        "sentinel saw no lock edges: the storm exercised nothing"
+    sen.assert_clean()
+
+
 def make_server(ctx, num_keys=NK, vlen=VL, **kw):
     opts = kw.pop("opts", None) or SystemOptions(sync_max_per_sec=0)
     return Server(num_keys, vlen, opts=opts, ctx=ctx, **kw)
@@ -168,15 +187,17 @@ def test_deadline_sheds_never_hangs(ctx):
     s.shutdown()
 
 
-def test_serve_storm_bit_identical(ctx):
+def test_serve_storm_bit_identical(ctx, port_sentinel):
     """THE acceptance storm: a randomized (but deterministic) sequence
     of pushes, sets, relocations, replica churn, and sync rounds, with
     a serve lookup + plain `Worker.pull` of the same keys after every
     mutation — bit-identical at every read, read-your-writes included
     (the pull and the lookup route from the same shard as the serving
-    plane, which is the consistency contract; docs/SERVING.md)."""
+    plane, which is the consistency contract; docs/SERVING.md). Under
+    the lock-order sentinel."""
     s = make_server(ctx, opts=SystemOptions(sync_max_per_sec=0,
-                                            cache_slots_per_shard=64))
+                                            cache_slots_per_shard=64,
+                                            lint_lockorder=True))
     w0 = s.make_worker(0)   # shard 0 — the serve plane's shard
     w1 = s.make_worker(1)   # shard 1 — a second writer + replica holder
     _seed(w0)
@@ -213,16 +234,20 @@ def test_serve_storm_bit_identical(ctx):
     assert s.obs.find("serve.lookups_total").value == 50
     plane.close()
     s.shutdown()
+    _assert_sentinel_clean(port_sentinel)
 
 
-def test_serve_concurrent_storm_no_hang(ctx):
+def test_serve_concurrent_storm_no_hang(ctx, port_sentinel):
     """Concurrent clients, writers, a relocator, and a sync-round
     thread: the additive-sum invariant holds exactly (each client's
     disjoint key slice reads exactly its own push count — coalesced
     lookups are ordered with the client's pushes), and every thread
-    joins within its bound (reject/shed loudly, never hang)."""
+    joins within its bound (reject/shed loudly, never hang). Under the
+    lock-order sentinel: four threads take the server, round, admission
+    and gate locks in every interleaving the storm produces."""
     s = make_server(ctx, num_keys=64,
-                    opts=SystemOptions(sync_max_per_sec=0))
+                    opts=SystemOptions(sync_max_per_sec=0,
+                                       lint_lockorder=True))
     w0, w1 = s.make_worker(0), s.make_worker(1)
     w0.wait(w0.set(np.arange(64), np.zeros((64, VL), np.float32)))
     plane = ServePlane(s)
@@ -283,6 +308,7 @@ def test_serve_concurrent_storm_no_hang(ctx):
     assert not errs, errs[:3]
     plane.close()
     s.shutdown()
+    _assert_sentinel_clean(port_sentinel)
 
 
 def test_readiness_flips_on_stale_peer(ctx):

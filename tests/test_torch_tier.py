@@ -11,8 +11,9 @@ The device-routed negatives scenario holds tiered to untiered bitwise
 within each package (the packages' negative draws come from different
 generators). The two checkpoint cases (`test_checkpoint_roundtrip_across_
 tiers`, `test_untiered_checkpoint_restores_into_tiered`) run on both
-packages too. Left out: the lock-order sentinel of the storm
-(`--sys.lint.lockorder`, ROADMAP A12); the shutdown case runs without
+packages too. The storm and the shutdown case run under each
+package's lock-order sentinel (`--sys.lint.lockorder`), which must
+record edges and no violation. Left out: the shutdown case runs without
 the periodic checkpointer.
 """
 import threading
@@ -86,6 +87,28 @@ def _both(scenario, *args):
     return scenario(JAX, *args), scenario(PORT, *args)
 
 
+def _sentinel_clean(P):
+    """The package's lock-order sentinel recorded edges and no violation;
+    then it is torn down."""
+    lockorder = __import__(f"{P.mod.__name__}.lint.lockorder",
+                           fromlist=["x"])
+    sen = lockorder.get_sentinel()
+    assert sen is not None and sen.edges(), \
+        "sentinel saw no lock edges: the scenario exercised nothing"
+    sen.assert_clean()
+    lockorder.disable_sentinel()
+
+
+@pytest.fixture
+def port_sentinel():
+    """The port's lock-order sentinel, off before the test and torn down
+    after it (the shared conftest tears down only the JAX package's)."""
+    from adapm_tpu_torch.lint import lockorder
+    lockorder.disable_sentinel()
+    yield
+    lockorder.disable_sentinel()
+
+
 def _same_reads(a, b):
     assert len(a) == len(b)
     for i, (x, y) in enumerate(zip(a, b)):
@@ -100,9 +123,10 @@ def sc_storm(P):
     """test_tier.py's acceptance storm: push (duplicates), set,
     relocation, replica churn, sync rounds, promote and demote on a
     tiered server beside an untiered shadow; every read bitwise the
-    shadow's at every step and after quiesce."""
+    shadow's at every step and after quiesce, under the lock-order
+    sentinel."""
     rng = np.random.default_rng(0)
-    srv = P.mk(True, hot_rows=16)
+    srv = P.mk(True, hot_rows=16, lint_lockorder=True)
     ref = P.mk(False)
     w, wr = srv.make_worker(0), ref.make_worker(0)
     vals = rng.normal(size=(E, L)).astype(np.float32)
@@ -160,6 +184,7 @@ def sc_storm(P):
     assert np.array_equal(a, _read_all(ref)), "after quiesce"
     srv.shutdown()
     ref.shutdown()
+    _sentinel_clean(P)
     return reads + [a]
 
 
@@ -349,7 +374,7 @@ def sc_two_servers(P):
 
 def sc_shutdown(P):
     rng = np.random.default_rng(0)
-    srv = P.mk(True, hot_rows=16)
+    srv = P.mk(True, hot_rows=16, lint_lockorder=True)
     w = srv.make_worker(0)
     w.set(np.arange(E), rng.normal(size=(E, L)).astype(np.float32))
     plane = P.ServePlane(srv)
@@ -370,6 +395,7 @@ def sc_shutdown(P):
     p2.close()
     srv2.shutdown()
     srv2.shutdown()
+    _sentinel_clean(P)
     return [got]
 
 
@@ -377,7 +403,7 @@ def sc_shutdown(P):
     sc_storm, sc_capacity, sc_intent_pins, sc_epoch, sc_metrics,
     sc_compose_oob, sc_neg_fallback, sc_two_servers, sc_shutdown],
     ids=lambda f: f.__name__[3:])
-def test_tier_scenario_both_packages(scenario):
+def test_tier_scenario_both_packages(scenario, port_sentinel):
     a, b = _both(scenario)
     _same_reads(a, b)
 

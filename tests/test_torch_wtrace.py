@@ -322,7 +322,18 @@ def test_capture_replay_determinism_property(ctx, tmp_path):
     assert run(seed=12, speed=100)["reads_digest"] != r1["reads_digest"]
 
 
-def test_replay_rejects_bad_knobs_and_bad_speed(ctx, tmp_path):
+@pytest.fixture
+def port_sentinel():
+    """The port's lock-order sentinel, off before the test and torn down
+    after it (the shared conftest tears down only the JAX package's)."""
+    from adapm_tpu_torch.lint import lockorder
+    lockorder.disable_sentinel()
+    yield lockorder
+    lockorder.disable_sentinel()
+
+
+def test_replay_rejects_bad_knobs_and_bad_speed(ctx, tmp_path,
+                                                port_sentinel):
     path = _capture_storm(ctx, tmp_path, steps=8, with_serve=False)
 
     def run(overrides):
@@ -339,10 +350,12 @@ def test_replay_rejects_bad_knobs_and_bad_speed(ctx, tmp_path):
     for pin in ("serve_deadline_ms", "sync_max_per_sec", "prefetch"):
         with pytest.raises(ValueError, match="determinism pin"):
             run({pin: 1})
-    # a knob of a plane the port does not have yet fails loudly, naming
-    # its ROADMAP item, before any server exists
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run({"lint_lockorder": True})
+    # the lock-order sentinel's knob builds the replay's server with the
+    # port's sentinel on, and the replay records edges and no violation
+    run({"lint_lockorder": True})
+    sen = port_sentinel.get_sentinel()
+    assert sen is not None and sen.edges()
+    sen.assert_clean()
     # recorded stream knobs are zeroed, as the JAX engine zeroes them:
     # every push the ingest issued is already in the op stream
     from adapm_tpu_torch.replay.engine import _build_opts
