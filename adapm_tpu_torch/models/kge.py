@@ -7,9 +7,10 @@ Embedding layout: an entity row holds a complex vector of dimension `dim`
 as [re | im] (2*dim floats); ComplEx relations are the same; RESCAL
 relations are a real dim x dim matrix (dim^2 floats). The stored value
 row additionally carries the AdaGrad accumulator ([emb | acc],
-ops/fused.py). A ComplEx loss runs its step as the hand-written kernel
-K5 (KgeLoss.fused_update); RESCAL's gradient is plain autograd over the
-gathered rows.
+ops/fused.py). Both losses run their step as a hand-written kernel
+(KgeLoss.fused_update): ComplEx as K5 (ops/kernels.py complex_step),
+RESCAL as K16 (rescal_step); a batch of negatives shared by the triples
+([N] rather than [B, N]) runs as autograd over the gathered rows.
 
 The eval programs rank every entity for both sides of a triple:
 `make_eval_scores` against a dense entity matrix, and
@@ -26,7 +27,8 @@ import torch
 
 from ..exec import dispatch_gate
 from ..ops.kernels import (complex_step, pool_eval_counts,
-                           pool_eval_counts_plain, routed_gather)
+                           pool_eval_counts_plain, rescal_step,
+                           routed_gather)
 
 
 def complex_score(s: torch.Tensor, r: torch.Tensor,
@@ -76,29 +78,35 @@ class KgeLoss:
     side. `l2` > 0 adds per-batch (lazy) L2 on the positive triple's
     rows.
 
-    `fused_update` is the loss's fused form, or None: the fused step
-    runs it in place of autograd and K2 when it is there. ComplEx has
-    one, the hand-written kernel K5 (ops/kernels.py complex_step); RESCAL
-    has none."""
+    `fused_update` is the loss's fused form: the fused step runs it in
+    place of autograd and K2 where `fused_fits(rows)` holds. ComplEx's
+    is the hand-written kernel K5 (ops/kernels.py complex_step),
+    RESCAL's K16 (rescal_step)."""
 
     def __init__(self, model: str = "complex", self_adv_temp: float = 0.0,
                  l2: float = 0.0):
         self.score = {"complex": complex_score, "rescal": rescal_score}[model]
+        self.model = model
         self.self_adv_temp = float(self_adv_temp)
         self.l2 = float(l2)
-        self.fused_update = self._complex_update if model == "complex" \
-            else None
+        self.fused_update = {"complex": self._complex_update,
+                             "rescal": self._rescal_update}[model]
 
-    @staticmethod
-    def fused_fits(rows) -> bool:
-        """Whether K5 takes these gathered rows: s, r, o [B, 4d] and neg
-        [B, N, 4d]. The loss itself also takes a neg role of other
-        shapes (a [N] batch of negatives is broadcast over the triples,
-        as in the JAX package); those run as autograd + K2."""
-        s, neg = rows["s"], rows["neg"]
-        return (s.dim() == 2 and neg.dim() == 3
-                and neg.shape[0] == s.shape[0]
-                and all(rows[r].shape == s.shape for r in ("r", "o")))
+    def fused_fits(self, rows) -> bool:
+        """Whether the model's kernel takes these gathered rows: s, o
+        [B, 2e] and neg [B, N, 2e] (e the entity width), r [B, 2e] for
+        ComplEx (K5) or [B, 2e^2] for RESCAL (K16). The loss itself also
+        takes a neg role of other shapes (a [N] batch of negatives is
+        broadcast over the triples, as in the JAX package); those run as
+        autograd + K2."""
+        s, r, o, neg = rows["s"], rows["r"], rows["o"], rows["neg"]
+        if not (s.dim() == 2 and o.shape == s.shape and neg.dim() == 3
+                and neg.shape[0] == s.shape[0] and neg.shape[2] == s.shape[1]
+                and r.dim() == 2 and r.shape[0] == s.shape[0]):
+            return False
+        if self.model == "complex":
+            return r.shape == s.shape
+        return r.shape[1] == 2 * (s.shape[1] // 2) ** 2
 
     def __call__(self, embs, aux):
         s, r, o, neg = embs["s"], embs["r"], embs["o"], embs["neg"]
@@ -117,11 +125,19 @@ class KgeLoss:
         rows, `out` each trainable role to its delta rows (a frozen role
         is missing), `lr_eps` is (lr, eps) on the rows' device; `aux` is
         unused. Returns the mean loss."""
+        return self._fused(complex_step, rows, out, lr_eps)
+
+    def _rescal_update(self, rows, out, lr_eps, aux) -> torch.Tensor:
+        """The RESCAL loss, its gradient and the AdaGrad delta rows in
+        one K16 launch; arguments and result as _complex_update."""
+        return self._fused(rescal_step, rows, out, lr_eps)
+
+    def _fused(self, kernel, rows, out, lr_eps) -> torch.Tensor:
         if sorted(rows) != ["neg", "o", "r", "s"]:
             raise ValueError(f"KgeLoss: roles {sorted(rows)}, expected "
                              "s, r, o, neg")
-        per = complex_step(rows["s"], rows["r"], rows["o"], rows["neg"],
-                           lr_eps, self.self_adv_temp, self.l2, out=out)
+        per = kernel(rows["s"], rows["r"], rows["o"], rows["neg"], lr_eps,
+                     self.self_adv_temp, self.l2, out=out)
         return per.sum() / per.shape[0]
 
 

@@ -18,11 +18,12 @@ trainable role's delta rows into one update buffer, one K3 per pool
 (main, then delta) adds it.
 
 The loss chooses the model math, on both routing modes: a loss with a
-fused form (`loss_fn.fused_update`: a ComplEx KgeLoss in models/kge.py
-runs the hand-written kernel K5, models/sgns.py SgnsLoss K6,
-models/mf.py MfLoss K7: loss, gradient and AdaGrad rows in one launch)
-runs it; any other loss (RESCAL, a caller's own) runs as PyTorch
-autograd, then K2 per trainable role.
+fused form (`loss_fn.fused_update`: a KgeLoss in models/kge.py runs the
+hand-written kernel K5 for ComplEx or K16 for RESCAL, models/sgns.py
+SgnsLoss K6, models/mf.py MfLoss K7: loss, gradient and AdaGrad rows in
+one launch) runs it where the rows' shapes fit it; any other loss (a
+caller's own, or a KGE step whose negatives are one [N] batch shared by
+the triples) runs as PyTorch autograd, then K2 per trainable role.
 Both read lr and eps from one 2-float device tensor, so a captured
 graph follows them. On the CPU both take the kernels' plain versions.
 
@@ -250,10 +251,11 @@ def _loss_and_updates(loss_fn, rows, role_dim, roles, train_classes, aux,
     of its trainable roles' AdaGrad delta rows; `lr_eps` is (lr, eps) as
     a 2-float tensor on the rows' device. A loss with a fused form runs
     it (`loss_fn.fused_update(rows, slices, lr_eps, aux)`: K5 for
-    ComplEx, K6 for SGNS, K7 for MF) where its `fused_fits(rows)`, if it
-    has one, accepts the rows' shapes; any other as autograd, each role's
-    embedding half its own leaf (a duplicated key gets one gradient per
-    occurrence), then K2 per trainable role."""
+    ComplEx, K16 for RESCAL, K6 for SGNS, K7 for MF) where its
+    `fused_fits(rows)`, if it has one, accepts the rows' shapes; any
+    other as autograd, each role's embedding half its own leaf (a
+    duplicated key gets one gradient per occurrence), then K2 per
+    trainable role."""
     bufs, slices = _update_buffers(rows, train_classes)
     fused_update = getattr(loss_fn, "fused_update", None)
     fits = getattr(loss_fn, "fused_fits", None)

@@ -45,6 +45,11 @@ PyTorch version.
                                                      thresholded; K3's fold in
                                                      csrc/ordered_fold.cuh, K14's
                                                      install form)
+    K16 rescal_step         csrc/rescal_step.cu     (XLA: RESCAL model math of
+                                                     ops/fused.py
+                                                     _build_device_routed_body;
+                                                     K2's arithmetic as its
+                                                     epilogue)
 
 K9-K12 read and write the wire formats of tier/quant.py (fp32, fp16,
 int8 with a per-row f32 scale) bit for bit as its host twins do
@@ -96,7 +101,8 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
             "sync_compress": "sync_compress.cu",
             "alltoall_put": "alltoall_put.cu",
             "drop_set": "drop_set.cu",
-            "sync_round": "sync_round.cu"}
+            "sync_round": "sync_round.cu",
+            "rescal_step": "rescal_step.cu"}
 
 # launches per kernel since the last reset_launches(), counted by the
 # wrappers (chip_smoke.py reads them to show the main path went through
@@ -107,7 +113,8 @@ LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
                             "gather_pool": 0, "gather_cold": 0,
                             "gather_pool_cold": 0, "write_main_rows": 0,
                             "sync_compress": 0, "alltoall_put": 0,
-                            "drop_set": 0, "sync_round": 0}
+                            "drop_set": 0, "sync_round": 0,
+                            "rescal_step": 0}
 # launches made by replays of captured CUDA graphs (ops/fused.py
 # run_scan): each replay adds the launches recorded at its capture. No
 # wrapper runs then, so LAUNCHES does not count them.
@@ -213,6 +220,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_complex_step_smem.argtypes = [I, I]
         lib.adapm_complex_step.restype = I
         lib.adapm_complex_step.argtypes = [P, LL, P, P] * 4 + \
+            [P, P, I, I, I, F, F, I, P]
+    elif name == "rescal_step":
+        lib.adapm_rescal_step_smem.restype = LL
+        lib.adapm_rescal_step_smem.argtypes = [I, I]
+        lib.adapm_rescal_step.restype = I
+        lib.adapm_rescal_step.argtypes = [P, LL, P, P] * 4 + \
             [P, P, I, I, I, F, F, I, P]
     elif name == "sgns_step":
         lib.adapm_sgns_step.restype = I
@@ -1456,7 +1469,8 @@ def pool_eval_counts(pool: torch.Tensor, owner: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K5-K7: the model math of a fused step (shared checks and plain emission)
+# K5-K7, K16: the model math of a fused step (shared checks and plain
+# emission)
 # ---------------------------------------------------------------------------
 
 
@@ -1475,8 +1489,10 @@ def _emit_plain(rows, grads, roles, lr_eps, out, grad_out) -> None:
 
 
 def _check_outs(what, nrows, width, out, grad_out):
-    for outs, wd in ((out, 2 * width), (grad_out, width)):
+    """`width`: the embedding width, or a dict of it per role."""
+    for outs, f in ((out, 2), (grad_out, 1)):
         for k, t in outs.items():
+            wd = f * (width.get(k, 0) if isinstance(width, dict) else width)
             _require(k in nrows and tuple(t.shape) == (nrows[k], wd)
                      and t.dtype == torch.float32 and t.is_contiguous(),
                      f"{what}: output {k!r} must be contiguous f32 "
@@ -1657,6 +1673,128 @@ def complex_step(s: torch.Tensor, r: torch.Tensor, o: torch.Tensor,
         _vec(d, ins, *out.values(), *grad_out.values()), _stream())
     LAUNCHES["complex_step"] += 1
     _check(rc, "complex_step")
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# K16 rescal_step
+# ---------------------------------------------------------------------------
+
+RESCAL_ROLES = ("s", "r", "o", "neg")
+
+
+def _rescal_grads(s, r, o, neg, self_adv_temp: float, l2: float):
+    """The RESCAL loss's per-triple values and its gradient per role, in
+    closed form over the embedding halves s, o [B, d], r [B, d^2] (R =
+    r.reshape(d, d), row-major) and neg [B, N, d]: u = R o, v = R^T s,
+    pos = s.u, ns = n.u, no = v.n; with the loss's coefficients dpos,
+    dns, dno and x = sum_k dns_k n_k, y = sum_k dno_k n_k the gradients
+    are g_s = dpos u + R y, g_o = dpos v + R^T x, g_n = dns u + dno v and
+    g_R = (dpos s + x) o^T + s y^T (csrc/rescal_step.cu's header). Sums
+    run in another order than autograd's over the score's einsum, so
+    this agrees with it within the f32 model-math tolerance."""
+    B, d = s.shape
+    R = r.reshape(B, d, d)
+    u = (R * o[:, None, :]).sum(-1)
+    v = (R * s[:, :, None]).sum(1)
+    pos = (s * u).sum(-1)
+    ns = (neg * u[:, None, :]).sum(-1)
+    no = (neg * v[:, None, :]).sum(-1)
+    if self_adv_temp > 0.0:
+        ws = torch.softmax(self_adv_temp * ns, dim=-1)
+        wo = torch.softmax(self_adv_temp * no, dim=-1)
+    else:
+        ws = wo = torch.ones_like(ns)
+    loss = _softplus(-pos) + ((ws * _softplus(ns)).sum(-1)
+                              + (wo * _softplus(no)).sum(-1))
+    dpos = (-torch.sigmoid(-pos) / B)[:, None]
+    dns = (ws * torch.sigmoid(ns) / B)[..., None]
+    dno = (wo * torch.sigmoid(no) / B)[..., None]
+    x = (dns * neg).sum(1)
+    y = (dno * neg).sum(1)
+    a = dpos * s + x
+    grads = {"s": dpos * u + (R * y[:, None, :]).sum(-1),
+             "o": dpos * v + (R * x[:, :, None]).sum(1),
+             "neg": dns * u[:, None, :] + dno * v[:, None, :],
+             "r": (a[:, :, None] * o[:, None, :]
+                   + s[:, :, None] * y[:, None, :]).reshape(B, d * d)}
+    if l2 > 0.0:
+        c2 = 2.0 * l2 / B
+        for k, t in (("s", s), ("r", r), ("o", o)):
+            grads[k] = grads[k] + c2 * t
+        loss = loss + l2 * ((s * s).sum(-1) + (r * r).sum(-1)
+                            + (o * o).sum(-1))
+    return loss, grads
+
+
+def rescal_step_plain(s, r, o, neg, lr_eps: torch.Tensor,
+                      self_adv_temp: float = 0.0, l2: float = 0.0,
+                      out=None, grad_out=None) -> torch.Tensor:
+    """The plain version of K16 (any device): the closed-form loss and
+    gradient (`_rescal_grads`), then K2's plain update rule per role in
+    `out`. Arguments and result as rescal_step."""
+    d = s.shape[-1] // 2
+    loss, grads = _rescal_grads(s[..., :d], r[..., :d * d], o[..., :d],
+                                neg[..., :d], float(self_adv_temp),
+                                float(l2))
+    _emit_plain({"s": s, "r": r, "o": o, "neg": neg}, grads, RESCAL_ROLES,
+                lr_eps, out or {}, grad_out or {})
+    return loss
+
+
+def rescal_step(s: torch.Tensor, r: torch.Tensor, o: torch.Tensor,
+                neg: torch.Tensor, lr_eps: torch.Tensor,
+                self_adv_temp: float = 0.0, l2: float = 0.0,
+                out: Optional[Dict[str, torch.Tensor]] = None,
+                grad_out: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """The RESCAL step's model math in one launch: s, o [B, 2d], r
+    [B, 2d^2] and neg [B, N, 2d] are gathered rows [emb | acc] (views of
+    K1's buffers: only the last dim must be contiguous); lr_eps is a
+    2-float device tensor (lr, eps), read by the kernel, so a captured
+    graph follows it. For each role in `out` (a contiguous f32 [rows,
+    2 * emb], e.g. a row slice of the step's update buffer) writes the
+    AdaGrad delta rows [-lr*g*rsqrt(acc + g^2 + eps) | g^2] (K2's
+    arithmetic); roles missing from `out` are frozen: read, never
+    written. `grad_out` optionally takes each role's raw gradient [rows,
+    emb]. Returns the [B] per-triple loss (the batch loss is its mean).
+    The kernel takes no scratch, so under a CUDA graph capture the call
+    allocates only that loss (from the graph's pool, as K5's does). A
+    (N, d) whose CTA needs more shared memory than one has raises."""
+    out = {k: v for k, v in (out or {}).items() if v is not None}
+    grad_out = {k: v for k, v in (grad_out or {}).items() if v is not None}
+    _require(s.dim() == 2 and s.shape[1] % 2 == 0 and o.shape == s.shape
+             and neg.dim() == 3 and neg.shape[0] == s.shape[0]
+             and neg.shape[2] == s.shape[1] and r.dim() == 2
+             and r.shape[0] == s.shape[0]
+             and r.shape[1] == 2 * (s.shape[1] // 2) ** 2,
+             "rescal_step: s, o must be [B, 2d], r [B, 2d^2] and neg "
+             "[B, N, 2d]")
+    B, L = s.shape
+    N, d = neg.shape[1], L // 2
+    _check_outs("rescal_step", {"s": B, "r": B, "o": B, "neg": B * N},
+                {"s": d, "r": d * d, "o": d, "neg": d}, out, grad_out)
+    _require(self_adv_temp >= 0.0, "rescal_step: self_adv_temp < 0")
+    if not _on_cuda(s, r, o, neg, lr_eps, *out.values(),
+                    *grad_out.values()):
+        return rescal_step_plain(s, r, o, neg, lr_eps, self_adv_temp, l2,
+                                 out, grad_out)
+    ins = (s, r, o, neg.reshape(B * N, L))
+    _check_rows("rescal_step", ins, lr_eps)
+    lib = _lib("rescal_step")
+    smem = lib.adapm_rescal_step_smem(N, d)
+    _require(smem <= K4_SMEM_MAX,
+             f"rescal_step: N={N}, d={d} needs {smem} bytes of shared "
+             f"memory, more than one CTA has ({K4_SMEM_MAX})")
+    loss = torch.empty(B, dtype=torch.float32, device=s.device)
+    if B == 0:
+        return loss
+    rc = lib.adapm_rescal_step(
+        *_role_args(RESCAL_ROLES, ins, out, grad_out), _ptr(loss),
+        _ptr(lr_eps), B, N, d, float(self_adv_temp), float(l2),
+        _vec(d, ins, *out.values(), *grad_out.values()), _stream())
+    LAUNCHES["rescal_step"] += 1
+    _check(rc, "rescal_step")
     return loss
 
 

@@ -2,7 +2,8 @@
 kernels, holds each against its plain PyTorch version at the main path's
 shapes, drives the device-routed ComplEx KGE training step through the
 parameter manager at full width (eagerly, and as run_scan windows
-replayed from a CUDA graph), with the prefetch pipeline on (the
+replayed from a CUDA graph), and the RESCAL step the same way, with
+the prefetch pipeline on (the
 default) and off, checks a small replica run against the CPU, drives
 a pull-driven flow through the pipeline's staged buffers and the
 background planner under concurrent pushes, runs the KGE application
@@ -25,7 +26,7 @@ scenario.
         that tree's step the same way)
     python3 chip_smoke.py --kernels K4,K8    (phase 1 and the named
         kernels' parts of phase 2 alone, the same way; K4, K4mp (K4's
-        multi-process form), K8-K12 and K13 can be named)
+        multi-process form), K8-K16 can be named)
     python3 chip_smoke.py --pipeline-only    (phase 1, phase 3 with the
         pipeline on and off, phases 11 and 12, checked as in the full
         run)
@@ -69,7 +70,14 @@ Phases (any failure raises and exits non-zero):
      loss and update rows within rtol 1e-5 / atol 1e-6, bitwise over two
      runs, and K2 on K5's own gradient output equal to K5's update rows
      bit for bit, timed beside the parent's eager model math on the same
-     rows (KgeLoss under autograd, then four K2 launches); K6 sgns_step
+     rows (KgeLoss under autograd, then four K2 launches); K16
+     rescal_step the same way on the RESCAL step's rows (K1's gathers of
+     an entity pool of 256-f32 rows and a relation pool of 32,768-f32
+     rows: B=4096, N=32, d=128), timed beside the parent's eager model
+     math with its peak memory, with its ptxas registers, spills and
+     shared memory; K1 and K3 at the relation rows' width (4,096 rows of
+     32,768 f32), bitwise their plain versions, beside index_select and
+     index_add_; K6 sgns_step
      on the w2v step's rows at bench_w2v's width (B=8,192 pairs, N=5
      negatives drawn from the alias table, d=128: 57,344 rows of 256
      f32, zipf duplicates) and K7 mf_step at B=8,192 ratings, rank 128,
@@ -144,7 +152,12 @@ Phases (any failure raises and exits non-zero):
      host time on their own thread (timed by the scheduler), device
      operations per step, the busy share and prefetch.report() after
      flush(). The runs off with keys staged part StagedKeys' cost and
-     gain from the pipeline's passes.
+     gain from the pipeline's passes. Phase 3 (RESCAL): the same main
+     path and run_scan windows with RESCAL's two classes (200,000 entity
+     rows of 256 f32, 1,000 relation rows of 32,768 f32; B=4096, N=32,
+     zipf keys): per step two K1, one K16, two K3 (one a class), no K2;
+     windows bitwise the sequential steps (losses and both main pools);
+     ms/step, device ms and operations per step, busy share, peak memory.
   4. replica phase: 2 virtual shards, two workers with competing
      intents (the replica step variant, K1's cache+delta form, K3 in the
      sync merge; one K1, one K5 and two K3 per step, main then delta), the same
@@ -166,8 +179,12 @@ Phases (any failure raises and exits non-zero):
      negatives) at the same width for 10 steps; then test_kge_app's
      small configuration on cuda and on cpu (epoch losses within rtol
      1e-4, MRR within 0.02, and the eval counts of one checkpoint under
-     the near-tie rule), and its RESCAL form on both (autograd and K2:
-     epoch losses within rtol 1e-4).
+     the near-tie rule), and its RESCAL form on both (K16 on the card:
+     epoch losses within rtol 1e-4), and the RESCAL form on device
+     routes in --scan_steps 2 windows (K1, K16, K3, K4, no K2, K16
+     replayed from the windows' graphs); then K2's path: a small
+     device-routed RESCAL run whose negatives are one [N] batch shared by
+     a step's triples (autograd, then one K2 per trainable role).
   7. the word2vec step: setup(200,000 keys, 256) on cuda, bench_w2v's
      slab fill, a DeviceRoutedRunner for SGNS with alias negatives
      (B=8,192, N=5), 32 steps of intent -> step -> sync round -> clock,
@@ -192,7 +209,7 @@ Phases (any failure raises and exits non-zero):
      on both routing paths (epoch losses within rtol 1e-4).
  10. the serving plane (adapm_tpu_torch/serve) at full width: (a) flat
      lookups on phase 3's table (201,000 keys of 512 f32): 32 client
-     threads of 100 lookups of 64 zipf keys (deadline 1 s), first with
+     threads of 50 lookups of 64 zipf keys (deadline 1 s), first with
      the default knobs on a quiescent table (every reply bitwise
      Worker.pull), then on fresh keys with 2 dispatchers and a
      65,536-row replica while a pusher adds to the table's cold half
@@ -200,7 +217,7 @@ Phases (any failure raises and exits non-zero):
      forced refresh, lookups of keys the snapshot covers served from the
      replica and bitwise Worker.pull); (b)
      embedding-bag reads at the DLRM-DCNv2 shape: 8 client threads of
-     50 lookup_bags requests of 32 samples (26 tables, 832 bags, 6,848
+     25 lookup_bags requests of 32 samples (26 tables, 832 bags, 6,848
      members a request) over the 7,116,632-key table, segments sum,
      mean, and sum with --sys.serve.bags 0: every reply bitwise
      pool_bags_host over Worker.pull, the third segment bitwise the
@@ -275,7 +292,7 @@ Phases (any failure raises and exits non-zero):
      shard, fp32 cold rows), the background planner at 20 rounds/s
      without the static dirty filter, --sys.serve.slo_ms 2: (a) capture
      with --sys.trace.workload and --sys.trace.decisions: the table
-     filled in 4,096-key sets, two worker threads of REPLAY_STEPS (16)
+     filled in 4,096-key sets, two worker threads of REPLAY_STEPS (8)
      steps (intent for the next batch of 4,096 zipf keys, pull, push of 4,096
      rows, advance_clock) beside 8 serving clients (12 lookups of 64
      zipf keys each, half tenanted); both traces verify, every event
@@ -297,7 +314,7 @@ Phases (any failure raises and exits non-zero):
  16. the multi-process layer: (a) a LoopbackCluster of 4 nodes in this
      process, each a Server on the card over phase 3's key space
      (201,000 keys of 512 f32, integer-valued, each node filling its
-     home keys), one worker a node: 32 rounds (28, then 4 profiled)
+     home keys), one worker a node: 8 rounds (4, then 4 profiled)
      of intent for the next 4,096 zipf keys, a pull, a push of
      integer-valued rows to them, a planner round and advance_clock,
      each set of rounds ending in WaitSync -> Barrier -> WaitSync ->
@@ -367,7 +384,7 @@ knobs, the pipeline on, and phases 8 and 9 run each again with
 --sys.prefetch 0: the same epoch losses bitwise, the same launches.
 Every path's launch counts are set to 0 just before it runs and read
 just after; each path must have launched each of its kernels and no
-kernel another path owns (K2, K5-K13).
+kernel another path owns (K2, K5-K13, K16).
 The near-tie rule: the kernel sums each dot in another order than the
 plain version's matmuls, so a count may differ by at most the number of
 candidates whose score lies within the f32 dot-product error bound of
@@ -394,10 +411,21 @@ E, R, D_MODEL, B, N = 200_000, 1_000, 128, 4096, 32
 EVAL_B, EVAL_CHUNK = 64, 65_536          # the app's eval batch and chunk
 K4_BATCHES = (EVAL_B, 36)   # the eval's full batch and its tail at 100
 STEP_KERNELS = ("routed_gather", "complex_step", "ordered_scatter_add")
-# the kernels each ComplEx path launches (K2 runs on the RESCAL path)
+# the kernels each ComplEx path launches (K2 runs on phase 6's run with
+# a shared [N] batch of negatives)
 APP_KERNELS = STEP_KERNELS + ("pool_eval_counts",)
-RESCAL_KERNELS = ("routed_gather", "adagrad_update", "ordered_scatter_add",
-                  "pool_eval_counts")
+# RESCAL at the same shape: entity rows [emb d | adagrad d] of 256 f32
+# and relation rows [emb d^2 | adagrad d^2] of 32,768 f32, two length
+# classes, so one K1 and one K3 per class a step and one K16
+L_ENT_RESCAL, L_REL_RESCAL = 2 * D_MODEL, 2 * D_MODEL ** 2
+RESCAL_STEP_KERNELS = ("routed_gather", "rescal_step", "ordered_scatter_add")
+RESCAL_KERNELS = RESCAL_STEP_KERNELS + ("pool_eval_counts",)
+RESCAL_STEP_LAUNCHES = {"routed_gather": 2, "rescal_step": 1,
+                        "adagrad_update": 0, "ordered_scatter_add": 2}
+# a KGE step whose negatives are one [N] batch shared by its triples: no
+# fused form takes it, so autograd and one K2 per trainable role
+SHARED_NEG_KERNELS = ("routed_gather", "adagrad_update",
+                      "ordered_scatter_add")
 L = 4 * D_MODEL                       # [emb 2d | adagrad 2d]
 ROWS = 3 * B + B * N                  # gathered rows per step: 143,360
 ROLE_SPLIT = [B, B, B, B * N]         # the step's four roles, one class
@@ -430,7 +458,8 @@ W2V_KERNELS = ("routed_gather", "sgns_step", "ordered_scatter_add")
 MF_KERNELS = ("routed_gather", "mf_step", "ordered_scatter_add")
 # the step kernels that compute model math: a path launches its own and
 # none of the others
-MODEL_KERNELS = ("adagrad_update", "complex_step", "sgns_step", "mf_step")
+MODEL_KERNELS = ("adagrad_update", "complex_step", "sgns_step", "mf_step",
+                 "rescal_step")
 W2V_STEP_LAUNCHES = {"routed_gather": 1, "sgns_step": 1,
                      "adagrad_update": 0, "ordered_scatter_add": 1}
 # kernels that belong to one path: a path launches its own and none of
@@ -456,8 +485,13 @@ K8_REQUESTS = 64              # one coalesced batch (--sys.serve.max_batch)
 # HBM3 at 700 W (PERF.md section 6); quoted beside this run's times, not
 # measured in it
 K8_PRIOR_MS = {8: 0.0547, 64: 0.2341}
-BAG_CLIENTS, BAG_REQUESTS = 8, 50        # phase 10 (b): clients x requests
-SERVE_CLIENTS, SERVE_LOOKUPS = 32, 100   # phase 10 (a): clients x lookups
+# phase 10 (b) and 13 (c): clients x requests (requests cut from 50 to
+# 25 to fit the RESCAL lines in the run's time: the segments' samples/s
+# and p50/p99 are settled since the bag path's redesign)
+BAG_CLIENTS, BAG_REQUESTS = 8, 25
+# phase 10 (a) and 14 (d): clients x lookups (lookups cut from 100 to 50
+# to fit the RESCAL lines: the flat segments' numbers are settled)
+SERVE_CLIENTS, SERVE_LOOKUPS = 32, 50
 # phase 13 and K9-K12's phase-2 shapes: the tiered KGE table's hot rows
 # per shard, the tiered DLRM table's, rows a promotion batch uploads,
 # replica rows a compressed round takes, the full-width storm's ops, and
@@ -754,6 +788,8 @@ def phase_kernels(K, dev, rng):
     torch.cuda.empty_cache()
     rec["complex_step"] = phase_k5(K, dev, rng)
     torch.cuda.empty_cache()
+    rec["rescal_step"] = phase_k16(K, dev, rng)
+    torch.cuda.empty_cache()
     rec["sgns_step"] = phase_k6(K, dev, rng)
     torch.cuda.empty_cache()
     rec["mf_step"] = phase_k7(K, dev, rng)
@@ -1030,6 +1066,169 @@ def phase_k5(K, dev, rng):
                          reps=5, warmup=1),
         library_ms=None, bound=bound(2 * ROWS * L * 4 + B * 4, flops),
         eager_ms=cuda_ms(eager, reps=10), ptxas=ptxas_summary("complex_step"))
+
+
+def phase_k16(K, dev, rng):
+    """K16 against its plain version on the RESCAL step's rows: K1's
+    gathers of an entity pool (rows of 256 f32) and a relation pool (rows
+    of 32,768 f32) at the app's init scale (normal x 0.1, accumulators
+    1e-6 plus up to 1e-3) by zipf-skewed subject and object keys, uniform
+    negatives and uniform relation keys, viewed per role as the step
+    views them. First K1 and K3 at the relation rows' width, each bitwise
+    its plain version (K3 also over two runs) and timed beside
+    index_select and index_add_."""
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops import fused
+    d, dd = D_MODEL, D_MODEL ** 2
+    Lr = 2 * dd
+
+    def pool(n, width):
+        slots = -8 * (-int(np.ceil(n * 1.25)) // 8)   # the store's rule
+        p = torch.randn((1, slots, 2 * width), device=dev) * 0.1
+        p[..., width:] = 1e-6 + torch.rand((1, slots, width), device=dev) \
+            * 1e-3
+        return p
+
+    def coords(keys):
+        return (torch.zeros(len(keys), dtype=torch.int32, device=dev),
+                torch.as_tensor(keys.astype(np.int32), device=dev))
+
+    ent, rel = pool(E, d), pool(R, dd)
+    e_sh, e_sl = coords(np.concatenate([
+        skewed_keys(rng, E, B), skewed_keys(rng, E, B),
+        rng.integers(0, E, B * N)]))
+    rkeys = rng.integers(0, R, B)
+    r_sh, r_sl = coords(rkeys)
+    erows = K.routed_gather(ent, None, None, e_sh, e_sl)
+    rrows = K.routed_gather(rel, None, None, r_sh, r_sl)
+    del ent
+    # -- K1 and K3 at rows of 32,768 f32 (about 4 occurrences a relation)
+    check(torch.equal(rrows.view(torch.int32), K.routed_gather_plain(
+        rel, None, None, r_sh, r_sl).view(torch.int32)),
+        f"K1 at rows of {Lr} f32 differs from its plain version")
+    vals = torch.randn((B, Lr), device=dev) * 1e-3
+    outs = []
+    for _ in range(2):
+        p = rel.clone()
+        K.ordered_scatter_add(p, r_sh, r_sl, vals)
+        outs.append(p)
+    p = rel.clone()
+    K.ordered_scatter_add_plain(p, r_sh, r_sl, vals)
+    check(torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+          and torch.equal(outs[0].view(torch.int32), p.view(torch.int32)),
+          f"K3 at rows of {Lr} f32 differs from its plain version or "
+          "from itself over two runs")
+    del outs, p
+    n_rel = len(np.unique(rkeys))
+    flat, rflat = r_sl.long(), rel.view(-1, Lr)
+    wide = dict(
+        rows=B, width=Lr, distinct=n_rel,
+        k1_ms=cuda_ms(lambda: K.routed_gather(rel, None, None, r_sh, r_sl)),
+        k1_library_ms=cuda_ms(lambda: rflat.index_select(0, flat)),
+        k1_bound=bound(n_rel * Lr * 4 + B * 8 + B * Lr * 4, 0),
+        k3_ms=cuda_ms(lambda: K.ordered_scatter_add(rel, r_sh, r_sl, vals)),
+        k3_library_ms=cuda_ms(lambda: rflat.index_add_(0, flat, vals)),
+        k3_bound=bound(B * Lr * 4 + 2 * n_rel * Lr * 4 + B * 8, B * Lr))
+    del rel, vals, rflat
+    torch.cuda.empty_cache()
+
+    role = {"s": erows[:B], "r": rrows, "o": erows[B:2 * B],
+            "neg": erows[2 * B:].reshape(B, N, 2 * d)}
+    args = (role["s"], role["r"], role["o"], role["neg"])
+    nrows = {"s": B, "r": B, "o": B, "neg": B * N}
+    width = {"s": d, "r": dd, "o": d, "neg": d}
+    lr_eps = torch.tensor([0.1, 1e-10], device=dev)
+
+    def buffers(f):
+        return {k: torch.empty((n, f * width[k]), device=dev)
+                for k, n in nrows.items()}
+
+    err, forms = 0.0, {}
+    for T, l2 in ((0.0, 0.0), (1.0, 0.0), (0.0, 0.1), (1.0, 0.1)):
+        u1, u2, up, g1 = buffers(2), buffers(2), buffers(2), buffers(1)
+        l1 = K.rescal_step(*args, lr_eps, T, l2, out=u1, grad_out=g1)
+        l2_ = K.rescal_step(*args, lr_eps, T, l2, out=u2)
+        lp = K.rescal_step_plain(*args, lr_eps, T, l2, out=up)
+        torch.cuda.synchronize()
+        check(torch.equal(l1.view(torch.int32), l2_.view(torch.int32))
+              and all(torch.equal(u1[k].view(torch.int32),
+                                  u2[k].view(torch.int32)) for k in u1),
+              f"K16 (T={T}, l2={l2}) is not deterministic from run to run")
+        form_err = float((l1 - lp).abs().max())
+        check(torch.allclose(l1, lp, rtol=1e-5, atol=1e-6),
+              f"K16 (T={T}, l2={l2}) loss differs from its plain version "
+              f"beyond rtol 1e-5 / atol 1e-6 (max {form_err})")
+        for k in u1:
+            e = float((u1[k] - up[k]).abs().max())
+            check(torch.allclose(u1[k], up[k], rtol=1e-5, atol=1e-6),
+                  f"K16 (T={T}, l2={l2}) update rows of {k} differ from the "
+                  f"plain version beyond rtol 1e-5 / atol 1e-6 (max {e})")
+            w = width[k]
+            k2 = K.adagrad_update(g1[k], role[k].reshape(-1, 2 * w)[:, w:],
+                                  0.1, 1e-10)
+            check(torch.equal(k2.view(torch.int32), u1[k].view(torch.int32)),
+                  f"K2 on K16's gradient of {k} differs from K16's update "
+                  "rows")
+            form_err = max(form_err, e)
+        forms[f"T={T} l2={l2}"] = form_err
+        err = max(err, form_err)
+        del u1, u2, up, g1
+    out = buffers(2)
+    loss_fn = make_kge_loss("rescal")
+
+    def eager():
+        # the parent's model math: autograd of the same loss (the
+        # score's einsum), K2 per role (the lambda hides the fused form)
+        return fused._loss_and_updates(
+            lambda e, aux: loss_fn(e, aux), role, width, sorted(role),
+            {0: ["neg", "o", "s"], 1: ["r"]}, None, lr_eps)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager()
+    torch.cuda.synchronize()
+    eager_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    eager_ms = cuda_ms(eager, reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    # read every row once, write one update row per row; flops per
+    # triple: u, v, R y, R^T x (8 d^2), g_R (2 d^2), 2N + 1 dots of d,
+    # x and y (4Nd), g_neg (3Nd), g_s and g_o (4d), the epilogue (7 per
+    # value)
+    nbytes = 2 * 4 * (2 * B * 2 * d + B * Lr + B * N * 2 * d) + B * 4
+    flops = B * (10 * dd + (2 * N + 1) * 2 * d + 7 * N * d + 4 * d) \
+        + 7 * B * (2 * d + dd + N * d)
+    return timed(
+        max_abs_err=err, forms=forms,
+        ms=cuda_ms(lambda: K.rescal_step(*args, lr_eps, out=out)),
+        plain_ms=cuda_ms(lambda: K.rescal_step_plain(*args, lr_eps,
+                                                     out=out),
+                         reps=5, warmup=1),
+        library_ms=None, bound=bound(nbytes, flops), bytes=nbytes,
+        eager_ms=eager_ms, eager_peak_gib=eager_peak,
+        smem=int(K._lib("rescal_step").adapm_rescal_step_smem(N, d)),
+        ptxas=ptxas_summary("rescal_step"), wide=wide)
+
+
+def report_k16(r):
+    """K16's phase-2 lines, and K1's and K3's at the relation rows'
+    width."""
+    w = r["wide"]
+    print(f"phase 2: K16 at B={B}, N={N}, d={D_MODEL}: {fmt_t(r, 'ms')} ms "
+          f"(bound {r['bound'][0]:.4f} ms, {r['bound'][1]}, "
+          f"{r['bytes']:,} bytes; share {r['bound'][0] / r['ms']:.3f}); "
+          f"the parent's eager model math (autograd + 4 K2) "
+          f"{fmt_s(*r['eager_ms'])} ms, peak {r['eager_peak_gib']:.2f} GiB "
+          f"above the rows; plain {fmt_t(r, 'plain_ms')} ms; max abs err "
+          f"per (T, l2) {r['forms']}; deterministic, K2 on its gradient "
+          f"bitwise its update rows; {r['smem']:,} bytes of dynamic shared "
+          f"memory a CTA; ptxas {r['ptxas']}", flush=True)
+    print(f"phase 2: K1 and K3 at {w['rows']} rows of {w['width']:,} f32 "
+          f"({w['distinct']} distinct relations), bitwise their plain "
+          f"versions: K1 {fmt_s(*w['k1_ms'])} ms (bound "
+          f"{w['k1_bound'][0]:.4f} ms; index_select "
+          f"{fmt_s(*w['k1_library_ms'])} ms), K3 {fmt_s(*w['k3_ms'])} ms (bound {w['k3_bound'][0]:.4f} "
+          f"ms; index_add_ {fmt_s(*w['k3_library_ms'])} ms)", flush=True)
 
 
 def dlrm_table():
@@ -1550,6 +1749,36 @@ def kge_server(at, dev, seed, **opts):
         neg_shape=(B, N), neg_population=np.arange(E), seed=0)
 
 
+def rescal_server(at, dev, seed):
+    """Phase 3's setup with RESCAL's two classes: E entity rows [emb d |
+    adagrad d] of 256 f32 and R relation rows [emb d^2 | adagrad d^2] of
+    32,768 f32 (keys as phase 3's), filled normal x 0.1 with accumulators
+    1e-6 from `seed`, and the device-routed RESCAL runner with uniform
+    on-device negatives [B, N]."""
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    vl = np.concatenate([np.full(E, L_ENT_RESCAL), np.full(R, L_REL_RESCAL)])
+    srv = at.setup(E + R, vl, opts=at.SystemOptions(
+        cache_slots_per_shard=1, sync_max_per_sec=0), device=dev)
+    w = srv.make_worker(0)
+    fill = np.random.default_rng(seed)
+    for lo, hi, width in ((0, E, L_ENT_RESCAL), (E, E + R, L_REL_RESCAL)):
+        chunk = 50_000 * L // width
+        for a in range(lo, hi, chunk):
+            b = min(a + chunk, hi)
+            vals = fill.normal(size=(b - a, width)).astype(np.float32) * 0.1
+            vals[:, width // 2:] = 1e-6
+            w.set(np.arange(a, b), vals)
+    srv.block()
+    ec, rc = int(srv.ab.key_class[0]), int(srv.ab.key_class[E])
+    d = D_MODEL
+    return srv, w, DeviceRoutedRunner(
+        srv, make_kge_loss("rescal"),
+        role_class={"s": ec, "r": rc, "o": ec, "neg": ec},
+        role_dim={"s": d, "r": d * d, "o": d, "neg": d}, neg_role="neg",
+        neg_shape=(B, N), neg_population=np.arange(E), seed=0)
+
+
 def kge_batches(rng, n):
     """bench_tpu's batches: zipf-skewed subject and object keys."""
     return [{"s": skewed_keys(rng, E, B), "r": rng.integers(E, E + R, B),
@@ -1557,10 +1786,12 @@ def kge_batches(rng, n):
 
 
 def phase_main_path(K, path, seed):
-    """Phases 3 and 7: the path's step at full width through the PM: the
-    fill, warmup, then STEPS steps of intent -> step -> sync round ->
-    advance_clock, the launches of every step checked against the path's;
-    a profiled window of 4 steps after timing."""
+    """Phases 3, 3 (RESCAL) and 7: the path's step at full width through
+    the PM: the fill, warmup, then STEPS steps of intent -> step -> sync
+    round -> advance_clock, the launches of every step checked against
+    the path's; a profiled window of 4 steps after timing. Peak memory
+    from the fill on."""
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     srv, w, runner = path.build(seed)
     fill_s = time.perf_counter() - t0
@@ -1603,7 +1834,7 @@ def phase_main_path(K, path, seed):
           f"last {last}")
     check(not runner._shard_has_replicas(),
           f"{path.phase}: main path expected no replicas")
-    check(bool(torch.isfinite(srv.stores[0].main).all()),
+    check(all(bool(torch.isfinite(st.main).all()) for st in srv.stores),
           f"{path.phase}: non-finite parameters")
     out = dict(fill_s=fill_s, ms_per_step=dt * 1e3, per_s=path.B / dt,
                first_loss=first, last_loss=last, per_step=steps[0],
@@ -1615,14 +1846,15 @@ def phase_main_path(K, path, seed):
 
 
 def phase_scan(K, path, seed):
-    """Phases 3 and 7, run_scan: the path's runner on two servers filled
-    alike. Server A takes 16 sequential steps, server B two windows of
-    SCAN_K (the first runs eagerly and is captured, the second replays
-    the graph): losses and main pools must be bitwise equal. Then A takes
-    32 more eager steps and B 4 windows, each timed on the host clock up
-    to a synchronize, and one window of B is profiled: its trace must
-    hold SCAN_K launches of each step kernel (K1, the model kernel, K3's
-    two) and none of K2. Launch counts: B's, from 0 before its first
+    """Phases 3, 3 (RESCAL) and 7, run_scan: the path's runner on two
+    servers filled alike. Server A takes 16 sequential steps, server B
+    two windows of SCAN_K (the first runs eagerly and is captured, the
+    second replays the graph): losses and the main pools of every class
+    must be bitwise equal. Then A takes 32 more eager steps and B 4
+    windows, each timed on the host clock up to a synchronize, and one
+    window of B is profiled: its trace must hold SCAN_K launches of the
+    model kernel, of K1 and of K3's two kernels SCAN_K times the step's
+    (one a class), and none of K2. Launch counts: B's, from 0 before its first
     window, the wrappers' (the eager first window) apart from the
     replay's (kernels.REPLAYED)."""
     rng = np.random.default_rng(seed)
@@ -1630,7 +1862,7 @@ def phase_scan(K, path, seed):
     batches = path.batches(rng, n_eq + SCAN_TIMED * SCAN_K + SCAN_K)
     srv_a, _, run_a = path.build(seed)
     seq = torch.stack([run_a(b, None, path.lr) for b in batches[:n_eq]])
-    main_a = srv_a.stores[0].main.clone()
+    main_a = [st.main.clone() for st in srv_a.stores]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b in batches[n_eq:n_eq + SCAN_TIMED * SCAN_K]:
@@ -1650,9 +1882,9 @@ def phase_scan(K, path, seed):
     check(torch.equal(win.view(torch.int32), seq.view(torch.int32)),
           f"{path.phase}: run_scan losses differ from sequential steps: "
           f"{win.tolist()} vs {seq.tolist()}")
-    check(torch.equal(srv_b.stores[0].main.view(torch.int32),
-                      main_a.view(torch.int32)),
-          f"{path.phase}: run_scan's main pool differs from sequential "
+    check(all(torch.equal(st.main.view(torch.int32), m.view(torch.int32))
+              for st, m in zip(srv_b.stores, main_a)),
+          f"{path.phase}: run_scan's main pools differ from sequential "
           "steps' (bitwise)")
     del main_a
     check(all(launches[k] + replayed[k] == n_eq * path.launches[k]
@@ -1666,8 +1898,10 @@ def phase_scan(K, path, seed):
     torch.cuda.synchronize()
     scan_ms = (time.perf_counter() - t0) * 1e3 / (SCAN_TIMED * SCAN_K)
     lo = n_eq + SCAN_TIMED * SCAN_K
-    want = {"routed_gather_kernel": SCAN_K, path.kernel: SCAN_K,
-            "flat_targets_kernel": SCAN_K, "ordered_fold_kernel": SCAN_K,
+    k1, k3 = (SCAN_K * path.launches[k] for k in ("routed_gather",
+                                                  "ordered_scatter_add"))
+    want = {"routed_gather_kernel": k1, path.kernel: SCAN_K,
+            "flat_targets_kernel": k3, "ordered_fold_kernel": k3,
             "adagrad_update_kernel": 0}
     # a trace that lost a record (kernel_ms) is taken again, up to four
     # times: lost records only ever make a count short
@@ -2243,9 +2477,10 @@ def check_app(res, launches, what, kernels):
 
 def check_launched(launches, what, kernels, allowed=()):
     """Each of the path's kernels launched, and no kernel another path
-    owns but those `allowed` (launched or not): K2 (the RESCAL path's)
-    not on a ComplEx, SGNS or MF path, K5 only on ComplEx paths, K6 only
-    on word2vec's, K7 only on MF's, K8 only on the bag-serving paths,
+    owns but those `allowed` (launched or not): K2 only where a step's
+    negatives are a shared [N] batch, K5 only on ComplEx paths, K16 only
+    on RESCAL's, K6 only on word2vec's, K7 only on MF's, K8 only on the
+    bag-serving paths,
     K9-K11 only on tiered paths, K12 only on compressed sync rounds."""
     missing = [k for k in kernels if launches[k] == 0]
     check(not missing, f"{what}: kernels never launched: {missing}")
@@ -2468,7 +2703,7 @@ def phase_host_routes(K):
     check((np.abs(g_o - c_o) <= t_o).all() and (np.abs(g_s - c_s) <= t_s)
           .all(), "phase 6: eval counts of one checkpoint differ between "
           "cuda and cpu beyond the near-tie rule")
-    # RESCAL: the autograd path and K2's standalone launches
+    # RESCAL: K16 on the host-routed path
     rescal = SMALL_ARGS + ["--model", "rescal"]
     res_rg, rescal_launches = run_app(kge, K, rescal)
     check_app(res_rg, rescal_launches, "phase 6 (RESCAL)", RESCAL_KERNELS)
@@ -2477,14 +2712,80 @@ def phase_host_routes(K):
     check(np.allclose(rg, rc, rtol=1e-4, atol=0),
           f"phase 6: RESCAL cuda and cpu epoch losses differ beyond rtol "
           f"1e-4: {rg} vs {rc}")
+    # and on device routes in --scan_steps 2 windows
+    rescal_dev = [a for a in rescal if a != "--no-device_routes"] + [
+        "--scan_steps", "2"]
+    res_rd, rescal_dev_launches = run_app(kge, K, rescal_dev)
+    check_app(res_rd, rescal_dev_launches, "phase 6 (RESCAL, device "
+              "routes)", RESCAL_KERNELS)
+    check(rescal_dev_launches["rescal_step"]
+          + res_rd["replayed"]["rescal_step"] > 0
+          and res_rd["replayed"]["rescal_step"] > 0,
+          "phase 6 (RESCAL, device routes): no K16 launch replayed from a "
+          "window's graph")
+    shared = phase_shared_negatives(K)
     return dict(full=full, full_launches=launches,
                 rescal_launches=rescal_launches,
+                rescal_dev_launches=rescal_dev_launches,
+                rescal_dev_replayed=res_rd["replayed"],
+                rescal_dev_losses=res_rd["epoch_losses"],
+                shared_negatives=shared,
                 rescal_losses_cuda=rg.tolist(), rescal_losses_cpu=rc.tolist(),
                 small_losses_cuda=lg.tolist(), small_losses_cpu=lc.tolist(),
                 small_mrr_cuda=res_g["mrr"], small_mrr_cpu=res_c["mrr"],
                 count_diff=int(np.abs(g_o - c_o).sum()
                                + np.abs(g_s - c_s).sum()),
                 ties=int(t_o.sum() + t_s.sum()))
+
+
+SHARED_NEG_STEPS = 8
+
+
+def phase_shared_negatives(K, dev="cuda"):
+    """Phase 6's K2 path: a small device-routed RESCAL run (512 entities,
+    16 relations, d=8, B=64) whose negatives are one [N] batch of 4
+    drawn on the device and shared by a step's triples (neg_shape=(4,);
+    the JAX body draws any neg_shape). Neither K5 nor K16 takes that
+    shape, so each step runs autograd, then K2 once per trainable role:
+    per step one K1 and one K3 a class, four K2, no K16; losses finite."""
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    e, r, d, b, n = 512, 16, 8, 64, 4
+    rng = np.random.default_rng(17)
+    srv = at.setup(e + r, np.array([2 * d] * e + [2 * d * d] * r),
+                   device=dev, opts=at.SystemOptions(sync_max_per_sec=0))
+    w = srv.make_worker(0)
+    for keys, width in ((np.arange(e), d), (np.arange(e, e + r), d * d)):
+        vals = rng.normal(size=(len(keys), 2 * width)).astype(np.float32)
+        vals *= 0.1
+        vals[:, width:] = 1e-6
+        w.wait(w.set(keys, vals))
+    ec, rc = int(srv.ab.key_class[0]), int(srv.ab.key_class[e])
+    runner = DeviceRoutedRunner(
+        srv, make_kge_loss("rescal"),
+        role_class={"s": ec, "r": rc, "o": ec, "neg": ec},
+        role_dim={"s": d, "r": d * d, "o": d, "neg": d}, neg_role="neg",
+        neg_shape=(n,), neg_population=np.arange(e), seed=1)
+    want = {**dict.fromkeys(K.LAUNCHES, 0), "routed_gather": 2,
+            "adagrad_update": 4, "ordered_scatter_add": 2}
+    K.reset_launches()
+    losses, steps = [], []
+    for _ in range(SHARED_NEG_STEPS):
+        batch = {"s": rng.integers(0, e, b), "r": rng.integers(e, e + r, b),
+                 "o": rng.integers(0, e, b)}
+        before = dict(K.LAUNCHES)
+        losses.append(float(runner(batch, None, 0.1)))
+        steps.append({k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES})
+    launches = dict(K.LAUNCHES)
+    check(np.isfinite(losses).all(), f"phase 6 (shared negatives): "
+          f"non-finite loss {losses}")
+    check(all(st == want for st in steps), f"phase 6 (shared negatives): "
+          f"steps launched {steps[:2]}, expected {want} on every step")
+    check_launched(launches, "phase 6 (shared negatives)",
+                   SHARED_NEG_KERNELS)
+    srv.shutdown()
+    return dict(losses=losses, launches=launches)
 
 
 def w2v_server(at, dev, seed):
@@ -2905,9 +3206,12 @@ def phase_serve_bags(at, K, dev):
             r[0], r[1], pooling="sum", deadline_ms=10_000), profile=True)
     plane.close()
     for ci, rs in enumerate(reqs):
+        # one pull of all the client's members: nothing writes after the
+        # segments, so each request's rows are the bits it would pull alone
+        rows = w.pull_sync(np.concatenate([ks for tables, _ in rs
+                                           for ks in tables]))
+        lo = 0
         for i, (tables, bags) in enumerate(rs):
-            rows = w.pull_sync(np.concatenate(tables))
-            lo = 0
             for t, (ks, bg) in enumerate(zip(tables, bags)):
                 mine = rows[lo:lo + len(ks)]
                 lo += len(ks)
@@ -3899,9 +4203,12 @@ def phase_tier_bags(at, K, dev, untiered):
     hot, cold = st.tier_hot_hits - hot0, st.tier_cold_hits - cold0
     plane.close()
     for ci, rs in enumerate(reqs):
+        # one pull of all the client's members: nothing writes after the
+        # segments, so each request's rows are the bits it would pull alone
+        rows = w.pull_sync(np.concatenate([ks for tables, _ in rs
+                                           for ks in tables]))
+        lo = 0
         for i, (tables, bags) in enumerate(rs):
-            rows = w.pull_sync(np.concatenate(tables))
-            lo = 0
             for t, (ks, bg) in enumerate(zip(tables, bags)):
                 mine = rows[lo:lo + len(ks)]
                 lo += len(ks)
@@ -4142,6 +4449,7 @@ def report_kernels(rec):
     report_tier_kernels(rec)
     report_k13(rec["alltoall_put"])
     report_k14_k15(rec)
+    report_k16(rec["rescal_step"])
     k5 = rec["complex_step"]
     print(f"phase 2: K5 at B={B}, N={N}, d={D_MODEL}: {fmt_t(k5, 'ms')} ms "
           f"(bound {k5['bound'][0]:.4f} ms, share "
@@ -4859,9 +5167,10 @@ def report_fault(fr, smi):
 
 
 # phase 15: workload traces, decision telemetry, replay and the policy
-REPLAY_STEPS = 16                  # steps per worker thread (cut from
+REPLAY_STEPS = 8                   # steps per worker thread (cut from
 # 64, which took phase 15 to 224 s on the card: ten replays of ~19 s;
-# then from 32, 169 s of a 1,036 s run that added phase 16)
+# then from 32, 169 s of a 1,036 s run that added phase 16; then from
+# 16, 84-119 s of 809-981 s runs, to fit the RESCAL lines)
 REPLAY_CLIENTS, REPLAY_LOOKUPS, REPLAY_KEYS = 8, 12, 64
 REPLAY_PAUSE_S = 0.1               # a client's pause between lookups
 REPLAY_SYNC_PER_S = 20.0           # the capture's background planner
@@ -5270,7 +5579,9 @@ def report_replay(rr, smi):
 # on the one card
 # (a)'s rounds cut from 32 to 16: its pull/push percentiles are settled
 # (PERF.md section 5), and the run has to stay within 80% of its limit
-MP_NODES, MP_ROUNDS, MP_KEYS = 4, 16, 4096
+# (a)'s rounds cut from 32 to 16, then to 8 (4 + the 4 profiled) to fit
+# the RESCAL lines: its latencies and keys/s are settled since PR 14
+MP_NODES, MP_ROUNDS, MP_KEYS = 4, 8, 4096
 MP_PROF_ROUNDS = 4   # (a)'s last rounds, profiled for the busy share: a
 # trace of all 32 took ~60 s to post-process on the card's host
 MP_STORM_ROUNDS = 8
@@ -6327,6 +6638,7 @@ def main(argv):
         parts = {"K4": (phase_k4, report_k4), "K8": (phase_k8, report_k8),
                  "K4mp": (phase_k4_mp, report_k4_mp),
                  "K13": (phase_k13, report_k13),
+                 "K16": (phase_k16, report_k16),
                  "K14": (phase_k14, lambda r: report_k14_k15(
                      {"drop_set": r})),
                  "K15": (phase_k15, lambda r: report_k14_k15(
@@ -6347,6 +6659,10 @@ def main(argv):
     kge_path = StepPath("phase 3", lambda seed: kge_server(at, dev, seed),
                         kge_batches, 0.1, B, "triples", STEP_LAUNCHES,
                         "complex_step_kernel")
+    rescal_path = StepPath("phase 3 (RESCAL)",
+                           lambda seed: rescal_server(at, dev, seed),
+                           kge_batches, 0.1, B, "triples",
+                           RESCAL_STEP_LAUNCHES, "rescal_step_kernel")
     w2v_path = StepPath("phase 7", lambda seed: w2v_server(at, dev, seed),
                         w2v_batches, W2V_LR, B_W2V, "pairs",
                         W2V_STEP_LAUNCHES, "sgns_step_kernel")
@@ -6422,6 +6738,9 @@ def main(argv):
     lap("phase 2")
     mp, step_launches, sc = drive_path(K, kge_path, STEP_KERNELS, 0)
     lap("phase 3")
+    rmp, rescal_step_launches, rsc = drive_path(K, rescal_path,
+                                                RESCAL_STEP_KERNELS, 5)
+    lap("phase 3 (RESCAL)")
     pp = phase_pipeline(at, K, dev)
     report_pipeline(pp, smi)
     lap("phase 3 (pipeline)")
@@ -6462,8 +6781,13 @@ def main(argv):
           f"{hr['small_mrr_cuda']:.4f} vs {hr['small_mrr_cpu']:.4f}, count "
           f"diff {hr['count_diff']} within {hr['ties']} near-ties; RESCAL "
           f"losses cuda {hr['rescal_losses_cuda']} vs cpu "
-          f"{hr['rescal_losses_cpu']}, launches {hr['rescal_launches']}",
-          flush=True)
+          f"{hr['rescal_losses_cpu']}, launches {hr['rescal_launches']}; "
+          f"RESCAL on device routes (--scan_steps 2): losses "
+          f"{hr['rescal_dev_losses']}, launches {hr['rescal_dev_launches']}"
+          f", replayed {hr['rescal_dev_replayed']}; "
+          f"shared [N] negatives (autograd + K2): losses "
+          f"{[round(x, 5) for x in hr['shared_negatives']['losses']]}, "
+          f"launches {hr['shared_negatives']['launches']}", flush=True)
     lap("phase 6")
     st, w2v_step_launches, sc7 = drive_path(K, w2v_path, W2V_KERNELS, 2)
     lap("phase 7")
@@ -6540,12 +6864,20 @@ def main(argv):
                "drop_set": ("adapm_tpu_torch/csrc/drop_set.cu",
                             "adapm_tpu/device/jaxport.py:104"),
                "sync_round": ("adapm_tpu_torch/csrc/sync_round.cu",
-                              "adapm_tpu/device/jaxport.py:126")}
+                              "adapm_tpu/device/jaxport.py:126"),
+               "rescal_step": ("adapm_tpu_torch/csrc/rescal_step.cu",
+                               "adapm_tpu/ops/fused.py:370")}
     paths = dict(step=step_launches, scan=sc["launches"],
                  scan_replayed=sc["replayed"], replica=used,
                  app=app_launches, app_replayed=app["replayed"],
                  host_routes=hr["full_launches"],
+                 rescal_step=rescal_step_launches,
+                 rescal_scan=rsc["launches"],
+                 rescal_scan_replayed=rsc["replayed"],
                  rescal=hr["rescal_launches"],
+                 rescal_app_device=hr["rescal_dev_launches"],
+                 rescal_app_device_replayed=hr["rescal_dev_replayed"],
+                 shared_negatives=hr["shared_negatives"]["launches"],
                  w2v_step=w2v_step_launches, w2v_scan=sc7["launches"],
                  w2v_scan_replayed=sc7["replayed"],
                  w2v_app=w2v_app["launches"],
@@ -6591,15 +6923,17 @@ def main(argv):
                  collective_rank2=cr["launches"][2],
                  stream=sr["launches"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
-    # ComplEx path's kernels, in the RESCAL app run (phase 6) for K2,
-    # whose standalone launches it keeps, in the word2vec and MF app runs
+    # ComplEx path's kernels, in phase 3 (RESCAL)'s main path for K16,
+    # in phase 6's run with shared [N] negatives for K2, whose
+    # standalone launches it keeps, in the word2vec and MF app runs
     # (phases 8 and 9, device routes) for K6 and K7, in phase 10's bag
     # segments for K8, in phase 13's tiered int8 app run (a) for K9 and
     # K11, its tiered bag segment (c) for K10 and its int8 compressed
     # planner run (d) for K12, in phase 17's rank 0 for K13, in phase
     # 12's planner run for K14 and K15; the
     # launches of replayed graphs stand apart under *_replayed
-    home = {"adagrad_update": "rescal", "sgns_step": "w2v_app",
+    home = {"adagrad_update": "shared_negatives",
+            "rescal_step": "rescal_step", "sgns_step": "w2v_app",
             "mf_step": "mf_app", "gather_pool": "serve_bags",
             "gather_cold": "tier_app", "gather_pool_cold": "tier_bags",
             "write_main_rows": "tier_app", "sync_compress": "tier_planner",
@@ -6623,8 +6957,8 @@ def main(argv):
         mp_form_entry_ms=k4m["entry_ms"], mp_form_plain_ms=k4m["plain_ms"],
         mp_form_bound_ms=k4m["bound"][0], mp_form_bound_by=k4m["bound"][1],
         mp_form_library_ms=k4m["library_ms"])
-    # the parent's eager path (K5-K7), K6-K8's views, K13's L2-warm and
-    # event times and its copy_ calls'
+    # the parent's eager path (K5-K7, K16), K6-K8's views, K13's L2-warm
+    # and event times and its copy_ calls'
     for line in kernels:
         for key in ("eager_ms", "cold_ms", "call_ms", "event_ms",
                     "warm_ms", "library_warm_ms", "library_call_ms"):
@@ -6649,10 +6983,21 @@ def main(argv):
         held_parent_ms=k15["held"]["parent_ms"][0],
         launches_a_round=k15["launches_a_round"],
         parent_launches_a_round=k15["parent_launches_a_round"])
+    # K1 and K3 at the relation rows' width (phase 2's K16 part)
+    wide = rec["rescal_step"]["wide"]
+    kernels[list(rec).index("routed_gather")].update(
+        rows_32768_ms=wide["k1_ms"][0],
+        rows_32768_bound_ms=wide["k1_bound"][0],
+        rows_32768_library_ms=wide["k1_library_ms"][0])
+    kernels[list(rec).index("rescal_step")].update(
+        eager_peak_gib=rec["rescal_step"]["eager_peak_gib"])
     k3 = rec["ordered_scatter_add"]
     k3_line = kernels[list(rec).index("ordered_scatter_add")]
     k3_line.update(fold_ms=k3["fold_ms"][0], order_ms=k3["order_ms"][0],
-                   sort_ms=k3["sort_ms"][0], uniform_ms=k3["uniform_ms"][0])
+                   sort_ms=k3["sort_ms"][0], uniform_ms=k3["uniform_ms"][0],
+                   rows_32768_ms=wide["k3_ms"][0],
+                   rows_32768_bound_ms=wide["k3_bound"][0],
+                   rows_32768_library_ms=wide["k3_library_ms"][0])
     full = rec["gather_pool"]["full_batch"]   # K8 at a 64-request batch
     kernels[list(rec).index("gather_pool")].update(
         full_batch_ms=full["ms"], full_batch_bound_ms=full["bound"][0],
@@ -6665,7 +7010,9 @@ def main(argv):
                     exist_ok=True)
         with open(json_path, "w") as fh:
             json.dump({"card": smi, "kernels": kernels, "timings": rec,
-                       "main_path": mp, "scan": sc, "replica_launches": used,
+                       "main_path": mp, "scan": sc,
+                       "rescal_main_path": rmp, "rescal_scan": rsc,
+                       "replica_launches": used,
                        "app": app, "host_routes": hr, "build_s": build_s,
                        "w2v_step": st, "w2v_scan": sc7, "w2v_app": w2v_app,
                        "mf_app": mfr, "serve_flat": serve_flat,

@@ -6,7 +6,9 @@ rtol 1e-5 for K2 (CUDA's rsqrt vs the CPU's 1/sqrt), K4's counts equal on
 integer-valued data (every summation order gives the same f32 sums) and
 within the near-tie rule on random data, K5 within rtol 1e-5 / atol 1e-6
 (its sums run in another order than the plain version's) and bitwise
-over two runs, its epilogue bitwise K2; K6 and K7 the same way — plus
+over two runs, its epilogue bitwise K2; K6, K7 and K16 the same way
+(K16 also at an odd width, with one negative, and in RESCAL's graph
+windows against sequential steps, bitwise) — plus
 a small fused step on cuda against the same step on cpu, and run_scan's
 CUDA graph against sequential steps, bitwise (ComplEx, a K2 loss with
 aux, SGNS with alias-drawn negatives, MF with its ratings as aux); and
@@ -616,6 +618,135 @@ def test_complex_step_rejects_what_it_cannot_run(cuda):
     big = _k5_rows(np.random.default_rng(0), 2, 120, 128, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         K.complex_step(*big, lr_eps)
+
+
+def _k16_rows(rng, B, N, d, dev, stride=None):
+    """s, o [B, 2d] and neg [B, N, 2d] as row views of one entity buffer,
+    r [B, 2d^2] of a relation buffer (as K1 writes a class's rows), the
+    entity rows `stride` floats apart; each triple's first negative
+    repeats its subject row, triples 0 and 1 share a relation row, and
+    some entries are -0.0."""
+    L, W = 2 * d, stride or 2 * d
+    n = 2 * B + B * N
+    ent = rng.normal(size=(n, W)).astype(np.float32) * 0.3
+    ent[:, d:L] = rng.random((n, d)).astype(np.float32) * 0.01 + 1e-6
+    ent[2 * B::N] = ent[:B]
+    ent[:, 0] = -0.0
+    rel = rng.normal(size=(B, 2 * d * d)).astype(np.float32) * 0.3
+    rel[:, d * d:] = rng.random((B, d * d)).astype(np.float32) * 0.01 \
+        + 1e-6
+    rel[1] = rel[0]
+    e = torch.from_numpy(ent).to(dev)[:, :L]
+    return (e[:B], torch.from_numpy(rel).to(dev), e[B:2 * B],
+            e[2 * B:].reshape(B, N, L))
+
+
+def _k16_run(rows, lr_eps, T, l2, frozen=()):
+    s = rows[0]
+    B, L = s.shape
+    N, d = rows[3].shape[1], L // 2
+    n = {"s": B, "r": B, "o": B, "neg": B * N}
+    wd = {"s": d, "r": d * d, "o": d, "neg": d}
+    out = {k: torch.full((n[k], 2 * wd[k]), float("nan"), device=s.device)
+           for k in n if k not in frozen}
+    grad = {k: torch.empty(n[k], wd[k], device=s.device) for k in n}
+    per = K.rescal_step(*rows, lr_eps, T, l2, out=out, grad_out=grad)
+    return per, out, grad
+
+
+@pytest.mark.parametrize("B,N,d,stride,T,l2", [
+    (64, 8, 8, None, 0.0, 0.0), (64, 8, 8, None, 1.0, 0.0),
+    (64, 8, 8, None, 0.0, 0.1), (64, 8, 8, None, 1.0, 0.1),
+    (33, 5, 7, None, 1.0, 0.1), (40, 1, 8, None, 0.0, 0.1),
+    (40, 3, 8, 18, 1.0, 0.0), (17, 40, 128, 260, 1.0, 0.1)])
+def test_rescal_step_matches_plain(cuda, B, N, d, stride, T, l2):
+    rng = np.random.default_rng(B + N + d)
+    rows = _k16_rows(rng, B, N, d, cuda, stride)
+    lr_eps = torch.tensor([0.1, 1e-10], device=cuda)
+    pc, oc, gc = _k16_run([x.cpu() for x in rows], lr_eps.cpu(), T, l2)
+    runs = [_k16_run(rows, lr_eps, T, l2) for _ in range(2)]
+    _, of, _ = _k16_run(rows, lr_eps, T, l2, frozen=("r", "neg"))
+    torch.cuda.synchronize()
+    per, out, grad = runs[0]
+    torch.testing.assert_close(per.cpu(), pc, rtol=1e-5, atol=1e-6)
+    for k in oc:
+        torch.testing.assert_close(out[k].cpu(), oc[k], rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(grad[k].cpu(), gc[k], rtol=1e-5,
+                                   atol=1e-6)
+        # deterministic, and the epilogue is K2's arithmetic
+        assert torch.equal(_bits(out[k]), _bits(runs[1][1][k])), k
+        flat = {"s": rows[0], "r": rows[1], "o": rows[2],
+                "neg": rows[3].reshape(-1, 2 * d)}[k]
+        D = flat.shape[1] // 2
+        k2 = K.adagrad_update(grad[k], flat[:, D:], 0.1, 1e-10)
+        assert torch.equal(_bits(k2), _bits(out[k])), k
+    assert torch.equal(_bits(per), _bits(runs[1][0]))
+    assert set(of) == {"s", "o"}
+    for k in of:                       # freezing a role changes no other
+        assert torch.equal(_bits(of[k]), _bits(out[k])), k
+
+
+def test_rescal_step_rejects_what_it_cannot_run(cuda):
+    rows = _k16_rows(np.random.default_rng(0), 4, 2, 8, cuda)
+    lr_eps = torch.tensor([0.1, 1e-10], device=cuda)
+    with pytest.raises(ValueError, match="lr_eps"):
+        K.rescal_step(*rows, lr_eps.double())
+    with pytest.raises(ValueError, match="output"):
+        K.rescal_step(*rows, lr_eps, out={"r": torch.empty(
+            4, 16, device=cuda)})
+    with pytest.raises(ValueError, match="r \\[B, 2d\\^2\\]"):
+        K.rescal_step(rows[0], rows[0], rows[2], rows[3], lr_eps)
+    big = _k16_rows(np.random.default_rng(0), 2, 1, 240, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.rescal_step(*big, lr_eps)
+
+
+def test_rescal_graph_windows_match_sequential_bitwise(cuda):
+    """RESCAL's two classes (entity rows of 2d, relation rows of 2d^2)
+    through the device-routed runner: two windows of 4 steps against 8
+    sequential steps, device-drawn negatives, bitwise losses and pools;
+    every step launches K16 and no K2."""
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.models import make_kge_loss
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner
+    E, R, d, B, N = 300, 12, 8, 64, 4
+    vl = np.array([2 * d] * E + [2 * d * d] * R)
+    res = []
+    for mode in ("sequential", "scan"):
+        rng = np.random.default_rng(0)
+        srv = at.setup(E + R, vl, device=cuda,
+                       opts=at.SystemOptions(sync_max_per_sec=0))
+        w = srv.make_worker(0)
+        for keys, D in ((np.arange(E), d), (np.arange(E, E + R), d * d)):
+            vals = rng.normal(size=(len(keys), 2 * D)).astype(np.float32)
+            vals *= 0.1
+            vals[:, D:] = 1e-6
+            w.wait(w.set(keys, vals))
+        ec, rc = int(srv.ab.key_class[0]), int(srv.ab.key_class[E])
+        run = DeviceRoutedRunner(
+            srv, make_kge_loss("rescal", 1.0, 0.01),
+            role_class={"s": ec, "r": rc, "o": ec, "neg": ec},
+            role_dim={"s": d, "r": d * d, "o": d, "neg": d},
+            neg_role="neg", neg_shape=(B, N), neg_population=np.arange(E),
+            seed=3)
+        batches = [{"s": rng.integers(0, E, B), "r": rng.integers(E, E + R, B),
+                    "o": rng.integers(0, E, B)} for _ in range(8)]
+        K.reset_launches()
+        if mode == "sequential":
+            losses = torch.stack([run(b, None, 0.1) for b in batches])
+        else:
+            losses = torch.cat([run.run_scan(batches[i:i + 4], None, 0.1)
+                                for i in (0, 4)])
+        torch.cuda.synchronize()
+        res.append((losses.cpu(), [st.main.cpu() for st in srv.stores],
+                    {k: K.LAUNCHES[k] + K.REPLAYED[k] for k in K.LAUNCHES}))
+        srv.shutdown()
+    (la, pa, ka), (lb, pb, kb) = res
+    assert torch.equal(_bits(la), _bits(lb))
+    for a, b in zip(pa, pb):
+        assert torch.equal(_bits(a), _bits(b))
+    assert ka == kb and ka["rescal_step"] == 8 and ka["adagrad_update"] == 0
 
 
 def _aux_loss(embs, aux):
