@@ -5,9 +5,8 @@
 // fused-step update and the compressed sync round's merge
 // (adapm_tpu/device/jaxport.py _scatter_add and
 // _sync_replicas_compressed, ops/fused.py _scatter_update and the
-// no-replica add; the plain and thresholded rounds fold through K15,
-// csrc/sync_round.cu, which shares this fold); the TPU side has no
-// Pallas kernel for it, its row gather twin is pallas_kernels.gather_rows.
+// no-replica add); the TPU side has no Pallas kernel for it, its row
+// gather twin is pallas_kernels.gather_rows.
 // Its contract is np.add.at (device/refport.py _drop_add):
 //
 //   for i in batch order, if (sh[i], sl[i]) is in range:
@@ -31,10 +30,13 @@
 //     an out-of-range one). The wrapper stable-sorts these (torch.sort),
 //     so each target's occurrences form one run in batch order and the
 //     dropped entries sort last.
-//  2. ordered_fold: the fold of csrc/ordered_fold.cuh (shared with
-//     K15), over the [n, L] value buffer: a persistent grid of warps,
-//     each folding whole runs of equal targets in run order, the value
-//     rows streamed through a per-warp cp.async ring in shared memory.
+//  2. ordered_fold: the fold of csrc/ordered_fold.cuh over the [n, L]
+//     value buffer: a persistent grid of warps, each folding whole runs
+//     of equal targets in run order over one slab of columns, each run's
+//     stored row and value rows streamed through a per-warp cp.async ring
+//     in shared memory. Rows of 512 f32 take one slab and a ring of 4;
+//     rows of 32,768 f32 (RESCAL's relations) about a dozen slabs and a
+//     ring of 8, so the card keeps its memory busy at 4,096 entries.
 #include <cuda_runtime.h>
 
 #include "ordered_fold.cuh"
@@ -92,6 +94,20 @@ extern "C" int adapm_flat_targets(const int* const* sh, const int* const* sl,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+using adapm::fold::FoldGrid;
+using adapm::fold::kNV;
+
+// The ring's depth: 4 where a row is one column block (the fold of rows
+// of up to 512 f32), 8 where it spans several (each warp then streams
+// one slab of a wide row, and 7 items of 2 KiB keep it busy).
+bool deep_ring(int W) {
+  return W > 32 * kNV;
+}
+
+}  // namespace
+
 // sf/perm: [n], sf the int32 flat targets sorted ascending (stable),
 // perm[j] the batch position of sorted entry j; vals: [n, L]; pool: `rows`
 // rows of L. vec: L % 4 == 0 and pool/vals 16-byte aligned.
@@ -100,13 +116,39 @@ extern "C" int adapm_ordered_fold(float* pool, const int* sf,
                                   long long n, int rows, int L, int vec,
                                   cudaStream_t stream) {
   if (n <= 0) return 0;
-  using adapm::fold::DenseRows;
   using adapm::fold::launch_fold;
-  if (vec)
-    return launch_fold(reinterpret_cast<float4*>(pool), sf, perm,
-                       DenseRows<float4>{reinterpret_cast<const float4*>(
-                           vals)},
-                       n, rows, L / 4, stream);
-  return launch_fold(pool, sf, perm, DenseRows<float>{vals}, n, rows, L,
-                     stream);
+  if (vec) {
+    float4* p = reinterpret_cast<float4*>(pool);
+    const float4* v = reinterpret_cast<const float4*>(vals);
+    return deep_ring(L / 4)
+               ? launch_fold<float4, 8>(p, sf, perm, v, n, rows, L / 4,
+                                        stream)
+               : launch_fold<float4, 4>(p, sf, perm, v, n, rows, L / 4,
+                                        stream);
+  }
+  return deep_ring(L)
+             ? launch_fold<float, 8>(pool, sf, perm, vals, n, rows, L,
+                                     stream)
+             : launch_fold<float, 4>(pool, sf, perm, vals, n, rows, L,
+                                     stream);
+}
+
+// The grid adapm_ordered_fold launches for n entries of rows of L f32
+// (vec as there) on the current device: out = {CTAs along the entries,
+// column slabs, column blocks a slab, ring depth, shared bytes a CTA}.
+extern "C" int adapm_ordered_fold_grid(long long n, int L, int vec,
+                                       int* out) {
+  using adapm::fold::fold_grid;
+  FoldGrid g{};
+  const int W = vec ? L / 4 : L;
+  const int e = vec ? (deep_ring(W) ? fold_grid<float4, 8>(n, W, &g)
+                                            : fold_grid<float4, 4>(n, W, &g))
+                    : (deep_ring(W) ? fold_grid<float, 8>(n, W, &g)
+                                           : fold_grid<float, 4>(n, W, &g));
+  out[0] = g.x;
+  out[1] = g.y;
+  out[2] = g.per_slab;
+  out[3] = g.stages;
+  out[4] = g.smem;
+  return e;
 }

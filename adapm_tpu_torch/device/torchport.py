@@ -15,9 +15,10 @@ package's `device/jaxport.py`, with the same semantics, bit for bit:
     and its delta are set by one claim (K14's install form), reading the
     source row where it lies when it is another pool's row;
   - a planner round (K15 `sync_round`) folds each replica's delta row,
-    read where it lies, into its owner in batch order, then K14's
-    install form sets the fresh owner row as the base and zeros the
-    delta;
+    read where it lies, into its owner in batch order (ordered on the
+    card by a claim on the owner rows, with no sort), sets the fresh
+    owner row as the base and zeros the delta (the last replica naming a
+    replica row wins);
   - copies are clones and choices are selects, so -0.0 survives;
   - a bag read (K8 `gather_pool`) folds its member rows into their
     bags in batch order, as the scatter-adds do;

@@ -42,9 +42,8 @@ PyTorch version.
                                                      _install_cache_rows*)
     K15 sync_round          csrc/sync_round.cu      (XLA: jaxport._sync_replicas
                                                      and _sync_replicas_
-                                                     thresholded; K3's fold in
-                                                     csrc/ordered_fold.cuh, K14's
-                                                     install form)
+                                                     thresholded: claim, fold
+                                                     and install, no sort)
     K16 rescal_step         csrc/rescal_step.cu     (XLA: RESCAL model math of
                                                      ops/fused.py
                                                      _build_device_routed_body;
@@ -271,16 +270,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_drop_set_zero.restype = I
         lib.adapm_drop_set_zero.argtypes = [P] * 3 + [I] * 5 + [P]
     elif name == "sync_round":
-        lib.adapm_sync_ship.restype = I
-        lib.adapm_sync_ship.argtypes = [P] * 5 + [LL] + [I] * 5 + [I, F, I] \
-            + [P] * 3 + [I, P]
-        lib.adapm_sync_fold.restype = I
-        lib.adapm_sync_fold.argtypes = [P] * 6 + [LL] + [I] * 5 + [P]
+        lib.adapm_sync_round.restype = I
+        lib.adapm_sync_round.argtypes = [P] * 7 + [I] * 6 + [P, P, I, F, I,
+                                                              P]
     elif name == "ordered_scatter":
         lib.adapm_flat_targets.restype = I
         lib.adapm_flat_targets.argtypes = [P, P, P, I, P, I, I, P]
         lib.adapm_ordered_fold.restype = I
         lib.adapm_ordered_fold.argtypes = [P] * 4 + [LL, I, I, I, P]
+        lib.adapm_ordered_fold_grid.restype = I
+        lib.adapm_ordered_fold_grid.argtypes = [LL, I, I, P]
     else:
         lib.adapm_pool_eval_counts.restype = I
         lib.adapm_pool_eval_counts.argtypes = [P, I, I, I, I, P, P, LL, P, LL,
@@ -945,34 +944,62 @@ def write_main_rows_plain(main, sh, row, mode, q, scale) -> torch.Tensor:
     return main
 
 
-# the claim scratch of K11 and K14: one int32 word per pool row, all -1
-# between calls, by (kernel, device, stream, rows). Calls on one stream
-# run in order and each leaves it all -1, so pools of one size share it
-# there. A graph holds the address of what its capture allocates, so a
-# set inside a captured window must find its scratch already made.
+# the claim scratch of K11, K14 and K15: int32 words, all -1 between
+# calls, by (kernel, device, stream, words), one word per pool row unless
+# the kernel asks for more. Calls on one stream run in order and each
+# leaves it all -1, so pools of one size share it there. A graph holds the
+# address of what its capture allocates, so a set inside a captured
+# window must find its scratch already made.
 _claims: Dict[tuple, torch.Tensor] = {}
 _claims_lock = threading.Lock()
+# K15's per-call scratch by (kernel, device, stream): words that hold
+# nothing between calls, grown outside a capture; an outgrown one stays
+# referenced, since a captured graph may hold its address
+_entries: Dict[tuple, torch.Tensor] = {}
+_entries_outgrown: list = []
 
 
-def _claim_key(kernel: str, pool: torch.Tensor, stream) -> tuple:
+def _claim_key(kernel: str, pool: torch.Tensor, stream,
+               words: Optional[int] = None) -> tuple:
     return (kernel, pool.device, stream.cuda_stream,
-            pool.shape[0] * pool.shape[1])
+            pool.shape[0] * pool.shape[1] if words is None else words)
 
 
-def _claim_scratch(kernel: str, pool: torch.Tensor, stream) -> torch.Tensor:
-    key = _claim_key(kernel, pool, stream)
+def _no_capture(kernel: str, what: str) -> None:
+    _require(not torch.cuda.is_current_stream_capturing(),
+             f"{kernel}: no {what} on this stream; make it before a CUDA "
+             "graph capture (a graph keeps its address)")
+
+
+def _claim_scratch(kernel: str, pool: torch.Tensor, stream,
+                   words: Optional[int] = None) -> torch.Tensor:
+    key = _claim_key(kernel, pool, stream, words)
     claim = _claims.get(key)
     if claim is None:
         with _claims_lock:
             claim = _claims.get(key)
             if claim is None:
-                _require(not torch.cuda.is_current_stream_capturing(),
-                         f"{kernel}: no claim scratch for a pool of "
-                         f"{key[3]} rows on this stream; make it before "
-                         "a CUDA graph capture (a graph keeps its address)")
+                _no_capture(kernel, f"claim scratch of {key[3]} words")
                 claim = _claims[key] = torch.full(
                     (key[3],), -1, dtype=torch.int32, device=pool.device)
     return claim
+
+
+def _entry_scratch(kernel: str, pool: torch.Tensor, stream,
+                   words: int) -> torch.Tensor:
+    key = (kernel, pool.device, stream.cuda_stream)
+    buf = _entries.get(key)
+    if buf is None or buf.numel() < words:
+        with _claims_lock:
+            buf = _entries.get(key)
+            if buf is None or buf.numel() < words:
+                _no_capture(kernel, f"scratch of {words} words")
+                if buf is not None:
+                    _entries_outgrown.append(buf)
+                buf = _entries[key] = torch.empty(
+                    max(words, 0 if buf is None else 2 * buf.numel()),
+                    dtype=torch.int32, device=pool.device)
+    return buf
 
 
 def write_main_rows(main, sh, row, mode, q, scale=None) -> torch.Tensor:
@@ -1192,9 +1219,11 @@ def sync_round(main, cache, delta, r_sh, r_cs, o_sh, o_sl,
     """K15: one planner round over n replicas at int32 (r_sh, r_cs) of the
     [S, C, L] f32 cache/delta pair, owned at (o_sh, o_sl) of the [So, Ro,
     L] f32 main pool, in place (sync_round_plain's contract;
-    csrc/sync_round.cu). The ship pass and the fold (counted as one
-    sync_round launch) around K3's stable sort, then K14's install form
-    (counted as drop_set's)."""
+    csrc/sync_round.cu): the claim, fold and clear launches, counted as
+    one, ordered on the card with no sort. Its claim scratch (2 So Ro +
+    S C + 1 words) and per-call scratch (2 n + 1) are made at the first
+    call on a stream, outside any CUDA graph capture; a call allocates
+    nothing."""
     if not _on_cuda(main, cache, delta, r_sh, r_cs, o_sh, o_sl):
         return sync_round_plain(main, cache, delta, r_sh, r_cs, o_sh, o_sl,
                                 threshold)
@@ -1206,31 +1235,31 @@ def sync_round(main, cache, delta, r_sh, r_cs, o_sh, o_sl,
              and cache.shape == delta.shape and Ld == L,
              "sync_round: the pools must be contiguous f32, cache and delta "
              "of one shape, rows of one width")
+    _require(len({main.data_ptr(), cache.data_ptr(), delta.data_ptr()}) == 3,
+             "sync_round: main, cache and delta must be three pools")
     _require(all(t.dtype == torch.int32 and t.is_contiguous()
                  and t.numel() == n for t in (r_sh, r_cs, o_sh, o_sl)),
              "sync_round: coordinates must be contiguous int32 [n]")
     _require(So * Ro < 2**31 - 1 and S * C < 2**31 - 1,
              "sync_round: a pool has too many rows for int32 targets")
+    _require(n <= 2**30, "sync_round: at most 2**30 replicas a round")
     if n == 0:
         return
-    dev = main.device
-    flat, rcs, osl = (torch.empty(n, dtype=torch.int32, device=dev)
-                      for _ in range(3))
-    lib = _lib("sync_round")
-    rc = lib.adapm_sync_ship(
-        _ptr(delta), _ptr(r_sh), _ptr(r_cs), _ptr(o_sh), _ptr(o_sl), n, S, C,
-        L, So, Ro, int(threshold > 0.0), float(threshold), _OOB,
-        _ptr(flat), _ptr(rcs), _ptr(osl),
-        int(L % 4 == 0 and _aligned16(delta)), _stream())
-    _check(rc, "sync_round (ship pass)")
-    sf, perm = torch.sort(flat, stable=True)
-    rc = lib.adapm_sync_fold(
-        _ptr(main), _ptr(sf), _ptr(perm), _ptr(delta), _ptr(r_sh), _ptr(rcs),
-        n, So * Ro, S, C, L, int(L % 4 == 0 and _aligned16(main, delta)),
-        _stream())
+    stream = torch.cuda.current_stream(main.device)
+    words = 2 * So * Ro + S * C + 1
+    claims = _claim_scratch("sync_round", main, stream, words)
+    entries = _entry_scratch("sync_round", main, stream, 2 * n + 1)
+    rc = _lib("sync_round").adapm_sync_round(
+        _ptr(main), _ptr(cache), _ptr(delta), _ptr(r_sh), _ptr(r_cs),
+        _ptr(o_sh), _ptr(o_sl), n, S, C, So, Ro, L, _ptr(claims),
+        _ptr(entries), int(threshold > 0.0), float(threshold),
+        int(L % 4 == 0 and _aligned16(main, cache, delta)),
+        stream.cuda_stream)
     LAUNCHES["sync_round"] += 1
+    if rc != 0:
+        # a round that never ran leaves the scratch claimed
+        _claims.pop(_claim_key("sync_round", main, stream, words), None)
     _check(rc, "sync_round")
-    drop_set_install(cache, delta, r_sh, rcs, src=(main, o_sh, osl))
 
 
 def sync_compress_plain(delta, r_sh, r_cs, mode: str, threshold: float):

@@ -396,6 +396,8 @@ line; `--json PATH` also writes the full record (main-path numbers and
 the profile included) to PATH. Needs one CUDA card; exits non-zero
 without one.
 """
+import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -498,6 +500,12 @@ SERVE_CLIENTS, SERVE_LOOKUPS = 32, 50
 # EpisodicRunner's steps and episode length
 TIER_HOT, TIER_BAG_HOT = 65_536, 1_048_576
 TIER_PROMOTED, TIER_SYNC_ROWS = 16_384, 65_536
+# K3 at the main path's rows before its fold took column slabs, as
+# measured by this script's phase 2 on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6): quoted beside this run's, not measured in it
+K3_PRIOR_MS = 0.3138
+# K15's heavy round: owner rows named this many times in one round
+K15_HOT = 1000
 TIER_STORM_OPS, EPISODE_STEPS, EPISODE_B = 24, 16, 8
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM
 F32_FLOPS = 67e12                     # H100 SXM, outside the tensor cores
@@ -635,9 +643,10 @@ def nvidia_smi_line():
     return out[0]
 
 
-def phase_kernels(K, dev, rng):
-    """Phase 2: each kernel against its plain version, timed."""
-    rec = {}
+def step_keys(dev, rng):
+    """The main path's pool (E + R rows of L f32 at the store's rule) and
+    one step's ROWS coordinates into it: zipf subjects and objects,
+    uniform relations and negatives."""
     slots = -8 * (-int(np.ceil((E + R) * 1.25)) // 8)    # the store's rule
     main = torch.randn((1, slots, L), device=dev)
     main[0, :4] = -0.0
@@ -646,6 +655,13 @@ def phase_kernels(K, dev, rng):
                            rng.integers(0, E, B * N)])
     o_sh = torch.zeros(ROWS, dtype=torch.int32, device=dev)
     o_sl = torch.as_tensor(keys.astype(np.int32), device=dev)
+    return main, o_sh, o_sl
+
+
+def phase_kernels(K, dev, rng):
+    """Phase 2: each kernel against its plain version, timed."""
+    rec = {}
+    main, o_sh, o_sl = step_keys(dev, rng)
 
     # -- K1 routed_gather, main-only form (the no-replica step's read)
     got = K.routed_gather(main, None, None, o_sh, o_sl)
@@ -687,62 +703,7 @@ def phase_kernels(K, dev, rng):
         bound=bound(k1_bytes, 0))
     del cache, delta, got_f, ref_f
 
-    # -- K3 ordered_scatter_add, zipf duplicates, twice for determinism
-    vals = torch.randn((ROWS, L), device=dev)
-    outs = []
-    for _ in range(2):
-        pool = main.clone()
-        K.ordered_scatter_add(pool, o_sh, o_sl, vals)
-        outs.append(pool)
-    ref_pool = main.clone()
-    K.ordered_scatter_add_plain(ref_pool, o_sh, o_sl, vals)
-    check(torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32)),
-          "K3 is not deterministic from run to run")
-    check(torch.equal(outs[0].view(torch.int32), ref_pool.view(torch.int32)),
-          "K3 differs from its plain version (np.add.at order)")
-    err3 = float((outs[0] - ref_pool).abs().max())
-    # the multi-segment form at the step's four-role split, one launch
-    segs = [(a.contiguous(), b.contiguous()) for a, b in
-            zip(o_sh.split(ROLE_SPLIT), o_sl.split(ROLE_SPLIT))]
-    pool = main.clone()
-    K.ordered_scatter_add_segments(pool, segs, vals)
-    check(torch.equal(pool.view(torch.int32), ref_pool.view(torch.int32)),
-          "K3 multi-segment form differs from its plain version")
-    del outs, ref_pool, pool
-    scratch = main.clone()
-    k3_bytes = ROWS * L * 4 + 2 * n_main * L * 4 + ROWS * 4 * 2
-    # the fold alone reads the sorted int32 targets and the int64
-    # permutation instead of the coordinates
-    fold_bytes = ROWS * L * 4 + 2 * n_main * L * 4 + ROWS * (4 + 8)
-    sf, perm = K.ordered_scatter_order(scratch, [(o_sh, o_sl)])
-    flat32 = sf.clone()[torch.argsort(perm)]      # unsorted int32 targets
-    longest = int(torch.unique_consecutive(sf, return_counts=True)[1].max())
-    # uniform keys of the same n: the gap to the zipf time is the tail
-    u_sl = torch.randint(0, E + R, (ROWS,), device=dev, dtype=torch.int32)
-    u_sf, _ = K.ordered_scatter_order(scratch, [(o_sh, u_sl)])
-    u_longest = int(torch.unique_consecutive(u_sf,
-                                             return_counts=True)[1].max())
-    u_main = int(torch.unique(u_sl).numel())
-    rec["ordered_scatter_add"] = timed(
-        max_abs_err=err3,
-        ms=cuda_ms(lambda: K.ordered_scatter_add(scratch, o_sh, o_sl, vals)),
-        plain_ms=cuda_ms(lambda: K.ordered_scatter_add_plain(
-            scratch, o_sh, o_sl, vals), warmup=1),
-        library_ms=cuda_ms(lambda: scratch.view(-1, L).index_add_(
-            0, flat, vals)),
-        bound=bound(k3_bytes, ROWS * L),
-        fold_ms=cuda_ms(lambda: K.ordered_scatter_fold(scratch, sf, perm,
-                                                       vals)),
-        fold_bound=bound(fold_bytes, ROWS * L),
-        order_ms=cuda_ms(lambda: K.ordered_scatter_order(
-            scratch, [(o_sh, o_sl)])),
-        sort_ms=cuda_ms(lambda: torch.sort(flat32, stable=True)),
-        uniform_ms=cuda_ms(lambda: K.ordered_scatter_add(
-            scratch, o_sh, u_sl, vals)),
-        uniform_bound=bound(ROWS * L * 4 + 2 * u_main * L * 4 + ROWS * 8,
-                            ROWS * L),
-        longest_run=longest, uniform_longest_run=u_longest)
-    del scratch, sf, perm, flat32, u_sf
+    rec["ordered_scatter_add"] = phase_k3(K, dev, main, o_sh, o_sl)
 
     # -- K2 adagrad_update on the gathered rows' accumulator half
     Dh = L // 2
@@ -780,7 +741,7 @@ def phase_kernels(K, dev, rng):
         ms=cuda_ms(lambda: K.adagrad_update(g, acc, 0.1, 1e-10)),
         plain_ms=cuda_ms(lambda: K.adagrad_update_plain(g, acc, 0.1, 1e-10)),
         library_ms=lib_ms, bound=bound(k2_bytes, ROWS * Dh * 7))
-    del main, vals, g, rows
+    del main, g, rows
     torch.cuda.empty_cache()
     rec["pool_eval_counts"] = phase_k4(K, dev, rng)
     torch.cuda.empty_cache()
@@ -809,6 +770,84 @@ def phase_kernels(K, dev, rng):
     rec["sync_round"] = phase_k15(K, dev, rng)
     torch.cuda.empty_cache()
     return rec
+
+
+def phase_k3(K, dev, main, o_sh, o_sl):
+    """Phase 2, K3 at the main path's rows (512 f32) and keys (zipf
+    duplicates): bitwise its plain version and over two runs, its
+    multi-segment form at the step's four-role split; timed whole, its
+    fold and its ordering pass apart, and on uniform keys."""
+    n_main = int(torch.unique(o_sl.long()).numel())
+    flat = o_sl.long()
+    vals = torch.randn((ROWS, L), device=dev)
+    outs = []
+    for _ in range(2):
+        pool = main.clone()
+        K.ordered_scatter_add(pool, o_sh, o_sl, vals)
+        outs.append(pool)
+    ref_pool = main.clone()
+    K.ordered_scatter_add_plain(ref_pool, o_sh, o_sl, vals)
+    check(torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32)),
+          "K3 is not deterministic from run to run")
+    check(torch.equal(outs[0].view(torch.int32), ref_pool.view(torch.int32)),
+          "K3 differs from its plain version (np.add.at order)")
+    err3 = float((outs[0] - ref_pool).abs().max())
+    # the multi-segment form at the step's four-role split, one launch
+    segs = [(a.contiguous(), b.contiguous()) for a, b in
+            zip(o_sh.split(ROLE_SPLIT), o_sl.split(ROLE_SPLIT))]
+    pool = main.clone()
+    K.ordered_scatter_add_segments(pool, segs, vals)
+    check(torch.equal(pool.view(torch.int32), ref_pool.view(torch.int32)),
+          "K3 multi-segment form differs from its plain version")
+    del outs, ref_pool, pool
+    scratch = main.clone()
+    k3_bytes = ROWS * L * 4 + 2 * n_main * L * 4 + ROWS * 4 * 2
+    # the fold alone reads the sorted int32 targets and the int64
+    # permutation instead of the coordinates
+    fold_bytes = ROWS * L * 4 + 2 * n_main * L * 4 + ROWS * (4 + 8)
+    sf, perm = K.ordered_scatter_order(scratch, [(o_sh, o_sl)])
+    flat32 = sf.clone()[torch.argsort(perm)]      # unsorted int32 targets
+    longest = int(torch.unique_consecutive(sf, return_counts=True)[1].max())
+    # uniform keys of the same n: the gap to the zipf time is the tail
+    u_sl = torch.randint(0, E + R, (ROWS,), device=dev, dtype=torch.int32)
+    u_sf, _ = K.ordered_scatter_order(scratch, [(o_sh, u_sl)])
+    u_longest = int(torch.unique_consecutive(u_sf,
+                                             return_counts=True)[1].max())
+    u_main = int(torch.unique(u_sl).numel())
+    return timed(
+        max_abs_err=err3,
+        ms=cuda_ms(lambda: K.ordered_scatter_add(scratch, o_sh, o_sl, vals)),
+        plain_ms=cuda_ms(lambda: K.ordered_scatter_add_plain(
+            scratch, o_sh, o_sl, vals), warmup=1),
+        library_ms=cuda_ms(lambda: scratch.view(-1, L).index_add_(
+            0, flat, vals)),
+        bound=bound(k3_bytes, ROWS * L),
+        fold_ms=cuda_ms(lambda: K.ordered_scatter_fold(scratch, sf, perm,
+                                                       vals)),
+        fold_bound=bound(fold_bytes, ROWS * L),
+        order_ms=cuda_ms(lambda: K.ordered_scatter_order(
+            scratch, [(o_sh, o_sl)])),
+        sort_ms=cuda_ms(lambda: torch.sort(flat32, stable=True)),
+        uniform_ms=cuda_ms(lambda: K.ordered_scatter_add(
+            scratch, o_sh, u_sl, vals)),
+        uniform_bound=bound(ROWS * L * 4 + 2 * u_main * L * 4 + ROWS * 8,
+                            ROWS * L),
+        longest_run=longest, uniform_longest_run=u_longest,
+        grid=fold_grid(K, ROWS, L), ptxas=ptxas_summary("ordered_scatter"))
+
+
+def fold_grid(K, n, width):
+    """K3's fold grid for n entries of `width` f32 on this card: CTAs
+    along the entries, column slabs, column blocks a slab, ring depth,
+    shared bytes a CTA."""
+    lib = K._lib("ordered_scatter")
+    if not hasattr(lib, "adapm_ordered_fold_grid"):
+        return None                       # an earlier tree's fold
+    out = (ctypes.c_int * 5)()
+    check(lib.adapm_ordered_fold_grid(n, width, int(width % 4 == 0),
+                                      out) == 0, "K3's fold grid failed")
+    return dict(zip(("ctas", "slabs", "blocks_a_slab", "stages", "smem"),
+                    out))
 
 
 def check_k67(K, name, got, got2, plain, grads, rows, d, form):
@@ -1121,15 +1160,19 @@ def phase_k16(K, dev, rng):
     del outs, p
     n_rel = len(np.unique(rkeys))
     flat, rflat = r_sl.long(), rel.view(-1, Lr)
+    sf, perm = K.ordered_scatter_order(rel, [(r_sh, r_sl)])
     wide = dict(
         rows=B, width=Lr, distinct=n_rel,
         k1_ms=cuda_ms(lambda: K.routed_gather(rel, None, None, r_sh, r_sl)),
         k1_library_ms=cuda_ms(lambda: rflat.index_select(0, flat)),
         k1_bound=bound(n_rel * Lr * 4 + B * 8 + B * Lr * 4, 0),
+        k3_grid=fold_grid(K, B, Lr),
         k3_ms=cuda_ms(lambda: K.ordered_scatter_add(rel, r_sh, r_sl, vals)),
+        k3_fold_ms=cuda_ms(lambda: K.ordered_scatter_fold(rel, sf, perm,
+                                                          vals)),
         k3_library_ms=cuda_ms(lambda: rflat.index_add_(0, flat, vals)),
         k3_bound=bound(B * Lr * 4 + 2 * n_rel * Lr * 4 + B * 8, B * Lr))
-    del rel, vals, rflat
+    del rel, vals, rflat, sf, perm
     torch.cuda.empty_cache()
 
     role = {"s": erows[:B], "r": rrows, "o": erows[B:2 * B],
@@ -1227,8 +1270,12 @@ def report_k16(r):
           f"({w['distinct']} distinct relations), bitwise their plain "
           f"versions: K1 {fmt_s(*w['k1_ms'])} ms (bound "
           f"{w['k1_bound'][0]:.4f} ms; index_select "
-          f"{fmt_s(*w['k1_library_ms'])} ms), K3 {fmt_s(*w['k3_ms'])} ms (bound {w['k3_bound'][0]:.4f} "
-          f"ms; index_add_ {fmt_s(*w['k3_library_ms'])} ms)", flush=True)
+          f"{fmt_s(*w['k1_library_ms'])} ms), K3 {fmt_s(*w['k3_ms'])} ms "
+          f"(bound {w['k3_bound'][0]:.4f} ms, share "
+          f"{w['k3_bound'][0] / w['k3_ms'][0]:.3f}; its fold alone "
+          f"{fmt_s(*w['k3_fold_ms'])} ms; index_add_ "
+          f"{fmt_s(*w['k3_library_ms'])} ms; fold grid {w['k3_grid']})",
+          flush=True)
 
 
 def dlrm_table():
@@ -1683,8 +1730,13 @@ def ptxas_summary(name):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            tpl = re.search(r"kernelI(.*)EEv", m.group(1))
-            cur = dict(entry=tpl.group(1) if tpl else m.group(1))
+            # the kernel's name and its template arguments, still mangled
+            k = re.search(r"([a-z][a-z0-9_]*_kernel)(?:I(.*?)EEv)?",
+                          m.group(1))
+            entry = m.group(1) if k is None else re.sub(
+                r"^.*\d(?=[a-z])", "", k.group(1)) + (
+                f"<{k.group(2)}>" if k.group(2) else "")
+            cur = dict(entry=entry)
             out.append(cur)
             continue
         if cur is None:
@@ -3478,12 +3530,13 @@ def k11_batches(rng):
                                                             row)]
 
 
-def one_call_kernels(fn, reps=20):
+def one_call_kernels(fn, reps=20, us=False):
     """The device records of one call of fn(), {name: records a call},
-    from a profiler trace of `reps` calls (after a warm-up call). A trace
-    that lost a record (kernel_ms) leaves a count that is not whole a
-    call; it is taken again, up to four times, and TRACE_RETAKES counts
-    the retakes under "one call"."""
+    from a profiler trace of `reps` calls (after a warm-up call); with
+    `us`, {name: [records a call, device us a call]}. A trace that lost
+    a record (kernel_ms) leaves a count that is not whole a call; it is
+    taken again, up to four times, and TRACE_RETAKES counts the retakes
+    under "one call"."""
     from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3494,12 +3547,18 @@ def one_call_kernels(fn, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        names = Counter(e.name for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = Counter(e.name for e in evs)
         if all(c % reps == 0 for c in names.values()):
             break
         TRACE_RETAKES["one call"] = TRACE_RETAKES.get("one call", 0) + 1
-    return {k: c / reps for k, c in names.items()}
+    if not us:
+        return {k: c / reps for k, c in names.items()}
+    dev_us = Counter()
+    for e in evs:
+        dev_us[e.name] += e.self_device_time_total / reps
+    return {k: [c / reps, round(dev_us[k], 2)] for k, c in names.items()}
 
 
 def device_ms(fn, traces=3):
@@ -3852,10 +3911,16 @@ def phase_k15(K, dev, rng):
         def plain(i, thr=thr):
             K.sync_round_plain(main, cache, deltas[i], *co, threshold=thr)
 
+        # five calls (a warm-up and four traced), each on fresh deltas
+        # (a retaken trace may reach a round whose deltas are zero)
         restore()
-        calls = one_call_kernels(lambda: kern(0), reps=4)
+        fresh = itertools.count()
+        calls = one_call_kernels(lambda: kern(next(fresh) % reps), reps=4,
+                                 us=True)
         restore()
-        parent_calls = one_call_kernels(lambda: parent(0), reps=4)
+        fresh = itertools.count()
+        parent_calls = one_call_kernels(lambda: parent(next(fresh) % reps),
+                                        reps=4)
         ms, event_ms = fresh_ms(kern, restore)
         parent_ms, parent_event_ms = fresh_ms(parent, restore)
         plain_ms = fresh_ms(plain, restore, reps=3, traces=1,
@@ -3869,7 +3934,7 @@ def phase_k15(K, dev, rng):
             ms, plain_ms, None, max_abs_err=0.0, event_ms=event_ms,
             parent_ms=parent_ms, parent_event_ms=parent_event_ms,
             bound=bound(nbytes, shipped * L), rows=n, shipped=shipped,
-            launches_a_round=sum(calls.values()),
+            launches_a_round=sum(c for c, _ in calls.values()),
             parent_launches_a_round=sum(parent_calls.values()),
             call_kernels=calls)
         del main, cache
@@ -3889,7 +3954,59 @@ def phase_k15(K, dev, rng):
               f"K15 at S=4 (threshold {thr}, owners folded three times a "
               "round) differs from its plain version or between two runs")
         del got, ref
-    return dict(out[0.0], held=out[0.5], s4_bitwise=True)
+    del pools
+    torch.cuda.empty_cache()
+    return dict(out[0.0], held=out[0.5], s4_bitwise=True,
+                heavy=k15_heavy(K, dev, rng),
+                ptxas=ptxas_summary("sync_round"))
+
+
+def k15_heavy(K, dev, rng):
+    """K15's heavy round: 4,096 replicas at S=2 (phase 12's layout) and
+    K15_HOT more naming owner row (0, 1), each from a replica row of its
+    own, in a shuffled batch order, at threshold 0 and half held: bitwise
+    its plain version and over two runs, the claim scratch all -1; the
+    device records of a round with their us (the trace)."""
+    n = 4096
+    pools, co = sync_setup(rng, dev, 2, n, n // 2 + 64)
+    C = pools[1].shape[1]
+    extra = [torch.randn((2, K15_HOT, L), device=dev) for _ in range(2)]
+    extra[1][:, ::2] *= 1e-3                  # half of them held at 0.5
+    pools[1:] = [torch.cat([p, x], dim=1).contiguous()
+                 for p, x in zip(pools[1:], extra)]
+    i32 = dict(dtype=torch.int32, device=dev)
+    hot = [torch.ones(K15_HOT, **i32), torch.arange(C, C + K15_HOT, **i32),
+           torch.zeros(K15_HOT, **i32), torch.ones(K15_HOT, **i32)]
+    order = torch.as_tensor(rng.permutation(n + K15_HOT), device=dev)
+    co = [torch.cat([a, b])[order].contiguous() for a, b in zip(co, hot)]
+    out = {}
+    for thr in (0.0, 0.5):
+        got = []
+        for _ in range(2):
+            p = [t.clone() for t in pools]
+            K.sync_round(*p, *co, threshold=thr)
+            got.append(p)
+            check(claims_clear(K), f"K15's heavy round (threshold {thr}) "
+                  "left a claim scratch set")
+        ref = [t.clone() for t in pools]
+        K.sync_round_plain(*ref, *co, threshold=thr)
+        check(all(bitwise(a, b) and bitwise(a, c)
+                  for a, b, c in zip(got[0], got[1], ref)),
+              f"K15's heavy round (threshold {thr}, owner (0, 1) named "
+              f"{K15_HOT + 1} times) differs from its plain version or "
+              "between two runs")
+        del got, ref
+        main, cache = pools[0].clone(), pools[1].clone()
+        # fresh deltas for the warm-up, four traced calls and four retakes
+        deltas = [pools[2].clone() for _ in range(21)]
+        fresh = itertools.count()
+        calls = one_call_kernels(lambda: K.sync_round(
+            main, cache, deltas[next(fresh) % 21], *co, threshold=thr),
+            reps=4, us=True)
+        out[thr] = dict(rows=n + K15_HOT, call_kernels=calls,
+                        ms=sum(u for _, u in calls.values()) / 1e3)
+        del main, cache, deltas
+    return out
 
 
 def report_k14_k15(rec):
@@ -3940,6 +4057,13 @@ def report_k14_k15(rec):
         print("phase 2: K15 at S=4 (every owner folds three replicas a "
               "round), threshold 0 and half held: bitwise its plain "
               "version and over two runs", flush=True)
+        for thr, r in k15["heavy"].items():
+            print(f"phase 2: K15's heavy round, {r['rows']} replicas, owner "
+                  f"(0, 1) named {K15_HOT + 1} times, threshold {thr}: "
+                  f"{r['ms']:.4f} ms of device time ({r['call_kernels']}); "
+                  "bitwise its plain version and over two runs, every "
+                  "claim scratch all -1", flush=True)
+        print(f"phase 2: K15 ptxas {k15['ptxas']}", flush=True)
 
 
 def report_tier_kernels(rec, names=("gather_cold", "gather_pool_cold",
@@ -4432,17 +4556,7 @@ def report_kernels(rec):
     print(f"phase 2: K1 vs index_select, median [min, max] of 20: "
           f"{fmt_t(k1, 'ms')} vs {fmt_t(k1, 'library_ms')} ms; "
           f"multi-segment forms at {ROLE_SPLIT} bitwise", flush=True)
-    k3 = rec["ordered_scatter_add"]
-    print(f"phase 2: K3 three ways (zipf keys, longest run "
-          f"{k3['longest_run']}): wrapper {fmt_t(k3, 'ms')}"
-          f" ms; fold alone {fmt_s(*k3['fold_ms'])} ms (bound "
-          f"{k3['fold_bound'][0]:.4f} ms, share "
-          f"{k3['fold_bound'][0] / k3['fold_ms'][0]:.3f}); ordering pass "
-          f"(flat targets + sort) {fmt_s(*k3['order_ms'])} ms; torch.sort "
-          f"alone {fmt_s(*k3['sort_ms'])} ms; uniform keys (longest run "
-          f"{k3['uniform_longest_run']}) {fmt_s(*k3['uniform_ms'])} ms "
-          f"(bound {k3['uniform_bound'][0]:.4f} ms); multi-segment form at "
-          f"{ROLE_SPLIT} bitwise; deterministic over two runs", flush=True)
+    report_k3(rec["ordered_scatter_add"])
     report_k4(rec["pool_eval_counts"])
     report_k4_mp(rec["pool_eval_counts"]["mp_form"])
     report_k8(rec["gather_pool"])
@@ -4477,6 +4591,26 @@ def report_kernels(rec):
               f"{r.get('forms', r['max_abs_err'])}; deterministic, K2 on its "
               f"gradient bitwise its update rows; ptxas {r['ptxas']}",
               flush=True)
+
+
+def report_k3(k3):
+    """K3's phase-2 lines at the main path's rows."""
+    print(f"phase 2: K3 at {ROWS} rows of {L} f32: {fmt_t(k3, 'ms')} ms "
+          f"(bound {k3['bound'][0]:.4f} ms, share "
+          f"{k3['bound'][0] / k3['ms']:.3f}; before column slabs "
+          f"{K3_PRIOR_MS} ms, not measured here); index_add_ "
+          f"{fmt_t(k3, 'library_ms')} ms; fold "
+          f"grid {k3['grid']}; ptxas {k3['ptxas']}", flush=True)
+    print(f"phase 2: K3 three ways (zipf keys, longest run "
+          f"{k3['longest_run']}): wrapper {fmt_t(k3, 'ms')}"
+          f" ms; fold alone {fmt_s(*k3['fold_ms'])} ms (bound "
+          f"{k3['fold_bound'][0]:.4f} ms, share "
+          f"{k3['fold_bound'][0] / k3['fold_ms'][0]:.3f}); ordering pass "
+          f"(flat targets + sort) {fmt_s(*k3['order_ms'])} ms; torch.sort "
+          f"alone {fmt_s(*k3['sort_ms'])} ms; uniform keys (longest run "
+          f"{k3['uniform_longest_run']}) {fmt_s(*k3['uniform_ms'])} ms "
+          f"(bound {k3['uniform_bound'][0]:.4f} ms); multi-segment form at "
+          f"{ROLE_SPLIT} bitwise; deterministic over two runs", flush=True)
 
 
 def report_k8(k8):
@@ -6639,6 +6773,8 @@ def main(argv):
                  "K4mp": (phase_k4_mp, report_k4_mp),
                  "K13": (phase_k13, report_k13),
                  "K16": (phase_k16, report_k16),
+                 "K3": (lambda K, dev, rng: phase_k3(
+                     K, dev, *step_keys(dev, rng)), report_k3),
                  "K14": (phase_k14, lambda r: report_k14_k15(
                      {"drop_set": r})),
                  "K15": (phase_k15, lambda r: report_k14_k15(
@@ -6672,6 +6808,11 @@ def main(argv):
         K.reset_launches()
         report_main_path(phase_main_path(K, kge_path, 0), dict(K.LAUNCHES),
                          kge_path)
+        return 0
+    if "--rescal-only" in argv:
+        # phase 3 (RESCAL) alone, checked as in the full run: copied into
+        # an earlier tree, it drives that tree's RESCAL step the same way
+        drive_path(K, rescal_path, RESCAL_STEP_KERNELS, 5)
         return 0
     if "--fault-only" in argv:
         # phase 14 alone (checkpoint chains, fault injection, flight
@@ -6982,7 +7123,10 @@ def main(argv):
         held_bound_ms=k15["held"]["bound"][0],
         held_parent_ms=k15["held"]["parent_ms"][0],
         launches_a_round=k15["launches_a_round"],
-        parent_launches_a_round=k15["parent_launches_a_round"])
+        parent_launches_a_round=k15["parent_launches_a_round"],
+        held_launches_a_round=k15["held"]["launches_a_round"],
+        heavy_ms=k15["heavy"][0.0]["ms"],
+        heavy_held_ms=k15["heavy"][0.5]["ms"])
     # K1 and K3 at the relation rows' width (phase 2's K16 part)
     wide = rec["rescal_step"]["wide"]
     kernels[list(rec).index("routed_gather")].update(
@@ -6996,6 +7140,7 @@ def main(argv):
     k3_line.update(fold_ms=k3["fold_ms"][0], order_ms=k3["order_ms"][0],
                    sort_ms=k3["sort_ms"][0], uniform_ms=k3["uniform_ms"][0],
                    rows_32768_ms=wide["k3_ms"][0],
+                   rows_32768_fold_ms=wide["k3_fold_ms"][0],
                    rows_32768_bound_ms=wide["k3_bound"][0],
                    rows_32768_library_ms=wide["k3_library_ms"][0])
     full = rec["gather_pool"]["full_batch"]   # K8 at a 64-request batch

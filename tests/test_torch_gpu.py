@@ -84,7 +84,7 @@ def test_routed_gather_both_forms_bitwise(cuda, L):
         assert torch.equal(_bits(got), _bits(ref))
 
 
-@pytest.mark.parametrize("L", [16, 5])
+@pytest.mark.parametrize("L", [16, 5, 32_768, 32_766])
 def test_ordered_scatter_add_bitwise_and_deterministic(cuda, L):
     rng = np.random.default_rng(L)
     S, R, n = 2, 30, 3000
@@ -133,13 +133,14 @@ def _scatter_case(rng, S, R, L, sh, sl, sizes):
     return base, segs, vals, _bits(ref)
 
 
-@pytest.mark.parametrize("L", [5, 12, 512, 600, 1030])
+@pytest.mark.parametrize("L", [5, 12, 512, 600, 1030, 32_768, 32_766])
 def test_ordered_scatter_long_runs_and_chunk_boundaries(cuda, L):
     """One target repeated 1,000 times (a run far longer than the ring),
     runs of every length crossing the 32-entry chunks, out-of-range
     entries, and several segments with an empty one: bitwise equal to
     sequential plain calls and deterministic. L=600 and L=1030 loop
-    over column blocks (vector and scalar elements)."""
+    over column blocks (vector and scalar elements); L=32,768 and 32,766
+    spread them over column slabs (vector and scalar elements)."""
     rng = np.random.default_rng(L)
     S, R = 2, 64
     hot = np.zeros(1000, np.int64)                       # row (0, 0)
@@ -1316,6 +1317,22 @@ def _sync_case(rng, S, L, n, C=64, R=40):
                                    (r_sh, r_cs, o_sh, o_sl)]
 
 
+def _heavy_sync_case(rng, S, L, k, dup, C=700, R=40):
+    """A round in which owner row (0, 1) is named by k replicas, among
+    250 entries of _sync_case (singletons, held rows, OOB and negative
+    coordinates, -0.0), in a shuffled batch order; its k replica rows are
+    distinct, or with `dup` a third of them repeat an earlier one."""
+    base = _sync_case(rng, S, L, 250, C, R)
+    rows = rng.permutation(S * C)[:k]
+    if dup:
+        rows[2::3] = rows[rng.integers(0, max(1, k // 3), len(rows[2::3]))]
+    extra = [rows // C, rows % C, np.zeros(k), np.ones(k)]
+    order = rng.permutation(250 + k)
+    coords = [torch.from_numpy(np.concatenate([a.numpy(), b.astype(np.int32)])
+                               [order]) for a, b in zip(base[3:], extra)]
+    return base[:3] + coords
+
+
 @pytest.mark.parametrize("L", [512, 7])
 @pytest.mark.parametrize("S", [2, 4])
 @pytest.mark.parametrize("threshold", [0.0, 0.5])
@@ -1323,10 +1340,16 @@ def test_sync_round_bitwise_plain(cuda, L, S, threshold):
     """K15 bitwise its plain version and over two runs: owners repeated
     within a round (their folds in batch order), held rows below the
     threshold, duplicate replicas, OOB and negative coordinates, -0.0;
-    K14's claim scratch all -1 after."""
+    then rounds in which one owner row is named 2, 32, 33 and 1,000 times
+    (lists sorted in the warp, and past it in memory), with
+    distinct and with repeated replica rows; every claim scratch (K15's
+    and K14's) all -1 after each call."""
     rng = np.random.default_rng(S * 100 + L)
-    for n in (1, 37, 3000):
-        args = _sync_case(rng, S, L, n)
+    cases = [_sync_case(rng, S, L, n) for n in (1, 37, 3000)]
+    cases += [_heavy_sync_case(rng, S, L, k, dup) for k in (2, 32, 33, 1000)
+              for dup in (False, True)]
+    for args in cases:
+        n = len(args[3])
         ref = [t.clone() for t in args[:3]]
         K.sync_round_plain(*ref, *args[3:], threshold=threshold)
         outs = []
@@ -1340,6 +1363,55 @@ def test_sync_round_bitwise_plain(cuda, L, S, threshold):
             assert torch.equal(_bits(a), _bits(r)), (n, name)
         for claim in K._claims.values():
             assert bool((claim == -1).all()), n
+
+
+def _captured(graph, stream, fn):
+    """Bytes the capture of fn() into `graph` on `stream` allocated."""
+    before = torch.cuda.memory_allocated()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return torch.cuda.memory_allocated() - before
+
+
+def test_sync_round_in_a_captured_graph(cuda):
+    """K15 captured in a CUDA graph (its scratch made by a round on the
+    capture stream first) allocates no more during the capture than an
+    empty capture does (the capture's own RNG state), and each replay on
+    fresh inputs is bitwise the eager round on the same inputs,
+    threshold 0 and half held."""
+    rng = np.random.default_rng(9)
+    for threshold in (0.0, 0.5):
+        args = _on(cuda, *_heavy_sync_case(rng, 4, 512, 40, False))
+        side = torch.cuda.Stream(cuda)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            pools = [t.clone() for t in args[:3]]
+            K.sync_round(*pools, *args[3:], threshold=threshold)
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        torch.cuda.synchronize()
+        pools = [t.clone() for t in args[:3]]
+        # the process's first capture may set up state of its own
+        _captured(torch.cuda.CUDAGraph(), side, lambda: None)
+        empty = _captured(torch.cuda.CUDAGraph(), side, lambda: None)
+        graph = torch.cuda.CUDAGraph()
+        used = _captured(graph, side, lambda: K.sync_round(
+            *pools, *args[3:], threshold=threshold))
+        assert used == empty, (used, empty)
+        for seed in range(3):
+            fresh = _on(cuda, *_sync_case(np.random.default_rng(seed), 4,
+                                          512, 1, C=700)[:3])
+            for p, f in zip(pools, fresh):
+                p.copy_(f)
+            graph.replay()
+            torch.cuda.synchronize()
+            ref = [f.clone() for f in fresh]
+            K.sync_round(*ref, *args[3:], threshold=threshold)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("main", "cache", "delta"), pools, ref):
+                assert torch.equal(_bits(a), _bits(b)), (threshold, seed,
+                                                          name)
+        for claim in K._claims.values():
+            assert bool((claim == -1).all()), threshold
 
 
 def test_port_sets_and_syncs_on_card_bitwise_cpu(cuda):

@@ -11,8 +11,9 @@ relocate, clear and sync programs that run on them
 Inputs come from a numpy seed: duplicate targets (the last in batch
 order wins a set), OOB padding and shards past the pool (dropped),
 -0.0 rows, owners repeated within a sync round at S=4 (their folds in
-batch order: (main + d1) + d2), and a threshold with rows on both sides
-of it. XLA wraps a negative index where the port drops it
+batch order: (main + d1) + d2), one owner row named by 1, 2, 33 and 100
+replicas among singletons, and a threshold with rows on both sides of
+it; K3's plain version at rows of 32,768 f32 against the XLA scatter. XLA wraps a negative index where the port drops it
 (device/port.py), so the cases with negative coordinates are held to
 NumpyRefPort alone. The card kernels are held to these plain versions
 by tests/test_torch_gpu.py and chip_smoke.py phase 2.
@@ -298,3 +299,108 @@ def test_sync_round_folds_in_batch_order():
     assert not d.numpy().any()
     _same((m, c, d), J._sync_replicas(*_j(main, cache, delta), *co),
           "the fold's order (XLA)")
+
+
+def _heavy_round(rng, S, R, C, n, k, negative):
+    """n entries with distinct owner and replica rows (OOB, shards past
+    the pool and, with `negative`, negative coordinates among them) and
+    k more naming owner row (0, 1), a -0.0 row, from replica rows drawn
+    with repeats, in a shuffled batch order."""
+    o = rng.permutation(S * R)[:n]
+    r = rng.permutation(S * C)[:n]
+    o_sh, o_sl, r_sh, r_cs = o // R, o % R, r // C, r % C
+    u = rng.random(n)
+    o_sl[u < 0.1] = OOB
+    r_cs[(u >= 0.1) & (u < 0.2)] = OOB
+    o_sh[(u >= 0.2) & (u < 0.25)] = -1 if negative else S + 1
+    r_cs[(u >= 0.25) & (u < 0.3)] = -2 if negative else C
+    hot = rng.integers(0, S * C, k)
+    order = rng.permutation(n + k)
+    return [np.concatenate([a, b])[order].astype(np.int32) for a, b in
+            ((r_sh, hot // C), (r_cs, hot % C), (o_sh, np.zeros(k)),
+             (o_sl, np.ones(k)))]
+
+
+@pytest.mark.parametrize("k", [1, 2, 33, 100])
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("threshold", [0.0, 0.6])
+def test_sync_round_one_owner_named_many_times(k, negative, threshold):
+    """K15's plain version where one owner row is named by k replicas
+    (the fold's cases on the card: one entry, a list sorted in the warp,
+    lists past 32) among singletons, held rows, OOB and out-of-range
+    coordinates and -0.0, against NumpyRefPort and, without negative
+    coordinates, _sync_replicas / _sync_replicas_thresholded."""
+    rng = np.random.default_rng(500 + 10 * k + negative)
+    S, R, C, n = 4, 24, 64, 40
+    main, cache, delta = _pools(rng, S, R, C)
+    delta[:, ::2] *= 0.1                # rows on both sides of 0.6
+    co = _heavy_round(rng, S, R, C, n, k, negative)
+    want = NumpyRefPort().sync_replicas(main.copy(), cache.copy(),
+                                        delta.copy(), *co,
+                                        threshold=threshold)
+    m, c, d = _t(main, cache, delta)
+    K.sync_round(m, c, d, *_t(*co), threshold=threshold)
+    _same((m, c, d), want, f"sync_round, owner named {k} times")
+    if not negative:
+        jx = J._sync_replicas(*_j(main, cache, delta), *co) \
+            if threshold == 0.0 else J._sync_replicas_thresholded(
+                *_j(main, cache, delta), *co, np.float32(threshold))
+        _same((m, c, d), jx, f"sync_round (XLA), owner named {k} times")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ordered_scatter_plain_wide_rows_bitwise_xla(seed):
+    """K3's plain version at RESCAL's relation rows (32,768 f32): a few
+    dozen entries in runs of 1-8 on distinct rows, shuffled, some OOB,
+    values over seven decades with -0.0 rows, against the XLA scatter
+    (_scatter_add, its delta half all dropped)."""
+    rng = np.random.default_rng(seed)
+    S, R, W = 2, 12, 32_768
+    main = rng.normal(size=(S, R, W)).astype(np.float32)
+    main[0, :2, ::3] = -0.0
+    flat = np.repeat(rng.permutation(S * R)[:8], rng.integers(1, 9, 8))
+    flat = flat[rng.permutation(len(flat))]
+    n = len(flat)
+    sh, sl = (flat // R).astype(np.int32), (flat % R).astype(np.int32)
+    sl[rng.random(n) < 0.1] = OOB
+    vals = (rng.normal(size=(n, W)) * 10.0 ** rng.integers(
+        -3, 4, (n, 1))).astype(np.float32)
+    vals[::5] = -0.0
+    (m,) = _t(main)
+    K.ordered_scatter_add(m, *_t(sh, sl, vals))
+    delta = np.zeros((S, 1, W), np.float32)
+    oob = np.full(n, OOB, np.int32)
+    want, _ = J._scatter_add(*_j(main, delta), sh, sl, sh, oob, vals)
+    _same(m, want, "ordered_scatter_add at rows of 32,768 f32 (XLA)")
+
+
+def test_sync_round_scratch_grows_only_outside_a_capture(monkeypatch):
+    """K15's per-call scratch (kernels._entry_scratch): reused while it is
+    large enough, grown (the outgrown one kept referenced, as a captured
+    graph may hold its address) outside a capture, refused inside one;
+    its claim scratch is made all -1 and refused inside a capture too."""
+    class Stream:
+        cuda_stream = 12345
+
+    pool = torch.zeros(2, 3, 4)
+    kept = len(K._entries_outgrown)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    try:
+        a = K._entry_scratch("test_k15", pool, Stream(), 10)
+        assert K._entry_scratch("test_k15", pool, Stream(), 7) is a
+        b = K._entry_scratch("test_k15", pool, Stream(), 11)
+        assert b.numel() == 20 and K._entries_outgrown[-1] is a
+        claims = K._claim_scratch("test_k15", pool, Stream(), 9)
+        assert claims.numel() == 9 and bool((claims == -1).all())
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: True)
+        assert K._entry_scratch("test_k15", pool, Stream(), 20) is b
+        with pytest.raises(ValueError, match="before a CUDA graph capture"):
+            K._entry_scratch("test_k15", pool, Stream(), 21)
+        with pytest.raises(ValueError, match="before a CUDA graph capture"):
+            K._claim_scratch("test_k15", pool, Stream(), 10)
+    finally:
+        K._entries.pop(("test_k15", pool.device, Stream.cuda_stream), None)
+        K._claims.pop(K._claim_key("test_k15", pool, Stream(), 9), None)
+        del K._entries_outgrown[kept:]
