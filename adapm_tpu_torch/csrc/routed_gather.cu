@@ -21,23 +21,46 @@
 // one launch per pool class per training step.
 //
 // Bound on an H100: bytes. Each output row reads one (or two) pool rows
-// and writes one row; there is no arithmetic to speak of. Design: each
-// warp moves kRows = 2 rows. Its first lanes read the rows' coordinates
-// and resolve their sources; the warp then issues the 16-byte loads of
-// both rows (4 float4 per lane for a 512-float row) before the first
-// store, so two rows are in flight per warp, and stores with the
-// streaming hint (the output is read once, by the next operation).
-// Blocks of 8 warps are scheduled by the hardware: at the fused step's
-// 143,360 rows of 512 f32 (chip_smoke.py phase 2, NVIDIA H100 80GB
-// HBM3, 700 W) a persistent grid sized to the card, each warp walking
-// 32-row windows with 4 rows in flight, took 0.2118 ms against
+// and writes one row; there is no arithmetic to speak of. The bound
+// counts each distinct pool row once, so the kernel nears it only where
+// a row named again is read again from L2, not from device memory.
+//
+// Design: each warp moves kRows = 2 rows. Its first lanes read the rows'
+// coordinates and resolve their sources; the warp then issues the
+// 16-byte loads of both rows' column block (4 float4 per lane, 2 KiB a
+// row) before the first store, so two rows are in flight per warp, and
+// stores with the streaming hint (the output is read once, by the next
+// operation). Blocks of 8 warps are scheduled by the hardware: at the
+// fused step's 143,360 rows of 512 f32 (chip_smoke.py phase 2, NVIDIA
+// H100 80GB HBM3, 700 W) a persistent grid sized to the card, each warp
+// walking 32-row windows with 4 rows in flight, took 0.2118 ms against
 // index_select's 0.2018 in the same run: a warp that owns many rows
-// leaves the card's tail ragged. The whole batch is read from device
-// memory either way (its duplicate rows rarely stay in L2), so the
-// kernel runs at the rate of that traffic, level with index_select
-// (PERF.md). Rows whose length is not a multiple of 4 (or unaligned
-// pools) take the same kernel with 4-byte elements; longer rows loop
-// over column blocks of 128 elements.
+// leaves the card's tail ragged. There the batch names ~100,000
+// distinct rows of 2 KiB, more than L2 holds, and the kernel runs level
+// with index_select (PERF.md).
+//
+// Wide rows (RESCAL's relation rows of 32,768 f32, 128 KiB) are walked
+// in column slabs, one per grid row: the row tile in blockIdx.x and the
+// slab in blockIdx.y, so the hardware dispatches every row tile of slab
+// j before slab j + 1. The wrapper (ops/kernels.py _k1_slab) makes a
+// slab one column block where the rows a call can name take more than
+// half of L2, else the whole row. At RESCAL's 4,096 rows naming ~1,000
+// relations a slab's named rows take ~2 MB, so a relation's repeats find
+// its slab in L2, and the slab form's loads ask L2 to keep their lines
+// (evict_last).
+// Whole rows read each repeat from device memory: a relation's 128 KiB
+// has mostly left L2 before it is named again. chip_smoke.py --kernels
+// K1 on the same card, device time in the trace: whole rows (the kernel
+// before the slabs) 0.2862-0.2864 ms, slabs 0.2277-0.2358, index_select
+// 0.2381-0.2494, against a bound of 0.1988. What is left is the device
+// memory's rate on the 537 MB the call writes: fill_ of the output
+// alone takes 0.1634-0.1637 ms, and K1 with every row naming one pool
+// row 0.1662-0.1666; the ~130 MB of distinct rows read amid the writes
+// cost the rest. At 512 f32 the batch takes whole rows (0.1949-0.1950
+// ms against index_select's 0.1947-0.1948).
+//
+// Rows whose length is not a multiple of 4 (or unaligned pools) take the
+// same kernel with 4-byte elements.
 #include <cuda_runtime.h>
 
 #include "routed_read.cuh"
@@ -52,6 +75,7 @@ constexpr int kMaxSeg = 8;   // segments per call (the wrapper packs more)
 constexpr int kWarps = 8;    // warps per block
 constexpr int kRows = 2;     // rows per warp, in flight together
 constexpr int kNV = 4;       // elements per lane per column block
+constexpr int kBlock = 32 * kNV;
 
 struct Segments {
   const int* o_sh[kMaxSeg];
@@ -63,15 +87,20 @@ struct Segments {
   int count;
 };
 
-// kFull: the cache+delta form.
-template <typename T, bool kFull>
+// kFull: the cache+delta form; kKeep: loads ask L2 to keep their lines
+// (the slab form). Block (x, y) moves rows [x * kWarps * kRows, (x + 1)
+// * kWarps * kRows) over columns [y * slab, (y + 1) * slab) (elements
+// of T).
+template <typename T, bool kFull, bool kKeep>
 __global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
     const T* __restrict__ main_pool, const T* __restrict__ cache,
     const T* __restrict__ delta, Segments segs, T* __restrict__ out,
-    long long n, int shards, int slots, int c_shards, int c_slots, int W) {
+    long long n, int shards, int slots, int c_shards, int c_slots, int W,
+    int slab) {
   const int lane = threadIdx.x & 31;
   const long long r0 =
-      (((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * kRows;
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRows;
+  if (r0 >= n) return;                        // the whole warp
   // lane g < kRows resolves row r0 + g: its source row offset (-1: a
   // zero row) and pool
   long long src = -2;                         // -2: past the batch
@@ -93,7 +122,9 @@ __global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
     gsrc[g] = __shfl_sync(~0u, src, g);
     gc[g] = __shfl_sync(~0u, (int)from_c, g) != 0;
   }
-  for (int cb = 0; cb < W; cb += 32 * kNV) {
+  const int c_lo = (int)blockIdx.y * slab;
+  const int c_hi = min(W, c_lo + slab);
+  for (int cb = c_lo; cb < c_hi; cb += kBlock) {
     T va[kRows][kNV];
     T vb[kFull ? kRows : 1][kNV];
     // every load of the warp's rows first ...
@@ -102,9 +133,10 @@ __global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
 #pragma unroll
       for (int k = 0; k < kNV; ++k) {
         const int c = cb + k * 32 + lane;
-        if (c < W)
-          routed_load<T, kFull>(main_pool, cache, delta, gsrc[g], gc[g], c,
-                                &va[g][k], &vb[kFull ? g : 0][k]);
+        if (c < c_hi)
+          routed_load<T, kFull, kKeep>(main_pool, cache, delta, gsrc[g],
+                                       gc[g], c, &va[g][k],
+                                       &vb[kFull ? g : 0][k]);
       }
     }
     // ... then the stores
@@ -115,7 +147,7 @@ __global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
 #pragma unroll
       for (int k = 0; k < kNV; ++k) {
         const int c = cb + k * 32 + lane;
-        if (c >= W) continue;
+        if (c >= c_hi) continue;
         __stcs(o + c, routed_value<T, kFull>(va[g][k], vb[kFull ? g : 0][k],
                                              gsrc[g], gc[g]));
       }
@@ -123,21 +155,39 @@ __global__ void __launch_bounds__(kWarps * 32) routed_gather_kernel(
   }
 }
 
+template <typename T, bool kKeep>
+void launch_kernel(const T* main_pool, const T* cache, const T* delta,
+                   const Segments& segs, T* out, long long n, int shards,
+                   int slots, int c_shards, int c_slots, int W, int slab,
+                   dim3 grid, cudaStream_t stream) {
+  if (cache != nullptr)
+    routed_gather_kernel<T, true, kKeep><<<grid, kWarps * 32, 0, stream>>>(
+        main_pool, cache, delta, segs, out, n, shards, slots, c_shards,
+        c_slots, W, slab);
+  else
+    routed_gather_kernel<T, false, kKeep><<<grid, kWarps * 32, 0, stream>>>(
+        main_pool, cache, delta, segs, out, n, shards, slots, c_shards,
+        c_slots, W, slab);
+}
+
+// The launch over row tiles and column slabs of `slab` elements (W for
+// whole rows).
 template <typename T>
 int launch(const T* main_pool, const T* cache, const T* delta,
            const Segments& segs, T* out, long long n, int shards, int slots,
-           int c_shards, int c_slots, int W, cudaStream_t stream) {
+           int c_shards, int c_slots, int W, int slab, cudaStream_t stream) {
   const long long rows_per_block = (long long)kWarps * kRows;
-  const unsigned blocks = (unsigned)((n + rows_per_block - 1) /
-                                     rows_per_block);
-  if (cache != nullptr)
-    routed_gather_kernel<T, true><<<blocks, kWarps * 32, 0, stream>>>(
-        main_pool, cache, delta, segs, out, n, shards, slots, c_shards,
-        c_slots, W);
+  const long long gx = (n + rows_per_block - 1) / rows_per_block;
+  const long long gy = slab > 0 ? (W + slab - 1) / slab : 0;
+  if (gy < 1 || gy > 65535 || gx > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, (unsigned)gy);
+  if (gy > 1)
+    launch_kernel<T, true>(main_pool, cache, delta, segs, out, n, shards,
+                           slots, c_shards, c_slots, W, slab, grid, stream);
   else
-    routed_gather_kernel<T, false><<<blocks, kWarps * 32, 0, stream>>>(
-        main_pool, cache, delta, segs, out, n, shards, slots, c_shards,
-        c_slots, W);
+    launch_kernel<T, false>(main_pool, cache, delta, segs, out, n, shards,
+                            slots, c_shards, c_slots, W, W, grid, stream);
   return (int)cudaGetLastError();
 }
 
@@ -146,13 +196,17 @@ int launch(const T* main_pool, const T* cache, const T* delta,
 // Segment s has sizes[s] rows and coordinate arrays o_sh[s], o_sl[s]
 // (and c_sh[s], c_sl[s], use_c[s] when cache != nullptr); out is
 // [sum sizes, L]. vec: L % 4 == 0 and every pool and out 16-byte aligned.
+// slab: f32 columns a column slab (ops/kernels.py _k1_slab; L for whole
+// rows, a multiple of 4 when vec).
 extern "C" int adapm_routed_gather(
     const float* main_pool, const float* cache, const float* delta,
     const int* const* o_sh, const int* const* o_sl, const int* const* c_sh,
     const int* const* c_sl, const unsigned char* const* use_c,
     const long long* sizes, int nseg, float* out, int shards, int slots,
-    int c_shards, int c_slots, int L, int vec, cudaStream_t stream) {
-  if (nseg < 1 || nseg > kMaxSeg) return (int)cudaErrorInvalidValue;
+    int c_shards, int c_slots, int L, int vec, int slab,
+    cudaStream_t stream) {
+  if (nseg < 1 || nseg > kMaxSeg || slab < 1 || (vec && slab % 4 != 0))
+    return (int)cudaErrorInvalidValue;
   Segments segs{};
   long long n = 0;
   for (int s = 0; s < nseg; ++s) {
@@ -173,7 +227,7 @@ extern "C" int adapm_routed_gather(
                           reinterpret_cast<const float4*>(cache),
                           reinterpret_cast<const float4*>(delta), segs,
                           reinterpret_cast<float4*>(out), n, shards, slots,
-                          c_shards, c_slots, L / 4, stream);
+                          c_shards, c_slots, L / 4, slab / 4, stream);
   return launch<float>(main_pool, cache, delta, segs, out, n, shards, slots,
-                       c_shards, c_slots, L, stream);
+                       c_shards, c_slots, L, slab, stream);
 }

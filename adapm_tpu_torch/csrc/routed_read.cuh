@@ -36,6 +36,36 @@ __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// A load that asks L2 to keep its line (evict_last): K1 reads a pool row's
+// column slab again for each repeat of the row in its batch.
+__device__ __forceinline__ float4 ldg_keep(const float4* p) {
+  float4 v;
+  asm("{ .reg .b64 pol; createpolicy.fractional.L2::evict_last.b64 pol, "
+      "1.0; ld.global.nc.L2::cache_hint.v4.f32 {%0,%1,%2,%3}, [%4], pol; }"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p)
+      : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ldg_keep(const float* p) {
+  float v;
+  asm("{ .reg .b64 pol; createpolicy.fractional.L2::evict_last.b64 pol, "
+      "1.0; ld.global.nc.L2::cache_hint.f32 %0, [%1], pol; }"
+      : "=f"(v)
+      : "l"(p)
+      : "memory");
+  return v;
+}
+
+template <bool kKeep, typename T>
+__device__ __forceinline__ T ldg_row(const T* p) {
+  if constexpr (kKeep)
+    return ldg_keep(p);
+  else
+    return __ldg(p);
+}
+
 // Entry k's source: the offset, in elements of T (W per row), of its row
 // in the pool it reads, or -1 for a zero row; *from_c is set when that
 // pool is cache+delta. kFull: the cache+delta form (else main only).
@@ -60,7 +90,8 @@ __device__ __forceinline__ long long routed_source(
 
 // The loads of column c of a row whose source is `src` (zeros for a
 // zero row): *a from main or cache, *b from delta (zero unless kFull).
-template <typename T, bool kFull>
+// kKeep: the loads ask L2 to keep their lines (ldg_keep).
+template <typename T, bool kFull, bool kKeep = false>
 __device__ __forceinline__ void routed_load(
     const T* __restrict__ main_pool, const T* __restrict__ cache,
     const T* __restrict__ delta, long long src, bool from_c, int c, T* a,
@@ -69,10 +100,10 @@ __device__ __forceinline__ void routed_load(
   *b = zero<T>();
   if (src < 0) return;
   if (kFull && from_c) {
-    *a = __ldg(cache + src + c);
-    *b = __ldg(delta + src + c);
+    *a = ldg_row<kKeep>(cache + src + c);
+    *b = ldg_row<kKeep>(delta + src + c);
   } else {
-    *a = __ldg(main_pool + src + c);
+    *a = ldg_row<kKeep>(main_pool + src + c);
   }
 }
 

@@ -207,7 +207,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_float
     if name == "routed_gather":
         lib.adapm_routed_gather.restype = I
-        lib.adapm_routed_gather.argtypes = [P] * 9 + [I, P] + [I] * 6 + [P]
+        lib.adapm_routed_gather.argtypes = [P] * 9 + [I, P] + [I] * 7 + [P]
     elif name == "adagrad":
         lib.adapm_adagrad_update.restype = I
         lib.adapm_adagrad_update.argtypes = [P, P, LL, P, LL, I, P, F, F,
@@ -379,6 +379,23 @@ def _ptr_table(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
+# Half the card's L2 (50 MiB): where the pool rows a K1 call can name
+# take more, K1 walks them in column slabs (csrc/routed_gather.cu).
+K1_L2_BYTES = 25 << 20
+
+
+def _k1_slab(n: int, L: int, rows: int, vec: bool) -> int:
+    """K1's column slab, in f32 columns, for n output rows of L f32 read
+    from pools of `rows` rows in all: one column block (512 f32 on the
+    float4 form, 128 on the 4-byte one) where a row is wider than 512 f32
+    and the rows the call can name (at most n, at most the pools') take
+    more than K1_L2_BYTES, else the whole row."""
+    if L <= 512 or min(n, rows) * L * 4 <= K1_L2_BYTES:
+        return L
+    block = 512 if vec else 128
+    return block * -(-L // (block * 65535))     # at most 65,535 slabs
+
+
 def routed_gather(main, cache, delta, o_sh, o_sl, c_sh=None, c_sl=None,
                   use_c=None) -> torch.Tensor:
     """out[i] = use_c[i] ? fill(cache+delta)[c_sh, c_sl] : fill(main)[o_sh,
@@ -438,10 +455,11 @@ def routed_gather_segments(main, cache, delta, segments) -> torch.Tensor:
     cols = list(zip(*segs))
     tables = [_ptr_table(c) for c in cols] + [None] * (5 - len(cols))
     sizes = (ctypes.c_longlong * len(segs))(*[s[0].numel() for s in segs])
-    vec = int(L % 4 == 0 and _aligned16(main, cache, delta, out))
+    vec = L % 4 == 0 and _aligned16(main, cache, delta, out)
     rc = _lib("routed_gather").adapm_routed_gather(
         _ptr(main), _ptr(cache), _ptr(delta), *tables, sizes, len(segs),
-        _ptr(out), S, R, cS, cR, L, vec, _stream())
+        _ptr(out), S, R, cS, cR, L, int(vec),
+        _k1_slab(n, L, S * R + 2 * cS * cR, vec), _stream())
     LAUNCHES["routed_gather"] += 1
     _check(rc, "routed_gather")
     return out

@@ -25,8 +25,9 @@ scenario.
         step alone: copied into an earlier tree of the port, it times
         that tree's step the same way)
     python3 chip_smoke.py --kernels K4,K8    (phase 1 and the named
-        kernels' parts of phase 2 alone, the same way; K4, K4mp (K4's
-        multi-process form), K8-K16 can be named)
+        kernels' parts of phase 2 alone, the same way; K1 (at both
+        widths), K3, K4, K4mp (K4's multi-process form), K8-K16 can be
+        named)
     python3 chip_smoke.py --pipeline-only    (phase 1, phase 3 with the
         pipeline on and off, phases 11 and 12, checked as in the full
         run)
@@ -76,8 +77,10 @@ Phases (any failure raises and exits non-zero):
      rows: B=4096, N=32, d=128), timed beside the parent's eager model
      math with its peak memory, with its ptxas registers, spills and
      shared memory; K1 and K3 at the relation rows' width (4,096 rows of
-     32,768 f32), bitwise their plain versions, beside index_select and
-     index_add_; K6 sgns_step
+     32,768 f32), bitwise their plain versions (K1 also in its
+     cache+delta form and its 4-byte form at 32,766 f32), beside
+     index_select and index_add_, K1 also in the trace with its launch
+     plan; K6 sgns_step
      on the w2v step's rows at bench_w2v's width (B=8,192 pairs, N=5
      negatives drawn from the alias table, d=128: 57,344 rows of 256
      f32, zipf duplicates) and K7 mf_step at B=8,192 ratings, rank 128,
@@ -658,12 +661,20 @@ def step_keys(dev, rng):
     return main, o_sh, o_sl
 
 
-def phase_kernels(K, dev, rng):
-    """Phase 2: each kernel against its plain version, timed."""
-    rec = {}
-    main, o_sh, o_sl = step_keys(dev, rng)
+def k1_slab(K, n, L, rows):
+    """K1's column slab in f32 columns for n rows of L f32 from pools of
+    `rows` rows (L: whole rows), or None for an earlier tree's kernel,
+    which walks whole rows with no plan."""
+    slab = getattr(K, "_k1_slab", None)
+    return None if slab is None else slab(n, L, rows, L % 4 == 0)
 
-    # -- K1 routed_gather, main-only form (the no-replica step's read)
+
+def phase_k1(K, dev, main, o_sh, o_sl):
+    """K1 at the fused step's 143,360 rows of 512 f32: the main-only form
+    (the no-replica step's read), the cache+delta form and the
+    multi-segment forms at the step's four-role split, each bitwise its
+    plain version; timed between CUDA events and in the trace, beside
+    index_select."""
     got = K.routed_gather(main, None, None, o_sh, o_sl)
     ref = K.routed_gather_plain(main, None, None, o_sh, o_sl)
     check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
@@ -690,18 +701,155 @@ def phase_kernels(K, dev, rng):
         check(torch.equal(got_s.view(torch.int32), ref_s.view(torch.int32)),
               f"K1 multi-segment form ({len(cols)} coordinate arrays) "
               "differs from its plain version")
+    del cache, delta, got_f, ref_f
     n_main = int(torch.unique(o_sl.long()).numel())
     k1_bytes = n_main * L * 4 + ROWS * 4 * 2 + ROWS * L * 4
     flat = o_sl.long()
     mflat = main.view(-1, L)
-    rec["routed_gather"] = timed(
-        max_abs_err=float((got - ref).abs().max()),
-        ms=cuda_ms(lambda: K.routed_gather(main, None, None, o_sh, o_sl)),
+
+    def k1():
+        return K.routed_gather(main, None, None, o_sh, o_sl)
+
+    def lib():
+        return mflat.index_select(0, flat)
+
+    return timed(
+        max_abs_err=float((got - ref).abs().max()), ms=cuda_ms(k1),
         plain_ms=cuda_ms(
             lambda: K.routed_gather_plain(main, None, None, o_sh, o_sl)),
-        library_ms=cuda_ms(lambda: mflat.index_select(0, flat)),
-        bound=bound(k1_bytes, 0))
-    del cache, delta, got_f, ref_f
+        library_ms=cuda_ms(lib), bound=bound(k1_bytes, 0),
+        kernel_ms=kernel_ms(k1, "routed_gather_kernel")[0],
+        library_kernel_ms=kernel_ms(lib, None)[1],
+        slab_f32=k1_slab(K, ROWS, L, main.shape[0] * main.shape[1]))
+
+
+def k1_wide(K, dev, rel, r_sh, r_sl, n_rel):
+    """K1 at rows of 32,768 f32 (RESCAL's relation rows, 4,096 rows
+    naming about 1,000 relations uniformly): the main-only form timed
+    between CUDA events and in the trace beside index_select; the
+    cache+delta form (30% of the rows from cache+delta) and the 4-byte
+    form (rows of 32,766 f32) bitwise their plain versions too, timed in
+    the trace."""
+    n, Lr = r_sl.numel(), rel.shape[-1]
+    rows = rel.shape[0] * rel.shape[1]
+    flat, rflat = r_sl.long(), rel.view(-1, Lr)
+
+    def k1():
+        return K.routed_gather(rel, None, None, r_sh, r_sl)
+
+    def lib():
+        return rflat.index_select(0, flat)
+
+    check(torch.equal(k1().view(torch.int32), K.routed_gather_plain(
+        rel, None, None, r_sh, r_sl).view(torch.int32)),
+        f"K1 at rows of {Lr} f32 differs from its plain version")
+    cache, delta = torch.randn_like(rel), torch.randn_like(rel)
+    c_sl = torch.randint(0, rel.shape[1], (n,), device=dev,
+                         dtype=torch.int32)
+    c_sl[::97] = 2**31 - 2
+    use_c = torch.rand(n, device=dev) < 0.3
+    full = (rel, cache, delta, r_sh, r_sl, r_sh, c_sl, use_c)
+    check(torch.equal(K.routed_gather(*full).view(torch.int32),
+                      K.routed_gather_plain(*full).view(torch.int32)),
+          f"K1's cache+delta form at rows of {Lr} f32 differs from its "
+          "plain version")
+    full_ms = kernel_ms(lambda: K.routed_gather(*full),
+                        "routed_gather_kernel")[0]
+    # the full form's distinct rows: main rows of the main reads, cache
+    # and delta rows of the others (OOB ones read nothing)
+    ok = (c_sl >= 0) & (c_sl < rel.shape[1])
+    n_full = int(torch.unique(r_sl[~use_c]).numel()) + 2 * int(
+        torch.unique(c_sl[use_c & ok]).numel())
+    del cache, delta
+    narrow = rel[..., :Lr - 2].contiguous()
+    check(torch.equal(K.routed_gather(narrow, None, None, r_sh, r_sl)
+                      .view(torch.int32), K.routed_gather_plain(
+                          narrow, None, None, r_sh, r_sl)
+                      .view(torch.int32)),
+          f"K1's 4-byte form at rows of {Lr - 2} f32 differs from its "
+          "plain version")
+    f32_ms = kernel_ms(lambda: K.routed_gather(narrow, None, None, r_sh,
+                                               r_sl),
+                       "routed_gather_kernel")[0]
+    del narrow
+    # floors on the same bytes: fill_ of the output alone, and K1 with
+    # every row naming one pool row (the writes with no reads to speak of)
+    out = k1()
+    fill_ms = kernel_ms(lambda: out.fill_(1.0), None)[1]
+    one = torch.zeros_like(r_sl)
+    one_ms = kernel_ms(lambda: K.routed_gather(rel, None, None, r_sh, one),
+                       "routed_gather_kernel")[0]
+    del out
+    torch.cuda.empty_cache()
+    return dict(
+        k1_ms=cuda_ms(k1), k1_kernel_ms=kernel_ms(
+            k1, "routed_gather_kernel")[0],
+        k1_fill_kernel_ms=fill_ms, k1_one_row_kernel_ms=one_ms,
+        k1_library_ms=cuda_ms(lib),
+        k1_library_kernel_ms=kernel_ms(lib, None)[1],
+        k1_bound=bound(n_rel * Lr * 4 + n * 8 + n * Lr * 4, 0),
+        k1_full_kernel_ms=full_ms,
+        k1_full_bound=bound(n_full * Lr * 4 + n * 17 + n * Lr * 4, 0),
+        k1_f32_kernel_ms=f32_ms,
+        k1_slab=k1_slab(K, n, Lr, rows),
+        k1_slab_full=k1_slab(K, n, Lr, 3 * rows),
+        k1_slab_f32=k1_slab(K, n, Lr - 2, rows))
+
+
+def report_k1_wide(w):
+    """K1's phase-2 line at the relation rows' width."""
+    print(f"phase 2: K1 at {w['rows']} rows of {w['width']:,} f32 "
+          f"({w['distinct']} distinct relations), main-only, cache+delta "
+          f"and 4-byte ({w['width'] - 2:,} f32) forms bitwise their plain "
+          f"versions: {fmt_s(*w['k1_ms'])} ms between events, "
+          f"{fmt_s(*w['k1_kernel_ms'])} in the trace (bound "
+          f"{w['k1_bound'][0]:.4f} ms, share "
+          f"{w['k1_bound'][0] / w['k1_kernel_ms'][0]:.3f}); index_select "
+          f"{fmt_s(*w['k1_library_ms'])} between events, "
+          f"{w['k1_library_kernel_ms']:.4f} in the trace; cache+delta "
+          f"{fmt_s(*w['k1_full_kernel_ms'])} in the trace (bound "
+          f"{w['k1_full_bound'][0]:.4f}), 4-byte "
+          f"{fmt_s(*w['k1_f32_kernel_ms'])}; slab (f32) {w['k1_slab']}, "
+          f"cache+delta {w['k1_slab_full']}, 4-byte {w['k1_slab_f32']}; "
+          f"floors: fill_ of the output {w['k1_fill_kernel_ms']:.4f}, "
+          f"every row naming one pool row "
+          f"{fmt_s(*w['k1_one_row_kernel_ms'])}",
+          flush=True)
+
+
+def phase_k1_alone(K, dev, rng):
+    """K1's phase-2 parts alone: at the fused step's rows (phase_k1) and
+    at RESCAL's relation rows (k1_wide, on the pool phase_k16 makes)."""
+    main, o_sh, o_sl = step_keys(dev, rng)
+    narrow = phase_k1(K, dev, main, o_sh, o_sl)
+    del main
+    torch.cuda.empty_cache()
+    rel = relation_pool(dev)
+    rkeys = rng.integers(0, R, B)
+    r_sh = torch.zeros(B, dtype=torch.int32, device=dev)
+    r_sl = torch.as_tensor(rkeys.astype(np.int32), device=dev)
+    w = k1_wide(K, dev, rel, r_sh, r_sl, len(np.unique(rkeys)))
+    w.update(rows=B, width=rel.shape[-1], distinct=len(np.unique(rkeys)))
+    return narrow, w
+
+
+def report_k1_alone(r):
+    narrow, w = r
+    print(f"phase 2: K1 at {ROWS} rows of {L} f32: {fmt_t(narrow, 'ms')} "
+          f"ms between events, {fmt_s(*narrow['kernel_ms'])} in the trace "
+          f"(bound {narrow['bound'][0]:.4f} ms); index_select "
+          f"{fmt_t(narrow, 'library_ms')} between events, "
+          f"{narrow['library_kernel_ms']:.4f} in the trace; slab (f32) "
+          f"{narrow['slab_f32']}", flush=True)
+    report_k1_wide(w)
+
+
+def phase_kernels(K, dev, rng):
+    """Phase 2: each kernel against its plain version, timed."""
+    rec = {}
+    main, o_sh, o_sl = step_keys(dev, rng)
+
+    rec["routed_gather"] = phase_k1(K, dev, main, o_sh, o_sl)
 
     rec["ordered_scatter_add"] = phase_k3(K, dev, main, o_sh, o_sl)
 
@@ -1107,6 +1255,21 @@ def phase_k5(K, dev, rng):
         eager_ms=cuda_ms(eager, reps=10), ptxas=ptxas_summary("complex_step"))
 
 
+def rescal_pool(dev, n, width):
+    """A RESCAL pool of n keys (slots at the store's rule) of rows [emb
+    width | adagrad width] at the app's init scale: normal x 0.1,
+    accumulators 1e-6 plus up to 1e-3."""
+    slots = -8 * (-int(np.ceil(n * 1.25)) // 8)
+    p = torch.randn((1, slots, 2 * width), device=dev) * 0.1
+    p[..., width:] = 1e-6 + torch.rand((1, slots, width), device=dev) * 1e-3
+    return p
+
+
+def relation_pool(dev):
+    """RESCAL's relation pool: R keys of rows of 2 d^2 f32."""
+    return rescal_pool(dev, R, D_MODEL ** 2)
+
+
 def phase_k16(K, dev, rng):
     """K16 against its plain version on the RESCAL step's rows: K1's
     gathers of an entity pool (rows of 256 f32) and a relation pool (rows
@@ -1121,18 +1284,11 @@ def phase_k16(K, dev, rng):
     d, dd = D_MODEL, D_MODEL ** 2
     Lr = 2 * dd
 
-    def pool(n, width):
-        slots = -8 * (-int(np.ceil(n * 1.25)) // 8)   # the store's rule
-        p = torch.randn((1, slots, 2 * width), device=dev) * 0.1
-        p[..., width:] = 1e-6 + torch.rand((1, slots, width), device=dev) \
-            * 1e-3
-        return p
-
     def coords(keys):
         return (torch.zeros(len(keys), dtype=torch.int32, device=dev),
                 torch.as_tensor(keys.astype(np.int32), device=dev))
 
-    ent, rel = pool(E, d), pool(R, dd)
+    ent, rel = rescal_pool(dev, E, d), relation_pool(dev)
     e_sh, e_sl = coords(np.concatenate([
         skewed_keys(rng, E, B), skewed_keys(rng, E, B),
         rng.integers(0, E, B * N)]))
@@ -1142,9 +1298,9 @@ def phase_k16(K, dev, rng):
     rrows = K.routed_gather(rel, None, None, r_sh, r_sl)
     del ent
     # -- K1 and K3 at rows of 32,768 f32 (about 4 occurrences a relation)
-    check(torch.equal(rrows.view(torch.int32), K.routed_gather_plain(
-        rel, None, None, r_sh, r_sl).view(torch.int32)),
-        f"K1 at rows of {Lr} f32 differs from its plain version")
+    n_rel = len(np.unique(rkeys))
+    wide = dict(rows=B, width=Lr, distinct=n_rel,
+                **k1_wide(K, dev, rel, r_sh, r_sl, n_rel))
     vals = torch.randn((B, Lr), device=dev) * 1e-3
     outs = []
     for _ in range(2):
@@ -1158,14 +1314,9 @@ def phase_k16(K, dev, rng):
           f"K3 at rows of {Lr} f32 differs from its plain version or "
           "from itself over two runs")
     del outs, p
-    n_rel = len(np.unique(rkeys))
     flat, rflat = r_sl.long(), rel.view(-1, Lr)
     sf, perm = K.ordered_scatter_order(rel, [(r_sh, r_sl)])
-    wide = dict(
-        rows=B, width=Lr, distinct=n_rel,
-        k1_ms=cuda_ms(lambda: K.routed_gather(rel, None, None, r_sh, r_sl)),
-        k1_library_ms=cuda_ms(lambda: rflat.index_select(0, flat)),
-        k1_bound=bound(n_rel * Lr * 4 + B * 8 + B * Lr * 4, 0),
+    wide.update(
         k3_grid=fold_grid(K, B, Lr),
         k3_ms=cuda_ms(lambda: K.ordered_scatter_add(rel, r_sh, r_sl, vals)),
         k3_fold_ms=cuda_ms(lambda: K.ordered_scatter_fold(rel, sf, perm,
@@ -1266,11 +1417,10 @@ def report_k16(r):
           f"per (T, l2) {r['forms']}; deterministic, K2 on its gradient "
           f"bitwise its update rows; {r['smem']:,} bytes of dynamic shared "
           f"memory a CTA; ptxas {r['ptxas']}", flush=True)
-    print(f"phase 2: K1 and K3 at {w['rows']} rows of {w['width']:,} f32 "
-          f"({w['distinct']} distinct relations), bitwise their plain "
-          f"versions: K1 {fmt_s(*w['k1_ms'])} ms (bound "
-          f"{w['k1_bound'][0]:.4f} ms; index_select "
-          f"{fmt_s(*w['k1_library_ms'])} ms), K3 {fmt_s(*w['k3_ms'])} ms "
+    report_k1_wide(w)
+    print(f"phase 2: K3 at {w['rows']} rows of {w['width']:,} f32 "
+          f"({w['distinct']} distinct relations), bitwise its plain "
+          f"version: {fmt_s(*w['k3_ms'])} ms "
           f"(bound {w['k3_bound'][0]:.4f} ms, share "
           f"{w['k3_bound'][0] / w['k3_ms'][0]:.3f}; its fold alone "
           f"{fmt_s(*w['k3_fold_ms'])} ms; index_add_ "
@@ -4554,8 +4704,11 @@ def report_kernels(rec):
               f" ms, max_abs_err {r['max_abs_err']}", flush=True)
     k1 = rec["routed_gather"]
     print(f"phase 2: K1 vs index_select, median [min, max] of 20: "
-          f"{fmt_t(k1, 'ms')} vs {fmt_t(k1, 'library_ms')} ms; "
-          f"multi-segment forms at {ROLE_SPLIT} bitwise", flush=True)
+          f"{fmt_t(k1, 'ms')} vs {fmt_t(k1, 'library_ms')} ms between "
+          f"events, {fmt_s(*k1['kernel_ms'])} vs "
+          f"{k1['library_kernel_ms']:.4f} in the trace; slab (f32) "
+          f"{k1['slab_f32']}; multi-segment forms at {ROLE_SPLIT} "
+          "bitwise", flush=True)
     report_k3(rec["ordered_scatter_add"])
     report_k4(rec["pool_eval_counts"])
     report_k4_mp(rec["pool_eval_counts"]["mp_form"])
@@ -6769,7 +6922,8 @@ def main(argv):
         # the named kernels' phase-2 checks and times alone, unchecked
         # against the contract's other phases: copied into an earlier
         # tree of the port, it times that tree's kernels the same way
-        parts = {"K4": (phase_k4, report_k4), "K8": (phase_k8, report_k8),
+        parts = {"K1": (phase_k1_alone, report_k1_alone),
+                 "K4": (phase_k4, report_k4), "K8": (phase_k8, report_k8),
                  "K4mp": (phase_k4_mp, report_k4_mp),
                  "K13": (phase_k13, report_k13),
                  "K16": (phase_k16, report_k16),
@@ -7129,10 +7283,21 @@ def main(argv):
         heavy_held_ms=k15["heavy"][0.5]["ms"])
     # K1 and K3 at the relation rows' width (phase 2's K16 part)
     wide = rec["rescal_step"]["wide"]
+    k1 = rec["routed_gather"]
     kernels[list(rec).index("routed_gather")].update(
+        kernel_ms=k1["kernel_ms"][0],
+        library_kernel_ms=k1["library_kernel_ms"], slab_f32=k1["slab_f32"],
         rows_32768_ms=wide["k1_ms"][0],
+        rows_32768_kernel_ms=wide["k1_kernel_ms"][0],
         rows_32768_bound_ms=wide["k1_bound"][0],
-        rows_32768_library_ms=wide["k1_library_ms"][0])
+        rows_32768_library_ms=wide["k1_library_ms"][0],
+        rows_32768_library_kernel_ms=wide["k1_library_kernel_ms"],
+        rows_32768_slab_f32=wide["k1_slab"],
+        rows_32768_fill_kernel_ms=wide["k1_fill_kernel_ms"],
+        rows_32768_one_row_kernel_ms=wide["k1_one_row_kernel_ms"][0],
+        rows_32768_full_kernel_ms=wide["k1_full_kernel_ms"][0],
+        rows_32768_full_bound_ms=wide["k1_full_bound"][0],
+        rows_32766_kernel_ms=wide["k1_f32_kernel_ms"][0])
     kernels[list(rec).index("rescal_step")].update(
         eager_peak_gib=rec["rescal_step"]["eager_peak_gib"])
     k3 = rec["ordered_scatter_add"]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions (adapm_tpu_torch/ops/kernels.py) — bitwise for K1 and K3 (their
-multi-segment forms, K3's long runs and chunk-crossing runs included,
+multi-segment forms, K1 at RESCAL's 32,768-f32 rows in column slabs
+and in a captured graph, K3's long runs and chunk-crossing runs included,
 deterministic over two runs), within
 rtol 1e-5 for K2 (CUDA's rsqrt vs the CPU's 1/sqrt), K4's counts equal on
 integer-valued data (every summation order gives the same f32 sums) and
@@ -67,21 +68,103 @@ def _coords(rng, n, shards, slots):
     return torch.from_numpy(sh), torch.from_numpy(sl)
 
 
-@pytest.mark.parametrize("L", [12, 64, 7])
+def _heavy_coords(rng, n, shards, slots, distinct=6):
+    """n coordinates naming `distinct` rows, each ~n / distinct times,
+    with _coords' out-of-range and negative ones."""
+    pick = torch.from_numpy(rng.integers(0, distinct, n))
+    sh, sl = _coords(rng, n, shards, slots)
+    ok = (sl >= 0) & (sl < slots) & (sh < shards)
+    sh = torch.where(ok, (pick % shards).int(), sh)
+    sl = torch.where(ok, (pick // shards % slots).int(), sl)
+    return sh, sl
+
+
+@pytest.mark.parametrize("L", [12, 64, 7, 32_768, 32_766])
 def test_routed_gather_both_forms_bitwise(cuda, L):
+    """Both forms on a uniform batch and on a heavy-repeat one (256 rows
+    from 6 distinct slots); at 32,768 and 32,766 f32 the pools' rows
+    overflow half of L2, so K1 walks column slabs (RESCAL's relation
+    rows)."""
     rng = np.random.default_rng(L)
-    S, R, C, n = 3, 40, 20, 500
+    S, R, C = 3, 80, 40
     main, cache, delta = (torch.randn(S, k, L) for k in (R, C, C))
     main[0, :3] = -0.0
-    o = _coords(rng, n, S, R)
+    for n, coords in ((500, _coords), (256, _heavy_coords)):
+        assert (K._k1_slab(n, L, S * R, L % 4 == 0) < L) == (L > 512)
+        o = coords(rng, n, S, R)
+        c = coords(rng, n, S, C)
+        use_c = torch.from_numpy(rng.random(n) < 0.5)
+        for args in ((main, None, None) + o,
+                     (main, cache, delta) + o + c + (use_c,)):
+            ref = K.routed_gather(*args)
+            got = K.routed_gather(*[a if a is None else a.to(cuda)
+                                    for a in args])
+            assert torch.equal(_bits(got), _bits(ref)), (n, len(args))
+
+
+def _shifted(p, cuda, shift):
+    """p copied to the card `shift` floats past a 16-byte boundary."""
+    store = torch.zeros(p.numel() + shift, device=cuda)
+    return store[shift:].view(p.shape).copy_(p)
+
+
+@pytest.mark.parametrize("L", [12, 7, 600, 1_028, 1_030, 32_768, 32_766])
+def test_routed_gather_slabs_of_every_width_bitwise(cuda, L, monkeypatch):
+    """K1 with its L2 budget at 0, so every row wider than 512 f32 is
+    walked in column slabs of one block (a last slab cut short at 600,
+    1,028 and 1,030 f32), both forms, aligned and misaligned pools (the
+    4-byte form), bitwise its plain version."""
+    monkeypatch.setattr(K, "K1_L2_BYTES", 0)
+    rng = np.random.default_rng(L + 7)
+    S, R, C, n = 3, 40, 20, 300
+    main, cache, delta = (torch.randn(S, k, L) for k in (R, C, C))
+    main[0, :3] = -0.0
+    o = _heavy_coords(rng, n, S, R, distinct=20)
     c = _coords(rng, n, S, C)
     use_c = torch.from_numpy(rng.random(n) < 0.5)
-    for args in ((main, None, None) + o,
-                 (main, cache, delta) + o + c + (use_c,)):
-        ref = K.routed_gather(*args)
-        got = K.routed_gather(*[a if a is None else a.to(cuda)
-                                for a in args])
-        assert torch.equal(_bits(got), _bits(ref))
+    assert (K._k1_slab(n, L, S * R, True) < L) == (L > 512)
+    for args in ((main, None, None, o),
+                 (main, cache, delta, o + c + (use_c,))):
+        ref = K.routed_gather_segments(*args[:3], [args[3]])
+        seg = [tuple(t.to(cuda) for t in args[3])]
+        for shift in (0, 1):
+            dev = [None if p is None else _shifted(p, cuda, shift)
+                   for p in args[:3]]
+            got = K.routed_gather_segments(*dev, seg)
+            assert torch.equal(_bits(got), _bits(ref)), shift
+
+
+def test_routed_gather_wide_form_in_a_captured_graph(cuda):
+    """K1's column-slab form at 32,768 f32 captured in a CUDA graph: each
+    replay on fresh pool contents is bitwise the plain version on them."""
+    rng = np.random.default_rng(11)
+    S, R, C, n, L = 2, 80, 40, 400, 32_768
+    main, cache, delta = (torch.randn(S, k, L).to(cuda) for k in (R, C, C))
+    o = [t.to(cuda) for t in _heavy_coords(rng, n, S, R, distinct=30)]
+    c = [t.to(cuda) for t in _coords(rng, n, S, C)]
+    use_c = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    seg = [tuple(o) + tuple(c) + (use_c,)]
+    assert K._k1_slab(n, L, S * R + 2 * S * C, True) < L
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        K.routed_gather_segments(main, cache, delta, seg)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = K.routed_gather_segments(main, cache, delta, seg)
+    for seed in range(3):
+        # fresh contents from a generator of the test's own (the capture
+        # takes no part of the default CUDA generator's state)
+        gen = torch.Generator().manual_seed(seed)
+        for p in (main, cache, delta):
+            p.copy_(torch.randn(p.shape, generator=gen))
+        main[0, :2] = -0.0
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = K.routed_gather_segments_plain(main, cache, delta, seg)
+        assert torch.equal(_bits(out), _bits(ref)), seed
 
 
 @pytest.mark.parametrize("L", [16, 5, 32_768, 32_766])
@@ -186,19 +269,22 @@ def test_ordered_scatter_all_oob_empty_and_unaligned(cuda):
     assert torch.equal(_bits(pool), _bits(ref))
 
 
-@pytest.mark.parametrize("L", [5, 12, 512, 600])
+@pytest.mark.parametrize("L", [5, 12, 512, 600, 32_768, 32_766])
 def test_routed_gather_segments_bitwise(cuda, L):
-    """Multi-segment K1, both forms, with an empty segment and more
-    segments than one launch takes: equal to per-segment plain calls."""
+    """Multi-segment K1, both forms, with an empty segment, a heavy-repeat
+    segment (48 rows from 6 distinct slots) and more segments than one
+    launch takes: equal to per-segment plain calls (column slabs at
+    32,768 and 32,766 f32)."""
     rng = np.random.default_rng(L + 1)
-    S, R, C = 3, 40, 20
+    S, R, C = 3, 80, 40
     main, cache, delta = (torch.randn(S, k, L) for k in (R, C, C))
     main[0, :3] = -0.0
-    sizes = [70, 0, 33, 1, 300] + [5] * (K.MAX_SEGMENTS)
+    sizes = [70, 0, 33, 1, 300, 48] + [5] * (K.MAX_SEGMENTS)
     segs_m, segs_f = [], []
     for n in sizes:
-        o = _coords(rng, n, S, R)
-        c = _coords(rng, n, S, C)
+        coords = _heavy_coords if n == 48 else _coords
+        o = coords(rng, n, S, R)
+        c = coords(rng, n, S, C)
         use_c = torch.from_numpy(rng.random(n) < 0.5)
         segs_m.append(o)
         segs_f.append(o + c + (use_c,))
@@ -1378,7 +1464,12 @@ def test_sync_round_in_a_captured_graph(cuda):
     capture stream first) allocates no more during the capture than an
     empty capture does (the capture's own RNG state), and each replay on
     fresh inputs is bitwise the eager round on the same inputs,
-    threshold 0 and half held."""
+    threshold 0 and half held. While any captured graph lives, the CUDA
+    generator keeps its graph-safe RNG state (two 8-byte tensors, 1,024
+    bytes of blocks), made at the start of a capture when no live graph
+    holds it and freed with the last such graph: each threshold's graph
+    is released before the next threshold's captures, so the empty
+    capture and K15's start from the same state."""
     rng = np.random.default_rng(9)
     for threshold in (0.0, 0.5):
         args = _on(cuda, *_heavy_sync_case(rng, 4, 512, 40, False))
@@ -1412,6 +1503,7 @@ def test_sync_round_in_a_captured_graph(cuda):
                                                           name)
         for claim in K._claims.values():
             assert bool((claim == -1).all()), threshold
+        del graph
 
 
 def test_port_sets_and_syncs_on_card_bitwise_cpu(cuda):
