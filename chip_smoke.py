@@ -18,7 +18,9 @@ parameter manager: a loopback cluster of four nodes on the card, and
 the KGE app as two processes through the port's launcher; runs the BSP
 collective exchange (K13 over CUDA IPC) between three launched
 processes with per-rank checkpoints, and the streaming north-star
-scenario.
+scenario; and runs the north-star scale runs (a Wikidata5M-sized ComplEx
+table of 8.95 GiB, 1B-words-sized word2vec, MovieLens-25M-sized MF)
+through python -m adapm_tpu_torch.northstar's entry points.
 
     python3 chip_smoke.py [--json PATH]
     python3 chip_smoke.py --main-path-only   (phase 1 and phase 3's
@@ -40,6 +42,8 @@ scenario.
     python3 chip_smoke.py --collective-only  (phase 1 and phase 17,
         checked as in the full run)
     python3 chip_smoke.py --stream-only      (phase 1 and phase 18,
+        checked as in the full run)
+    python3 chip_smoke.py --northstar-only   (phase 1 and phase 19,
         checked as in the full run)
 
 Phases (any failure raises and exits non-zero):
@@ -374,9 +378,28 @@ Phases (any failure raises and exits non-zero):
      served p99, freshness p99 over the last 20 s of segment B (printed
      only over at least 100 samples; the count beside it) and
      recovery_s.
+ 19. the north-star runs at full size through the entry points of
+     adapm_tpu_torch/northstar.py (python -m adapm_tpu_torch.northstar
+     kge --eval, w2v, mf): run_kge (4,600,000 entities, 822 relations,
+     d=128, B=4096, N=32 device-drawn negatives, an 8.95 GiB main pool
+     filled on the card by bulk_device_init; eval over every entity at
+     B=64 and B=512), run_w2v (800,000 words, B=8192, N=5 alias-drawn
+     negatives) and run_mf (162,541 x 59,047, rank 128, B=16,384). Each
+     prints its JSON line, then its device ms and operations a step and
+     busy share (4 steps profiled after its timing; eval batches too),
+     peak memory, launches (held to its kernel set: K1, K5, K3 and K4
+     for kge, K1, K6, K3 for w2v, K1, K7, K3 for mf, no kernel another
+     path owns) and the training thread's host ms by part (intent, step
+     call, run_round, mirror refresh). At each run's server shutdown:
+     4,096 touched keys (half past element 2^31 of the pool where there
+     are so many) pulled through Worker.pull bitwise the pool at their
+     address-book coordinates; for kge also 8 eval queries over all
+     4.6M candidates within the near-tie rule of K4's plain version,
+     and K1 and K3 on 4,096 coordinates of the pool's top rows (past
+     element 2^31) bitwise their plain versions; every loss finite.
 Phases 11 and 12 run after phase 4, phase 13 after phase 10, phase 14
 after phase 13, phase 15 after phase 14, phase 16 after phase 15,
-phases 17 and 18 after phase 16. Every
+phases 17 and 18 after phase 16, phase 19 last. Every
 server's background work is
 watched: a prefetch pass, planner round or tier maintenance pass that
 raised (logged and retried, never fatal to its loop), a failed
@@ -400,6 +423,7 @@ the profile included) to PATH. Needs one CUDA card; exits non-zero
 without one.
 """
 import ctypes
+import gc
 import itertools
 import json
 import os
@@ -2697,7 +2721,11 @@ class HostClock:
 
     def __init__(self, targets):
         self.targets = targets  # [(owner, attribute name, label)]
-        self.seconds = {label: 0.0 for _, _, label in targets}
+        self.calls = {label: [] for _, _, label in targets}  # seconds
+
+    @property
+    def seconds(self):
+        return {label: sum(t) for label, t in self.calls.items()}
 
     def __enter__(self):
         self.saved = []
@@ -2710,7 +2738,7 @@ class HostClock:
                 try:
                     return _fn(*a, **kw)
                 finally:
-                    self.seconds[_label] += time.perf_counter() - t0
+                    self.calls[_label].append(time.perf_counter() - t0)
             setattr(owner, name, wrapped)
         return self
 
@@ -6866,6 +6894,266 @@ def report_stream(s, smi):
           f"{s['phase_s']:.1f} s | {smi}", flush=True)
 
 
+# phase 19: the north-star runs (adapm_tpu_torch/northstar.py) through
+# their entry points at full size: a Wikidata5M-sized ComplEx table
+# (4,600,822 keys of 512 f32), 1B-words-sized SGNS (1,600,000 keys of 256
+# f32) and MovieLens-25M-sized MF (221,588 keys of 256 f32). Each run's
+# kernel set; keys pulled for the bitwise check; eval queries checked
+# against K4's plain version; steps and eval calls profiled after each
+# timing; the element past which a flat f32 offset leaves 32 bits
+NS_KERNELS = {"kge": APP_KERNELS, "w2v": W2V_KERNELS, "mf": MF_KERNELS}
+NS_SAMPLE, NS_EVAL_QUERIES, NS_PROFILED = 4096, 8, 4
+NS_PAST = 2**31
+NS_KGE = dict(E=4_600_000, R=822, d=D_MODEL)   # run_kge's own defaults
+
+
+def ns_pull_check(srv, touched, rng):
+    """NS_SAMPLE of the run's touched keys (half of them, where there
+    are so many, with a slot past element NS_PAST of the pool) pulled
+    through Worker.pull, bitwise a direct read of the pool at their
+    address-book coordinates. Returns (keys pulled, keys past)."""
+    st, ab = srv.stores[0], srv.ab
+    _, M, width = st.main.shape
+    flat = (ab.owner[touched].astype(np.int64) * M + ab.slot[touched]) * width
+    past = touched[flat >= NS_PAST]
+    pick = rng.choice(past, min(len(past), NS_SAMPLE // 2), replace=False)
+    rest = np.setdiff1d(touched, pick)
+    keys = np.concatenate([pick, rng.choice(
+        rest, min(len(rest), NS_SAMPLE - len(pick)), replace=False)])
+    keys = rng.permutation(keys)
+    got = srv.workers()[0].pull_sync(keys)
+    sh = torch.as_tensor(ab.owner[keys].astype(np.int64), device=st.main.device)
+    sl = torch.as_tensor(ab.slot[keys].astype(np.int64), device=st.main.device)
+    direct = st.main[sh, sl].cpu().numpy()
+    check(got.shape == direct.shape and np.array_equal(
+        got.view(np.uint32), direct.view(np.uint32)), "phase 19: a pull of "
+          "touched keys differs from the pool at their coordinates")
+    return len(keys), len(pick)
+
+
+def ns_kge_checks(K, ns, E, R, d, srv, touched, rng):
+    """Phase 19 (kge) on the live server after its run: the pull check;
+    the eval counts of NS_EVAL_QUERIES queries over every entity against
+    K4's plain version under the near-tie rule; then K1 and K3 over
+    NS_SAMPLE coordinates of the top rows of the pool (from a little
+    below element NS_PAST to its last row, duplicates, out-of-range and
+    negative slots among them) bitwise their plain versions. K3 runs
+    last: it writes into the pool, which shuts down right after."""
+    out = {}
+    out["pulled"], out["pulled_past"] = ns_pull_check(srv, touched, rng)
+    main = srv.stores[0].main
+    dev = main.device
+    fn, tables, ent_keys = ns.eval_program(srv, E, d)
+    ent = touched[touched < E]
+    q = [torch.as_tensor(k, device=dev) for k in (
+        rng.choice(ent, NS_EVAL_QUERIES), rng.integers(E, E + R,
+                                                       NS_EVAL_QUERIES),
+        rng.choice(ent, NS_EVAL_QUERIES))]
+    g_o, g_s, _ = fn(main, tables, ent_keys, E, *q)
+    p_o, p_s, _, t_o, t_s = fn(main, tables, ent_keys, E, *q, ties=True)
+    diff = (torch.cat([g_o, g_s]) - torch.cat([p_o, p_s])).abs()
+    ties = torch.cat([t_o, t_s])
+    check(bool((diff <= ties).all()), f"phase 19: eval counts over {E} "
+          f"candidates break the near-tie rule: diff {diff.tolist()} ties "
+          f"{ties.tolist()}")
+    out["eval_diff"], out["eval_ties"] = int(diff.sum()), int(ties.sum())
+    S_, M, width = main.shape
+    lo = NS_PAST // width - NS_SAMPLE // 2
+    sl = rng.integers(lo, M, NS_SAMPLE)
+    sl[1::4] = sl[0::4]                      # targets named twice and more
+    sl[::97] = M
+    sl[1::101] = -1
+    sh = torch.zeros(NS_SAMPLE, dtype=torch.int32, device=dev)
+    sl = torch.as_tensor(sl.astype(np.int32), device=dev)
+    got = K.routed_gather(main, None, None, sh, sl)
+    want = K.routed_gather_plain(main, None, None, sh, sl)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "phase 19: K1 on rows past element 2^31 differs from its plain "
+          "version")
+    vals = torch.randn(NS_SAMPLE, width, device=dev)
+    ref = main.clone()
+    K.ordered_scatter_add_plain(ref, sh, sl, vals)
+    K.ordered_scatter_add(main, sh, sl, vals)
+    check(torch.equal(main.view(torch.int32), ref.view(torch.int32)),
+          "phase 19: K3 on rows past element 2^31 differs from its plain "
+          "version")
+    del ref
+    out["rows_past"] = int(((sl.long() * width) >= NS_PAST).sum())
+    return out
+
+
+NS_TRACED = ("routed_gather", "ordered_fold", "complex_step", "sgns_step",
+             "mf_step", "pool_eval_counts")
+
+
+def ns_profile(step, steps):
+    """device_breakdown of NS_PROFILED more calls of a step slope_time
+    timed, taken again (up to four times) where the trace lost records:
+    every call runs the same device work, so each of the port's kernels,
+    and all the records together, come a whole number of times a call
+    (a trace late in the full run once held 22.5 records a step). Where
+    all five lost records, the last is returned marked `lost`, and the
+    report calls its device time not measured."""
+    for _ in range(5):
+        prof = device_breakdown(lambda i: step(steps + i), NS_PROFILED)
+        if prof is None:
+            return None
+        ours = [c for k, c in prof["counts"].items()
+                if any(n in k for n in NS_TRACED)]
+        total = round(prof["device_ops_per_step"] * NS_PROFILED)
+        if ours and total % NS_PROFILED == 0 and \
+                all(c % NS_PROFILED == 0 for c in ours):
+            return prof
+        TRACE_RETAKES["phase 19"] = TRACE_RETAKES.get("phase 19", 0) + 1
+    return dict(prof, lost=True)
+
+
+def ns_run(at, K, ns, name, run, checks):
+    """One north-star run through its entry point, watched: the launches
+    and peak memory up to its server's shutdown, where `checks(srv,
+    touched, rng)` runs on the live server; each slope timing followed by
+    NS_PROFILED more calls of its step under the profiler; the losses of
+    every step call; the host seconds of the training thread's parts.
+    Launches are set to 0 just before the run and read at its shutdown,
+    before the checks launch anything."""
+    from adapm_tpu_torch.core.kv import Worker
+    from adapm_tpu_torch.core.sync import SyncManager
+    from adapm_tpu_torch.ops.fused import DeviceRoutedRunner, DeviceRouter
+    rec = {"profiles": [], "losses": [], "touched": []}
+    slope, shutdown = ns.slope_time, at.Server.shutdown
+    call, intent = DeviceRoutedRunner.__call__, Worker.intent
+
+    def profiled_slope(step, steps):
+        dt = slope(step, steps)
+        rec["profiles"].append(ns_profile(step, steps))
+        return dt
+
+    def recorded_call(self, *a, **kw):
+        loss = call(self, *a, **kw)
+        rec["losses"].append(loss.detach().reshape(1))
+        return loss
+
+    def recorded_intent(self, keys, *a, **kw):
+        if len(rec["touched"]) < 8:
+            rec["touched"].append(np.asarray(keys, dtype=np.int64))
+        return intent(self, keys, *a, **kw)
+
+    def checked_shutdown(srv):
+        if "launches" in rec:
+            return shutdown(srv)
+        torch.cuda.synchronize()
+        rec["launches"] = dict(K.LAUNCHES)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["table_gib"] = sum(st.main.numel() * 4
+                               for st in srv.stores) / 2**30
+        rec["keys"], rec["width"] = srv.num_keys, srv.stores[0].main.shape[2]
+        try:
+            rec["checks"] = checks(srv, np.unique(np.concatenate(
+                rec["touched"])), np.random.default_rng(19))
+        finally:
+            shutdown(srv)
+
+    clock = HostClock([(Worker, "intent", "intent"),
+                       (DeviceRoutedRunner, "__call__", "step call"),
+                       (SyncManager, "run_round", "run_round"),
+                       (DeviceRouter, "refresh", "mirror refresh")])
+    t0 = time.perf_counter()
+    ns.slope_time, at.Server.shutdown = profiled_slope, checked_shutdown
+    DeviceRoutedRunner.__call__, Worker.intent = recorded_call, \
+        recorded_intent
+    # the last run's server and runner hold each other: collect them, so
+    # this run's peak is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        with clock:
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            res = run()
+    finally:
+        ns.slope_time, at.Server.shutdown = slope, shutdown
+        DeviceRoutedRunner.__call__, Worker.intent = call, intent
+    check("checks" in rec, f"phase 19 ({name}): the run's server never "
+          "shut down")
+    check_launched(rec["launches"], f"phase 19 ({name})", NS_KERNELS[name])
+    losses = torch.cat(rec["losses"])
+    check(len(losses) > 0 and bool(torch.isfinite(losses).all()),
+          f"phase 19 ({name}): a non-finite loss")
+    rec.update(res=res, steps=len(losses), run_s=time.perf_counter() - t0,
+               host_ms={k: (1e3 * float(np.median(v)) if v else 0.0,
+                            1e3 * sum(v), len(v))
+                        for k, v in clock.calls.items()})
+    del rec["losses"], rec["touched"]
+    return rec
+
+
+def phase_northstar(at, K):
+    """Phase 19: python -m adapm_tpu_torch.northstar's kge --eval, w2v
+    and mf on the card at their full sizes, each through its run_*
+    entry point (ns_run)."""
+    from adapm_tpu_torch import northstar as ns
+    t_phase = time.perf_counter()
+
+    def pulled(srv, touched, rng):
+        out = {}
+        out["pulled"], out["pulled_past"] = ns_pull_check(srv, touched, rng)
+        return out
+
+    out = {"kge": ns_run(at, K, ns, "kge", lambda: ns.run_kge(
+        do_eval=True, **NS_KGE), lambda *a: ns_kge_checks(
+            K, ns, *NS_KGE.values(), *a)),
+           "w2v": ns_run(at, K, ns, "w2v", ns.run_w2v, pulled),
+           "mf": ns_run(at, K, ns, "mf", ns.run_mf, pulled)}
+    check(out["kge"]["checks"]["pulled_past"] > 0 and
+          out["kge"]["checks"]["rows_past"] > 0, "phase 19 (kge): no key "
+          "or row past element 2^31 checked")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def report_northstar(ns_rec, smi):
+    for name in ("kge", "w2v", "mf"):
+        r = ns_rec[name]
+        print(json.dumps(r["res"]), flush=True)
+        profs = r["profiles"]
+        step = profs[0]
+        dev = "device time not measured (the profiler recorded none)" \
+            if step is None else (
+                "device time not measured (5 traces lost records)"
+                if step.get("lost") else
+                f"device {step['device_ms_per_step']:.3f} ms/step in "
+                f"{step['device_ops_per_step']:.1f} operations, busy "
+                f"{step['busy_share']:.3f} of {step['wall_ms_per_step']:.3f} "
+                f"ms/step profiled; top: " + "; ".join(
+                    f"{k} {v:.3f}" for k, v in step["top_ms_per_step"][:6]))
+        evals = "".join(
+            f"; eval B={b} device {p['device_ms_per_step']:.3f} ms/batch, "
+            f"busy {p['busy_share']:.3f}, top: " + "; ".join(
+                f"{k} {v:.3f}" for k, v in p["top_ms_per_step"][:3])
+            for b, p in zip((64, 512), profs[1:])
+            if p is not None and not p.get("lost"))
+        host = ", ".join(f"{k} {ms:.3f} ({n} calls, {tot:.1f} in all)"
+                         for k, (ms, tot, n) in r["host_ms"].items())
+        c = r["checks"]
+        extra = "" if name != "kge" else (
+            f"; eval of {NS_EVAL_QUERIES} queries over every entity within "
+            f"the near-tie rule (diff {c['eval_diff']}, ties "
+            f"{c['eval_ties']}); K1 and K3 over {NS_SAMPLE} coordinates "
+            f"({c['rows_past']} past element 2^31) bitwise their plain "
+            f"versions")
+        print(f"phase 19 ({name}): {r['keys']:,} keys of {r['width']} f32, "
+              f"main pool {r['table_gib']:.2f} GiB on the card; {dev}"
+              f"{evals}; peak {r['peak_gib']:.2f} GiB; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }; host ms "
+              f"a call (median): {host}; {r['steps']} step calls, losses "
+              f"finite; a pull of {c['pulled']} touched keys "
+              f"({c['pulled_past']} past element 2^31) bitwise the pool"
+              f"{extra}; {r['run_s']:.1f} s | {smi}", flush=True)
+    print(f"phase 19: {ns_rec['phase_s']:.1f} s", flush=True)
+
+
 def drive_path(K, path, kernels, seed):
     """Phase 3 or 7: the path's main path (counts set to 0 just before,
     read just after) and its run_scan windows, reported and checked."""
@@ -7010,6 +7298,15 @@ def main(argv):
         print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return 0
+    if "--northstar-only" in argv:
+        # phase 19 alone (the north-star runs at full size), checked as
+        # in the full run
+        report_northstar(phase_northstar(at, K), smi)
+        check(not BACKGROUND_FAULTS, f"background work failed: "
+              f"{BACKGROUND_FAULTS}")
+        print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return 0
     if "--pipeline-only" in argv:
         # the prefetch pipeline's and the background planner's phases
         # alone (3 on and off, 11, 12), checked as in the full run
@@ -7127,6 +7424,9 @@ def main(argv):
     sr = phase_stream(at, K, dev)
     report_stream(sr, smi)
     lap("phase 18")
+    nsr = phase_northstar(at, K)
+    report_northstar(nsr, smi)
+    lap("phase 19")
     sources = {"routed_gather": ("adapm_tpu_torch/csrc/routed_gather.cu",
                                  "adapm_tpu/ops/pallas_kernels.py:36"),
                "adagrad_update": ("adapm_tpu_torch/csrc/adagrad.cu",
@@ -7216,7 +7516,10 @@ def main(argv):
                  collective=cr["launches"][0],
                  collective_rank1=cr["launches"][1],
                  collective_rank2=cr["launches"][2],
-                 stream=sr["launches"])
+                 stream=sr["launches"],
+                 northstar_kge=nsr["kge"]["launches"],
+                 northstar_w2v=nsr["w2v"]["launches"],
+                 northstar_mf=nsr["mf"]["launches"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in phase 3 (RESCAL)'s main path for K16,
     # in phase 6's run with shared [N] negatives for K2, whose
@@ -7331,7 +7634,8 @@ def main(argv):
                        "tier_storm": storm, "tier_bags": tier_bags,
                        "tier_planner": tier_pl, "episodic": epi,
                        "fault": fr, "replay": rr, "mp": mpr,
-                       "collective": cr, "stream": sr, "laps": laps}, fh,
+                       "collective": cr, "stream": sr, "northstar": nsr,
+                       "laps": laps}, fh,
                       indent=1,
                       default=str)
     check(not BACKGROUND_FAULTS, f"background work failed: "

@@ -30,7 +30,9 @@ two loopback nodes with their pools on the card bitwise a shadow; K13
 into raw-cudaMalloc slabs bitwise its plain version at both parities,
 its alignment checks, and two launched ranks on the card exchanging
 through K13 over CUDA IPC, their collective pull and push bitwise a
-shadow.
+shadow; K1, K3, K14 and K15 naming the top rows of a 9 GB pool, past
+f32 element 2^31, bitwise their plain versions; and the north-star
+runs' bulk_device_init leaving no slot of a pool on the card unwritten.
 
 Every case needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -1887,3 +1889,96 @@ def test_collective_exchange_across_processes_on_card(cuda, tmp_path):
         for tag in ("c", "m"):
             assert np.load(tmp_path / f"{tag}{r}.npy").tobytes() == \
                 want.tobytes()
+
+
+# a pool whose rows pass f32 element 2^31: 4,400,000 rows of 512 f32
+# (9.0 GB), the north-star KGE table's scale; rows from BIG_LO on lie
+# past that element
+BIG_R, BIG_L = 4_400_000, 512
+BIG_LO = 2**31 // BIG_L
+
+
+def _top_rows(rng, n, lo, R):
+    """n int32 slots over rows [lo, R): repeats (every fourth names the
+    one before it), slots past the pool and negative ones among them."""
+    sl = rng.integers(lo, R, n)
+    sl[1::4] = sl[0::4]
+    sl[::97] = R
+    sl[1::101] = -1
+    return sl.astype(np.int32)
+
+
+def test_kernels_on_rows_past_element_2_31(cuda):
+    """K1, K3, K14 and K15 naming the top rows of a pool of 4,400,000
+    rows of 512 f32 (from a little below the row holding element 2^31
+    to the last, where a flat f32 offset needs 64 bits) bitwise their
+    plain versions on a copy of the whole pool; each check leaves both
+    pools equal for the next."""
+    rng = np.random.default_rng(31)
+    pool = torch.randn(1, BIG_R, BIG_L, device=cuda)
+    n = 4096
+    sh = torch.zeros(n, dtype=torch.int32, device=cuda)
+    sl = torch.as_tensor(_top_rows(rng, n, BIG_LO - 1024, BIG_R),
+                         device=cuda)
+    assert int((sl.long() >= BIG_LO).sum()) > n // 2
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    assert same(K.routed_gather(pool, None, None, sh, sl),
+                K.routed_gather_plain(pool, None, None, sh, sl))
+    vals = torch.randn(n, BIG_L, device=cuda)
+    ref = pool.clone()
+    K.ordered_scatter_add_plain(ref, sh, sl, vals)
+    K.ordered_scatter_add(pool, sh, sl, vals)
+    assert same(pool, ref), "K3"
+    K.drop_set_plain(ref, sh, sl, vals)
+    K.drop_set(pool, sh, sl, vals)
+    assert same(pool, ref), "K14"
+    # K15: 4,096 replicas of one shard's cache, their owners the top rows
+    C = 4096
+    cache = torch.randn(1, C, BIG_L, device=cuda)
+    delta = torch.randn(1, C, BIG_L, device=cuda) * 1e-3
+    r_cs = torch.as_tensor(rng.permutation(C).astype(np.int32),
+                           device=cuda)
+    caches = [(cache.clone(), delta.clone()) for _ in range(2)]
+    K.sync_round_plain(ref, *caches[0], sh, r_cs, sh, sl)
+    K.sync_round(pool, *caches[1], sh, r_cs, sh, sl)
+    torch.cuda.synchronize()
+    assert same(pool, ref), "K15 main"
+    for a, b in zip(*caches):
+        assert same(a, b), "K15 cache/delta"
+    del pool, ref
+    torch.cuda.empty_cache()
+
+
+def test_bulk_device_init_fills_every_slot_on_card(cuda):
+    """northstar.bulk_device_init on a server's pool on the card (300,000
+    keys of 512 f32: 375,000 slots, two slabs, the last short): no slot
+    left unwritten (the pool filled with NaN first), optimizer columns
+    exactly f32 1e-6, the embedding columns' mean within 0.001 and std
+    within 0.5% of normal(0, 0.1), the same seed the same bytes twice."""
+    import adapm_tpu_torch
+    from adapm_tpu_torch import northstar as ns
+    keys = 300_000
+    srv = adapm_tpu_torch.setup(keys, BIG_L, opts=ns._sys_opts(keys),
+                                device=cuda)
+    try:
+        st = srv.stores[0]
+        fills = []
+        for _ in range(2):
+            st.main.fill_(float("nan"))
+            ns.bulk_device_init(st, BIG_L // 2, 0.1, seed=0)
+            fills.append(st.main.clone())
+        main = fills[0]
+        assert main.shape[1] > ns.SLAB
+        assert not bool(torch.isnan(main).any())
+        assert bool((main[:, :, BIG_L // 2:] == torch.tensor(
+            1e-6, device=cuda)).all())
+        emb = main[:, :, :BIG_L // 2].double()
+        assert abs(float(emb.mean())) < 0.001
+        assert abs(float(emb.std()) / 0.1 - 1) < 0.005
+        assert torch.equal(main.view(torch.int32),
+                           fills[1].view(torch.int32))
+    finally:
+        srv.shutdown()
