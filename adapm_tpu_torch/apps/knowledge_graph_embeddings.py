@@ -282,7 +282,7 @@ def _pool_counts(run: KgeRun, s, r, o, ties: bool = False):
     if run._pool_eval is None or run._pool_eval_chunk != C:
         run._pool_eval = make_pool_eval_counts(
             run.args.model, run.ent_dim, run.rel_dim, C,
-            shared_pool=shared)
+            shared_pool=shared, tracer=srv.spans)
         run._pool_eval_chunk = C
         ekeys = run.ekey(np.arange(run.E)).astype(np.int64)
         nch = -(-run.E // C)
@@ -399,7 +399,7 @@ def _evaluate_pool_mp(run: KgeRun, triples: np.ndarray, batch: int):
     put = srv.ctx.put_replicated
     if run._pool_eval_mp is None or run._pool_eval_chunk != C:
         run._pool_eval_mp = make_pool_eval_counts_mp(
-            run.args.model, run.ent_dim, run.rel_dim, C)
+            run.args.model, run.ent_dim, run.rel_dim, C, tracer=srv.spans)
         run._true_score = make_true_score(run.args.model)
         run._pool_eval_chunk = C
         run._pool_eval_topo = -1

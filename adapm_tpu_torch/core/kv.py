@@ -65,7 +65,7 @@ from ..config import SystemOptions
 from ..device import cuda as dcuda
 from ..device.context import DeviceContext, make_context
 from ..exec.executor import dispatch_gate
-from ..obs.spans import NULL_SPAN
+from ..obs.spans import profiling, span
 from .addressbook import Addressbook
 from .store import OOB, ShardedStore
 from .sync import SyncManager
@@ -507,8 +507,7 @@ class Server:
                     self._ab_mut_acked = self.ab.mutations
 
     def _span(self, name: str):
-        sp = self.spans
-        return NULL_SPAN if sp is None else sp.span(name)
+        return span(self.spans, name)
 
     # -- worker management ---------------------------------------------------
 
@@ -1685,20 +1684,18 @@ class Worker:
 
     def _instrumented(self, name: str, h, impl, *args):
         """Latency histogram + span + flight bracket for a worker op; a
-        plain call when all three are off."""
+        plain call when all are off and no profiler records."""
         sp = self.server.spans
         fl = self.server.flight
-        if h is None and sp is None and fl is None:
+        if h is None and sp is None and fl is None and not profiling():
             return impl(*args)
         t0 = _time.perf_counter()
-        tok = sp.begin(name) if sp is not None else None
         try:
-            return impl(*args)
+            with span(sp, name):
+                return impl(*args)
         finally:
             if h is not None:
                 h.observe(_time.perf_counter() - t0)
-            if tok is not None:
-                sp.end(name, tok)
             if fl is not None:
                 # a plain Worker op is a single-segment flight: one
                 # minted id, one slice on the caller's thread

@@ -18,7 +18,11 @@ The eval programs rank every entity for both sides of a triple:
 true triple straight from the main pool through the hand-written kernel
 K4 (ops/kernels.py pool_eval_counts). `make_pool_eval_counts_mp` is its
 multi-process form, the same kernel with query rows in, only the rank's
-owned entities as candidates and the true score an input.
+owned entities as candidates and the true score an input. Both open the
+program spans `eval.rows` (the query rows' K1 gathers), `eval.queries`
+(the true score and K4's query coefficients) and `eval.k4` (K4's call)
+back to back (obs/spans.py span: the span tracer they are built with,
+and torch.profiler's trace while one records).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ..exec import dispatch_gate
+from ..obs.spans import span
 from ..ops.kernels import (complex_step, pool_eval_counts,
                            pool_eval_counts_plain, rescal_step,
                            routed_gather)
@@ -231,26 +236,35 @@ def _pool_rows(pool, owner, slot, keys, dim):
 
 
 def _k4_counts(model, ent_main, owner, slot, ent_keys, nvalid, se, re_,
-               oe, true_sc, skeys, okeys, ties):
+               oe, true_sc, skeys, okeys, ties, tracer=None, score=None):
     """K4 over the first `nvalid` candidates of `ent_keys` for the query
-    rows se/re_/oe: (g_o, g_s), or with `ties` K4's plain version's
-    (g_o, g_s, t_o, t_s)."""
-    if model == "complex":
-        a, b, c, dcoef = _complex_queries(se, re_, oe)
-        q_o, q_s = torch.cat([a, b], -1), torch.cat([c, dcoef], -1)
-    else:
-        q_o, q_s = _rescal_queries(se, re_, oe)
-    args = (ent_main, owner, slot, ent_keys, int(nvalid), q_o.contiguous(),
-            q_s.contiguous(), true_sc.contiguous(), okeys.to(torch.int32),
-            skeys.to(torch.int32))
-    parts = 2 if model == "complex" else 1
-    if ties:
-        return pool_eval_counts_plain(*args, parts=parts, ties=True)
-    return pool_eval_counts(*args, parts=parts)
+    rows se/re_/oe: ((g_o, g_s), or with `ties` K4's plain version's
+    (g_o, g_s, t_o, t_s); true_sc), in the spans `eval.queries` and
+    `eval.k4`. Given `score`, the true scores are score(se, re_, oe),
+    one a triple for both sides, computed in `eval.queries`."""
+    with span(tracer, "eval.queries"):
+        if score is not None:
+            true_sc = score(se, re_, oe)
+        if model == "complex":
+            a, b, c, dcoef = _complex_queries(se, re_, oe)
+            q_o, q_s = torch.cat([a, b], -1), torch.cat([c, dcoef], -1)
+        else:
+            q_o, q_s = _rescal_queries(se, re_, oe)
+        args = (ent_main, owner, slot, ent_keys, int(nvalid),
+                q_o.contiguous(), q_s.contiguous(), true_sc.contiguous(),
+                okeys.to(torch.int32), skeys.to(torch.int32))
+    with span(tracer, "eval.k4"):
+        parts = 2 if model == "complex" else 1
+        if ties:
+            out = pool_eval_counts_plain(*args, parts=parts, ties=True)
+        else:
+            out = pool_eval_counts(*args, parts=parts)
+    return out, true_sc
 
 
 def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
-                          chunk: int, shared_pool: bool = False):
+                          chunk: int, shared_pool: bool = False,
+                          tracer=None):
     """Full-entity eval without materializing the entity matrix: candidate
     rows are read straight from the main POOL (the JAX package's
     make_pool_eval_counts, a lax.scan over [B, chunk] tiles there; here
@@ -270,7 +284,10 @@ def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
 
     `ties=True` (for checks) computes the counts with K4's plain version
     instead and also returns the per-side near-tie counts
-    (ops/kernels.py pool_eval_counts_plain)."""
+    (ops/kernels.py pool_eval_counts_plain).
+
+    `tracer` (obs/spans.py SpanTracer, or None) records the program's
+    spans; torch.profiler sees them without one."""
     score = {"complex": complex_score, "rescal": rescal_score}[model]
 
     def counts(ent_main, rel_main, tables, ent_keys, nE, skeys, rkeys,
@@ -279,13 +296,14 @@ def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
             raise ValueError(f"key tiles are {ent_keys.shape[1]} wide, the "
                              f"program was built for chunk {chunk}")
         owner, slot, _ = tables
-        se = _pool_rows(ent_main, owner, slot, skeys, ent_dim)
-        oe = _pool_rows(ent_main, owner, slot, okeys, ent_dim)
-        rpool = ent_main if shared_pool else rel_main
-        re_ = _pool_rows(rpool, owner, slot, rkeys, rel_dim)
-        true_sc = score(se, re_, oe)  # same triple -> same score each side
-        out = _k4_counts(model, ent_main, owner, slot, ent_keys, nE, se,
-                         re_, oe, true_sc, skeys, okeys, ties)
+        with span(tracer, "eval.rows"):
+            se = _pool_rows(ent_main, owner, slot, skeys, ent_dim)
+            oe = _pool_rows(ent_main, owner, slot, okeys, ent_dim)
+            rpool = ent_main if shared_pool else rel_main
+            re_ = _pool_rows(rpool, owner, slot, rkeys, rel_dim)
+        out, true_sc = _k4_counts(model, ent_main, owner, slot, ent_keys,
+                                  nE, se, re_, oe, None, skeys, okeys,
+                                  ties, tracer, score)
         return out[:2] + (true_sc,) + out[2:]
 
     if shared_pool:
@@ -298,7 +316,7 @@ def make_pool_eval_counts(model: str, ent_dim: int, rel_dim: int,
 
 
 def make_pool_eval_counts_mp(model: str, ent_dim: int, rel_dim: int,
-                             chunk: int):
+                             chunk: int, tracer=None):
     """Candidate-partitioned twin of make_pool_eval_counts (the JAX
     package's make_pool_eval_counts_mp, the multi-process chunked eval):
 
@@ -320,7 +338,8 @@ def make_pool_eval_counts_mp(model: str, ent_dim: int, rel_dim: int,
     pool_eval_counts) over the owned tiles, its queries formed as
     make_pool_eval_counts forms them. `ties=True`
     (for checks) counts with its plain version and also returns the
-    per-side near-tie counts."""
+    per-side near-tie counts. `tracer` as in make_pool_eval_counts (the
+    spans `eval.queries` and `eval.k4`)."""
     def counts(ent_main, tables, ent_keys, nvalid, se, re_, oe, skeys,
                okeys, true_sc, ties=False):
         if ent_keys.shape[1] != chunk:
@@ -329,6 +348,7 @@ def make_pool_eval_counts_mp(model: str, ent_dim: int, rel_dim: int,
         owner, slot, _ = tables
         return _k4_counts(model, ent_main, owner, slot, ent_keys, nvalid,
                           se[:, :ent_dim], re_[:, :rel_dim],
-                          oe[:, :ent_dim], true_sc, skeys, okeys, ties)
+                          oe[:, :ent_dim], true_sc, skeys, okeys, ties,
+                          tracer)[0]
 
     return counts

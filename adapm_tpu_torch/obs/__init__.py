@@ -2,4 +2,4 @@
 from .metrics import (Counter, Gauge, Histogram,  # noqa: F401
                       MetricsRegistry, get_global_registry,
                       observe_global, set_global_registry)
-from .spans import NULL_SPAN, SpanTracer  # noqa: F401
+from .spans import NULL_SPAN, SpanTracer, span  # noqa: F401

@@ -1,13 +1,21 @@
 """Span tracer: begin/end events for named phases, Perfetto-loadable.
 
-`SpanTracer.span(name)` brackets a phase; completed spans are stored as
-(thread, name, start_us, dur_us) tuples and exported as Chrome
-trace-event JSON (`ph: "X"` complete events + thread-name metadata),
-which chrome://tracing and https://ui.perfetto.dev load directly.
+Every program span opens through `span(tracer, name)`, which has two
+sinks:
 
-Off by default (`--sys.trace.spans`); when off the Server holds no
-tracer and instrumented sites pay one `is None` check (or enter
-`NULL_SPAN`, a shared no-op context manager).
+- the `SpanTracer` when one is given (`--sys.trace.spans`, off by
+  default): completed spans are stored as (thread, name, start_us,
+  dur_us) tuples and exported as Chrome trace-event JSON (`ph: "X"`
+  complete events + thread-name metadata), which chrome://tracing and
+  https://ui.perfetto.dev load directly;
+- `torch.profiler`, whenever one is recording: the span is the range
+  `adapm.<name>` in the profiler's own trace, on its clock, beside the
+  kernels it launched. The range is a plain function record, not a
+  user annotation, so the profiler mirrors nothing of it on the device
+  rows (only kernels and copies are there).
+
+With neither sink active `span` returns `NULL_SPAN`, a shared no-op
+context manager, after one check of each.
 
 Crash breadcrumb: when given a breadcrumb path, the
 tracer overwrites a small fixed-size file with the span name + wall time
@@ -28,7 +36,15 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 _BREADCRUMB_WIDTH = 256
+
+# whether a torch.profiler is recording
+profiling = torch._C._autograd._profiler_enabled
+# a record-function range of the FUNCTION scope (the user scope of
+# torch.profiler.record_function would also get device-row mirrors)
+_Range = torch._C._profiler._RecordFunctionFast
 
 
 class _NullSpan:
@@ -63,6 +79,35 @@ class _Span:
         # apm-lint: disable=APM003 same invariant as __enter__ above
         self.tracer.end(self.name, self.t0)
         return False
+
+
+class _ProfiledSpan:
+    """A span while torch.profiler records: the range `adapm.<name>`
+    around the tracer's span, when there is a tracer."""
+    __slots__ = ("rng", "inner")
+
+    def __init__(self, tracer: Optional["SpanTracer"], name: str):
+        self.rng = _Range("adapm." + name)
+        self.inner = NULL_SPAN if tracer is None else tracer.span(name)
+
+    def __enter__(self):
+        self.rng.__enter__()
+        self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.inner.__exit__(*exc)
+        self.rng.__exit__(*exc)
+        return False
+
+
+def span(tracer: Optional["SpanTracer"], name: str):
+    """The context manager of program span `name`: into `tracer` when
+    one is given, and into torch.profiler's trace while one records;
+    NULL_SPAN when neither."""
+    if profiling():
+        return _ProfiledSpan(tracer, name)
+    return NULL_SPAN if tracer is None else tracer.span(name)
 
 
 class SpanTracer:

@@ -25,7 +25,8 @@ incremental checkpoint chain saved on the card restored bitwise into a
 fresh server on the card and into one on the CPU, and a flight-traced
 lookup whose device slice is above zero; K4's multi-process form
 (queries from rows, owned candidates) equal to its plain version on
-integer rows and within the near-tie rule on random ComplEx rows, and
+integer rows and within the near-tie rule on random ComplEx rows, its
+program spans on the profiler's host rows only, and
 two loopback nodes with their pools on the card bitwise a shadow; K13
 into raw-cudaMalloc slabs bitwise its plain version at both parities,
 its alignment checks, and two launched ranks on the card exchanging
@@ -498,6 +499,30 @@ def _k4_mp_case(rng, dev, B, model, d, integer, E=900, nown=500,
 
     fn = kge.make_pool_eval_counts_mp(model, kd, rd, C)
     return fn, args, [to(a) for a in args]
+
+
+def test_eval_spans_have_no_device_records(cuda):
+    """The eval program's spans (obs/spans.py) under torch.profiler with
+    CUDA activity: `adapm.eval.queries` and `adapm.eval.k4` once each on
+    the host rows, no record of either on the device rows (only kernels
+    and copies are there, K4 among them)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev_t = torch.autograd.DeviceType.CUDA
+    fn, _, dev_args = _k4_mp_case(np.random.default_rng(5), cuda, 36,
+                                  "complex", 128, False)
+    fn(*dev_args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*dev_args)
+        torch.cuda.synchronize()
+    evs = prof.events()
+    ours = [e for e in evs if e.name.startswith("adapm.")]
+    assert sorted(e.name for e in ours) == ["adapm.eval.k4",
+                                            "adapm.eval.queries"]
+    assert all(e.device_type != dev_t for e in ours)
+    assert any(e.device_type == dev_t and "pool_eval_counts" in e.name
+               for e in evs)
 
 
 @pytest.mark.parametrize("model,d", [("complex", 128), ("complex", 3),

@@ -104,7 +104,7 @@ def _one_process(c):
     """The one-process K4 twin over all entities, with the queries of the
     same rows, and its near-tie counts."""
     tiles, n = _tiles(np.arange(E, dtype=np.int32))
-    out = tkge._k4_counts(
+    out, _ = tkge._k4_counts(
         c["model"], torch.from_numpy(c["main"]),
         torch.from_numpy(c["owner"]), torch.from_numpy(c["slot"]),
         torch.from_numpy(tiles), n, torch.from_numpy(c["se"]),
