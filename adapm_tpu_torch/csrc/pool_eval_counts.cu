@@ -67,6 +67,41 @@
 // data every order gives the same sums, and elsewhere the counts differ
 // from any other f32 evaluation only at near-ties (ops/kernels.py
 // pool_eval_counts_plain).
+//
+// The pair form (pair_pool_eval_counts_kernel). Where no resident block
+// holds all B queries of both sides, the form above splits them over
+// blockIdx.y: at K=512 (ComplEx at 256 complex dimensions) B=64 takes two
+// blocks of 32, and each thread holds 8 x 2 x 2 = 32 accumulators, 12
+// shared reads for 128 FMAs (0.54 of the bound at 4,594,485 candidates).
+// The pair form gives each CTA one side instead: CTA (x, 0) holds all 64
+// object-side query rows resident (q_o, okey), CTA (x, 1) the subject
+// side's (q_s, skey), 128 KiB each at K=512, and both walk the same
+// 256-row tiles x, x + gridDim.x, ... Each thread holds 8 candidates
+// (lane + 32j) x 8 queries (warp) = 64 accumulators, 16 shared reads for
+// 256 FMAs; the ring is 2 stages of 256 rows x 32 columns (pitch 36: the
+// 8 lanes of a phase hit 8 distinct bank quads), fed by every thread's
+// 16-byte cp.async, 8 threads a 128-byte row segment, with the key ->
+// owner/slot -> pointer pipeline of the form above. What bounds it is the
+// same f32 FMA rate; each row is read by both CTAs of its slice, the
+// second read mostly from L2 (they run together: one wave of 2 x 66 CTAs).
+// Measured at the eval cell's shape (PERF.md): 15.2 ms against
+// 16.6 for the split form and 8.99 for the bound; the loads cost nothing
+// measurable (with no candidate loaded past the first stage it runs as
+// fast), the FMA loop with its barrier per 32 columns is what remains.
+// Tried there and not kept: a cluster of the two CTAs fed by one
+// cp.async.bulk a row and chunk with .multicast::cluster (each row read
+// once): 27.5-28.0 ms, the bulk copies cost ~50 ns each per SM, whatever
+// their size (128 or 64 bytes); a producer warp with mbarriers, CTA-local
+// or across the cluster (22.3 and 16.7 ms without any loads: one warp's
+// issue and the handshake on the critical path of a 2-stage ring that
+// the 128 KiB of queries leave room for); 16 x 8 accumulators over
+// 512-row tiles of 16 columns (15.9 ms). The arithmetic is the form
+// above's: one __fmaf_rn chain in k order a dot, then the zero-filled
+// tail, so its counts are bitwise the other form's. The form above stays
+// where one resident block holds all B queries (K <= 256 at B <= 64):
+// each row is read once already, and no alignment is needed; the pair
+// form needs 16-byte rows and queries and B <= 64, and one side's
+// queries fit beside its ring up to K = 544.
 #include <cuda_runtime.h>
 
 namespace {
@@ -381,6 +416,194 @@ int launch_tq(const Args& a, int Bq, int smem, dim3 grid,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- the pair form ----
+constexpr int kPairCt = 256;         // candidates per tile
+constexpr int kPairKC = 32;          // columns per ring stage
+constexpr int kPairPitch = kPairKC + 4;  // floats per ring row (144 B)
+constexpr int kPairQ = 64;           // query rows of a side
+constexpr int kPairSlots = 4;        // tile slots of the pointer/key tables
+constexpr int kPairThreads = 256;    // 8 warps, a query group each
+constexpr int kTC = kPairCt / 32;    // candidates a thread: lane + 32j
+constexpr int kTQ = kPairQ / 8;      // queries a thread: 8*warp + i
+
+// bytes of dynamic shared memory one CTA of the pair form lays out (must
+// match ops/kernels.py _k4_pair_smem)
+long long pair_smem_need(int K) {
+  const long long kp = (long long)((K + kPairKC - 1) / kPairKC) * kPairKC;
+  return (long long)kPairSlots * kPairCt * (8 + 4) + 2 * kPairQ * 4 +
+         ((long long)kStages * kPairCt * kPairPitch + kp * kPairQ) * 4;
+}
+
+// One CTA of a pair: side blockIdx.y (0: object, q_o/okey; 1: subject,
+// q_s/skey) over the candidate tiles blockIdx.x, + gridDim.x, ...
+__global__ void __launch_bounds__(kPairThreads, 1)
+    pair_pool_eval_counts_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float** s_ptr = reinterpret_cast<const float**>(smem);  // [4][256]
+  int* s_key = reinterpret_cast<int*>(s_ptr + kPairSlots * kPairCt);
+  float* s_true = reinterpret_cast<float*>(s_key + kPairSlots * kPairCt);
+  int* s_side = reinterpret_cast<int*>(s_true + kPairQ);
+  float* ring = reinterpret_cast<float*>(s_side + kPairQ);
+  float* qbuf = ring + kStages * kPairCt * kPairPitch;  // [kp/4][64][4]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int side = blockIdx.y;
+  const int nkc = (a.K + kPairKC - 1) / kPairKC;
+  const long long ntiles = (a.nvalid + kPairCt - 1) / kPairCt;
+  const long long first = blockIdx.x, step = gridDim.x;
+  if (first >= ntiles) return;
+  const int my_tiles = (int)((ntiles - 1 - first) / step + 1);
+  const int total = my_tiles * nkc;
+
+  // -- row-pointer pipeline (thread tid: row tid of each tile), as the
+  // one-CTA-a-block form's
+  auto key_of = [&](int i) -> int {
+    if (i >= my_tiles) return -1;
+    const long long c = (first + (long long)i * step) * kPairCt + tid;
+    return c < a.nvalid ? a.keys[c] : -1;
+  };
+  auto in_table = [&](int key) { return key >= 0 && key < a.num_keys; };
+  auto row_ptr = [&](int sh, int sl) -> const float* {
+    return (sh >= 0 && sh < a.shards && sl >= 0 && sl < a.slots)
+               ? a.pool + ((long long)sh * a.slots + sl) * (long long)a.L
+               : nullptr;
+  };
+  // key_a/own_a/sl_a: tile i+1; key_b: tile i+2 (at event i)
+  const int k0 = key_of(0);
+  s_ptr[tid] = in_table(k0) ? row_ptr(a.owner[k0], a.slot[k0]) : nullptr;
+  s_key[tid] = k0;
+  int key_a = key_of(1);
+  int own_a = in_table(key_a) ? a.owner[key_a] : -1;
+  int sl_a = in_table(key_a) ? a.slot[key_a] : -1;
+  int key_b = key_of(2);
+  // event i: tile i's chunks are about to be issued; publish tile i+1's
+  // pointers and move the pipeline on by one tile
+  auto event = [&](int i) {
+    const int sl = (i + 1) % kPairSlots;
+    s_ptr[sl * kPairCt + tid] = row_ptr(own_a, sl_a);
+    s_key[sl * kPairCt + tid] = key_a;
+    key_a = key_b;
+    own_a = in_table(key_a) ? a.owner[key_a] : -1;
+    sl_a = in_table(key_a) ? a.slot[key_a] : -1;
+    key_b = key_of(i + 3);
+  };
+
+  // this CTA's side, resident as [kp/4][64][4], zero past B and K
+  const float* q = side ? a.q_s : a.q_o;
+  for (int e = tid; e < nkc * kPairKC / 4 * kPairQ; e += kPairThreads) {
+    const int kg = e / kPairQ, b = e - kg * kPairQ;
+    const int bytes = b < a.B && 4 * kg < a.K ? 16 : 0;
+    cp16(qbuf + 4 * e, bytes ? q + (long long)b * a.K + 4 * kg : q, bytes);
+  }
+  if (tid < kPairQ) {
+    s_true[tid] = tid < a.B ? a.true_sc[tid] : 0.f;
+    s_side[tid] = tid < a.B ? (side ? a.skey : a.okey)[tid] : -1;
+  }
+
+  // issue the copies of chunk s (tile s / nkc, columns (s % nkc) * 32)
+  // into ring stage s % kStages, 8 threads a row; always one commit group
+  int is_tile = 0, is_kc = 0;
+  auto issue = [&](int s) {
+    if (s < total) {
+      if (is_kc == 0) event(is_tile);
+      float* dst = ring + (s % kStages) * kPairCt * kPairPitch;
+      const float* const* ptr = s_ptr + (is_tile % kPairSlots) * kPairCt;
+      const int c0 = is_kc * kPairKC;
+#pragma unroll
+      for (int m = 0; m < kPairCt * kPairKC / 4 / kPairThreads; ++m) {
+        const int e = tid + kPairThreads * m;
+        const int r = e / (kPairKC / 4), cc = 4 * (e % (kPairKC / 4));
+        const float* p = ptr[r];
+        const int bytes = p != nullptr && c0 + cc < a.K ? 16 : 0;
+        cp16(dst + r * kPairPitch + cc, bytes ? p + c0 + cc : a.pool, bytes);
+      }
+      if (++is_kc == nkc) { is_kc = 0; ++is_tile; }
+    }
+    cp_commit();
+  };
+
+  __syncthreads();  // tile 0's pointer table
+  issue(0);
+  __syncthreads();  // the event's table writes, before the next issue
+
+  float acc[kTC][kTQ];
+  int cnt[kTQ];
+#pragma unroll
+  for (int i = 0; i < kTQ; ++i) cnt[i] = 0;
+  const float* qw = qbuf + 4 * kTQ * warp;
+  int tile = 0, kc = 0;
+  for (int s = 0; s < total; ++s) {
+    cp_wait<0>();     // chunk s (and the queries) landed
+    __syncthreads();  // ... for every thread; stage s-1 is free
+    issue(s + 1);
+
+    if (kc == 0) {
+#pragma unroll
+      for (int j = 0; j < kTC; ++j)
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i) acc[j][i] = 0.f;
+    }
+    const float* cr = ring + (s % kStages) * kPairCt * kPairPitch +
+                      lane * kPairPitch;
+    const float* qc = qw + kc * kPairKC * kPairQ;
+#pragma unroll
+    for (int kg = 0; kg < kPairKC / 4; ++kg) {
+      float4 qv[kTQ];
+#pragma unroll
+      for (int i = 0; i < kTQ; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qc + 4 * (kg * kPairQ + i));
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) {
+        const float4 r = *reinterpret_cast<const float4*>(
+            cr + 32 * j * kPairPitch + 4 * kg);
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i) {
+          acc[j][i] = __fmaf_rn(qv[i].x, r.x, acc[j][i]);
+          acc[j][i] = __fmaf_rn(qv[i].y, r.y, acc[j][i]);
+          acc[j][i] = __fmaf_rn(qv[i].z, r.z, acc[j][i]);
+          acc[j][i] = __fmaf_rn(qv[i].w, r.w, acc[j][i]);
+        }
+      }
+    }
+
+    if (kc == nkc - 1) {  // the tile's dots are whole: compare and count
+      const int* keys = s_key + (tile % kPairSlots) * kPairCt;
+      const long long cb = (first + (long long)tile * step) * kPairCt;
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) {
+        const int cl = lane + 32 * j;
+        const int key = keys[cl];
+        const bool v = cb + cl < a.nvalid;
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i) {
+          const int qb = kTQ * warp + i;
+          cnt[i] += v & (acc[j][i] > s_true[qb]) & (key != s_side[qb]);
+        }
+      }
+      kc = 0;
+      ++tile;
+    } else {
+      ++kc;
+    }
+  }
+  cp_wait<0>();
+
+  // sum over the warp's 32 candidate lanes
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < kTQ; ++i)
+      cnt[i] += __shfl_xor_sync(0xffffffffu, cnt[i], off);
+  if (lane == 0) {
+    int* g = side ? a.g_s : a.g_o;
+#pragma unroll
+    for (int i = 0; i < kTQ; ++i) {
+      const int qb = kTQ * warp + i;
+      if (qb < a.B && cnt[i]) atomicAdd(g + qb, cnt[i]);
+    }
+  }
+}
+
 }  // namespace
 
 // g_o/g_s must be zeroed by the caller; the kernel adds into them. The
@@ -405,4 +628,33 @@ extern "C" int adapm_pool_eval_counts(
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
   return vec ? launch_tq<true>(a, Bq, smem_bytes, grid, stream)
              : launch_tq<false>(a, Bq, smem_bytes, grid, stream);
+}
+
+// The pair form: grid (grid_x, 2) of 256 threads, one CTA a candidate
+// slice and side, with smem_bytes of dynamic shared memory each (ops/
+// kernels.py _k4_plan). Needs B <= 64, K and L multiples of 4, and the
+// pool and query rows 16-byte aligned; else cudaErrorInvalidValue, before
+// anything is launched.
+extern "C" int adapm_pool_eval_counts_pair(
+    const float* pool, int shards, int slots, int L, int K, const int* owner,
+    const int* slot, long long num_keys, const int* keys, long long nvalid,
+    const float* q_o, const float* q_s, const float* true_sc,
+    const int* okey, const int* skey, int B, int smem_bytes, int grid_x,
+    int* g_o, int* g_s, cudaStream_t stream) {
+  if (nvalid <= 0 || B <= 0) return 0;
+  const auto a16 = [](const void* p) {
+    return ((unsigned long long)p & 15) == 0;
+  };
+  if (B > kPairQ || K <= 0 || K % 4 || L % 4 || !a16(pool) || !a16(q_o) ||
+      !a16(q_s) || grid_x <= 0 || smem_bytes < pair_smem_need(K))
+    return (int)cudaErrorInvalidValue;
+  const Args a{pool, shards, slots, L,  K,     owner,  slot, num_keys,
+               keys, nvalid, q_o,   q_s, true_sc, okey, skey, B,
+               g_o,  g_s,    1};
+  auto* k = pair_pool_eval_counts_kernel;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  k<<<dim3((unsigned)grid_x, 2), kPairThreads, smem_bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }

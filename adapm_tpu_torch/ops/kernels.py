@@ -118,6 +118,10 @@ LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
 # run_scan): each replay adds the launches recorded at its capture. No
 # wrapper runs then, so LAUNCHES does not count them.
 REPLAYED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+# K4's launches by the form its plan took (_k4_plan): a resident or a
+# streamed query block, or the pair of CTAs, one a side. Apart from
+# LAUNCHES, whose every name is one kernel record a launch.
+K4_FORMS: Dict[str, int] = {"resident": 0, "streamed": 0, "pair": 0}
 
 # segments one K1/K3 launch takes (kMaxSeg in the sources); the wrappers
 # join any beyond it into the last
@@ -130,6 +134,8 @@ _build_lock = threading.Lock()
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = REPLAYED[k] = 0
+    for k in K4_FORMS:
+        K4_FORMS[k] = 0
 
 
 def _build_dir() -> str:
@@ -281,10 +287,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_ordered_fold_grid.restype = I
         lib.adapm_ordered_fold_grid.argtypes = [LL, I, I, P]
     else:
+        k4 = [P, I, I, I, I, P, P, LL, P, LL, P, P, P, P, P, I]
         lib.adapm_pool_eval_counts.restype = I
-        lib.adapm_pool_eval_counts.argtypes = [P, I, I, I, I, P, P, LL, P, LL,
-                                               P, P, P, P, P] + [I] * 8 + \
-            [P, P, P]
+        lib.adapm_pool_eval_counts.argtypes = k4 + [I] * 7 + [P, P, P]
+        lib.adapm_pool_eval_counts_pair.restype = I
+        lib.adapm_pool_eval_counts_pair.argtypes = k4 + [I, I, P, P, P]
     return lib
 
 
@@ -1397,16 +1404,25 @@ def pool_eval_counts_plain(pool, owner, slot, keys, nvalid: int, q_o, q_s,
 K4_TILE, K4_CHUNK, K4_STAGES, K4_SLOTS = 128, 64, 2, 8
 K4_SMEM_MAX = 232_448            # dynamic shared memory of one H100 CTA
 K4_BQ = (64, 48, 32, 16)         # query blocks the kernel is built for
+# the pair form's geometry (kPairCt, kPairKC, kPairQ, kPairSlots): two
+# CTAs a candidate slice, each holding all queries of one side
+K4_PAIR_TILE, K4_PAIR_CHUNK, K4_PAIR_Q, K4_PAIR_SLOTS = 256, 32, 64, 4
 
 
 class K4Plan(NamedTuple):
-    Bq: int                      # queries per CTA (16 groups x TQ)
+    Bq: int                      # queries per CTA (16 groups x TQ; pair: 64)
     Ct: int                      # candidates per tile
     stages: int                  # chunks in flight in the cp.async ring
     smem_bytes: int
-    grid: Tuple[int, int]        # (candidate CTAs, query blocks)
+    grid: Tuple[int, int]        # (candidate CTAs, query blocks; pair: sides)
     resident: bool               # query block held for the whole CTA
-    vec: bool                    # 16-byte copies (before pointer alignment)
+    vec: bool                    # 16-byte copies (rows and queries aligned)
+    pair: bool = False           # one CTA a side, all its queries resident
+
+    @property
+    def form(self) -> str:
+        return "pair" if self.pair else \
+            "resident" if self.resident else "streamed"
 
 
 def _k4_smem(Bq: int, K: int, resident: bool) -> int:
@@ -1419,37 +1435,75 @@ def _k4_smem(Bq: int, K: int, resident: bool) -> int:
         (K4_STAGES * K4_TILE * (K4_CHUNK + 4) + q) * 4
 
 
-def _k4_plan(B: int, K: int, L: int, nvalid: int, sms: int) -> K4Plan:
+def _k4_pair_smem(K: int) -> int:
+    """Dynamic shared memory of one CTA of the pair form (pair_smem_need
+    in the source): the pointer and key tables, the true scores and side
+    keys, the ring, and one side's 64 query rows over all of K."""
+    kp = -(-K // K4_PAIR_CHUNK) * K4_PAIR_CHUNK
+    return K4_PAIR_SLOTS * K4_PAIR_TILE * 12 + 2 * K4_PAIR_Q * 4 + \
+        (K4_STAGES * K4_PAIR_TILE * (K4_PAIR_CHUNK + 4) + kp * K4_PAIR_Q) * 4
+
+
+def _k4_spread(ntiles: int, ctas: int) -> int:
+    """At most `ctas` walkers, none without a tile, as few as take the
+    same number of rounds over the tiles."""
+    n = max(1, min(ntiles, ctas))
+    return -(-ntiles // -(-ntiles // n))
+
+
+def _k4_block_plan(bq: int, resident: bool, B: int, K: int, nvalid: int,
+                   sms: int, vec: bool) -> K4Plan:
+    """The one-CTA-a-block form at query block `bq`: ceil(B/bq) blocks
+    times as many candidate CTAs as SMs remain for each."""
+    nqb = -(-B // bq)
+    ntiles = max(1, -(-nvalid // K4_TILE))
+    return K4Plan(Bq=bq, Ct=K4_TILE, stages=K4_STAGES,
+                  smem_bytes=_k4_smem(bq, K, resident),
+                  grid=(_k4_spread(ntiles, sms // nqb), nqb),
+                  resident=resident, vec=vec)
+
+
+def _k4_plan(B: int, K: int, L: int, nvalid: int, sms: int,
+             aligned: bool = True) -> K4Plan:
     """K4's launch plan for B queries of width K over `nvalid` candidates
-    on a card of `sms` SMs. The query block Bq is the one of K4_BQ whose
-    resident copy fits in shared memory and that costs least, counting
-    per candidate the query blocks times (Bq + 16) (the 16 stands for a
+    on a card of `sms` SMs; `aligned`: the pool and the query rows start
+    on 16 bytes. The query block Bq is the one of K4_BQ whose resident
+    copy fits in shared memory and that costs least, counting per
+    candidate the query blocks times (Bq + 16) (the 16 stands for a
     block's candidate copies and per-tile overhead; a tie takes the
     larger Bq): B=64 takes 64, B=36 48, and a wider K fits only smaller
     blocks. Where no block fits resident, queries stream through the
     ring with the candidates. The grid holds about one CTA per SM:
     ceil(B/Bq) query blocks times as many candidate CTAs as SMs remain
-    for each, none without a tile, the tiles spread evenly."""
+    for each, none without a tile, the tiles spread evenly.
+
+    Where no resident block holds all B queries, so that the forms above
+    would split them (a wider K, at B <= 64), but one side's B queries
+    fit the pair form and rows and queries take 16-byte copies, the plan
+    is the pair form instead: two CTAs a slice of 256-candidate tiles,
+    one a side, each with all B queries of its side resident, as many
+    slices as half the SMs, none without a tile."""
+    vec = aligned and L % 4 == 0 and K % 4 == 0
+    whole = any(bq >= B and _k4_smem(bq, K, True) <= K4_SMEM_MAX
+                for bq in K4_BQ)
+    if (not whole and vec and B <= K4_PAIR_Q
+            and _k4_pair_smem(K) <= K4_SMEM_MAX):
+        ntiles = max(1, -(-nvalid // K4_PAIR_TILE))
+        return K4Plan(Bq=K4_PAIR_Q, Ct=K4_PAIR_TILE, stages=K4_STAGES,
+                      smem_bytes=_k4_pair_smem(K),
+                      grid=(_k4_spread(ntiles, sms // 2), 2),
+                      resident=True, vec=True, pair=True)
     best = None
     for resident in (True, False):
         for bq in K4_BQ:
-            smem = _k4_smem(bq, K, resident)
-            if smem > K4_SMEM_MAX:
+            if _k4_smem(bq, K, resident) > K4_SMEM_MAX:
                 continue
-            nqb = -(-B // bq)
-            cost = nqb * (bq + 16)
+            cost = -(-B // bq) * (bq + 16)
             if best is None or cost < best[0]:
-                best = (cost, bq, smem)
+                best = (cost, bq)
         if best is not None:
             break
-    _, bq, smem = best
-    nqb = -(-B // bq)
-    ntiles = max(1, -(-nvalid // K4_TILE))
-    gx = max(1, min(ntiles, sms // nqb))
-    gx = -(-ntiles // -(-ntiles // gx))        # same rounds, fewer CTAs
-    return K4Plan(Bq=bq, Ct=K4_TILE, stages=K4_STAGES, smem_bytes=smem,
-                  grid=(gx, nqb), resident=resident,
-                  vec=L % 4 == 0 and K % 4 == 0)
+    return _k4_block_plan(best[1], resident, B, K, nvalid, sms, vec)
 
 
 _sm_count: Dict[int, int] = {}
@@ -1499,18 +1553,37 @@ def pool_eval_counts(pool: torch.Tensor, owner: torch.Tensor,
              "pool_eval_counts: shape mismatch")
     _require(0 <= nvalid <= keys.numel(),
              "pool_eval_counts: nvalid exceeds the key table")
-    g_o, g_s = torch.zeros((2, B), dtype=torch.int32, device=pool.device)
     if nvalid == 0 or B == 0:
+        g_o, g_s = torch.zeros((2, B), dtype=torch.int32, device=pool.device)
         return g_o, g_s
-    plan = _k4_plan(B, K, L, int(nvalid), _sms(pool.device))
-    vec = int(plan.vec and _aligned16(pool, q_o, q_s))
-    rc = _lib("pool_eval_counts").adapm_pool_eval_counts(
-        _ptr(pool), S, R, L, K, _ptr(owner), _ptr(slot), owner.numel(),
-        _ptr(keys), int(nvalid), _ptr(q_o), _ptr(q_s), _ptr(true_sc),
-        _ptr(okey), _ptr(skey), B, vec, plan.Bq, plan.stages,
-        plan.smem_bytes, *plan.grid, int(plan.resident), _ptr(g_o),
-        _ptr(g_s), _stream())
+    plan = _k4_plan(B, K, L, int(nvalid), _sms(pool.device),
+                    _aligned16(pool, q_o, q_s))
+    return _k4_launch(plan, pool, owner, slot, keys, nvalid, q_o, q_s,
+                      true_sc, okey, skey)
+
+
+def _k4_launch(plan: K4Plan, pool, owner, slot, keys, nvalid, q_o, q_s,
+               true_sc, okey, skey):
+    """K4 on checked arguments under the given plan (the wrapper's, or
+    any other the source runs, to time or compare the forms): (g_o, g_s)
+    as pool_eval_counts returns them."""
+    S, R, L = pool.shape
+    B, K = q_o.shape
+    g_o, g_s = torch.zeros((2, B), dtype=torch.int32, device=pool.device)
+    lib = _lib("pool_eval_counts")
+    args = (_ptr(pool), S, R, L, K, _ptr(owner), _ptr(slot), owner.numel(),
+            _ptr(keys), int(nvalid), _ptr(q_o), _ptr(q_s), _ptr(true_sc),
+            _ptr(okey), _ptr(skey), B)
+    if plan.pair:
+        rc = lib.adapm_pool_eval_counts_pair(
+            *args, plan.smem_bytes, plan.grid[0], _ptr(g_o), _ptr(g_s),
+            _stream())
+    else:
+        rc = lib.adapm_pool_eval_counts(
+            *args, int(plan.vec), plan.Bq, plan.stages, plan.smem_bytes,
+            *plan.grid, int(plan.resident), _ptr(g_o), _ptr(g_s), _stream())
     LAUNCHES["pool_eval_counts"] += 1
+    K4_FORMS[plan.form] += 1
     _check(rc, "pool_eval_counts")
     return g_o, g_s
 

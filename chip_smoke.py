@@ -62,7 +62,12 @@ Phases (any failure raises and exits non-zero):
      data, and ComplEx K=256 and RESCAL K=128 on random data under the
      near-tie rule, each at B=64 and at the app's tail batch B=36, with
      the share of the bound, the launch plan and the kernel's registers,
-     spills and static shared memory from its ptxas log; K4's
+     spills and static shared memory from its ptxas log; and at the
+     benchmark eval cell's shape (4,594,485 candidates, K=512 through
+     rows of 1,024 f32, B=64) the one-CTA-a-block form's three plans
+     through its C entry and the wrapper's pair form, counts bitwise
+     alike and within the near-tie rule, device ms beside the bound and
+     matmul + compare + sum, K4_FORMS; K4's
      multi-process form (models/kge.py make_pool_eval_counts_mp, K4 over
      one rank's half of those candidates: 100,000 owned entities in two
      65,536-key tiles), the query triples as rows and the true score an
@@ -439,6 +444,9 @@ import torch
 E, R, D_MODEL, B, N = 200_000, 1_000, 128, 4096, 32
 EVAL_B, EVAL_CHUNK = 64, 65_536          # the app's eval batch and chunk
 K4_BATCHES = (EVAL_B, 36)   # the eval's full batch and its tail at 100
+# K4 at the benchmark's eval cell (benchmark/configs/complex_wd5m.json):
+# candidates, K, row length, B
+K4_CELL = (4_594_485, 512, 1024, EVAL_B)
 STEP_KERNELS = ("routed_gather", "complex_step", "ordered_scatter_add")
 # the kernels each ComplEx path launches (K2 runs on phase 6's run with
 # a shared [N] batch of negatives)
@@ -1748,7 +1756,90 @@ def phase_k4(K, dev, rng):
                         for kd in (2 * D_MODEL, D_MODEL)
                         for nb in K4_BATCHES}
     rec["ptxas"] = ptxas_summary("pool_eval_counts")
+    rec["cell"] = phase_k4_cell(K, dev, rng)
     return rec
+
+
+def phase_k4_cell(K, dev, rng):
+    """K4 at the benchmark's eval cell's shape (complex_wd5m.eval_b64):
+    Wikidata5M's 4,594,485 entities in 65,536-key chunks, a pool of rows
+    of [emb 512 | adagrad 512] f32 (K=512 read through the row stride),
+    B=64; normal(0, 0.1) rows and queries, each true score a real
+    candidate's. Timed in the trace, in two rounds of alternating order:
+    the one-CTA-a-block forms through the C entry with their plans
+    (resident Bq=32 x 2, the wrapper's plan here before the pair form;
+    streamed Bq=64; streamed Bq=32 x 2) and the wrapper's own plan where
+    it is another. Every plan's counts bitwise the first's and within
+    the near-tie rule of the plain version; matmul + compare + sum over
+    the dense candidate rows as library_ms; K4_FORMS over the wrapper's
+    launches."""
+    E4, Kd, L4, nb = K4_CELL
+    slots = -8 * (-int(np.ceil(E4 * 1.02)) // 8)
+    pool = torch.empty((1, slots, L4), device=dev).normal_(0.0, 0.1)
+    owner = torch.zeros(E4, dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(rng.permutation(slots)[:E4].astype(np.int32),
+                           device=dev)
+    nch = -(-E4 // EVAL_CHUNK)
+    pad = np.zeros(nch * EVAL_CHUNK, np.int32)
+    pad[:E4] = rng.permutation(E4)
+    keys = torch.as_tensor(pad.reshape(nch, EVAL_CHUNK), device=dev)
+    o_k, s_k = (torch.as_tensor(rng.integers(0, E4, nb).astype(np.int32),
+                                device=dev) for _ in range(2))
+    q_o, q_s = (torch.randn((nb, Kd), device=dev) * 0.1 for _ in range(2))
+    true = (q_o * pool[0, slot[o_k.long()], :Kd]).sum(1).contiguous()
+    args = (pool, owner, slot, keys, E4, q_o, q_s, true, o_k, s_k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {f"{'resident' if res else 'streamed'} Bq={bq}"
+             f"{'' if bq == nb else ' x2'}":
+             K._k4_block_plan(bq, res, nb, Kd, E4, sms, True)
+             for bq, res in ((32, True), (64, False), (32, False))}
+    K.reset_launches()
+    K.pool_eval_counts(*args)
+    forms = {f: n for f, n in K.K4_FORMS.items() if n}
+    shipped = K._k4_plan(nb, Kd, L4, E4, sms)
+    if shipped not in plans.values():
+        plans[f"wrapper's ({shipped.form})"] = shipped
+    counts = {}
+    for name, plan in plans.items():
+        counts[name] = [t.cpu() for t in K._k4_launch(plan, *args)]
+    first = next(iter(counts.values()))
+    for name, c in counts.items():
+        check(all(torch.equal(a, b) for a, b in zip(c, first)),
+              f"K4 at the cell's shape: the {name} plan's counts differ "
+              f"from the {next(iter(counts))} plan's")
+    p_o, p_s, t_o, t_s = K.pool_eval_counts_plain(*args, parts=2, ties=True)
+    diff = torch.cat([(first[0] - p_o.cpu()).abs(),
+                      (first[1] - p_s.cpu()).abs()])
+    ties = torch.cat([t_o, t_s]).cpu()
+    check(bool((diff <= ties).all()), f"K4 at the cell's shape differs "
+          f"from the plain version beyond the near-tie rule: diff "
+          f"{diff.tolist()} ties {ties.tolist()}")
+    check(bool((first[0] > 0).any() and (first[0] < E4 - 1).any()),
+          "K4 at the cell's shape: counts are degenerate")
+    ms = {name: [] for name in plans}
+    for order in (list(plans), list(plans)[::-1]):
+        for name in order:
+            t, _ = kernel_ms(lambda p=plans[name]: K._k4_launch(p, *args),
+                             "pool_eval_counts_kernel", reps=10, warmup=2)
+            ms[name].append(t)
+    cand = pool[0, slot[torch.as_tensor(pad[:E4], device=dev).long()], :Kd]
+    del pool
+
+    def library():
+        t = true[:, None]
+        return ((q_o @ cand.T) > t).sum(1), ((q_s @ cand.T) > t).sum(1)
+
+    lib_ms = cuda_ms(library, reps=5, warmup=1)
+    del cand
+    torch.cuda.empty_cache()
+    return dict(E=E4, K=Kd, L=L4, B=nb, ms=ms, library_ms=lib_ms,
+                plans={n: p._asdict() | {"form": p.form}
+                       for n, p in plans.items()},
+                shipped=shipped.form, forms=forms,
+                max_abs_err=float(diff.max()), ties=int(ties.sum()),
+                counted=int(first[0].sum() + first[1].sum()),
+                bound=bound(E4 * Kd * 4 + E4 * 4 + 2 * nb * Kd * 4,
+                            2 * 2 * nb * E4 * Kd))
 
 
 def phase_k4_mp(K, dev, rng):
@@ -4839,6 +4930,21 @@ def report_k4(k4):
         print(f"phase 2: K4 plan {key}: {p}", flush=True)
     for e in k4["ptxas"]:
         print(f"phase 2: K4 ptxas {e}", flush=True)
+    c = k4["cell"]
+    b_ms = c["bound"][0]
+    for name, runs in c["ms"].items():
+        print(f"phase 2: K4 at the cell's shape (E={c['E']}, K={c['K']}, "
+              f"L={c['L']}, B={c['B']}), {name}: "
+              + ", ".join(fmt_s(*t) for t in runs)
+              + f" ms (rounds 1, 2; bound {b_ms:.4f} ms, {c['bound'][1]}, "
+              f"share {b_ms / np.median([t[0] for t in runs]):.3f}); "
+              f"plan {c['plans'][name]}", flush=True)
+    print(f"phase 2: K4 at the cell's shape: the wrapper's form "
+          f"{c['shipped']}, K4_FORMS {c['forms']}, library_ms (matmul + "
+          f"compare + sum) {fmt_s(*c['library_ms'])}, every plan's counts "
+          f"equal, count diff {c['max_abs_err']} within {c['ties']} "
+          f"near-ties of the plain version, {c['counted']} counted",
+          flush=True)
 
 
 def report_main_path(mp, step_launches, path):

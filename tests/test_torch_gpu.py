@@ -5,7 +5,8 @@ and in a captured graph, K3's long runs and chunk-crossing runs included,
 deterministic over two runs), within
 rtol 1e-5 for K2 (CUDA's rsqrt vs the CPU's 1/sqrt), K4's counts equal on
 integer-valued data (every summation order gives the same f32 sums) and
-within the near-tie rule on random data, K5 within rtol 1e-5 / atol 1e-6
+within the near-tie rule on random data, its pair form's bitwise its
+one-CTA-a-block form's and one trace record a launch, K5 within rtol 1e-5 / atol 1e-6
 (its sums run in another order than the plain version's) and bitwise
 over two runs, its epilogue bitwise K2; K6, K7 and K16 the same way
 (K16 also at an odd width, with one negative, and in RESCAL's graph
@@ -448,6 +449,70 @@ def test_pool_eval_counts_many_tiles_and_streamed_queries(cuda, Kd, E):
     ref = K.pool_eval_counts_plain(*dev_args)
     for got in _k4_twice(dev_args):
         assert all(torch.equal(x, y.cpu()) for x, y in zip(got, ref))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("B,Kd,L,E", [(64, 512, 1024, 9_000),
+                                      (36, 512, 1024, 9_000),
+                                      (64, 420, 512, 9_000),
+                                      (64, 512, 1024, 150_000)])
+def test_pool_eval_counts_pair_bitwise_the_block_form(cuda, B, Kd, L, E,
+                                                      integer):
+    """K4's pair form (two CTAs a candidate slice, one a side) against the
+    one-CTA-a-block form's resident plan through the C entry (Bq=32 x 2,
+    the wrapper's plan at K=512 before the pair form): counts bitwise
+    equal at the eval cell's width and at K=420 (a partial last chunk),
+    over 9,000 candidates (not a multiple of the 256-row tile) and
+    150,000 (many tiles a cluster), with rows outside the pool, keys
+    outside the table, and the true key among the candidates on each
+    side; two runs identical; on integer data equal to the plain
+    version too. The wrapper takes the pair form and counts it."""
+    rng = np.random.default_rng(B * 7 + Kd + E)
+    ref_args, dev_args = _k4_case(rng, cuda, B, Kd, L, E=E, C=4096,
+                                  integer=integer, oob=True, S=2,
+                                  R=E // 2 + 64)
+    sms = K._sms(cuda)
+    block = K._k4_block_plan(32, True, B, Kd, E, sms, True)
+    pair = K._k4_plan(B, Kd, L, E, sms)
+    assert pair.pair and not block.pair and block.grid[1] == 2
+    if integer:   # the plain version indexes the tables by every key
+        ref = K.pool_eval_counts(*ref_args)
+        got = K._k4_launch(pair, *dev_args)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+    keys = dev_args[3].view(-1)
+    out = torch.from_numpy(rng.permutation(E)[:E // 50]).to(cuda)
+    keys[out[::2]] = E + 64 * 2      # past the owner/slot tables
+    keys[out[1::2]] = -5
+    dev_args[9][::3] = dev_args[8][::3]  # some queries' keys equal a side
+    want = [t.cpu() for t in K._k4_launch(block, *dev_args)]
+    runs = [[t.cpu() for t in K._k4_launch(pair, *dev_args)]
+            for _ in range(2)]
+    for got in runs:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(want[0].sum()) > 0 and int(want[1].sum()) > 0
+    K.reset_launches()
+    got = K.pool_eval_counts(*dev_args)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert K.K4_FORMS == {"resident": 0, "streamed": 0, "pair": 1}
+    assert K.LAUNCHES["pool_eval_counts"] == 1
+
+
+def test_pool_eval_counts_pair_one_record_a_launch(cuda):
+    """A launch of the pair form is one device record whose name holds
+    `pool_eval_counts_kernel`, as the benchmark's trace check counts."""
+    from torch.profiler import ProfilerActivity, profile
+    _, dev_args = _k4_case(np.random.default_rng(3), cuda, 64, 512, 1024,
+                           E=3_000, S=1, R=3_100)
+    K.pool_eval_counts(*dev_args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            K.pool_eval_counts(*dev_args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "pool_eval_counts_kernel" in e.name]
+    assert len(names) == 3 and all("pair" in n for n in names)
 
 
 def _k4_mp_case(rng, dev, B, model, d, integer, E=900, nown=500,
