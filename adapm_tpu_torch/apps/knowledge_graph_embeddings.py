@@ -1,5 +1,7 @@
-"""Knowledge-graph embedding app: ComplEx & RESCAL with AdaGrad, filtered
-MRR/Hits@k eval, checkpoints (reference apps/knowledge_graph_embeddings.cc).
+"""Knowledge-graph embedding app: ComplEx, RESCAL & RotatE with AdaGrad,
+filtered MRR/Hits@k eval, checkpoints (reference
+apps/knowledge_graph_embeddings.cc; RotatE, which the reference and the
+JAX app lack: Sun et al., ICLR 2019).
 
 Pipeline parity (kge.cc:1059-1122): for each future triple batch the worker
 signals `Intent({s, r, o})` and `PrepareSample(2*neg_ratio*B)` at the future
@@ -9,15 +11,19 @@ batch. Loss and eval statistics aggregate through PS keys — the reference's
 key (length 1) and an eval key (length 8) live at the end of the key space.
 
 Key layout (kge.cc:1296-1306): entities [0, E) with embedding length 2*dim
-(ComplEx re|im) or dim (RESCAL); relations [E, E+R) length 2*dim (ComplEx) or
-dim^2 (RESCAL); stored rows carry AdaGrad inline: [emb | acc].
+(ComplEx and RotatE re|im) or dim (RESCAL); relations [E, E+R) length 2*dim
+(ComplEx; RotatE: dim phases, then dim columns held and never read) or
+dim^2 (RESCAL); stored rows carry AdaGrad inline: [emb | acc]. RotatE's
+phases start uniform on [-pi, pi) (the authors' code), its entities as
+--init_scheme says; --margin is its gamma.
 
 Eval (kge.cc Evaluator :544-775): filtered MRR and Hits@{1,10}, ranking all
 entities for both subject and object replacement: by default the pool-gather
-count kernel K4 (models/kge.py make_pool_eval_counts), with `--eval_chunk 0`
-full-entity matmuls against a dense entity matrix.
+count kernel, K4 (K17 for RotatE; models/kge.py make_pool_eval_counts), with
+`--eval_chunk 0` full-entity scores against a dense entity matrix.
 
-This is the JAX package's app with identical flags. It runs on `cuda`;
+This is the JAX package's app with identical flags, plus `--model rotate`
+and `--margin`. It runs on `cuda`;
 `run_app(args, device="cpu")` runs the same code on the CPU, where every
 kernel takes its plain version. `--scan_steps K` (device routes) trains
 K batches per DeviceRoutedRunner.run_scan window: a CUDA graph replay on
@@ -65,8 +71,8 @@ class KgeRun:
         self.ds = ds
         d = args.dim
         E, R = ds.num_entities, ds.num_relations
-        self.ent_dim = 2 * d if args.model == "complex" else d
-        self.rel_dim = 2 * d if args.model == "complex" else d * d
+        self.ent_dim = d if args.model == "rescal" else 2 * d
+        self.rel_dim = d * d if args.model == "rescal" else 2 * d
         self.E, self.R = E, R
         self.loss_key_l = E + R          # logical loss key (kge.cc idiom)
         self.eval_key_l = E + R + 1
@@ -111,7 +117,8 @@ class KgeRun:
         self._pool_eval_topo = -1
         self._pool_eval_n = 0
         self.runner = FusedStepRunner(
-            self.srv, make_kge_loss(args.model, args.self_adv_temp, args.l2),
+            self.srv, make_kge_loss(args.model, args.self_adv_temp,
+                                    args.l2, args.margin),
             role_class={"s": self.ent_class, "r": self.rel_class,
                         "o": self.ent_class, "neg": self.ent_class},
             role_dim={"s": self.ent_dim, "r": self.rel_dim,
@@ -143,6 +150,10 @@ class KgeRun:
             else:  # normal (kge.cc init none/uniform/normal :988-1018)
                 ent = rng.normal(0, scale, (self.E, self.ent_dim))
                 rel = rng.normal(0, scale, (self.R, self.rel_dim))
+            if a.model == "rotate":   # phases, then the unread half
+                d = self.rel_dim // 2
+                rel = np.zeros((self.R, self.rel_dim))
+                rel[:, :d] = rng.uniform(-np.pi, np.pi, (self.R, d))
             ent_rows = np.concatenate(
                 [ent, np.full_like(ent, a.adagrad_init)], axis=1)
             rel_rows = np.concatenate(
@@ -582,7 +593,8 @@ def run_app(args, device=None) -> dict:
     def device_runner(shard: int) -> DeviceRoutedRunner:
         if shard not in dev_runners:
             dev_runners[shard] = DeviceRoutedRunner(
-                srv, make_kge_loss(args.model, args.self_adv_temp, args.l2),
+                srv, make_kge_loss(args.model, args.self_adv_temp,
+                                   args.l2, args.margin),
                 role_class={"s": run.ent_class, "r": run.rel_class,
                             "o": run.ent_class, "neg": run.ent_class},
                 role_dim={"s": run.ent_dim, "r": run.rel_dim,
@@ -780,7 +792,7 @@ def run_app(args, device=None) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", default="complex",
-                        choices=["complex", "rescal"])
+                        choices=["complex", "rescal", "rotate"])
     parser.add_argument("--dim", type=int, default=16)
     parser.add_argument("--neg_ratio", type=int, default=4)
     parser.add_argument("--train", default=None, help="triples file (s r o)")
@@ -827,6 +839,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--self_adv_temp", type=float, default=0.0,
                         help="self-adversarial negative weighting "
                              "temperature (RotatE eq. 5; 0 = off)")
+    parser.add_argument("--margin", type=float, default=12.0,
+                        help="RotatE's gamma: score = gamma - distance "
+                             "(the authors' default; ranks do not depend "
+                             "on it)")
     parser.add_argument("--l2", type=float, default=0.0,
                         help="lazy L2 on the positive triple's embedding "
                              "rows (ComplEx-paper regularizer; 0 = the "

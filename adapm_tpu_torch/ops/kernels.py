@@ -49,6 +49,10 @@ PyTorch version.
                                                      _build_device_routed_body;
                                                      K2's arithmetic as its
                                                      epilogue)
+    K17 pool_eval_dist      csrc/pool_eval_dist.cu  (no TPU kernel: RotatE's
+                                                     rank count by distance,
+                                                     models/kge.py
+                                                     make_pool_eval_counts)
 
 K9-K12 read and write the wire formats of tier/quant.py (fp32, fp16,
 int8 with a per-row f32 scale) bit for bit as its host twins do
@@ -101,7 +105,8 @@ _SOURCES = {"routed_gather": "routed_gather.cu",
             "alltoall_put": "alltoall_put.cu",
             "drop_set": "drop_set.cu",
             "sync_round": "sync_round.cu",
-            "rescal_step": "rescal_step.cu"}
+            "rescal_step": "rescal_step.cu",
+            "pool_eval_dist": "pool_eval_dist.cu"}
 
 # launches per kernel since the last reset_launches(), counted by the
 # wrappers (chip_smoke.py reads them to show the main path went through
@@ -113,7 +118,7 @@ LAUNCHES: Dict[str, int] = {"routed_gather": 0, "adagrad_update": 0,
                             "gather_pool_cold": 0, "write_main_rows": 0,
                             "sync_compress": 0, "alltoall_put": 0,
                             "drop_set": 0, "sync_round": 0,
-                            "rescal_step": 0}
+                            "rescal_step": 0, "pool_eval_dist": 0}
 # launches made by replays of captured CUDA graphs (ops/fused.py
 # run_scan): each replay adds the launches recorded at its capture. No
 # wrapper runs then, so LAUNCHES does not count them.
@@ -286,6 +291,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.adapm_ordered_fold.argtypes = [P] * 4 + [LL, I, I, I, P]
         lib.adapm_ordered_fold_grid.restype = I
         lib.adapm_ordered_fold_grid.argtypes = [LL, I, I, P]
+    elif name == "pool_eval_dist":
+        lib.adapm_pool_eval_dist.restype = I
+        lib.adapm_pool_eval_dist.argtypes = [P, I, I, I, I, P, P, LL, P, LL,
+                                             P, P, P, P, P] + [I] * 6 + \
+            [P, P, P]
     else:
         k4 = [P, I, I, I, I, P, P, LL, P, LL, P, P, P, P, P, I]
         lib.adapm_pool_eval_counts.restype = I
@@ -1585,6 +1595,167 @@ def _k4_launch(plan: K4Plan, pool, owner, slot, keys, nvalid, q_o, q_s,
     LAUNCHES["pool_eval_counts"] += 1
     K4_FORMS[plan.form] += 1
     _check(rc, "pool_eval_counts")
+    return g_o, g_s
+
+
+# ---------------------------------------------------------------------------
+# K17 pool_eval_dist
+# ---------------------------------------------------------------------------
+
+
+def _complex_distance(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """sum_i |q_i - row_i| over the d complex components of [B, 2d] query
+    rows and [n, 2d] candidate rows ([re | im]): [B, n], in blocks of
+    candidates that keep each [B, n', d] temporary near 2^24 floats."""
+    B, K = q.shape
+    d = K // 2
+    qr, qi = q[:, None, :d], q[:, None, d:]
+    step = max(1, (1 << 24) // max(1, B * d))
+    out = []
+    for lo in range(0, rows.shape[0], step):
+        blk = rows[lo:lo + step]
+        dr = qr - blk[None, :, :d]
+        di = qi - blk[None, :, d:]
+        out.append(torch.sqrt(dr * dr + di * di).sum(-1))
+    return torch.cat(out, 1) if out else q.new_zeros((B, 0))
+
+
+def pool_eval_dist_plain(pool, owner, slot, keys, nvalid: int, q_o, q_s,
+                         d_true, okey, skey, ties: bool = False):
+    """The plain version of K17: per chunk (a row of `keys`), gather the
+    candidate rows, take each side's distances sum_i |q_i - row_i| over
+    the d = K/2 complex components ([re | im] halves), mask the padding
+    and the true key, and count the candidates strictly nearer than
+    d_true.
+
+    With `ties=True` it also returns, per query and side, the eligible
+    candidates that are near-ties: |dist - d_true| <= 2*g*dist*(1 + 2g)
+    with g = (d + 16)*u / (1 - (d + 16)*u), u = 2^-24. A component's
+    modulus (two subtractions, a square, a multiply-add and a square
+    root, the kernel's an approximate one) is allowed 16u of relative
+    error, and a sum of d positive terms in any order lies within
+    (d - 1)u of its terms' sum: any f32 evaluation lies within g*dist of
+    the exact distance, so two of them (this one and the kernel's) differ
+    by at most 2*g*dist, and a count may differ from this one by at most
+    its near-tie count (d_true is the same input to both)."""
+    nch, C = keys.shape
+    B, K = q_o.shape
+    dev = q_o.device
+    g_o = torch.zeros(B, dtype=torch.int32, device=dev)
+    g_s = torch.zeros_like(g_o)
+    t_o = torch.zeros_like(g_o)
+    t_s = torch.zeros_like(g_o)
+    n = K // 2 + 16
+    g = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    t = d_true[:, None]
+    for ci in range(nch):
+        k = keys[ci]
+        kl = k.long()
+        rows = _fill_gather_plain(pool, owner.index_select(0, kl),
+                                  slot.index_select(0, kl))[:, :K]
+        mask = (ci * C + torch.arange(C, device=dev)) < nvalid
+        for q, own, cnt, tie in ((q_o, okey, g_o, t_o),
+                                 (q_s, skey, g_s, t_s)):
+            dist = _complex_distance(q, rows)
+            m = mask[None, :] & (k[None, :] != own[:, None])
+            cnt += ((dist < t) & m).sum(1, dtype=torch.int32)
+            if ties:
+                near = (dist - t).abs() <= 2 * g * dist * (1 + 2 * g)
+                tie += (near & m).sum(1, dtype=torch.int32)
+    return (g_o, g_s, t_o, t_s) if ties else (g_o, g_s)
+
+
+# K17's launch geometry (kCt, kKC, kPitch, kStages, kSlots in the source)
+K17_TILE, K17_CHUNK, K17_PITCH, K17_STAGES, K17_SLOTS = 256, 16, 36, 2, 4
+K17_BQ = (64, 32, 16, 8)         # query blocks the kernel is built for
+
+
+class K17Plan(NamedTuple):
+    Bq: int                      # queries a CTA (8 warps x Bq/8)
+    smem_bytes: int
+    grid: Tuple[int, int]        # (candidate CTAs, 2 x query blocks)
+    vec: bool                    # 16-byte copies
+
+
+def _k17_smem(Bq: int, d: int) -> int:
+    """Dynamic shared memory of one K17 CTA (smem_need in the source): the
+    pointer and key tables, the block's true distances and side keys,
+    the ring, and the block's query rows over d padded to whole chunks."""
+    dp = -(-d // K17_CHUNK) * K17_CHUNK
+    return K17_SLOTS * K17_TILE * 12 + 2 * Bq * 4 + \
+        (K17_STAGES * K17_TILE * K17_PITCH + 2 * dp * Bq) * 4
+
+
+def _k17_plan(B: int, d: int, L: int, nvalid: int, sms: int,
+              aligned: bool = True) -> K17Plan:
+    """K17's launch plan for B queries of d complex components over
+    `nvalid` candidates on a card of `sms` SMs. The query block is the
+    smallest of K17_BQ that holds all B queries and fits in shared
+    memory, else the largest that fits; each side takes ceil(B/Bq)
+    blocks, and each (side, block) as many candidate CTAs as its share
+    of the SMs, none without a tile, the tiles spread evenly (K4's
+    spread). 16-byte copies where d and L are multiples of 4 and the
+    pool and queries start on 16 bytes."""
+    fits = [bq for bq in K17_BQ if _k17_smem(bq, d) <= K4_SMEM_MAX]
+    _require(bool(fits), f"pool_eval_dist: d={d} leaves no query block "
+             "room in shared memory")
+    whole = [bq for bq in fits if bq >= B]
+    bq = min(whole) if whole else max(fits)
+    blocks = 2 * -(-B // bq)
+    ntiles = max(1, -(-nvalid // K17_TILE))
+    return K17Plan(Bq=bq, smem_bytes=_k17_smem(bq, d),
+                   grid=(_k4_spread(ntiles, max(1, sms // blocks)), blocks),
+                   vec=aligned and d % 4 == 0 and L % 4 == 0)
+
+
+def pool_eval_dist(pool: torch.Tensor, owner: torch.Tensor,
+                   slot: torch.Tensor, keys: torch.Tensor, nvalid: int,
+                   q_o: torch.Tensor, q_s: torch.Tensor,
+                   d_true: torch.Tensor, okey: torch.Tensor,
+                   skey: torch.Tensor):
+    """Per query b, the number of real candidates (the first `nvalid`
+    entries of the padded [nch, C] int32 key table `keys`) whose row
+    pool[owner[key], slot[key], :K] ([re d | im d], K = 2d) lies strictly
+    nearer than d_true[b] to the query row, by sum_i |q_i - row_i| over
+    the d complex components, the true key (okey[b] for the object side,
+    skey[b] for the subject side) excluded by key. q_o/q_s are the
+    [B, K] f32 query rows. Returns (g_o, g_s), new int32 [B] tensors."""
+    if not _on_cuda(pool, owner, slot, keys, q_o, q_s, d_true, okey, skey):
+        return pool_eval_dist_plain(pool, owner, slot, keys, nvalid, q_o,
+                                    q_s, d_true, okey, skey)
+    S, R, L = pool.shape
+    B, K = q_o.shape
+    _require(pool.dtype == torch.float32 and pool.is_contiguous(),
+             "pool_eval_dist: pool must be contiguous f32 [S, slots, L]")
+    _require(0 < K <= L and K % 2 == 0,
+             "pool_eval_dist: K must be even and lie in (0, L]")
+    for t in (q_o, q_s):
+        _require(t.dtype == torch.float32 and t.is_contiguous()
+                 and tuple(t.shape) == (B, K),
+                 "pool_eval_dist: q_o/q_s must be contiguous f32 [B, K]")
+    _require(d_true.dtype == torch.float32 and d_true.is_contiguous()
+             and d_true.numel() == B,
+             "pool_eval_dist: d_true must be contiguous f32 [B]")
+    for t in (owner, slot, keys, okey, skey):
+        _require(t.dtype == torch.int32 and t.is_contiguous(),
+                 "pool_eval_dist: tables and keys must be contiguous int32")
+    _require(owner.numel() == slot.numel() and okey.numel() == B
+             and skey.numel() == B and keys.dim() == 2,
+             "pool_eval_dist: shape mismatch")
+    _require(0 <= nvalid <= keys.numel(),
+             "pool_eval_dist: nvalid exceeds the key table")
+    g_o, g_s = torch.zeros((2, B), dtype=torch.int32, device=pool.device)
+    if nvalid == 0 or B == 0:
+        return g_o, g_s
+    plan = _k17_plan(B, K // 2, L, int(nvalid), _sms(pool.device),
+                     _aligned16(pool, q_o, q_s))
+    rc = _lib("pool_eval_dist").adapm_pool_eval_dist(
+        _ptr(pool), S, R, L, K // 2, _ptr(owner), _ptr(slot), owner.numel(),
+        _ptr(keys), int(nvalid), _ptr(q_o), _ptr(q_s), _ptr(d_true),
+        _ptr(okey), _ptr(skey), B, int(plan.vec), plan.Bq, plan.smem_bytes,
+        *plan.grid, _ptr(g_o), _ptr(g_s), _stream())
+    LAUNCHES["pool_eval_dist"] += 1
+    _check(rc, "pool_eval_dist")
     return g_o, g_s
 
 

@@ -28,7 +28,7 @@ through python -m adapm_tpu_torch.northstar's entry points.
         that tree's step the same way)
     python3 chip_smoke.py --kernels K4,K8    (phase 1 and the named
         kernels' parts of phase 2 alone, the same way; K1 (at both
-        widths), K3, K4, K4mp (K4's multi-process form), K8-K16 can be
+        widths), K3, K4, K4mp (K4's multi-process form), K8-K17 can be
         named)
     python3 chip_smoke.py --pipeline-only    (phase 1, phase 3 with the
         pipeline on and off, phases 11 and 12, checked as in the full
@@ -74,7 +74,20 @@ Phases (any failure raises and exits non-zero):
      input: exact on integer-valued rows and under the near-tie rule on
      random rows, ComplEx and RESCAL each at B=64 and B=36, timed as K4
      alone and with its query forming, beside matmul + compare + sum
-     over the owned rows); K5
+     over the owned rows); K17 pool_eval_dist (RotatE's count by
+     distance) on the same 200,000-entity pool, d=128 read through the
+     row stride, at B=64 and B=36: exact on integer-valued rows with
+     zero imaginary halves and true distances half-way between integers,
+     within K17's near-tie rule on random RotatE queries and equal over
+     two runs, device ms in the trace and between events beside its
+     bound (the SFU's square roots), the launch plan and ptxas; at the
+     benchmark RotatE cell's shape (4,594,485 candidates, d=256 through
+     rows of 1,024 f32, B=64) within the near-tie rule, device ms beside
+     the bound and the plain version's seconds; RotatE's eval program
+     (models/kge.py make_pool_eval_counts) on a 201,000-key server's
+     pool, 5 batches whose launches must be exactly 3 K1 and one K17 a
+     batch; and a small --model rotate app run on the card (device
+     routes: K1, K2, K3, K17, its loss falling); K5
      complex_step: the step's rows (K1's buffer, zipf duplicates) at
      B=4096, N=32, d=128 for self_adv_temp T in {0, 1} and l2 in {0, 0.1},
      loss and update rows within rtol 1e-5 / atol 1e-6, bitwise over two
@@ -421,7 +434,10 @@ plain version's matmuls, so a count may differ by at most the number of
 candidates whose score lies within the f32 dot-product error bound of
 the true score (ops/kernels.py pool_eval_counts_plain). K4 is also held
 to its plain version exactly on integer-valued data, where every order
-of summation gives the same f32 sums.
+of summation gives the same f32 sums. K17's rule allows each
+component's modulus 16 units of rounding (its square root is the SFU's
+approximate one) and a sum of d terms in any order (ops/kernels.py
+pool_eval_dist_plain).
 The last two lines are the per-kernel JSON record and the device JSON
 line; `--json PATH` also writes the full record (main-path numbers and
 the profile included) to PATH. Needs one CUDA card; exits non-zero
@@ -447,6 +463,9 @@ K4_BATCHES = (EVAL_B, 36)   # the eval's full batch and its tail at 100
 # K4 at the benchmark's eval cell (benchmark/configs/complex_wd5m.json):
 # candidates, K, row length, B
 K4_CELL = (4_594_485, 512, 1024, EVAL_B)
+# K17 at the benchmark's RotatE cell (benchmark/configs/rotate_wd5m.json):
+# candidates, complex components d, row length, B
+K17_CELL = (4_594_485, 256, 1024, EVAL_B)
 STEP_KERNELS = ("routed_gather", "complex_step", "ordered_scatter_add")
 # the kernels each ComplEx path launches (K2 runs on phase 6's run with
 # a shared [N] batch of negatives)
@@ -503,7 +522,8 @@ W2V_STEP_LAUNCHES = {"routed_gather": 1, "sgns_step": 1,
 # the others' (the model math, and K8, the bag read of phase 10)
 OWNED_KERNELS = MODEL_KERNELS + ("gather_pool", "gather_cold",
                                  "gather_pool_cold", "write_main_rows",
-                                 "sync_compress", "alltoall_put")
+                                 "sync_compress", "alltoall_put",
+                                 "pool_eval_dist")
 # the bag-serving shape of the MLPerf Training DLRM-DCNv2 reference
 # (recommendation_v2/torchrec_dcn, Criteo 1TB multi-hot): 26 sparse
 # features of embedding dim 128 with these cardinalities and multi-hot
@@ -544,6 +564,10 @@ K15_HOT = 1000
 TIER_STORM_OPS, EPISODE_STEPS, EPISODE_B = 24, 16, 8
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM
 F32_FLOPS = 67e12                     # H100 SXM, outside the tensor cores
+# H100 SXM square roots on the SFU: 16 results a clock an SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0), 132 SMs at the 1.98 GHz boost clock
+SFU_PER_S = 132 * 16 * 1.98e9
 
 
 def check(cond, msg):
@@ -948,6 +972,8 @@ def phase_kernels(K, dev, rng):
     rec["drop_set"] = phase_k14(K, dev, rng)
     torch.cuda.empty_cache()
     rec["sync_round"] = phase_k15(K, dev, rng)
+    torch.cuda.empty_cache()
+    rec["pool_eval_dist"] = phase_k17(K, dev, rng)
     torch.cuda.empty_cache()
     return rec
 
@@ -1978,6 +2004,296 @@ def report_k4_mp(r):
     print(f"phase 2: K4 multi-process form exact on integer rows "
           f"(ComplEx and RESCAL) at B={K4_BATCHES}: "
           f"{r['exact_counted']} counted", flush=True)
+
+
+def k17_bound(nb, n, d):
+    """K17's least time for nb queries a side over n candidates of d
+    complex components: each (query, side, candidate, component) takes 6
+    f32 operations and one square root on the SFU; each candidate's 2d
+    floats, key, owner and slot are read once (benchmark/costs/k17.py's
+    count). (ms, "roots" | "operations" | "bytes")."""
+    roots = 2 * nb * n * d
+    nbytes = n * 2 * d * 4 + n * 12 + 2 * nb * 2 * d * 4 + nb * 20
+    return max((roots / SFU_PER_S * 1e3, "roots"),
+               (6 * roots / F32_FLOPS * 1e3, "operations"),
+               (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+
+def k17_queries(se, re_, oe):
+    """RotatE's query rows and true distances as the eval program forms
+    them (models/kge.py _k17_counts): a = s o r, b = o o conj(r), d_true
+    = -rank score."""
+    from adapm_tpu_torch.models.kge import _rotate_queries, rotate_score
+    q_o, q_s = _rotate_queries(se, re_, oe)
+    return (q_o.contiguous(), q_s.contiguous(),
+            (-rotate_score(se, re_, oe)).contiguous())
+
+
+def k17_within(K, args, got, what):
+    """K17's counts `got` within the near-tie rule of its plain version on
+    the same inputs; returns (max count diff, near-ties, counted)."""
+    p_o, p_s, t_o, t_s = K.pool_eval_dist_plain(*args, ties=True)
+    diff = torch.cat([(got[0] - p_o).abs(), (got[1] - p_s).abs()])
+    ties = torch.cat([t_o, t_s])
+    check(bool((diff <= ties).all()), f"{what}: counts differ from the "
+          f"plain version beyond the near-tie rule: diff {diff.tolist()} "
+          f"ties {ties.tolist()}")
+    n = args[4]
+    check(bool((got[0] > 0).any() and (got[0] < n - 1).any()),
+          f"{what}: counts are degenerate")
+    return int(diff.max()), int(ties.sum()), int(got[0].sum() + got[1].sum())
+
+
+def phase_k17(K, dev, rng):
+    """K17 pool_eval_dist (RotatE's count by distance) against its plain
+    version: at eval width (the 200,000-entity pool of rows of 512 f32,
+    d=128 read through the row stride, 65,536-key chunks) at B=64 and 36,
+    exact on integer-valued rows whose imaginary halves are zero (every
+    component's modulus an integer, the true distance half-way between
+    two, so no evaluation error can move a count) and within the near-tie
+    rule on random RotatE queries, equal over two runs; at the benchmark
+    cell's shape (phase_k17_cell); RotatE's eval program on a server's
+    pool with its launches held to K1 and K17 (phase_k17_path); and a
+    small --model rotate app run on the card."""
+    d = D_MODEL
+    nk = E + R
+    slots = -8 * (-int(np.ceil(nk * 1.25)) // 8)
+    owner = torch.zeros(nk, dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(rng.permutation(slots)[:nk].astype(np.int32),
+                           device=dev)
+    nch = -(-E // EVAL_CHUNK)
+    pad = np.zeros(nch * EVAL_CHUNK, np.int32)
+    pad[:E] = rng.permutation(E)
+    pad[E:] = pad[0]
+    keys = torch.as_tensor(pad.reshape(nch, EVAL_CHUNK), device=dev)
+    s_k, o_k = (torch.as_tensor(rng.integers(0, E, EVAL_B).astype(np.int32),
+                                device=dev) for _ in range(2))
+
+    ipool = torch.randint(-4, 5, (1, slots, L), device=dev).float()
+    ipool[..., d:2 * d] = 0
+    q_i = [torch.randint(-3, 4, (EVAL_B, 2 * d), device=dev).float()
+           for _ in range(2)]
+    for q in q_i:
+        q[:, d:] = 0
+    true_rows = ipool[0, slot[o_k.long()], :2 * d]
+    d_i = (K._complex_distance(q_i[0], true_rows).diagonal() + 0.5)
+    exact_counted = 0
+    for nb in K4_BATCHES:
+        args = (ipool, owner, slot, keys, E, q_i[0][:nb].contiguous(),
+                q_i[1][:nb].contiguous(), d_i[:nb].contiguous(),
+                o_k[:nb].contiguous(), s_k[:nb].contiguous())
+        got = K.pool_eval_dist(*args)
+        p_o, p_s, t_o, t_s = K.pool_eval_dist_plain(*args, ties=True)
+        check(torch.equal(got[0], p_o) and torch.equal(got[1], p_s)
+              and int(t_o.sum() + t_s.sum()) == 0,
+              f"K17 counts differ from the plain version on integer data "
+              f"at B={nb}")
+        exact_counted += int(got[0].sum() + got[1].sum())
+    del ipool, true_rows
+
+    pool = torch.randn((1, slots, L), device=dev) * 0.1
+    se, oe = (pool[0, slot[k.long()], :2 * d] for k in (s_k, o_k))
+    re_ = torch.randn((EVAL_B, 2 * d), device=dev) * np.pi
+    q_o, q_s, d_true = k17_queries(se, re_, oe)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    forms, plans = {}, {}
+    for nb in K4_BATCHES:
+        args = (pool, owner, slot, keys, E, q_o[:nb].contiguous(),
+                q_s[:nb].contiguous(), d_true[:nb].contiguous(),
+                o_k[:nb].contiguous(), s_k[:nb].contiguous())
+        runs = [K.pool_eval_dist(*args) for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"K17 (B={nb}) differs between two runs")
+        err, ties, counted = k17_within(K, args, runs[0], f"K17 (B={nb})")
+        trace_ms, _ = kernel_ms(lambda a=args: K.pool_eval_dist(*a),
+                                "pool_eval_dist_kernel")
+        forms[f"B={nb}"] = timed(
+            max_abs_err=err, ties=ties, counted=counted, K=2 * d, B=nb,
+            ms=cuda_ms(lambda a=args: K.pool_eval_dist(*a)),
+            plain_ms=cuda_ms(lambda a=args: K.pool_eval_dist_plain(*a),
+                             reps=3, warmup=1),
+            library_ms=None, trace_ms=trace_ms,
+            bound=k17_bound(nb, E, d))
+        plans[f"d={d} B={nb}"] = K._k17_plan(nb, d, L, E, sms)._asdict()
+    del pool, se, oe
+    torch.cuda.empty_cache()
+    rec = dict(forms[f"B={EVAL_B}"], forms=forms, plans=plans,
+               exact_counted=exact_counted)
+    rec["ptxas"] = ptxas_summary("pool_eval_dist")
+    rec["cell"] = phase_k17_cell(K, dev, rng)
+    torch.cuda.empty_cache()
+    rec["path"] = phase_k17_path(K, dev)
+    return rec
+
+
+def phase_k17_cell(K, dev, rng):
+    """K17 at the benchmark's RotatE cell's shape (rotate_wd5m.eval_b64):
+    Wikidata5M's 4,594,485 entities in 65,536-key chunks, a pool of rows
+    of [emb 512 | adagrad 512] f32 (d=256 read through the row stride),
+    B=64; normal(0, 0.1) rows, phases normal(0, pi), each query's true
+    triple a real candidate's. Counts within the near-tie rule of the
+    plain version and equal over two runs; device ms in the trace and
+    between CUDA events beside the bound, the plain version's ms."""
+    E4, d4, L4, nb = K17_CELL
+    slots = -8 * (-int(np.ceil(E4 * 1.02)) // 8)
+    pool = torch.empty((1, slots, L4), device=dev).normal_(0.0, 0.1)
+    owner = torch.zeros(E4, dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(rng.permutation(slots)[:E4].astype(np.int32),
+                           device=dev)
+    nch = -(-E4 // EVAL_CHUNK)
+    pad = np.zeros(nch * EVAL_CHUNK, np.int32)
+    pad[:E4] = rng.permutation(E4)
+    keys = torch.as_tensor(pad.reshape(nch, EVAL_CHUNK), device=dev)
+    s_k, o_k = (torch.as_tensor(rng.integers(0, E4, nb).astype(np.int32),
+                                device=dev) for _ in range(2))
+    se, oe = (pool[0, slot[k.long()], :2 * d4] for k in (s_k, o_k))
+    re_ = torch.randn((nb, 2 * d4), device=dev) * np.pi
+    args = (pool, owner, slot, keys, E4, *k17_queries(se, re_, oe), o_k,
+            s_k)
+    runs = [K.pool_eval_dist(*args) for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "K17 at the cell's shape differs between two runs")
+    t0 = time.perf_counter()
+    err, ties, counted = k17_within(K, args, runs[0],
+                                    "K17 at the cell's shape")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    trace_ms, _ = kernel_ms(lambda: K.pool_eval_dist(*args),
+                            "pool_eval_dist_kernel", reps=10, warmup=2)
+    ev_ms = cuda_ms(lambda: K.pool_eval_dist(*args), reps=10, warmup=1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = K._k17_plan(nb, d4, L4, E4, sms, K._aligned16(pool, *args[5:7]))
+    del pool, se, oe, args
+    torch.cuda.empty_cache()
+    return dict(E=E4, d=d4, L=L4, B=nb, trace_ms=trace_ms, ms=ev_ms,
+                plain_s=plain_s, plan=plan._asdict(), max_abs_err=err,
+                ties=ties, counted=counted, bound=k17_bound(nb, E4, d4))
+
+
+# a small RotatE app run on the card, device routes: tests/
+# test_torch_rotate.py's configuration (there on the CPU)
+ROTATE_APP_ARGS = ["--model", "rotate", "--dim", "8", "--neg_ratio", "4",
+                   "--synthetic_entities", "60", "--synthetic_relations",
+                   "4", "--synthetic_triples", "400", "--epochs", "6",
+                   "--batch_size", "32", "--lr", "0.2", "--eval_every", "6",
+                   "--eval_triples", "60", "--self_adv_temp", "1.0",
+                   "--margin", "6", "--eval_chunk", "16", "--num_shards",
+                   "8", "--sys.sync.max_per_sec", "0", "--sys.prefetch", "0"]
+# the kernels RotatE's app launches: its eval (K1 gathers of the query
+# rows, K17), and its training step (K1, autograd + K2, K3)
+ROTATE_APP_KERNELS = ("routed_gather", "adagrad_update",
+                      "ordered_scatter_add", "pool_eval_dist")
+ROTATE_EVAL_BATCHES = (EVAL_B,) * 4 + (36,)
+
+
+def phase_k17_path(K, dev):
+    """RotatE's eval program (models/kge.py make_pool_eval_counts, shared
+    pool) on a server's pool: kge_table's 201,000 keys of rows of 512
+    f32, the relation rows' first d columns phases normal(0, pi), the
+    worker's device mirrors, 4 batches of 64 and one of 36. The counts
+    are set to 0 just before and read just after: exactly 3 K1 and one
+    K17 a batch, nothing else; the first batch within the near-tie rule
+    of the program's plain form; ms a batch between CUDA events. Then
+    the small --model rotate app on the card, device routes: its launches
+    held to K1, K2, K3 and K17, its loss falling."""
+    import adapm_tpu_torch as at
+    from adapm_tpu_torch.apps import knowledge_graph_embeddings as kge_app
+    from adapm_tpu_torch.models.kge import make_pool_eval_counts
+    from adapm_tpu_torch.ops.fused import DeviceRouter
+    d = D_MODEL
+    srv, w = kge_table(at, dev, 17)
+    try:
+        fill = np.random.default_rng(18)
+        rel = np.zeros((R, L), np.float32)
+        rel[:, :d] = fill.normal(0, np.pi, (R, d))
+        rel[:, L // 2:] = 1e-6
+        w.set(np.arange(E, E + R), rel)
+        srv.block()
+        fn = make_pool_eval_counts("rotate", 2 * d, 2 * d, EVAL_CHUNK,
+                                   shared_pool=True)
+        nch = -(-E // EVAL_CHUNK)
+        pad = np.zeros(nch * EVAL_CHUNK, np.int32)
+        pad[:E] = np.arange(E)
+        ent_keys = torch.as_tensor(pad.reshape(nch, EVAL_CHUNK), device=dev)
+        main = srv.stores[0].main
+        tables = DeviceRouter(srv, 0).tables()
+        draw = np.random.default_rng(19)
+        batches = [tuple(torch.as_tensor(x.astype(np.int32), device=dev)
+                         for x in (draw.integers(0, E, nb),
+                                   draw.integers(E, E + R, nb),
+                                   draw.integers(0, E, nb)))
+                   for nb in ROTATE_EVAL_BATCHES]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = [fn(main, tables, ent_keys, E, *b) for b in batches]
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        want = {"routed_gather": 3 * len(batches),
+                "pool_eval_dist": len(batches)}
+        check({k: v for k, v in launches.items() if v} == want,
+              f"phase 2 (RotatE eval): launches {launches}, expected "
+              f"{want} and nothing else")
+        p = fn(main, tables, ent_keys, E, *batches[0], ties=True)
+        diff = torch.cat([(got[0][0] - p[0]).abs(), (got[0][1] - p[1]).abs()])
+        ties = torch.cat([p[3], p[4]])
+        check(bool((diff <= ties).all()), f"phase 2 (RotatE eval): counts "
+              f"differ from the plain form beyond the near-tie rule: diff "
+              f"{diff.tolist()} ties {ties.tolist()}")
+        check(torch.equal(got[0][2], p[2]), "phase 2 (RotatE eval): the "
+              "true scores differ from the plain form's")
+        batch_ms = cuda_ms(lambda: fn(main, tables, ent_keys, E,
+                                      *batches[0]), reps=10, warmup=1)
+    finally:
+        srv.shutdown()
+    res, app_launches = run_app(kge_app, K, ROTATE_APP_ARGS)
+    check_app(res, app_launches, "phase 2 (RotatE app)", ROTATE_APP_KERNELS)
+    losses = res["epoch_losses"]
+    check(losses[-1] < 0.5 * losses[0], f"phase 2 (RotatE app): loss did "
+          f"not fall: {losses}")
+    check(res["mrr"] > 0.25, f"phase 2 (RotatE app): MRR {res['mrr']}")
+    return dict(launches=launches, batches=len(batches),
+                max_abs_err=int(diff.max()), ties=int(ties.sum()),
+                batch_ms=batch_ms, app_launches=app_launches,
+                app_losses=losses, app_mrr=res["mrr"])
+
+
+def report_k17(r):
+    """K17's lines: each batch against its plain version beside its
+    bound, the plans, ptxas, the cell's shape, and RotatE's paths."""
+    for form, f in r["forms"].items():
+        print(f"phase 2: K17 {form} d={f['K'] // 2}: {fmt_t(f, 'ms')} ms "
+              f"between events, {fmt_s(*f['trace_ms'])} ms in the trace "
+              f"(bound {f['bound'][0]:.4f} ms, {f['bound'][1]}, share "
+              f"{f['bound'][0] / f['trace_ms'][0]:.3f}), plain "
+              f"{fmt_t(f, 'plain_ms')} ms, count diff {f['max_abs_err']} "
+              f"within {f['ties']} near-ties, {f['counted']} counted",
+              flush=True)
+    print(f"phase 2: K17 exact on integer data at B={K4_BATCHES}: "
+          f"{r['exact_counted']} counted, equal to the plain version, no "
+          f"near-ties", flush=True)
+    for key, p in r["plans"].items():
+        print(f"phase 2: K17 plan {key}: {p}", flush=True)
+    for e in r["ptxas"]:
+        print(f"phase 2: K17 ptxas {e}", flush=True)
+    c = r["cell"]
+    b_ms = c["bound"][0]
+    print(f"phase 2: K17 at the cell's shape (E={c['E']}, d={c['d']}, "
+          f"L={c['L']}, B={c['B']}): {fmt_s(*c['trace_ms'])} ms in the "
+          f"trace, {fmt_s(*c['ms'])} ms between events (bound {b_ms:.4f} "
+          f"ms, {c['bound'][1]}, share {b_ms / c['trace_ms'][0]:.3f}); "
+          f"plain {c['plain_s']:.3f} s; count diff {c['max_abs_err']} "
+          f"within {c['ties']} near-ties of the plain version, "
+          f"{c['counted']} counted; plan {c['plan']}", flush=True)
+    p = r["path"]
+    used = {k: v for k, v in p["launches"].items() if v}
+    app_used = {k: v for k, v in p["app_launches"].items() if v}
+    print(f"phase 2: RotatE eval program on a server's pool: "
+          f"{p['batches']} batches, launches {used}, batch of "
+          f"{EVAL_B} {fmt_s(*p['batch_ms'])} ms, count diff "
+          f"{p['max_abs_err']} within {p['ties']} near-ties; RotatE app "
+          f"(device routes) losses {[round(x, 4) for x in p['app_losses']]}"
+          f", MRR {p['app_mrr']:.4g}, launches {app_used}",
+          flush=True)
 
 
 def ptxas_summary(name):
@@ -4831,6 +5147,7 @@ def report_kernels(rec):
     report_k3(rec["ordered_scatter_add"])
     report_k4(rec["pool_eval_counts"])
     report_k4_mp(rec["pool_eval_counts"]["mp_form"])
+    report_k17(rec["pool_eval_dist"])
     report_k8(rec["gather_pool"])
     report_tier_kernels(rec)
     report_k13(rec["alltoall_put"])
@@ -7321,6 +7638,7 @@ def main(argv):
                  "K4mp": (phase_k4_mp, report_k4_mp),
                  "K13": (phase_k13, report_k13),
                  "K16": (phase_k16, report_k16),
+                 "K17": (phase_k17, report_k17),
                  "K3": (lambda K, dev, rng: phase_k3(
                      K, dev, *step_keys(dev, rng)), report_k3),
                  "K14": (phase_k14, lambda r: report_k14_k15(
@@ -7567,7 +7885,10 @@ def main(argv):
                "sync_round": ("adapm_tpu_torch/csrc/sync_round.cu",
                               "adapm_tpu/device/jaxport.py:126"),
                "rescal_step": ("adapm_tpu_torch/csrc/rescal_step.cu",
-                               "adapm_tpu/ops/fused.py:370")}
+                               "adapm_tpu/ops/fused.py:370"),
+               # K17 has no TPU original
+               "pool_eval_dist": ("adapm_tpu_torch/csrc/pool_eval_dist.cu",
+                                  None)}
     paths = dict(step=step_launches, scan=sc["launches"],
                  scan_replayed=sc["replayed"], replica=used,
                  app=app_launches, app_replayed=app["replayed"],
@@ -7625,7 +7946,9 @@ def main(argv):
                  stream=sr["launches"],
                  northstar_kge=nsr["kge"]["launches"],
                  northstar_w2v=nsr["w2v"]["launches"],
-                 northstar_mf=nsr["mf"]["launches"])
+                 northstar_mf=nsr["mf"]["launches"],
+                 rotate_eval=rec["pool_eval_dist"]["path"]["launches"],
+                 rotate_app=rec["pool_eval_dist"]["path"]["app_launches"])
     # `launches`: the wrappers' count in the app run (phase 5) for the
     # ComplEx path's kernels, in phase 3 (RESCAL)'s main path for K16,
     # in phase 6's run with shared [N] negatives for K2, whose
@@ -7634,7 +7957,8 @@ def main(argv):
     # segments for K8, in phase 13's tiered int8 app run (a) for K9 and
     # K11, its tiered bag segment (c) for K10 and its int8 compressed
     # planner run (d) for K12, in phase 17's rank 0 for K13, in phase
-    # 12's planner run for K14 and K15; the
+    # 12's planner run for K14 and K15, in phase 2's RotatE eval
+    # program for K17; the
     # launches of replayed graphs stand apart under *_replayed
     home = {"adagrad_update": "shared_negatives",
             "rescal_step": "rescal_step", "sgns_step": "w2v_app",
@@ -7642,11 +7966,12 @@ def main(argv):
             "gather_cold": "tier_app", "gather_pool_cold": "tier_bags",
             "write_main_rows": "tier_app", "sync_compress": "tier_planner",
             "alltoall_put": "collective", "drop_set": "planner",
-            "sync_round": "planner"}
+            "sync_round": "planner", "pool_eval_dist": "rotate_eval"}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=paths[home.get(n, "app")][n],
-                    launches_by_path={p: v[n] for p, v in paths.items()},
+                    launches_by_path={p: v.get(n, 0)
+                                      for p, v in paths.items()},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"])

@@ -28,7 +28,11 @@ lookup whose device slice is above zero; K4's multi-process form
 (queries from rows, owned candidates) equal to its plain version on
 integer rows and within the near-tie rule on random ComplEx rows, its
 program spans on the profiler's host rows only, and
-two loopback nodes with their pools on the card bitwise a shadow; K13
+two loopback nodes with their pools on the card bitwise a shadow; K17
+(RotatE's count by distance) within the near-tie rule of its plain
+version over every query block and copy width, equal over two runs, one
+trace record a launch, and RotatE's eval programs taking it with their
+spans; K13
 into raw-cudaMalloc slabs bitwise its plain version at both parities,
 its alignment checks, and two launched ranks on the card exchanging
 through K13 over CUDA IPC, their collective pull and push bitwise a
@@ -625,6 +629,175 @@ def test_pool_eval_counts_mp_owns_nothing_and_raises(cuda):
     bad[2] = bad[2][:, :-1].contiguous()        # tiles narrower than C
     with pytest.raises(ValueError):
         fn(*bad)
+
+
+def _k17_case(rng, dev, B, d, L, E=700, C=256, oob=False, S=2, R=400):
+    """K17's arguments on the CPU and on `dev`: a pool of [re d | im d]
+    rows (stride L), RotatE query rows from the model's own helpers, the
+    true distances of each query's true key (a real candidate, so the
+    true key's exclusion matters) and some side keys equal."""
+    from adapm_tpu_torch.models import kge
+    nk = E + 10
+    flat = rng.permutation(S * R)[:nk]
+    owner = torch.from_numpy((flat // R).astype(np.int32))
+    slot = torch.from_numpy((flat % R).astype(np.int32))
+    if oob:
+        bad = rng.permutation(nk)[:nk // 10]
+        owner[bad[::3]] = S
+        slot[bad[1::3]] = -1
+        slot[bad[2::3]] = OOB
+    pool = torch.randn(S, R, L) * 0.1
+    se, oe = torch.randn(B, 2 * d) * 0.1, torch.randn(B, 2 * d) * 0.1
+    re_ = torch.randn(B, 2 * d) * np.pi
+    q_o, q_s = kge._rotate_queries(se, re_, oe)
+    nch = -(-E // C)
+    pad = np.zeros(nch * C, np.int32)
+    pad[:E] = rng.permutation(E)
+    keys = torch.from_numpy(pad.reshape(nch, C))
+    okey = torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
+    skey = torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
+    skey[::3] = okey[::3]
+    rows = K._fill_gather_plain(pool, owner[okey.long()],
+                                slot[okey.long()])[:, :2 * d]
+    d_true = K._complex_distance(q_o, rows).diagonal().contiguous()
+    args = [pool, owner, slot, keys, E, q_o.contiguous(), q_s.contiguous(),
+            d_true, okey, skey]
+    return args, [a.to(dev) if torch.is_tensor(a) else a for a in args]
+
+
+def _within_near_ties(got, dev_args):
+    """K17's counts against its plain version run on the card with the
+    same inputs: each count within the plain version's near-tie count."""
+    p_o, p_s, t_o, t_s = K.pool_eval_dist_plain(*dev_args, ties=True)
+    g_o, g_s = got
+    assert ((g_o - p_o).abs() <= t_o).all()
+    assert ((g_s - p_s).abs() <= t_s).all()
+    assert int(p_o.sum()) > 0 and int(p_s.sum()) > 0
+
+
+@pytest.mark.parametrize("B,d,L,E", [(64, 256, 1024, 9_000),
+                                     (36, 256, 512, 700),
+                                     (1, 8, 16, 700), (150, 16, 40, 700),
+                                     (65, 300, 600, 700), (5, 130, 262, 700),
+                                     (64, 7, 15, 700),
+                                     (64, 256, 1024, 150_000)])
+def test_pool_eval_dist_within_near_ties_and_repeatable(cuda, B, d, L, E):
+    """K17 against its plain version: every query block of the plan (B=1:
+    8, 36 and 64: 64, 65 at d=300: three blocks of 32, 150: three of
+    64),
+    16-byte and 4-byte copies (d or L not a multiple of 4), d not a
+    multiple of the 16-component stage, a partial last tile, a padded key
+    tail, OOB owner/slot coordinates, the true key among the candidates,
+    many tiles a CTA at 150,000 candidates: within the near-tie rule, and
+    two runs equal."""
+    rng = np.random.default_rng(B * 1000 + d + E)
+    _, dev_args = _k17_case(rng, cuda, B, d, L, E=E, C=4096, oob=True,
+                            R=E // 2 + 64)
+    plan = K._k17_plan(B, d, L, E, K._sms(cuda))
+    assert plan.vec == (d % 4 == 0 and L % 4 == 0)
+    runs = [K.pool_eval_dist(*dev_args) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    _within_near_ties(runs[0], dev_args)
+
+
+def test_pool_eval_dist_unaligned_pool(cuda):
+    """Rows that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies and count as the aligned pool does."""
+    rng = np.random.default_rng(17)
+    _, dev_args = _k17_case(rng, cuda, 36, 64, 128)
+    want = K.pool_eval_dist(*dev_args)
+    pool = dev_args[0]
+    store = torch.zeros(pool.numel() + 1, device=cuda)
+    shifted = store[1:].view(pool.shape)
+    shifted.copy_(pool)
+    assert shifted.data_ptr() % 16 != 0
+    dev_args[0] = shifted
+    got = K.pool_eval_dist(*dev_args)
+    _within_near_ties(got, dev_args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_pool_eval_dist_one_record_a_launch(cuda):
+    """A K17 launch is one device record whose name holds
+    `pool_eval_dist_kernel` and not K4's `pool_eval_counts_kernel`, and
+    LAUNCHES counts it."""
+    from torch.profiler import ProfilerActivity, profile
+    _, dev_args = _k17_case(np.random.default_rng(3), cuda, 64, 256, 1024,
+                            E=3_000, S=1, R=3_100)
+    K.pool_eval_dist(*dev_args)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            K.pool_eval_dist(*dev_args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "pool_eval" in e.name]
+    assert len(names) == 3 and all("pool_eval_dist_kernel" in n
+                                   and "pool_eval_counts_kernel" not in n
+                                   for n in names)
+    assert K.LAUNCHES["pool_eval_dist"] == 3
+    assert K.LAUNCHES["pool_eval_counts"] == 0
+
+
+@pytest.mark.parametrize("mp", [False, True], ids=["one", "mp"])
+def test_rotate_eval_programs_take_k17(cuda, mp):
+    """RotatE's eval programs (models/kge.py make_pool_eval_counts and its
+    multi-process form) on the card: one K17 launch a call and no K4, the
+    spans eval.rows (one process), eval.queries and eval.k17 on the host
+    rows, counts within the near-tie rule of the program's plain form."""
+    from torch.profiler import ProfilerActivity, profile
+    from adapm_tpu_torch.models import kge
+    rng = np.random.default_rng(23 + mp)
+    d, E, C, B = 32, 2_000, 512, 36
+    S, R = 2, 1_200
+    nk = E + 20
+    flat = rng.permutation(S * R)[:nk]
+    owner = torch.from_numpy((flat // R).astype(np.int32)).to(cuda)
+    slot = torch.from_numpy((flat % R).astype(np.int32)).to(cuda)
+    pool = (torch.randn(S, R, 4 * d) * 0.1).to(cuda)
+    rel = slice(E, nk)         # relation rows: phases in the first d
+    pool[owner[rel].long(), slot[rel].long(), :d] = \
+        torch.randn(nk - E, d, device=cuda) * np.pi
+    nch = -(-E // C)
+    pad = np.zeros(nch * C, np.int32)
+    pad[:E] = rng.permutation(E)
+    keys = torch.from_numpy(pad.reshape(nch, C)).to(cuda)
+    tables = (owner, slot, None)
+    s, o = (torch.from_numpy(rng.integers(0, E, B).astype(np.int32))
+            .to(cuda) for _ in range(2))
+    r = torch.from_numpy(rng.integers(E, nk, B).astype(np.int32)).to(cuda)
+    if mp:
+        fn = kge.make_pool_eval_counts_mp("rotate", 2 * d, 2 * d, C)
+        rows = [K._fill_gather_plain(pool, owner[k.long()],
+                                     slot[k.long()]) for k in (s, r, o)]
+        true = kge.make_true_score("rotate")(*(x[:, :2 * d] for x in rows))
+        args = (pool, tables, keys, E, *rows, s, o, true)
+    else:
+        fn = kge.make_pool_eval_counts("rotate", 2 * d, 2 * d, C,
+                                       shared_pool=True)
+        args = (pool, tables, keys, E, s, r, o)
+    fn(*args)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = fn(*args)
+        torch.cuda.synchronize()
+    assert K.LAUNCHES["pool_eval_dist"] == 1
+    assert K.LAUNCHES["pool_eval_counts"] == 0
+    spans = sorted(e.name for e in prof.events()
+                   if e.name.startswith("adapm."))
+    want = ["adapm.eval.k17", "adapm.eval.queries"]
+    assert spans == (want if mp else want + ["adapm.eval.rows"])
+    plain = fn(*args, ties=True)
+    if not mp:
+        plain = plain[:2] + plain[3:]
+    p_o, p_s, t_o, t_s = plain
+    assert ((got[0] - p_o).abs() <= t_o).all()
+    assert ((got[1] - p_s).abs() <= t_s).all()
+    assert int(p_o.sum()) > 0
 
 
 def test_loopback_cluster_on_the_card(cuda):
